@@ -1,0 +1,40 @@
+"""Architecture registry of the port (``repro/configs/__init__.py``).
+
+``get(name)`` returns an arch's ``ArchSpec``.  Only the archs the port has
+reached are registered; ``get`` raises ``KeyError`` for the others.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import importlib
+from typing import Any, Dict
+
+_MODULES = {
+    "baidu-ctr": "repro_torch.configs.baidu_ctr",
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeSpec:
+    """One (arch x input-shape) cell."""
+    name: str
+    kind: str                 # train | prefill | decode | serve | retrieval
+    dims: Dict[str, int]
+
+
+@dataclasses.dataclass(frozen=True)
+class ArchSpec:
+    name: str
+    family: str               # lm | gnn | recsys
+    model_cfg: Any            # full-size model config
+    smoke_cfg: Any            # reduced config (CPU tests)
+    shapes: Dict[str, ShapeSpec]
+    source: str = ""          # provenance tag
+
+
+def get(name: str) -> ArchSpec:
+    if name not in _MODULES:
+        raise KeyError(f"arch {name!r} is not in the port yet; ported: "
+                       f"{sorted(_MODULES)}")
+    return importlib.import_module(_MODULES[name]).ARCH

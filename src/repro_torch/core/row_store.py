@@ -1,0 +1,30 @@
+"""RowStore: where the full tables live.
+
+Counterpart of ``repro/core/row_store.py``.  Only ``HostStore`` is ported:
+the tables are whole tensors the engine hands to its backend (on the card
+they sit in device memory).  The paged SSD tier (``DiskStore``) comes with
+ROADMAP queue A's SSD-tier item.
+"""
+
+from __future__ import annotations
+
+
+class HostStore:
+    """Resident tables (the default): a stateless placement tag."""
+
+    kind = "host"
+
+    def serve_stats(self) -> dict:
+        """Serve-side meters of the store (none for resident tables)."""
+        return {}
+
+
+def make_store(store: str = "host"):
+    """``store`` in {"host"} -> a RowStore instance ("disk" is not ported)."""
+    if store == "host":
+        return HostStore()
+    if store == "disk":
+        raise NotImplementedError(
+            "store='disk' (DiskStore, the SSD tier) is not ported yet; see "
+            "ROADMAP.md queue A, SSD tier")
+    raise ValueError(f"unknown store {store!r}; use 'host' or 'disk'")
