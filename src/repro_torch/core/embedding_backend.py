@@ -1,11 +1,12 @@
 """Sparse-parameter backends: how a batch's rows reach the model.
 
-Counterpart of ``repro/core/embedding_backend.py``.  The serving slice needs
-the read-only ``lookup`` of the gather placement: the batch's ids are
-deduplicated into a fixed-capacity working set that ends in an all-zero
-drop row, and the table rows are gathered into it.  The training ``pull``
-and ``push`` come with the training slice; the routed and cached placements
-with their own slices (ROADMAP queue A).
+Counterpart of ``repro/core/embedding_backend.py``, for the gather
+placement: the batch's ids are deduplicated into a fixed-capacity working
+set that ends in an all-zero drop row, and the table rows are gathered into
+it.  ``pull`` is the training pull, ``lookup`` the read-only serving lookup
+(the gather placement is stateless, so the two serve the same rows), and
+``push`` applies the sparse optimizer to the pulled rows in place.  The
+routed and cached placements come with their own slices (ROADMAP queue A).
 """
 
 from __future__ import annotations
@@ -64,8 +65,16 @@ def _with_drop_row(rows: torch.Tensor) -> torch.Tensor:
 
 # ------------------------------------------------------------------- gather
 class GatherBackend:
-    """Dedup + ``index_select`` lookup over a table in logical layout (row i
-    holds feature id i).  Stateless: the backend state is an empty tuple."""
+    """Dedup + ``index_select`` gather over a table in logical layout (row i
+    holds feature id i).  Stateless: the backend state is an empty tuple.
+
+    ``fused=True`` routes the push through ``ops.sparse_adagrad_apply`` (the
+    CUDA kernel on the card); ``fused=False`` is the plain scatter, which
+    only CPU tensors take.  Both are bit-identical.
+    """
+
+    def __init__(self, fused: bool = False):
+        self.fused = fused
 
     def init_state(self, table: torch.Tensor):
         return ()
@@ -83,6 +92,13 @@ class GatherBackend:
         """(capacity + 1, dim) rows for ``uids``."""
         return _with_drop_row(table.index_select(0, uids.long()))
 
+    def pull(self, table, accum, state, flat_ids, capacity: int):
+        """Training pull: ``(WorkingSet, table, accum, state)``; the table
+        tree comes back unchanged (a gather writes nothing)."""
+        uids, inv, n_dropped = _dedup(flat_ids, capacity)
+        rows = self._served_rows(table, uids, capacity)
+        return WorkingSet(uids, inv, rows, n_dropped), table, accum, state
+
     def lookup(self, table, accum, state, flat_ids, capacity: int):
         """Read-only lookup: ``(WorkingSet, aux)``.  Writes nothing; ``aux``
         meters the id slots served (``serve_lookups``, f32 scalar)."""
@@ -92,16 +108,29 @@ class GatherBackend:
                                  - n_dropped.to(torch.float32))}
         return WorkingSet(uids, inv, rows, n_dropped), aux
 
+    def push(self, table, accum, state, ws: WorkingSet, row_grads, opt):
+        """Apply ``opt`` to the working set's rows in place; the gradient of
+        the drop row (``row_grads[capacity]``) is discarded."""
+        table, accum = opt.apply_rows(
+            table, accum, ws.uids, row_grads[: ws.uids.shape[0]],
+            fused=self.fused)
+        return table, accum, state
+
 
 # ------------------------------------------------------------------ factory
-def make_backend(placement: str) -> GatherBackend:
-    """``placement`` -> a backend instance ("gather" is the one ported)."""
+_UNPORTED = {"routed": "A8 (routed placement)",
+             "cached": "A4 (cached placement)"}
+
+
+def make_backend(placement: str, fused: bool = False) -> GatherBackend:
+    """``placement`` -> a backend instance ("gather" is the one ported).
+    ``fused`` selects the push kernel (see ``GatherBackend``)."""
     if placement == "gather":
-        return GatherBackend()
-    if placement in ("routed", "cached"):
+        return GatherBackend(fused=fused)
+    if placement in _UNPORTED:
         raise NotImplementedError(
             f"placement {placement!r} is not ported yet; see ROADMAP.md "
-            "queue A (cached and routed placements)")
+            f"queue {_UNPORTED[placement]}")
     raise ValueError(
         f"unknown placement {placement!r}; use 'gather', 'routed', or 'cached'"
     )

@@ -2,14 +2,16 @@
 
 Counterpart of ``repro/core/embedding_engine.py``.  The engine owns the
 ``TableSpec``s, the working-set capacity, the sparse optimizer, the
-placement backend and the row store.  This slice ports its serving side:
+placement backend and the row store:
 
-  1. ``lookup_batch(tables, accum, states, batch)``: one read-only lookup
+  1. ``pull_batch(tables, accum, states, batch)``: one training pull per
+     table -> ``(wss, tables, accum, states)`` (Algorithm 1 line 3);
+  2. ``lookup_batch(tables, accum, states, batch)``: one read-only lookup
      per table -> ``({name: WorkingSet}, aux)``;
-  2. ``bag_from_working``: the per-field bags over the working set, by the
-     hand-written CUDA kernel on the card (``kernels.ops``).
-
-The training ``pull``/``push`` raise until the training slice ports them.
+  3. ``bag_from_working``: the per-field bags over the working set, by the
+     hand-written CUDA kernels on the card (``kernels.ops``);
+  4. ``push(tables, accum, states, wss, row_grads)``: the sparse optimizer
+     applied to each working set, in place (Algorithm 1 line 13).
 """
 
 from __future__ import annotations
@@ -33,9 +35,6 @@ from repro_torch.core.sparse_optim import (
     SparseAdagradState,
 )
 from repro_torch.kernels import ops
-
-_TRAINING_SLICE = ("is not ported yet: training on the gather placement is "
-                   "slice 2 of the port (ROADMAP.md queue A)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -117,12 +116,45 @@ class EmbeddingEngine:
             out[name] = ids.reshape(-1)
         return out
 
-    # ------------------------------------------------------ training (later)
-    def pull(self, tables, accum, states, flat_ids):
-        raise NotImplementedError("EmbeddingEngine.pull " + _TRAINING_SLICE)
+    # ------------------------------------------------------------ training
+    def pull(self, tables, accum, states, flat_ids: Dict[str, torch.Tensor]):
+        """Algorithm 1 line 3: one working-set pull per table.  Returns
+        ``(working_sets, tables, accum, states)``."""
+        wss, new_tables, new_accum, new_states = {}, {}, {}, {}
+        for name, ids in flat_ids.items():
+            ws, nt, na, ns = self.backend.pull(
+                tables[name], accum[name], states[name], ids, self.capacity)
+            wss[name] = ws
+            new_tables[name], new_accum[name], new_states[name] = nt, na, ns
+        return wss, new_tables, new_accum, new_states
 
-    def push(self, tables, accum, states, working_sets, row_grads):
-        raise NotImplementedError("EmbeddingEngine.push " + _TRAINING_SLICE)
+    def pull_batch(self, tables, accum, states, batch):
+        return self.pull(tables, accum, states, self.ids_from_batch(batch))
+
+    def pull_stage(self):
+        """The PULL stage ``(tables, accum, states, flat_ids) -> (wss,
+        tables, accum, states)``.  PyTorch runs eagerly, so the stage is
+        ``pull`` itself."""
+        return self.pull
+
+    @staticmethod
+    def commit(pulled):
+        """Hand a pull's ``(wss, tables, accum, states)`` to the train stage
+        (the serialization point of the reference's prefetch protocol; with
+        eager, synchronous pulls nothing happens here)."""
+        return pulled
+
+    def push(self, tables, accum, states, working_sets: Dict[str, WorkingSet],
+             row_grads):
+        """Algorithm 1 line 13: each working set's row gradients applied by
+        the backend, in place.  Returns ``(tables, accum, states)``."""
+        new_tables, new_accum, new_states = {}, {}, {}
+        for name, ws in working_sets.items():
+            nt, na, ns = self.backend.push(
+                tables[name], accum[name], states[name], ws, row_grads[name],
+                self.opt)
+            new_tables[name], new_accum[name], new_states[name] = nt, na, ns
+        return new_tables, new_accum, new_states
 
     # ------------------------------------------------- read-only lookup path
     def lookup(self, tables, accum, states, flat_ids: Dict[str, torch.Tensor]):
@@ -160,9 +192,9 @@ class EmbeddingEngine:
                          combiner: str = "sum",
                          fused: bool = True) -> torch.Tensor:
         """Bag lookup through the pulled working set (differentiable in
-        ``working``).  On CUDA tensors it is one launch of the CUDA kernel
-        (``fused=False`` raises there: CUDA has no unfused path); on CPU
-        tensors the plain version, whatever ``fused`` says."""
+        ``working``).  On CUDA tensors the forward and the backward are the
+        CUDA kernels (``fused=False`` raises there: CUDA has no unfused
+        path); on CPU tensors the plain version, whatever ``fused`` says."""
         return ops.embedding_bag_working(working, inverse, segment_ids,
                                          weights, num_bags, combiner,
                                          fused=fused)

@@ -12,6 +12,8 @@ streamed data for different nodes are in an i.i.d. distribution").
 
 A copy of ``repro/data/synthetic.py``'s CTR stream: the same seed gives
 byte-identical batches, so the port and the reference see the same inputs.
+``recsys_batches`` picks the stream for a model config; the other recsys
+archs' streams come with their slice (ROADMAP.md queue A9).
 """
 
 from __future__ import annotations
@@ -63,3 +65,19 @@ def ctr_batches(
             "mask": mask,
             "label": label,
         }
+
+
+def recsys_batches(
+    model_cfg, batch: int, seed: int = 1, worker: int = 0,
+) -> Iterator[Dict[str, np.ndarray]]:
+    """The synthetic stream for a recsys model config (``CTRConfig``: the
+    CTR stream; the other configs are not ported yet)."""
+    from repro_torch.models import recsys as R
+
+    if isinstance(model_cfg, R.CTRConfig):
+        return ctr_batches(seed=seed, batch=batch, rows=model_cfg.rows,
+                           n_fields=model_cfg.n_fields,
+                           nnz=model_cfg.nnz_per_instance, worker=worker)
+    raise NotImplementedError(
+        f"recsys_batches: {type(model_cfg).__name__} is not ported yet "
+        "(ROADMAP.md queue A9, the other recsys archs)")

@@ -1,55 +1,35 @@
-"""Embedding bag over the pulled working set: the hand-written CUDA kernel.
+"""Embedding bag over the pulled working set: the hand-written CUDA kernels.
 
-``out[b] = sum_{j: seg[j]==b} w[j] * working[inv[j]]``, with ``seg`` in any
-order.  Counterpart of ``repro/kernels/embedding_bag.py::embedding_bag_pallas``;
-the kernel is ``csrc/embedding_bag.cu`` (its header says how it is laid out
-and what bounds it) and ``csrc/bindings.cpp`` binds it.
+Forward: ``out[b] = sum_{j: seg[j]==b} w[j] * working[inv[j]]``, with
+``seg`` in any order.  Counterpart of
+``repro/kernels/embedding_bag.py::embedding_bag_pallas``.
 
-The wrapper prepares the index stream with PyTorch ops: a stable sort of
-``seg`` gives each bag's entries in ascending original position (``order``)
-and the per-bag CSR ``offsets``.  Entries whose ``seg`` lies outside
-[0, num_bags) fall outside every bag's range and are dropped, as the
-reference's segment sum drops them.  ``inv`` must index rows of
+Backward: ``g_work[r] = sum_{j: inv[j]==r} w[j] * g[seg[j]]`` (every working
+row written, untouched rows as zeros) and, when the weights need it,
+``g_w[j] = <g[seg[j]], working[inv[j]]>``.  The reference's backward is the
+XLA vjp of its plain version; the port's is a kernel because the plain vjp's
+scatter adds with float atomics on the card, so its bits would change from
+run to run.
+
+The kernels are ``csrc/embedding_bag.cu`` (its header says how they are laid
+out and what bounds them), bound by ``csrc/bindings.cpp`` and built by
+``kernels.build``.  The wrappers prepare the index streams with PyTorch ops:
+a stable sort gives each output row's entries in ascending original
+position (``order``) and the CSR ``offsets`` — by ``seg`` for the forward,
+by ``inv`` for the backward, whose ``seg`` and weight streams are also
+gathered into that order, so its kernel reads them contiguously.  Entries
+whose ``seg`` lies outside
+[0, num_bags) fall in no bag: the forward drops them and their gradients
+are zero, as in the reference's segment sum.  ``inv`` must index rows of
 ``working``; on the working-set path it does by construction (the drop row
 is the last row).
-
-The extension is built at first use, never on import: the CPU tests import
-this module on machines without ``nvcc``.
 """
 
 from __future__ import annotations
 
-import os
-import pathlib
-
 import torch
 
-_CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
-_REPO = pathlib.Path(__file__).resolve().parents[3]
-BUILD_DIR = _REPO / "build" / "torch_kernels"
-CUDA_FLAGS = ["-O3", "-gencode=arch=compute_90a,code=sm_90a"]
-
-_ext = None
-
-
-def extension():
-    """The compiled kernels (built into ``build/torch_kernels/`` on first
-    call; ``torch.utils.cpp_extension.load`` reuses an unchanged build)."""
-    global _ext
-    if _ext is None:
-        from torch.utils.cpp_extension import load
-
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        _ext = load(
-            name="repro_torch_kernels",
-            sources=[str(_CSRC / "bindings.cpp"),
-                     str(_CSRC / "embedding_bag.cu")],
-            build_directory=str(BUILD_DIR),
-            extra_cflags=["-O3"],
-            extra_cuda_cflags=CUDA_FLAGS,
-            verbose=False,
-        )
-    return _ext
+from repro_torch.kernels.build import extension
 
 
 def _check_inputs(working, inv, seg, weights, num_bags):
@@ -76,6 +56,13 @@ def _check_inputs(working, inv, seg, weights, num_bags):
         raise ValueError(f"num_bags must be positive, got {num_bags}")
 
 
+def _check_cuda(tensors, what):
+    if not tensors[0].is_cuda:
+        raise ValueError(f"{what} takes CUDA tensors, got {tensors[0].device}")
+    if not all(t.is_contiguous() for t in tensors if t is not None):
+        raise ValueError(f"{what} takes contiguous tensors")
+
+
 def csr_from_segments(seg, num_bags):
     """(order, offsets): entries of bag b are ``order[offsets[b]:offsets[b+1]]``
     in ascending original position."""
@@ -84,8 +71,17 @@ def csr_from_segments(seg, num_bags):
     return order, torch.searchsorted(sorted_seg, bounds)
 
 
+def sorted_streams(keys, num_rows, index, weights):
+    """``(index_sorted, weights_sorted, offsets)``: the entries grouped by
+    ``keys`` in ascending original position (``csr_from_segments``), with
+    the index and weight streams gathered into that order."""
+    order, offsets = csr_from_segments(keys, num_rows)
+    w = None if weights is None else weights.index_select(0, order)
+    return index.index_select(0, order), w, offsets
+
+
 def launch(working, inv, weights, order, offsets, num_bags):
-    """One launch of the CUDA kernel on prepared CSR indices."""
+    """One launch of the forward kernel on prepared CSR indices."""
     out = torch.empty((num_bags, working.shape[1]), dtype=working.dtype,
                       device=working.device)
     extension().embedding_bag_forward(working, inv, weights, order, offsets,
@@ -97,11 +93,46 @@ def embedding_bag_cuda(working, inv, seg, weights, num_bags):
     """The bag on CUDA tensors: index preparation, then one kernel launch.
     Raises for tensors that are not on a CUDA device, or not contiguous."""
     _check_inputs(working, inv, seg, weights, num_bags)
-    if not working.is_cuda:
-        raise ValueError(
-            f"embedding_bag_cuda takes CUDA tensors, got {working.device}")
-    tensors = [working, inv, seg] + ([weights] if weights is not None else [])
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("embedding_bag_cuda takes contiguous tensors")
+    _check_cuda([working, inv, seg, weights], "embedding_bag_cuda")
     order, offsets = csr_from_segments(seg, int(num_bags))
     return launch(working, inv, weights, order, offsets, int(num_bags))
+
+
+def launch_backward(g, seg_sorted, w_sorted, offsets, working_rows):
+    """One launch of the working-row gradient kernel on streams sorted by
+    working row."""
+    g_work = torch.empty((working_rows, g.shape[1]), dtype=g.dtype,
+                         device=g.device)
+    extension().embedding_bag_backward(g, seg_sorted, w_sorted, offsets,
+                                       g_work)
+    return g_work
+
+
+def launch_weight_grad(g, seg, working, inv):
+    """One launch of the weight-gradient kernel."""
+    g_w = torch.empty(seg.shape, dtype=g.dtype, device=g.device)
+    extension().embedding_bag_weight_grad(g, seg, working, inv, g_w)
+    return g_w
+
+
+def embedding_bag_backward_cuda(g, working, inv, seg, weights,
+                                need_working=True, need_weights=False):
+    """Gradients of the bag's sum on CUDA tensors: ``(g_work, g_w)``, each
+    None where it is not needed.  ``g`` is the cotangent of the forward's
+    (num_bags, dim) output."""
+    num_bags = g.shape[0]
+    _check_inputs(working, inv, seg, weights, num_bags)
+    if g.dim() != 2 or g.dtype != torch.float32 or g.shape[1] != \
+            working.shape[1]:
+        raise ValueError(f"g must be float32 (num_bags, {working.shape[1]}), "
+                         f"got {tuple(g.shape)} {g.dtype}")
+    _check_cuda([g, working, inv, seg, weights],
+                "embedding_bag_backward_cuda")
+    g_work = g_w = None
+    if need_working:
+        g_work = launch_backward(
+            g, *sorted_streams(inv, working.shape[0], seg, weights),
+            working.shape[0])
+    if need_weights:
+        g_w = launch_weight_grad(g, seg, working, inv)
+    return g_work, g_w

@@ -12,18 +12,24 @@ from typing import Sequence
 
 import torch
 
+from repro_torch import resolve_device
+
 
 def he_init(generator: torch.Generator, shape, dtype=torch.float32,
-            device="cpu") -> torch.Tensor:
+            device="cuda") -> torch.Tensor:
+    """He-normal weights on ``device`` (CUDA unless the caller asks for the
+    CPU; ``generator`` must live there)."""
     fan = shape[-2] if len(shape) >= 2 else shape[-1]
     w = torch.randn(shape, generator=generator, dtype=torch.float32,
-                    device=device)
+                    device=resolve_device(device))
     return (w * (2.0 / fan) ** 0.5).to(dtype)
 
 
 def mlp_init(generator: torch.Generator, sizes: Sequence[int],
-             dtype=torch.float32, device="cpu"):
-    """[{"w", "b"}] stack for a plain MLP with the given layer sizes."""
+             dtype=torch.float32, device="cuda"):
+    """[{"w", "b"}] stack for a plain MLP with the given layer sizes, on
+    ``device`` (CUDA unless the caller asks for the CPU)."""
+    device = resolve_device(device)
     return [
         {"w": he_init(generator, (sizes[i], sizes[i + 1]), dtype,
                       device=device),

@@ -43,7 +43,10 @@ def ctr_table_specs(cfg: CTRConfig) -> Dict[str, TableSpec]:
     }
 
 
-def ctr_init_dense(generator: torch.Generator, cfg: CTRConfig, device="cpu"):
+def ctr_init_dense(generator: torch.Generator, cfg: CTRConfig,
+                   device="cuda"):
+    """The CTR tower's weights on ``device`` (CUDA unless the caller asks
+    for the CPU; ``generator`` must live there)."""
     d = cfg.embed_dim
     return {
         "wq": he_init(generator, (d, d), cfg.dtype, device=device),

@@ -4,7 +4,8 @@ Counterpart of ``repro/runtime/factory.py`` for the archs the port has
 reached (``baidu-ctr``):
 
     tr = build_trainer("baidu-ctr", TrainerConfig(placement="gather"))
-    server = build_ctr_server(tr, max_batch=1024)
+    history, auc = fit_online(tr, ctr_batches(...), steps)   # training
+    server = build_ctr_server(tr, max_batch=1024)            # serving
 
 Everything lands on ``device`` (CUDA unless the caller passes "cpu"; without
 CUDA it raises).  Weights and tables are drawn from a ``torch.Generator``
@@ -40,21 +41,27 @@ def _default_capacity(max_rows: int) -> int:
 
 def build_ctr_engine(model_cfg: R.CTRConfig, cfg: TrainerConfig,
                      device="cuda") -> EmbeddingEngine:
-    """EmbeddingEngine for the paper's CTR model, placement-selected."""
+    """EmbeddingEngine for the paper's CTR model, placement-selected; the
+    push runs its kernel per ``cfg.fused_kernels`` (``ops.resolve_fused``)."""
+    device = resolve_device(device)
     specs = R.ctr_table_specs(model_cfg)
     capacity = cfg.capacity or _default_capacity(
         max(s.rows for s in specs.values()))
+    fused = ops.resolve_fused(cfg.fused_kernels, device)
     return EmbeddingEngine(
         specs, capacity=capacity, optimizer=SparseAdagrad(cfg.sparse),
-        backend=make_backend(cfg.placement), store=make_store(cfg.store),
-        device=device,
+        backend=make_backend(cfg.placement, fused=fused),
+        store=make_store(cfg.store), device=device,
     )
 
 
 def build_trainer(arch: str, cfg: TrainerConfig, *, smoke: bool = True,
                   seed: int = 0, model_cfg: Any = None,
+                  table_scale: float = TABLE_SCALE,
                   device="cuda") -> HybridTrainer:
-    """Construct the trainer for ``arch`` from the config registry."""
+    """Construct the trainer for ``arch`` from the config registry (the
+    dense tower under ``cfg.kstep``, the tables drawn with std
+    ``table_scale``)."""
     device = resolve_device(device)
     spec = configs.get(arch)
     mcfg = model_cfg if model_cfg is not None else (
@@ -66,7 +73,7 @@ def build_trainer(arch: str, cfg: TrainerConfig, *, smoke: bool = True,
     generator = torch.Generator(device).manual_seed(seed)
     dense = R.ctr_init_dense(generator, mcfg, device=device)
     engine = build_ctr_engine(mcfg, cfg, device=device)
-    tables = engine.init(generator, scale=TABLE_SCALE)
+    tables = engine.init(generator, scale=table_scale)
     fused = ops.resolve_fused(cfg.fused_kernels, device)
     return HybridTrainer(
         dense, engine, R.ctr_embed_from_workings(mcfg, fused=fused),

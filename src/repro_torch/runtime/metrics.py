@@ -1,6 +1,6 @@
 """Evaluation metrics (AUC is the paper's quality measure).
 
-A copy of ``auc`` from ``repro/runtime/metrics.py``.
+A copy of ``repro/runtime/metrics.py``: ``auc`` and ``StreamingAUC``.
 """
 
 from __future__ import annotations
@@ -31,3 +31,24 @@ def auc(labels: np.ndarray, scores: np.ndarray) -> float:
         i = j + 1
     return float((ranks[labels == 1].sum() - n_pos * (n_pos + 1) / 2) / (n_pos * n_neg))
 
+
+
+class StreamingAUC:
+    """Online-learning evaluation (paper §5 Data: predict-then-train)."""
+
+    def __init__(self, window: int = 0):
+        self.labels: list = []
+        self.scores: list = []
+        self.window = window
+
+    def update(self, labels, scores):
+        self.labels.append(np.asarray(labels).reshape(-1))
+        self.scores.append(np.asarray(scores).reshape(-1))
+        if self.window and len(self.labels) > self.window:
+            self.labels.pop(0)
+            self.scores.pop(0)
+
+    def value(self) -> float:
+        if not self.labels:
+            return 0.5
+        return auc(np.concatenate(self.labels), np.concatenate(self.scores))

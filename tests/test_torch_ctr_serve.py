@@ -150,7 +150,13 @@ def test_factory_trainer_on_cpu_serves_and_refuses_training():
     batch = _requests(1, 1, 8)[0]
     scores = tr.predict(batch)
     assert scores.shape == (8,) and np.isfinite(scores).all()
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        tr.train_step(batch)
+    loss = tr.train_step(batch)
+    assert tr.step_num == 1 and np.isfinite(float(loss))
+    for knobs, err in (({"prefetch": True}, NotImplementedError),
+                       ({"ckpt_dir": "ckpt"}, NotImplementedError),
+                       ({"merge_delay": 1}, ValueError),
+                       ({"merge_quorum": 0.5}, NotImplementedError)):
+        with pytest.raises(err):
+            build_trainer("baidu-ctr", TrainerConfig(**knobs), device="cpu")
     with pytest.raises(TypeError, match="HybridTrainer"):
         build_ctr_server(object())

@@ -114,7 +114,10 @@ def test_cpu_dispatch_runs_the_plain_version_and_counts_it():
     assert ops.kernel_mode(_t(working)) == "ref"
     out = ops.embedding_bag_working(_t(working), _t(inv), _t(seg), _t(w),
                                     SHAPES[1][3])
-    assert ops.launches == {"embedding_bag": 0, "embedding_bag_ref": 1}
+    assert ops.launches == {
+        "embedding_bag": 0, "embedding_bag_ref": 1,
+        "embedding_bag_backward": 0, "embedding_bag_backward_ref": 0,
+        "sparse_adagrad_apply": 0, "sparse_adagrad_apply_ref": 0}
     np.testing.assert_array_equal(
         out.numpy(), tref.embedding_bag_ref(_t(working), _t(inv), _t(seg),
                                             _t(w), SHAPES[1][3]).numpy())
@@ -150,16 +153,21 @@ def test_cuda_wrapper_raises_on_what_it_does_not_take():
         tbag.embedding_bag_cuda(*bad)
 
 
-def _sum_in_csr_order(working, inv, w, order, offsets):
-    """The kernel's arithmetic, one bag at a time: float32 adds in the CSR
-    order, each term rounded after its multiply (no fused multiply-add)."""
-    out = np.zeros((len(offsets) - 1, working.shape[1]), np.float32)
+def _sum_in_csr_order(src, idx_sorted, w_sorted, offsets):
+    """The kernel's arithmetic, one output row at a time, on the streams
+    the wrapper launches it with: float32 adds of the row's entries in
+    stream order, each term rounded after its multiply (no fused
+    multiply-add)."""
+    src, idx = src.numpy(), idx_sorted.numpy()
+    w = None if w_sorted is None else w_sorted.numpy()
+    offsets = offsets.numpy()
+    out = np.zeros((len(offsets) - 1, src.shape[1]), np.float32)
     for b in range(len(offsets) - 1):
-        acc = np.zeros(working.shape[1], np.float32)
-        for j in order[offsets[b]:offsets[b + 1]]:
-            x = working[inv[j]]
+        acc = np.zeros(src.shape[1], np.float32)
+        for i in range(offsets[b], offsets[b + 1]):
+            x = src[idx[i]]
             if w is not None:
-                x = (x * w[j]).astype(np.float32)
+                x = (x * w[i]).astype(np.float32)
             acc = (acc + x).astype(np.float32)
         out[b] = acc
     return out
@@ -180,18 +188,76 @@ def test_csr_order_gives_the_plain_sums_bit_for_bit(shape, weighted):
     for b in range(num_bags):
         ent = order[offsets[b]:offsets[b + 1]]
         np.testing.assert_array_equal(ent, np.flatnonzero(seg == b))
-    got = _sum_in_csr_order(working, inv, w, order, offsets)
+    ow = None if w is None else _t(w[order])
+    got = _sum_in_csr_order(_t(working), _t(inv[order]), ow,
+                            torch.from_numpy(offsets))
     want = tref.embedding_bag_ref(_t(working), _t(inv), _t(seg), _t(w),
                                   num_bags).numpy()
     np.testing.assert_array_equal(got, want)
 
 
+def _backward_in_csr_order(g, working, inv, seg, w, need_working,
+                           need_weights):
+    """The backward kernels' arithmetic on CPU tensors: the working-row
+    gradient is the forward's walk with the roles of inv and seg swapped,
+    over the CSR by inv that the CUDA wrapper builds; the weight gradient
+    sums each dot product per lane (columns l, l + 32, ...) and then over a
+    fixed shuffle tree, as the kernel does."""
+    gn = g.numpy()
+    g_work = g_w = None
+    if need_working:
+        g_work = torch.from_numpy(_sum_in_csr_order(
+            g, *tbag.sorted_streams(inv, working.shape[0], seg, w)))
+    if need_weights:
+        wk, iv, sg = working.numpy(), inv.numpy(), seg.numpy()
+        D = wk.shape[1]
+        out = np.zeros(len(sg), np.float32)
+        for j in range(len(sg)):
+            lanes = np.zeros(32, np.float32)
+            for c in range(D):
+                p = np.float32(gn[sg[j], c] * wk[iv[j], c])
+                lanes[c % 32] = np.float32(lanes[c % 32] + p)
+            off = 16
+            while off:
+                lanes[:off] = (lanes[:off] + lanes[off:2 * off]).astype(
+                    np.float32)
+                off //= 2
+            out[j] = lanes[0]
+        g_w = torch.from_numpy(out)
+    return g_work, g_w
+
+
+@pytest.mark.parametrize("weighted", [True, False])
+@pytest.mark.parametrize("shape", SHAPES)
+def test_csr_by_inv_order_gives_the_plain_vjp_bit_for_bit(shape, weighted):
+    """The backward's index preparation (a stable sort of inv, every working
+    row written, the drop row and untouched rows as zeros): summed in that
+    order, the working-row gradient equals the plain vjp's bits."""
+    working, inv, seg, w = _case(9, *shape, weighted=weighted)
+    num_bags = shape[3]
+    g = torch.from_numpy(np.random.default_rng(10).standard_normal(
+        (num_bags, shape[1])).astype(np.float32))
+    got, _ = _backward_in_csr_order(g, _t(working), _t(inv), _t(seg), _t(w),
+                                    True, False)
+    want, _ = tref.embedding_bag_backward_ref(g, _t(working), _t(inv),
+                                              _t(seg), _t(w))
+    assert got.shape == (shape[0] + 1, shape[1])
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+    untouched = np.setdiff1d(np.arange(shape[0] + 1), inv)
+    assert not got.numpy()[untouched].any()
+
+
 def test_autograd_backward_is_the_plain_vjp(monkeypatch):
-    """The autograd.Function's backward, with the plain version standing in
-    for the CUDA launch (which exists only on the card)."""
+    """The autograd.Function, with CPU emulations of the CUDA kernels
+    standing in for their launches (which exist only on the card): the
+    working-row gradient equals the plain vjp bit for bit, the weight
+    gradient within atol = rtol = 1e-6 (the plain version sums each dot
+    product in another order), and the launches are counted."""
     working, inv, seg, w = _case(7, *SHAPES[2])
     num_bags = SHAPES[2][3]
     monkeypatch.setattr(ops, "embedding_bag_cuda", tref.embedding_bag_ref)
+    monkeypatch.setattr(ops, "embedding_bag_backward_cuda",
+                        _backward_in_csr_order)
     g = torch.from_numpy(np.random.default_rng(8).standard_normal(
         (num_bags, working.shape[1])).astype(np.float32))
 
@@ -201,9 +267,42 @@ def test_autograd_backward_is_the_plain_vjp(monkeypatch):
         (fn(wk, ww) * g).sum().backward()
         return wk.grad, ww.grad
 
+    ops.reset_launches()
     got = grads(lambda wk, ww: ops._Bag.apply(wk, _t(inv), _t(seg), ww,
                                               num_bags))
+    assert ops.launches["embedding_bag"] == 1
+    assert ops.launches["embedding_bag_backward"] == 1
     want = grads(lambda wk, ww: tref.embedding_bag_ref(wk, _t(inv), _t(seg),
                                                        ww, num_bags))
-    for a, b in zip(got, want):
-        np.testing.assert_array_equal(a.numpy(), b.numpy())
+    np.testing.assert_array_equal(got[0].numpy(), want[0].numpy())
+    np.testing.assert_allclose(got[1].numpy(), want[1].numpy(), **TOL)
+
+
+def test_cpu_backward_runs_the_plain_vjp_and_counts_it():
+    working, inv, seg, w = _case(11, *SHAPES[1])
+    num_bags = SHAPES[1][3]
+    wk = _t(working).clone().requires_grad_(True)
+    ops.reset_launches()
+    out = ops.embedding_bag_working(wk, _t(inv), _t(seg), _t(w), num_bags,
+                                    "mean")
+    g = torch.ones_like(out)
+    (out * g).sum().backward()
+    assert ops.launches["embedding_bag_ref"] == 1
+    assert ops.launches["embedding_bag_backward_ref"] == 1
+    assert ops.launches["embedding_bag_backward"] == 0
+    x = _t(working).clone().requires_grad_(True)
+    ref_out = tref.embedding_bag_combiner_ref(x, _t(inv), _t(seg), _t(w),
+                                              num_bags, "mean")
+    (ref_out * g).sum().backward()
+    np.testing.assert_array_equal(wk.grad.numpy(), x.grad.numpy())
+
+
+def test_backward_wrapper_raises_on_cpu_tensors():
+    working, inv, seg, w = _case(12, *SHAPES[0])
+    g = torch.zeros((SHAPES[0][3], SHAPES[0][1]))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        tbag.embedding_bag_backward_cuda(g, _t(working), _t(inv), _t(seg),
+                                         _t(w))
+    with pytest.raises(ValueError, match="g must be"):
+        tbag.embedding_bag_backward_cuda(g[:, :-1], _t(working), _t(inv),
+                                         _t(seg), _t(w))

@@ -107,12 +107,35 @@ def test_engine_lookup_batch_equals_reference_and_writes_nothing():
 
 
 def test_engine_memory_and_training_entry_points():
+    """The training pull serves the rows the reference's pull serves (and
+    the lookup serves); the push writes only the pulled rows."""
     eng, jeng = _engines()
     assert eng.memory_bytes() == jeng.memory_bytes()
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        eng.pull({}, {}, {}, {})
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        eng.push({}, {}, {}, {}, {})
+    tables = {"sparse": torch.from_numpy(_table(2))}
+    st = eng.init_state(tables)
+    bstate = eng.init_backend_state(tables)
+    batch_np = {"ids": _ids(5, 320).reshape(16, 20)}
+    batch = {k: torch.from_numpy(v) for k, v in batch_np.items()}
+    wss, t2, a2, s2 = eng.pull_stage()(tables, st.accum, bstate,
+                                       eng.ids_from_batch(batch))
+    assert t2["sparse"] is tables["sparse"] and a2["sparse"] is st.accum["sparse"]
+    jtables = {"sparse": jnp.asarray(_table(2))}
+    jwss, *_ = jeng.pull_batch(jtables, jeng.init_state(jtables).accum,
+                               jeng.init_backend_state(jtables),
+                               {k: jnp.asarray(v) for k, v in batch_np.items()})
+    for got, want in zip(wss["sparse"], jwss["sparse"]):
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    lws, _ = eng.lookup_batch(tables, st.accum, bstate, batch)
+    for got, want in zip(wss["sparse"], lws["sparse"]):
+        assert torch.equal(got, want)
+    before = tables["sparse"].clone()
+    grads = {"sparse": torch.ones_like(wss["sparse"].rows)}
+    out_t, out_a, _ = eng.push(tables, st.accum, bstate, wss, grads)
+    assert out_t["sparse"] is tables["sparse"]            # in place
+    touched = torch.zeros(ROWS, dtype=torch.bool)
+    touched[wss["sparse"].uids.long()] = True
+    assert torch.equal(tables["sparse"][~touched], before[~touched])
+    assert not torch.equal(tables["sparse"][touched], before[touched])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tbe.make_backend("cached")
     with pytest.raises(ValueError, match="unknown placement"):
