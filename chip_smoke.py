@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Run the PyTorch port's baidu-ctr serving and training paths on one
-NVIDIA GPU (H100).
+"""Run the PyTorch port's baidu-ctr serving and training paths, on the
+gather and the cached placements, on one NVIDIA GPU (H100).
 
     python3 chip_smoke.py        # from the root of a checkout
 
@@ -21,7 +21,15 @@ Phases (any failure raises and the script exits non-zero):
        pads), and the slice batch on a 50 M-row table (uids above
        2^31 / 64).  Bit-equal to the plain version, two runs bit-equal,
        untouched rows unchanged.
-     Times each kernel, its plain version and one PyTorch library call.
+     - The cache tier's probe, cached gather and cached push (after phase
+       7, on its trained cache): at the inputs of a real pull of the next
+       batch (65536 uids, C = 262144, H = 2^20, D 64), a 64-bucket map
+       with long chains, ids near 2^31 - 1, D 16 and 100, an overflowed
+       batch.  Bit-equal to the plain versions, two runs bit-equal,
+       untouched cache slots unchanged.
+     Times each kernel, its plain version and one PyTorch library call,
+     each call after a 256 MB write that evicts the L2 (the kernel also
+     L2-warm, back to back: ``ms_l2_warm`` in the kernels line).
   2. serving: ``build_trainer`` at the full width of baidu-ctr (embed 64, 40
      fields, 100 ids per instance, MLP 512-256-1, f32) with the table cut to
      50 M rows, capacity 65536, then ``build_ctr_server(max_batch=1024)``:
@@ -42,6 +50,18 @@ Phases (any failure raises and the script exits non-zero):
      size on the card and on the CPU from one state; scores within
      rtol = atol = 1e-5, losses and final parameters within rtol = 1e-4,
      atol = 1e-6 (the CPU parity tests' tolerance).
+  7. cached: 40 ``fit_online`` steps at full width on the cached placement
+     (cache_rows 262144; the 25.6 GB table and accumulator in host memory,
+     the cache on the card) with a server scoring 256 requests between
+     steps.  Losses bit-equal to phase 3's; evictions, spills and launch
+     counts per step (probe 4, cached gather 4, cached push 1, bag
+     2 + n_pod, backward n_pod, plain versions 0); serving changes neither
+     the cache state nor the host table; hit rates, byte meters, the
+     step's device time by part and a host profile of the pull.
+  8. cached at smoke size: the full mirror bit-identical to gather on the
+     card; card vs CPU from one warm state (the cache's integer state
+     equal, losses and parameters within phase 6's tolerance; the small
+     cache evicts and rebuilds its hash map).
 
 TF32 is off for matmuls and convolutions.  Prints the card (``nvidia-smi``
 name and power limit), a ``kernels`` JSON line, and as its last line
@@ -74,12 +94,31 @@ HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
 
 
-def _time_ms(fn, iters=100, warmup=10):
-    """Mean device time of ``fn`` over ``iters`` calls (CUDA events)."""
+def _time_ms(fn, iters=100, warmup=10, cold_l2=True):
+    """Mean device time of one ``fn`` call (CUDA events).
+
+    ``cold_l2``: a 256 MB write before each call evicts the L2 and an event
+    pair brackets the call alone, so a kernel repeated on the same rows
+    reads them from HBM each time, as its bound assumes.  Otherwise the
+    calls run back to back between two events and find the rows the last
+    call left in L2.  The 256 MB is freed on return, so it adds nothing to
+    a later phase's peak memory."""
     import torch
 
     for _ in range(warmup):
         fn()
+    if cold_l2:
+        scrub = torch.empty(64 << 20, dtype=torch.int32, device="cuda")
+        pairs = [(torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+                 for _ in range(iters)]
+        for start, end in pairs:
+            scrub.zero_()
+            start.record()
+            fn()
+            end.record()
+        torch.cuda.synchronize()
+        return sum(a.elapsed_time(b) for a, b in pairs) / iters
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -212,8 +251,11 @@ def phase_kernels(device):
 
     # ---- times at the slice's shapes
     order, offsets = kb.csr_from_segments(seg, num_bags)
-    ms = _time_ms(lambda: kb.embedding_bag_cuda(working, inv, seg, w,
-                                                num_bags))
+
+    def kernel():
+        return kb.embedding_bag_cuda(working, inv, seg, w, num_bags)
+
+    ms, warm_ms = _time_ms(kernel), _time_ms(kernel, cold_l2=False)
     launch_ms = _time_ms(lambda: kb.launch(working, inv, w, order, offsets,
                                            num_bags))
     prep_ms = _time_ms(lambda: kb.csr_from_segments(seg, num_bags))
@@ -238,7 +280,8 @@ def phase_kernels(device):
     bound_ms = max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S) * 1e3
     bound_by = ("bytes" if nbytes / HBM_BYTES_PER_S
                 >= flops / F32_FLOP_PER_S else "operations")
-    print(f"  times (ms): wrapper {ms:.4f} (kernel launch alone "
+    print(f"  times (ms, L2 cold): wrapper {ms:.4f} (L2 warm "
+          f"{warm_ms:.4f}; kernel launch alone "
           f"{launch_ms:.4f}, index preparation alone {prep_ms:.4f}), plain "
           f"{plain_ms:.4f}, index_add_ library call {library_ms:.4f}; bound "
           f"{bound_ms:.4f} ({nbytes / 1e6:.2f} MB: {rows_read} distinct rows "
@@ -251,6 +294,7 @@ def phase_kernels(device):
         "launches": None,
         "max_abs_err": max_err,
         "ms": ms,
+        "ms_l2_warm": warm_ms,
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
         "bound_by": bound_by,
@@ -344,7 +388,7 @@ def _checksum(tr):
     of 2^20 rows (a lookup must leave both untouched)."""
     import torch
 
-    return [sum(int(c.view(torch.int32).to(torch.int64).sum())
+    return [sum(int(c.view(torch.int32).sum(dtype=torch.int64))
                 for c in t.split(1 << 20))
             for t in list(tr.tables.values())
             + list(tr.sparse_state.accum.values())]
@@ -376,7 +420,8 @@ def _breakdown(tr, batch):
                 dense0, emb, b, predict=True),
             "whole predict": lambda: tr.predict(batch),
         }
-        times = {k: _time_ms(fn, iters=20, warmup=3) for k, fn in parts.items()}
+        times = {k: _time_ms(fn, iters=20, warmup=3, cold_l2=False)
+                 for k, fn in parts.items()}
     print("  one predict, device time by part (ms): " + ", ".join(
         f"{k} {v:.3f}" for k, v in times.items()))
 
@@ -524,8 +569,12 @@ def phase_backward(device):
                    gg, wk, iv, sg, ww)
 
     # ---- times at the training path's shapes (the CTR mask needs no grad)
-    ms = _time_ms(lambda: kb.embedding_bag_backward_cuda(
-        g, working, inv, seg, w, True, False))
+
+    def kernel():
+        return kb.embedding_bag_backward_cuda(g, working, inv, seg, w, True,
+                                              False)
+
+    ms, warm_ms = _time_ms(kernel), _time_ms(kernel, cold_l2=False)
     streams = kb.sorted_streams(inv, working.shape[0], seg, w)
     launch_ms = _time_ms(lambda: kb.launch_backward(g, *streams,
                                                     working.shape[0]))
@@ -546,8 +595,9 @@ def phase_backward(device):
     bound_ms = max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S) * 1e3
     bound_by = ("bytes" if nbytes / HBM_BYTES_PER_S
                 >= flops / F32_FLOP_PER_S else "operations")
-    print(f"  times (ms): wrapper {ms:.4f} (kernel launch alone "
-          f"{launch_ms:.4f}), plain vjp {plain_ms:.4f}, index_add_ library "
+    print(f"  times (ms, L2 cold): wrapper {ms:.4f} (L2 warm "
+          f"{warm_ms:.4f}; kernel launch alone {launch_ms:.4f}), plain vjp "
+          f"{plain_ms:.4f}, index_add_ library "
           f"call {library_ms:.4f}; bound {bound_ms:.4f} "
           f"({nbytes / 1e6:.2f} MB: {g_rows} cotangent rows read, "
           f"{working.shape[0]} working rows written)")
@@ -560,6 +610,7 @@ def phase_backward(device):
         "launches": None,
         "max_abs_err": max_err,
         "ms": ms,
+        "ms_l2_warm": warm_ms,
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
         "bound_by": bound_by,
@@ -704,8 +755,11 @@ def phase_push(device):
     torch.cuda.empty_cache()
 
     # ---- times at the slice's layout, in place on the 4 M-row table
-    ms = _time_ms(lambda: sparse_adagrad_apply_cuda(table, accum, uids,
-                                                    delta, g2))
+
+    def kernel():
+        return sparse_adagrad_apply_cuda(table, accum, uids, delta, g2)
+
+    ms, warm_ms = _time_ms(kernel), _time_ms(kernel, cold_l2=False)
     plain_ms = _time_ms(lambda: ref.sparse_adagrad_apply_ref(
         table, accum, uids, delta, g2))
     idx = uids.long()
@@ -721,8 +775,9 @@ def phase_push(device):
     bound_ms = max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S) * 1e3
     bound_by = ("bytes" if nbytes / HBM_BYTES_PER_S
                 >= flops / F32_FLOP_PER_S else "operations")
-    print(f"  times (ms): kernel {ms:.4f}, plain version (two index_add_) "
-          f"{plain_ms:.4f}, index_add_ library calls {library_ms:.4f}; "
+    print(f"  times (ms, L2 cold): kernel {ms:.4f} (L2 warm {warm_ms:.4f}), "
+          f"plain version (two index_add_) {plain_ms:.4f}, index_add_ "
+          f"library calls {library_ms:.4f}; "
           f"bound {bound_ms:.4f} ({nbytes / 1e6:.2f} MB: {n_real} real rows "
           f"x 6 x {D * 4} B + the uid stream)")
     return {
@@ -733,6 +788,7 @@ def phase_push(device):
         "launches": None,
         "max_abs_err": max_err,
         "ms": ms,
+        "ms_l2_warm": warm_ms,
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
         "bound_by": bound_by,
@@ -740,7 +796,8 @@ def phase_push(device):
     }
 
 
-def _full_width_trainer(device, n_pod=2, seed=0):
+def _full_width_trainer(device, n_pod=2, seed=0, placement="gather",
+                        cache_rows=None):
     """baidu-ctr at full width, 50 M rows, with the launcher's defaults."""
     from repro_torch.configs import baidu_ctr
     from repro_torch.core.kstep import KStepConfig
@@ -752,7 +809,8 @@ def _full_width_trainer(device, n_pod=2, seed=0):
     tcfg = TrainerConfig(
         n_pod=n_pod, kstep=KStepConfig(lr=1e-3, k=20, merge="two_phase"),
         sparse=SparseAdagradConfig(lr=0.5, initial_accumulator=0.01),
-        placement="gather", capacity=CAPACITY, log_every=10)
+        placement=placement, capacity=CAPACITY, cache_rows=cache_rows,
+        log_every=10)
     return build_trainer("baidu-ctr", tcfg, smoke=False, model_cfg=mcfg,
                          seed=seed, device=device)
 
@@ -772,7 +830,7 @@ TRAIN_STEPS = 40
 
 def phase_train(device):
     """40 training steps at full width; returns the launch counts of the
-    run."""
+    run and its per-step losses."""
     import torch
 
     from repro_torch.kernels import ops
@@ -825,10 +883,10 @@ def phase_train(device):
     if tr.overflow_dropped != 0:
         raise AssertionError(f"overflow_dropped {tr.overflow_dropped}")
     n = TRAIN_STEPS
-    want = {"embedding_bag": n * (1 + tr.n_pod),
-            "embedding_bag_backward": n * tr.n_pod,
-            "sparse_adagrad_apply": n}
-    want.update({k + "_ref": 0 for k in list(want)})
+    want = dict.fromkeys(ops.launches, 0)
+    want.update({"embedding_bag": n * (1 + tr.n_pod),
+                 "embedding_bag_backward": n * tr.n_pod,
+                 "sparse_adagrad_apply": n})
     if launches != want:
         raise AssertionError(f"launches {launches}, expected {want}")
     after = [t[sample] for t in (tr.tables["sparse"],
@@ -847,7 +905,7 @@ def phase_train(device):
     _train_breakdown(tr, extra)
     del tr
     _release()
-    return launches
+    return launches, every
 
 
 def _train_breakdown(tr, batches):
@@ -1046,6 +1104,543 @@ def phase_agreement_train(device):
           f"|diff| {np.abs(out[0][2] - out[1][2]).max():.3g}")
 
 
+# ---------------------------------------------------------------- the cache
+CACHE_ROWS = 262144        # 4 x the capacity, 0.5 % of the 50 M rows
+SERVE_BATCH = 256          # requests the co-located server scores per step
+
+
+def _bound(nbytes, flops=0):
+    """(ms, what bounds it) for the card's peaks."""
+    t_b, t_f = nbytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S
+    return max(t_b, t_f) * 1e3, ("bytes" if t_b >= t_f else "operations")
+
+
+def _state_sums(state):
+    """Integer sums of the bits of every field of a cache state (on the
+    card: one small reduction per field)."""
+    import torch
+
+    out = []
+    for t in state:
+        x = t.reshape(-1)
+        if x.dtype in (torch.float32, torch.int32):
+            x = x.view(torch.int32)
+        out.append(int(x.to(torch.int64).sum()))
+    return out
+
+
+def phase_cached(device, gather_losses):
+    """The cached placement at full width: 40 ``fit_online`` steps with a
+    co-located server draining between steps.  Returns the launch counts
+    of the run and the three cache kernels' kernels-line entries."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.runtime.factory import build_ctr_server
+    from repro_torch.runtime.online import fit_online
+
+    t0 = time.perf_counter()
+    tr = _full_width_trainer(device, placement="cached",
+                             cache_rows=CACHE_ROWS)
+    torch.cuda.synchronize()
+    st = tr.backend_state["sparse"]
+    table, accum = tr.tables["sparse"], tr.sparse_state.accum["sparse"]
+    if (table.device.type != "cpu" or accum.device.type != "cpu"
+            or st.rows.device.type != tr.device.type):
+        raise AssertionError("the cold tier must be in host memory and the "
+                             "cache on the card")
+    host_gb = (table.numel() + accum.numel()) * 4 / 1e9
+    cache_gb = sum(t.numel() * t.element_size() for t in st) / 1e9
+    print(f"phase 7: baidu-ctr training on the cached placement, rows {ROWS}"
+          f", capacity {CAPACITY}, cache_rows {CACHE_ROWS} (H = "
+          f"{tr.engine.backend.hash_buckets}), batch {BATCH}, n_pod "
+          f"{tr.n_pod}, serving {SERVE_BATCH} requests between steps; "
+          f"trainer built in {time.perf_counter() - t0:.1f} s; table + "
+          f"accumulator {host_gb:.1f} GB in host memory, cache state "
+          f"{cache_gb:.3f} GB on the card")
+    batches = _train_batches(TRAIN_STEPS + 15)
+    run, extra = batches[:TRAIN_STEPS], batches[TRAIN_STEPS:]
+    requests = iter(_train_batches(TRAIN_STEPS + 1, seed=2,
+                                   batch=SERVE_BATCH))
+    server = build_ctr_server(tr, max_batch=SERVE_BATCH)
+    step_losses, serving_wrote = [], []
+    train_step = tr.train_step
+
+    def step_and_serve(b):
+        loss = train_step(b)
+        step_losses.append(loss)
+        server.submit_batch(next(requests))
+        before = _state_sums(tr.backend_state["sparse"])
+        if server.drain() != SERVE_BATCH:
+            raise AssertionError("the server did not drain its batch")
+        serving_wrote.append(before != _state_sums(tr.backend_state["sparse"]))
+        return loss
+
+    tr.train_step = step_and_serve
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    hist, online_auc = fit_online(tr, iter(run), TRAIN_STEPS, window=20)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(ops.launches)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    del tr.train_step
+
+    every = torch.stack(step_losses).cpu().numpy()
+    if every.shape != (TRAIN_STEPS,) or not np.isfinite(every).all():
+        raise AssertionError(f"a loss is not finite: {every}")
+    if tr.overflow_dropped != 0:
+        raise AssertionError(f"overflow_dropped {tr.overflow_dropped}")
+    if any(serving_wrote):
+        raise AssertionError("serving changed the cache state")
+    n = TRAIN_STEPS
+    # per step: the predict and the server's predict (a lookup each: probe
+    # + cached gather, one bag), the pull (probe + cached gather) and the
+    # push (probe + the accumulator rows' cached gather + cached push)
+    want = {"hash_lookup": 4 * n, "gather_rows_cached": 4 * n,
+            "sparse_adagrad_cached_apply": n,
+            "embedding_bag": n * (2 + tr.n_pod),
+            "embedding_bag_backward": n * tr.n_pod,
+            "sparse_adagrad_apply": 0}
+    want.update({k + "_ref": 0 for k in list(want)})
+    if launches != want:
+        raise AssertionError(f"launches {launches}, expected {want}")
+    stats = tr.sparse_metrics()
+    counters = tr.engine.cache_counters(tr.backend_state)
+    serve = server.summary()
+    if not (stats["evictions_total"] > 0
+            and stats["cache_bytes_d2h_total"] > 0):
+        raise AssertionError(f"no evictions or no spills: {stats}")
+    same = bool(np.array_equal(every, gather_losses))
+    if not same:
+        raise AssertionError(
+            f"cached losses differ from the gather placement's (phase 3): "
+            f"max |diff| {np.abs(every - gather_losses).max()}")
+    sums = _checksum(tr), _state_sums(tr.backend_state["sparse"])
+    server.submit_batch(next(requests))
+    server.drain()
+    if (_checksum(tr), _state_sums(tr.backend_state["sparse"])) != sums:
+        raise AssertionError("serving changed the host table or the cache")
+    losses = [r["loss"] for r in hist]
+    print(f"  losses at steps 10/20/30/40: "
+          f"{', '.join(f'{x:.6f}' for x in losses)}; all {n} per-step losses "
+          f"bit-equal to the gather placement's (phase 3); online AUC "
+          f"{online_auc:.4f}; overflow_dropped 0")
+    print(f"  cache: hit rate {stats['cache_hit_rate_total']:.4f} (steps "
+          f"31-40 {hist[-1]['cache_hit_rate']:.4f}), evictions "
+          f"{stats['evictions_total']}, rebuilds {counters['rebuilds']:.0f}, "
+          f"host->device {counters['bytes_h2d'] / 1e6:.1f} MB, "
+          f"device->host {counters['bytes_d2h'] / 1e6:.1f} MB, lookups "
+          f"{counters['lookups']:.0f}, rows fetched "
+          f"{counters['fetched']:.0f}")
+    print(f"  serving: {int(serve['served'])} requests, serve_hit_rate "
+          f"{serve['serve_hit_rate']:.4f}, qps {serve['qps']:.1f}; the cache "
+          f"state unchanged by every drain, and the host table and "
+          f"accumulator checksums unchanged by a drain")
+    print(f"  predict + train + serve per step (fit_online wall / {n}): "
+          f"{wall / n * 1e3:.2f} ms ({n / wall:.2f} steps/s); peak device "
+          f"memory {peak_gb:.2f} GB")
+    print(f"  launches during the run: {launches}")
+    _train_breakdown(tr, extra[:12])
+    _pull_profile(tr, extra[12:14])
+    entries = phase_cache_kernels(tr, extra[14])
+    rebuilds = tr.engine.cache_counters(tr.backend_state)["rebuilds"]
+    del tr, server
+    _release()
+    return launches, entries, rebuilds
+
+
+def _pull_profile(tr, batches):
+    """Where a cached pull's time goes: the host time of its operators
+    (``torch.profiler``, self CPU time, the largest first) over a few pulls
+    on the trained cache, and the pull's synchronized wall time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    eng = tr.engine
+    staged = [tr._stage(b) for b in batches]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for b in staged:
+            _, _, _, bs = eng.pull_batch(tr.tables, tr.sparse_state.accum,
+                                         tr.backend_state, b)
+            tr.backend_state = bs
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / len(staged)
+    ops_ = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)
+    n = len(staged)
+    print(f"  one cached pull: {wall_ms:.2f} ms wall (profiler on); host "
+          f"time by operator (ms per pull): " + "; ".join(
+              f"{e.key} {e.self_cpu_time_total / n / 1e3:.3f} "
+              f"(x{e.count // n})" for e in ops_[:8]))
+
+
+def _probe_reads(key_tab, uids):
+    """(key_tab reads, ids found) of the linear probe for ``uids``: the
+    bytes the probe must read depend on the chains this map holds."""
+    from repro_torch.kernels.hash_map import EMPTY, hash_bucket
+
+    H = key_tab.numel()
+    b = hash_bucket(uids, H).long()
+    u = uids
+    reads = found = 0
+    while u.numel():
+        kb = key_tab[b]
+        reads += u.numel()
+        hit = kb == u
+        found += int(hit.sum())
+        more = ~hit & (kb != EMPTY)
+        u, b = u[more], (b[more] + 1) & (H - 1)
+    return reads, found
+
+
+def _small_map(gen, C, n_ids, id_hi, H, device):
+    """A map over C slots after two rounds of admissions (stale entries from
+    the second), built by the port's map maintenance on the card; probe
+    ids that hit, miss and hit stale entries."""
+    import torch
+
+    from repro_torch.kernels import hash_map as hm
+
+    key_tab = torch.full((H,), hm.EMPTY, dtype=torch.int32, device=device)
+    slot_tab = torch.zeros((H,), dtype=torch.int32, device=device)
+    n_occ = torch.zeros((), dtype=torch.int32, device=device)
+    slot_uid = torch.full((C,), -1, dtype=torch.int32, device=device)
+    ids = torch.unique(torch.randint(0, id_hi, (2 * n_ids,), generator=gen,
+                                     device=device))
+    ids = ids[torch.randperm(ids.numel(), generator=gen,
+                             device=device)][:n_ids]
+    ids = (id_hi - 1 - ids).to(torch.int32)       # the top of the range
+    first, second = ids[:C], ids[C:C + C // 2]
+    for batch, slots in ((first, torch.arange(C, device=device)),
+                         (second, torch.randperm(C, generator=gen,
+                                                 device=device)[:C // 2])):
+        slots = slots.to(torch.int32)
+        slot_uid[slots.long()] = batch
+        key_tab, slot_tab, n_occ = hm.hash_insert(
+            key_tab, slot_tab, n_occ, batch, slots,
+            torch.ones(batch.shape, dtype=torch.bool, device=device))
+    probe = ids[torch.randint(0, n_ids, (2 * n_ids,), generator=gen,
+                              device=device)]
+    return key_tab, slot_tab, slot_uid, probe.contiguous()
+
+
+def phase_cache_kernels(tr, batch):
+    """The probe, the cached gather and the cached push against their plain
+    versions, at the inputs of a real cached pull of the next batch on the
+    trained full-width cache (outside the counted run); returns their
+    kernels-line entries."""
+    import torch
+
+    from repro_torch.core.embedding_backend import _dedup, pull_working_set
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.hash_map import hash_lookup_cuda
+    from repro_torch.kernels.sparse_adagrad import (
+        adagrad_row_updates,
+        gather_rows_cached_cuda,
+        sparse_adagrad_cached_apply_cuda,
+    )
+
+    device = tr.device
+    cb = tr.engine.backend
+    st = tr.backend_state["sparse"]
+    table, accum = tr.tables["sparse"], tr.sparse_state.accum["sparse"]
+    ids = tr.engine.ids_from_batch(tr._stage(batch))["sparse"]
+    gen = torch.Generator(device).manual_seed(41)
+    errs = {"probe": 0.0, "gather": 0.0, "push": 0.0}
+
+    # ---- the probe, on the map as the pull finds it (hits and misses)
+    def probe_checks(name, key_tab, slot_tab, slot_uid, uids):
+        args = (key_tab, slot_tab, slot_uid, uids)
+        got, again = hash_lookup_cuda(*args), hash_lookup_cuda(*args)
+        cpu = ref.hash_lookup_ref(*[a.cpu() for a in args])
+        torch.cuda.synchronize()
+        if not (torch.equal(got, again) and torch.equal(got.cpu(), cpu)
+                and torch.equal(got, ref.hash_lookup_ref(*args))):
+            raise AssertionError(f"probe {name}: kernel and plain version "
+                                 "differ")
+        print(f"  probe, {name}: bit-equal to the plain version (card and "
+              f"CPU), two runs bit-equal; {int((got >= 0).sum())} hits, "
+              f"{int((got < 0).sum())} misses")
+
+    uids, _, _ = _dedup(ids, CAPACITY)
+    pargs = (st.key_tab, st.slot_tab, st.slot_uid, uids)
+    print(f"phase 1 (on phase 7's cache): hash_lookup against its plain "
+          f"version (uids {uids.numel()}, H {st.key_tab.numel()}, C "
+          f"{st.slot_uid.numel()}, occupied buckets {int(st.n_occupied)})")
+    probe_checks("slice batch on the trained cache", *pargs)
+    for C, n_ids, id_hi, H in ((32, 60, 1 << 20, 64),
+                               (4096, 7000, 2**31 - 1, 1 << 14)):
+        probe_checks(f"C={C} H={H}, ids below {id_hi}",
+                     *_small_map(gen, C, n_ids, id_hi, H, device))
+    reads, found = _probe_reads(st.key_tab, uids)
+    n = uids.numel()
+    nbytes = n * 4 + reads * 4 + found * 8 + n * 4
+    p_ms = _time_ms(lambda: hash_lookup_cuda(*pargs))
+    p_warm = _time_ms(lambda: hash_lookup_cuda(*pargs), cold_l2=False)
+    p_plain = _time_ms(lambda: ref.hash_lookup_ref(*pargs), iters=5,
+                       warmup=1)
+    p_bound, p_by = _bound(nbytes)
+    print(f"  times (ms, L2 cold): kernel {p_ms:.4f} (L2 warm "
+          f"{p_warm:.4f}), plain version {p_plain:.4f}, "
+          f"no library call; bound {p_bound:.4f} ({nbytes / 1e6:.2f} MB: "
+          f"{reads} bucket reads, {found} found, {reads / n:.2f} per id)")
+
+    # ---- the pull admits the misses; its slots feed the gather and push
+    ws, table, accum, st = cb.pull(table, accum, st, ids, CAPACITY)
+    tr.backend_state["sparse"] = st
+    slots = hash_lookup_cuda(st.key_tab, st.slot_tab, st.slot_uid, ws.uids)
+    if bool((slots < 0).any()):
+        raise AssertionError("a pulled id is not live in the map")
+    n_real = 1 + int((ws.uids[1:] > ws.uids[:-1]).sum())
+
+    def gather_checks(name, rows, sl):
+        got, again = gather_rows_cached_cuda(rows, sl), \
+            gather_rows_cached_cuda(rows, sl)
+        torch.cuda.synchronize()
+        if not (torch.equal(got, again) and torch.equal(
+                got, ref.gather_rows_cached_ref(rows, sl)) and torch.equal(
+                got.cpu(), ref.gather_rows_cached_ref(rows.cpu(), sl.cpu()))):
+            raise AssertionError(f"cached gather {name}: kernel and plain "
+                                 "version differ")
+        print(f"  cached gather, {name}: bit-equal to the plain version "
+              f"(card and CPU), two runs bit-equal")
+
+    print(f"phase 1 (on phase 7's cache): gather_rows_cached against its "
+          f"plain version (slots {slots.numel()} of a real pull, {n_real} "
+          f"real ids, cache {tuple(st.rows.shape)})")
+    gather_checks("slice pull, D=64", st.rows, slots)
+    for C, D, cap in ((777, 16, 3001), (513, 100, 1200)):
+        gather_checks(f"C={C} D={D} cap={cap}",
+                      torch.randn((C, D), generator=gen, device=device),
+                      torch.randint(0, C, (cap,), generator=gen,
+                                    device=device, dtype=torch.int32))
+    D = st.rows.shape[1]
+    g_ms = _time_ms(lambda: gather_rows_cached_cuda(st.rows, slots))
+    g_warm = _time_ms(lambda: gather_rows_cached_cuda(st.rows, slots),
+                      cold_l2=False)
+    g_plain = _time_ms(lambda: ref.gather_rows_cached_ref(st.rows, slots))
+    sl64 = slots.long()
+    g_lib = _time_ms(lambda: torch.index_select(st.rows, 0, sl64))
+    distinct = torch.unique(slots).numel()
+    nbytes = distinct * D * 4 + slots.numel() * 4 + slots.numel() * D * 4
+    g_bound, g_by = _bound(nbytes)
+    print(f"  times (ms, L2 cold): kernel {g_ms:.4f} (L2 warm "
+          f"{g_warm:.4f}), plain version {g_plain:.4f}, "
+          f"index_select library call {g_lib:.4f}; bound {g_bound:.4f} "
+          f"({nbytes / 1e6:.2f} MB: {distinct} distinct rows read, "
+          f"{slots.numel()} written)")
+
+    # ---- the cached push, on copies of the cache
+    def push_inputs(rows_like, u, sl, real):
+        grads = torch.randn((u.numel(), rows_like.shape[1]), generator=gen,
+                            device=device)
+        grads[real:] = 0.0                 # no id slot maps to a pad
+        acc = torch.rand(rows_like.shape, generator=gen, device=device) + 0.01
+        delta, g2 = adagrad_row_updates(acc[sl.long()], grads, torch.float32,
+                                        lr=0.5, eps=1e-10)
+        return acc, delta, g2
+
+    def push_checks(name, rows, acc, sl, u, delta, g2):
+        want = ref.sparse_adagrad_apply_ref(rows.clone(), acc.clone(), sl,
+                                            delta, g2)
+        runs = []
+        for _ in range(2):
+            r, a = rows.clone(), acc.clone()
+            out = sparse_adagrad_cached_apply_cuda(r, a, sl, u, delta, g2)
+            torch.cuda.synchronize()
+            if out[0] is not r or out[1] is not a:
+                raise AssertionError(f"cached push {name}: not in place")
+            runs.append((r, a))
+        for r, a in runs:
+            errs["push"] = max(errs["push"], (r - want[0]).abs().max().item())
+            if not (torch.equal(r, want[0]) and torch.equal(a, want[1])):
+                raise AssertionError(f"cached push {name}: kernel and plain "
+                                     "version differ")
+        touched = torch.zeros(rows.shape[0], dtype=torch.bool, device=device)
+        touched[sl.long()] = True
+        if not (torch.equal(runs[0][0][~touched], rows[~touched])
+                and torch.equal(runs[0][1][~touched], acc[~touched])):
+            raise AssertionError(f"cached push {name}: an untouched slot "
+                                 "changed")
+        pads = int((u[1:] <= u[:-1]).sum())
+        print(f"  cached push, {name}: bit-equal to the plain version, two "
+              f"runs bit-equal, untouched slots unchanged ({pads} pads)")
+
+    print("phase 1 (on phase 7's cache): sparse_adagrad_cached_apply against "
+          "its plain version")
+    acc, delta, g2 = push_inputs(st.rows, ws.uids, slots, n_real)
+    push_checks("slice pull, D=64", st.rows, acc, slots, ws.uids, delta, g2)
+    over, _ = pull_working_set(ids, 16384)
+    over_sl = hash_lookup_cuda(st.key_tab, st.slot_tab, st.slot_uid, over)
+    oa, od, og = push_inputs(st.rows, over, over_sl, over.numel())
+    push_checks("overflowed batch (capacity 16384, no pads), D=64", st.rows,
+                oa, over_sl, over, od, og)
+    for C, Dx, n_ids, cap in ((3000, 16, 2500, 2048), (1500, 100, 2000, 1024)):
+        rid = torch.randint(0, 40_000, (n_ids,), generator=gen,
+                            device=device, dtype=torch.int32)
+        u, _ = pull_working_set(rid, cap)
+        real = min(int(torch.unique(rid).numel()), cap)
+        perm = torch.randperm(C, generator=gen, device=device)[:real]
+        sl = torch.cat([perm, perm[:1].expand(cap - real)]).to(torch.int32)
+        rows = torch.randn((C, Dx), generator=gen, device=device)
+        a2, d2, s2 = push_inputs(rows, u, sl, real)
+        push_checks(f"C={C} D={Dx} ({real} real ids)", rows, a2, sl, u, d2,
+                    s2)
+    r, a = st.rows.clone(), acc.clone()
+
+    def cached_push():
+        return sparse_adagrad_cached_apply_cuda(r, a, slots, ws.uids, delta,
+                                                g2)
+
+    c_ms, c_warm = _time_ms(cached_push), _time_ms(cached_push,
+                                                   cold_l2=False)
+    c_plain = _time_ms(lambda: ref.sparse_adagrad_apply_ref(r, a, slots,
+                                                            delta, g2))
+
+    def library():
+        r.index_add_(0, sl64, delta)
+        a.index_add_(0, sl64, g2)
+
+    c_lib = _time_ms(library)
+    nbytes = n_real * D * 4 * 6 + slots.numel() * 4 * 2
+    c_bound, c_by = _bound(nbytes, 2 * n_real * D)
+    print(f"  times (ms, L2 cold): kernel {c_ms:.4f} (L2 warm {c_warm:.4f}), "
+          f"plain version (two index_add_) {c_plain:.4f}, index_add_ "
+          f"library calls {c_lib:.4f}; bound "
+          f"{c_bound:.4f} ({nbytes / 1e6:.2f} MB: {n_real} real rows x 6 x "
+          f"{D * 4} B + the uid and slot streams)")
+    del r, a, acc
+
+    def entry(name, source, replaces, ms, warm, plain, bound, by, lib,
+              err=0.0):
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": None, "max_abs_err": err,
+                "ms": ms, "ms_l2_warm": warm, "plain_ms": plain,
+                "bound_ms": bound,
+                "bound_by": by, "library_ms": lib}
+
+    src = "src/repro_torch/kernels/csrc/"
+    return [
+        entry("hash_lookup", src + "hash_map.cu",
+              "src/repro/kernels/hash_map.py:197", p_ms, p_warm, p_plain,
+              p_bound, p_by, None),
+        entry("gather_rows_cached", src + "sparse_adagrad.cu",
+              "src/repro/kernels/sparse_adagrad.py:194", g_ms, g_warm,
+              g_plain, g_bound, g_by, g_lib),
+        entry("sparse_adagrad_cached_apply", src + "sparse_adagrad.cu",
+              "src/repro/kernels/sparse_adagrad.py:166", c_ms, c_warm,
+              c_plain, c_bound, c_by, c_lib, errs["push"]),
+    ]
+
+
+def phase_cached_smoke(device):
+    """The cached placement at smoke size on the card: the full mirror
+    bit-identical to gather; the card against the CPU from one warm state
+    (the small cache evicts and rebuilds its map).  Returns the rebuilds
+    of the card's run."""
+    import torch
+
+    from repro_torch import tree_map
+    from repro_torch.configs import baidu_ctr
+    from repro_torch.core.cache_tier import CacheState
+    from repro_torch.core.kstep import KStepAdamState, KStepConfig, leaves
+    from repro_torch.data.synthetic import recsys_batches
+    from repro_torch.interop import ReferenceState
+    from repro_torch.models import recsys as R
+    from repro_torch.runtime.factory import build_ctr_engine, build_trainer
+    from repro_torch.runtime.online import fit_online
+    from repro_torch.runtime.trainer import HybridTrainer, TrainerConfig
+
+    smoke = baidu_ctr.SMOKE
+
+    def cfg(placement, cache_rows=None):
+        return TrainerConfig(n_pod=2, kstep=KStepConfig(k=2), capacity=256,
+                             placement=placement, cache_rows=cache_rows,
+                             log_every=1)
+
+    def losses_of(tr, steps, seed=5):
+        out = []
+        step = tr.train_step
+        tr.train_step = lambda b: out.append(step(b)) or out[-1]
+        fit_online(tr, recsys_batches(smoke, batch=32, seed=seed), steps,
+                   window=5)
+        del tr.train_step
+        return torch.stack(out).cpu()
+
+    # ---- the full mirror is the gather placement, bit for bit
+    g = build_trainer("baidu-ctr", cfg("gather"), seed=3, device=device)
+    c = build_trainer("baidu-ctr", cfg("cached", smoke.rows), seed=3,
+                      device=device)
+    lg, lc = losses_of(g, 6), losses_of(c, 6)
+    tables, accum, states = c.engine.flush(c.tables, c.sparse_state.accum,
+                                           c.backend_state)
+    dense_eq = all(torch.equal(x, y) for x, y in zip(leaves(g.dense),
+                                                     leaves(c.dense)))
+    if not (torch.equal(lg, lc) and dense_eq
+            and torch.equal(g.tables["sparse"].cpu(), tables["sparse"])
+            and torch.equal(g.sparse_state.accum["sparse"].cpu(),
+                            accum["sparse"])):
+        raise AssertionError("the cached full mirror differs from gather")
+    if float(states["sparse"].evictions) != 0:
+        raise AssertionError("the full mirror evicted")
+    print(f"phase 8: smoke size, cached full mirror (cache_rows {smoke.rows})"
+          f" vs gather on the card, 6 steps: losses, dense, flushed table and"
+          f" accumulator bit-equal")
+
+    # ---- card against CPU from one warm state
+    gpu = build_trainer("baidu-ctr", cfg("cached", 300), seed=3,
+                        device=device)
+    losses_of(gpu, 3, seed=6)                         # warm, dirty cache
+    cpu_of = lambda x: x.cpu().clone()    # the trainers update in place
+    s = gpu.opt_state
+    state = ReferenceState(
+        dense=tree_map(cpu_of, gpu.dense),
+        tables={n: cpu_of(t) for n, t in gpu.tables.items()},
+        accum={n: cpu_of(a) for n, a in gpu.sparse_state.accum.items()},
+        opt_state=KStepAdamState(cpu_of(s.step), tree_map(cpu_of, s.m),
+                                 tree_map(cpu_of, s.v_local),
+                                 tree_map(cpu_of, s.v_hat), None),
+        backend_state={n: CacheState(*[cpu_of(x) for x in bs])
+                       for n, bs in gpu.backend_state.items()})
+    tcfg = cfg("cached", 300)
+    cpu = HybridTrainer(None, build_ctr_engine(smoke, tcfg, device="cpu"),
+                        R.ctr_embed_from_workings(smoke),
+                        R.ctr_hybrid_loss(smoke), tcfg, state=state,
+                        device="cpu")
+    out = []
+    for tr in (gpu, cpu):
+        ls = losses_of(tr, 12)
+        t, _, _ = tr.engine.flush(tr.tables, tr.sparse_state.accum,
+                                  {n: CacheState(*[y.clone() for y in x])
+                                   for n, x in tr.backend_state.items()})
+        out.append((ls.numpy(), torch.cat([x.reshape(-1).cpu() for x in
+                                           leaves(tr.dense)]).numpy(),
+                    t["sparse"].numpy(), tr.backend_state["sparse"]))
+    sg, sc = out[0][3], out[1][3]
+    for f in ("slot_uid", "key_tab", "slot_tab", "n_occupied", "dirty",
+              "freq", "lookups", "fetched", "evictions", "rebuilds"):
+        if not torch.equal(getattr(sg, f).cpu(), getattr(sc, f)):
+            raise AssertionError(f"cache state {f} differs card vs CPU")
+    tol = dict(rtol=1e-4, atol=1e-6)
+    for what, x, y in zip(("losses", "dense", "flushed table"), out[0],
+                          out[1]):
+        np.testing.assert_allclose(x, y, err_msg=what, **tol)
+    rebuilds = float(sg.rebuilds)
+    print(f"phase 8: smoke size, cached (cache_rows 300, capacity 256) card "
+          f"vs CPU from one warm state, 12 steps: slot_uid, key_tab, "
+          f"slot_tab, n_occupied, dirty, freq and counters equal "
+          f"(evictions {float(sg.evictions):.0f}, rebuilds {rebuilds:.0f}); "
+          f"losses max |diff| {np.abs(out[0][0] - out[1][0]).max():.3g}, "
+          f"dense {np.abs(out[0][1] - out[1][1]).max():.3g}, table "
+          f"{np.abs(out[0][2] - out[1][2]).max():.3g}")
+    return rebuilds
+
+
 def main() -> int:
     import torch
 
@@ -1073,14 +1668,21 @@ def main() -> int:
     push = phase_push(device)
     phase_slice(device)
     _release()
-    launches = phase_train(device)
+    launches, gather_losses = phase_train(device)
     for entry in (bag, backward, push):
         entry["launches"] = launches[entry["name"]]
     phase_colocated(device)
     phase_quickstart(device)
     phase_agreement(device)
     phase_agreement_train(device)
-    print(json.dumps({"kernels": [bag, backward, push]}))
+    _release()
+    launches, cache_entries, rebuilds = phase_cached(device, gather_losses)
+    for entry in cache_entries:
+        entry["launches"] = launches[entry["name"]]
+    rebuilds += phase_cached_smoke(device)
+    if rebuilds < 1:
+        raise AssertionError("no hash-map rebuild on the card")
+    print(json.dumps({"kernels": [bag, backward, push] + cache_entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,12 +1,13 @@
 """Sparse-parameter backends: how a batch's rows reach the model.
 
-Counterpart of ``repro/core/embedding_backend.py``, for the gather
-placement: the batch's ids are deduplicated into a fixed-capacity working
-set that ends in an all-zero drop row, and the table rows are gathered into
-it.  ``pull`` is the training pull, ``lookup`` the read-only serving lookup
-(the gather placement is stateless, so the two serve the same rows), and
-``push`` applies the sparse optimizer to the pulled rows in place.  The
-routed and cached placements come with their own slices (ROADMAP queue A).
+Counterpart of ``repro/core/embedding_backend.py``.  The batch's ids are
+deduplicated into a fixed-capacity working set that ends in an all-zero
+drop row, and the rows are gathered into it.  ``pull`` is the training
+pull, ``lookup`` the read-only serving lookup, and ``push`` applies the
+sparse optimizer to the pulled rows in place.  Two placements are ported:
+``gather`` (below: the table where the model is) and ``cached``
+(``core.cache_tier.CachedBackend``: a device cache over a host-resident
+table).  The routed placement comes with ROADMAP.md queue A8.
 """
 
 from __future__ import annotations
@@ -118,20 +119,39 @@ class GatherBackend:
 
 
 # ------------------------------------------------------------------ factory
-_UNPORTED = {"routed": "A8 (routed placement)",
-             "cached": "A4 (cached placement)"}
+def make_backend(placement: str, fused: bool = False, device="cuda",
+                 **kwargs):
+    """``placement`` -> a backend instance.
 
-
-def make_backend(placement: str, fused: bool = False) -> GatherBackend:
-    """``placement`` -> a backend instance ("gather" is the one ported).
-    ``fused`` selects the push kernel (see ``GatherBackend``)."""
-    if placement == "gather":
-        return GatherBackend(fused=fused)
-    if placement in _UNPORTED:
+    ``fused`` selects the gather placement's push (the cached placement
+    always runs its kernels through ``kernels.ops``).  ``cached`` takes
+    ``cache_rows`` (the device cache size, required) and ``decay`` (the LFU
+    decay, optional), and keeps its cache state on ``device``; see
+    ``repro_torch.core.cache_tier.CachedBackend``.  The staged (DiskStore)
+    dataflow and the routed placement are not ported yet and raise.
+    """
+    if kwargs.get("staged"):
         raise NotImplementedError(
-            f"placement {placement!r} is not ported yet; see ROADMAP.md "
-            f"queue {_UNPORTED[placement]}")
+            "staged=True (the DiskStore dataflow) is not ported yet; see "
+            "ROADMAP.md queue A7 (SSD tier)")
+    kwargs.pop("staged", None)
+    if placement == "gather":
+        if kwargs:
+            raise TypeError(
+                f"placement 'gather' does not accept {sorted(kwargs)} "
+                f"(routed/cached-only options)"
+            )
+        return GatherBackend(fused=fused)
+    if placement == "routed":
+        raise NotImplementedError(
+            "placement 'routed' is not ported yet; see ROADMAP.md queue A8 "
+            "(routed placement)")
+    if placement == "cached":
+        from repro_torch.core.cache_tier import CachedBackend
+
+        if "cache_rows" not in kwargs:
+            raise TypeError("placement 'cached' requires cache_rows")
+        return CachedBackend(device=device, **kwargs)
     raise ValueError(
         f"unknown placement {placement!r}; use 'gather', 'routed', or 'cached'"
     )
-

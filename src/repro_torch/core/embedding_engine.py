@@ -11,7 +11,11 @@ placement backend and the row store:
   3. ``bag_from_working``: the per-field bags over the working set, by the
      hand-written CUDA kernels on the card (``kernels.ops``);
   4. ``push(tables, accum, states, wss, row_grads)``: the sparse optimizer
-     applied to each working set, in place (Algorithm 1 line 13).
+     applied to each working set, in place (Algorithm 1 line 13);
+  5. ``flush`` / ``export``: deferred writes (the cache tier's dirty rows)
+     back into the tables, and the tables in logical layout;
+  6. ``cache_counters`` / ``derive_cache_stats`` / ``cache_stats``: the
+     cache tier's meters ({} for the stateless gather placement).
 """
 
 from __future__ import annotations
@@ -99,6 +103,27 @@ class EmbeddingEngine:
         """Per-table backend state (empty tuples when stateless)."""
         return {n: self.backend.init_state(t) for n, t in tables.items()}
 
+    def prepare(self, tables: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """Logical tables -> the backend's layout and placement (the cached
+        placement keeps them in host memory)."""
+        return {n: self.backend.prepare(t) for n, t in tables.items()}
+
+    def export(self, tables: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """Backend layout -> logical rows (row i == feature id i).  Under
+        the cached placement, ``flush`` first so the dirty cached rows reach
+        the tables."""
+        return {n: self.backend.export(t) for n, t in tables.items()}
+
+    def flush(self, tables, accum, states):
+        """Force the backend's deferred writes (dirty cached rows) into the
+        tables and the accumulator: ``(tables, accum, states)``."""
+        new_tables, new_accum, new_states = {}, {}, {}
+        for name in tables:
+            nt, na, ns = self.backend.flush(tables[name], accum[name],
+                                            states[name])
+            new_tables[name], new_accum[name], new_states[name] = nt, na, ns
+        return new_tables, new_accum, new_states
+
     # ----------------------------------------------------------------- ids
     def ids_from_batch(self, batch) -> Dict[str, torch.Tensor]:
         """Each table's flattened id tensor from a batch dict (instance-major,
@@ -178,6 +203,44 @@ class EmbeddingEngine:
         aux)``.  PyTorch runs eagerly, so the stage is ``lookup`` itself; it
         consumes none of the live training tensors."""
         return self.lookup
+
+    def cache_counters(self, states) -> Dict[str, float]:
+        """The cache tier's CUMULATIVE counters summed across tables ({} for
+        stateless placements), read to the host.  Per-interval deltas are
+        the trainer's job."""
+        tot: Dict[str, float] = {}
+        stats_fn = getattr(self.backend, "stats", None)
+        if stats_fn is not None:
+            for s in states.values():
+                for k, v in stats_fn(s).items():
+                    tot[k] = tot.get(k, 0.0) + v
+        for k, v in self.store.stats().items():
+            tot[k] = tot.get(k, 0.0) + float(v)
+        return tot
+
+    @staticmethod
+    def derive_cache_stats(counters: Dict[str, float]) -> Dict[str, float]:
+        """Counter totals or deltas -> the reported stats ({} for {}).  An
+        interval with no lookups reports ``cache_hit_rate`` 0.0, not 1.0."""
+        if not counters:
+            return {}
+        out: Dict[str, float] = {}
+        if "lookups" in counters:
+            lookups = counters["lookups"]
+            hit_rate = (
+                0.0 if lookups <= 0.0 else 1.0 - counters["fetched"] / lookups
+            )
+            out.update({
+                "cache_hit_rate": hit_rate,
+                "evictions": int(counters["evictions"]),
+                "cache_bytes_h2d": counters["bytes_h2d"],
+                "cache_bytes_d2h": counters["bytes_d2h"],
+            })
+        return out
+
+    def cache_stats(self, states) -> Dict[str, float]:
+        """Whole-run cache stats ({} for stateless placements)."""
+        return self.derive_cache_stats(self.cache_counters(states))
 
     @staticmethod
     def overflow(working_sets: Dict[str, WorkingSet]) -> torch.Tensor:

@@ -3,9 +3,9 @@
 JAX's random bits cannot be replayed in PyTorch, so a comparison of the two
 starts both from one state: the reference trainer's parameters, exported as
 numpy (``jax.device_get`` of ``tr.dense``, ``tr.tables``,
-``tr.sparse_state.accum`` and, for training, ``tr.opt_state``), go through
-``from_reference`` and into ``HybridTrainer(..., state=...)``.  This module
-reads numpy only.
+``tr.sparse_state.accum``, for training ``tr.opt_state`` and, under the
+cached placement, ``tr.backend_state``), go through ``from_reference`` and
+into ``HybridTrainer(..., state=...)``.  This module reads numpy only.
 """
 
 from __future__ import annotations
@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device, tree_map
+from repro_torch.core.cache_tier import CacheState
 from repro_torch.core.kstep import KStepAdamState
 
 
@@ -24,25 +25,38 @@ class ReferenceState(NamedTuple):
     tables: Dict[str, torch.Tensor]
     accum: Dict[str, torch.Tensor]
     opt_state: Optional[KStepAdamState] = None   # None: a fresh k-step state
+    backend_state: Optional[Dict[str, Any]] = None  # None: a fresh one
+
+
+def _fields(x) -> dict:
+    return x._asdict() if hasattr(x, "_asdict") else dict(x)
 
 
 def from_reference(dense_np, tables_np, accum_np, opt_state_np=None,
-                   device="cuda") -> ReferenceState:
+                   device="cuda", backend_state_np=None) -> ReferenceState:
     """The reference trainer's numpy state as tensors on ``device``.
 
     ``opt_state_np`` is the reference's ``KStepAdamState`` after
     ``jax.device_get`` (or a dict with its fields ``step``, ``m``,
     ``v_local``, ``v_hat``, ``ef``; ``ef`` is None unless the merge is
-    ``int8_ef``)."""
+    ``int8_ef``).  ``backend_state_np`` is the reference's per-table
+    backend state after ``jax.device_get``: under the cached placement
+    ``{table: CacheState}`` (or dicts with its fields), so a comparison can
+    start from a warm cache; the cache state goes to ``device``.  The
+    trainer moves the tables where its placement keeps them."""
     device = resolve_device(device)
 
     def conv(x):
         return torch.from_numpy(np.array(x, copy=True)).to(device)
 
+    backend_state = None
+    if backend_state_np is not None:
+        backend_state = {
+            n: CacheState(**{f: conv(v) for f, v in _fields(s).items()})
+            for n, s in backend_state_np.items()}
     opt_state = None
     if opt_state_np is not None:
-        fields = (opt_state_np._asdict() if hasattr(opt_state_np, "_asdict")
-                  else dict(opt_state_np))
+        fields = _fields(opt_state_np)
         opt_state = KStepAdamState(
             step=torch.tensor(int(np.asarray(fields["step"])),
                               dtype=torch.int32, device=device),
@@ -57,4 +71,5 @@ def from_reference(dense_np, tables_np, accum_np, opt_state_np=None,
         tables={n: conv(t) for n, t in tables_np.items()},
         accum={n: conv(a) for n, a in accum_np.items()},
         opt_state=opt_state,
+        backend_state=backend_state,
     )

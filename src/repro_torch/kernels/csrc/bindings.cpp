@@ -23,9 +23,17 @@ void launch_embedding_bag_weight_grad(const float* g, int64_t num_bags,
                                       const int32_t* inv, int64_t nnz,
                                       float* g_w, cudaStream_t stream);
 void launch_sparse_adagrad_apply(float* table, float* accum, int64_t rows,
-                                 int dim, const int32_t* uids, int64_t cap,
+                                 int dim, const int32_t* uids,
+                                 const int32_t* slots, int64_t cap,
                                  const float* delta, const float* g2,
                                  cudaStream_t stream);
+void launch_gather_rows_cached(const float* cache_rows, int64_t n_slots,
+                               int dim, const int32_t* slots, int64_t cap,
+                               float* out, cudaStream_t stream);
+void launch_hash_lookup(const int32_t* key_tab, const int32_t* slot_tab,
+                        int64_t n_buckets, const int32_t* slot_uid,
+                        int64_t n_slots, const int32_t* uids, int64_t n,
+                        int32_t* out, cudaStream_t stream);
 
 namespace {
 
@@ -149,13 +157,12 @@ void embedding_bag_weight_grad(const torch::Tensor& g,
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
-// table[uids[i]] += delta[i]; accum[uids[i]] += g2[i], in place, skipping
-// the pads of pull_working_set's layout (csrc/sparse_adagrad.cu).
-void sparse_adagrad_apply(const torch::Tensor& table,
-                          const torch::Tensor& accum,
-                          const torch::Tensor& uids,
-                          const torch::Tensor& delta,
-                          const torch::Tensor& g2) {
+// Shape checks shared by both pushes; returns (dim, cap).
+std::pair<int64_t, int64_t> check_push(const torch::Tensor& table,
+                                       const torch::Tensor& accum,
+                                       const torch::Tensor& uids,
+                                       const torch::Tensor& delta,
+                                       const torch::Tensor& g2) {
   check_cuda(table, "table", torch::kFloat32, 2, table);
   check_cuda(accum, "accum", torch::kFloat32, 2, table);
   check_cuda(uids, "uids", torch::kInt32, 1, table);
@@ -168,13 +175,95 @@ void sparse_adagrad_apply(const torch::Tensor& table,
               "table");
   TORCH_CHECK(delta.size(0) == cap && delta.size(1) == dim && g2.sizes() ==
               delta.sizes(), "delta and g2 must be (", cap, ", ", dim, ")");
+  return {dim, cap};
+}
+
+// table[uids[i]] += delta[i]; accum[uids[i]] += g2[i], in place, skipping
+// the pads of pull_working_set's layout (csrc/sparse_adagrad.cu).
+void sparse_adagrad_apply(const torch::Tensor& table,
+                          const torch::Tensor& accum,
+                          const torch::Tensor& uids,
+                          const torch::Tensor& delta,
+                          const torch::Tensor& g2) {
+  const auto [dim, cap] = check_push(table, accum, uids, delta, g2);
   if (cap == 0) return;
   const c10::cuda::CUDAGuard guard(table.device());
   launch_sparse_adagrad_apply(
       table.data_ptr<float>(), accum.data_ptr<float>(), table.size(0),
-      static_cast<int>(dim), uids.data_ptr<int32_t>(), cap,
+      static_cast<int>(dim), uids.data_ptr<int32_t>(), nullptr, cap,
       delta.data_ptr<float>(), g2.data_ptr<float>(),
       c10::cuda::getCurrentCUDAStream().stream());
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
+// cache_rows[slots[i]] += delta[i]; cache_accum[slots[i]] += g2[i], in
+// place, skipping the pads found by uids (csrc/sparse_adagrad.cu).
+void sparse_adagrad_cached_apply(const torch::Tensor& cache_rows,
+                                 const torch::Tensor& cache_accum,
+                                 const torch::Tensor& slots,
+                                 const torch::Tensor& uids,
+                                 const torch::Tensor& delta,
+                                 const torch::Tensor& g2) {
+  const auto [dim, cap] = check_push(cache_rows, cache_accum, uids, delta,
+                                     g2);
+  check_cuda(slots, "slots", torch::kInt32, 1, cache_rows);
+  TORCH_CHECK(slots.size(0) == cap, "slots and uids differ in length");
+  check_rows(cache_rows.size(0), "cache rows");
+  if (cap == 0) return;
+  const c10::cuda::CUDAGuard guard(cache_rows.device());
+  launch_sparse_adagrad_apply(
+      cache_rows.data_ptr<float>(), cache_accum.data_ptr<float>(),
+      cache_rows.size(0), static_cast<int>(dim), uids.data_ptr<int32_t>(),
+      slots.data_ptr<int32_t>(), cap, delta.data_ptr<float>(),
+      g2.data_ptr<float>(), c10::cuda::getCurrentCUDAStream().stream());
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
+// out[i] = cache_rows[slots[i]] (csrc/sparse_adagrad.cu).
+void gather_rows_cached(const torch::Tensor& cache_rows,
+                        const torch::Tensor& slots, const torch::Tensor& out) {
+  check_cuda(cache_rows, "cache_rows", torch::kFloat32, 2, cache_rows);
+  check_cuda(slots, "slots", torch::kInt32, 1, cache_rows);
+  check_cuda(out, "out", torch::kFloat32, 2, cache_rows);
+  const int64_t dim = cache_rows.size(1);
+  const int64_t cap = slots.size(0);
+  TORCH_CHECK(dim >= 1 && dim < kMaxRows, "dim must be positive, got ", dim);
+  check_rows(cache_rows.size(0), "cache rows");
+  TORCH_CHECK(out.size(0) == cap && out.size(1) == dim, "out must be (", cap,
+              ", ", dim, ")");
+  if (cap == 0) return;
+  const c10::cuda::CUDAGuard guard(cache_rows.device());
+  launch_gather_rows_cached(cache_rows.data_ptr<float>(), cache_rows.size(0),
+                            static_cast<int>(dim), slots.data_ptr<int32_t>(),
+                            cap, out.data_ptr<float>(),
+                            c10::cuda::getCurrentCUDAStream().stream());
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
+// slots[i] = live cache slot of uids[i] or -1 (csrc/hash_map.cu).
+void hash_lookup(const torch::Tensor& key_tab, const torch::Tensor& slot_tab,
+                 const torch::Tensor& slot_uid, const torch::Tensor& uids,
+                 const torch::Tensor& out) {
+  check_cuda(key_tab, "key_tab", torch::kInt32, 1, key_tab);
+  check_cuda(slot_tab, "slot_tab", torch::kInt32, 1, key_tab);
+  check_cuda(slot_uid, "slot_uid", torch::kInt32, 1, key_tab);
+  check_cuda(uids, "uids", torch::kInt32, 1, key_tab);
+  check_cuda(out, "out", torch::kInt32, 1, key_tab);
+  const int64_t n_buckets = key_tab.size(0);
+  TORCH_CHECK(n_buckets >= 1 && n_buckets <= kMaxRows &&
+              (n_buckets & (n_buckets - 1)) == 0,
+              "key_tab must have a power-of-2 length <= 2^31, got ",
+              n_buckets);
+  TORCH_CHECK(slot_tab.size(0) == n_buckets, "slot_tab must have ", n_buckets,
+              " entries");
+  TORCH_CHECK(out.size(0) == uids.size(0), "out and uids differ in length");
+  if (uids.size(0) == 0) return;
+  const c10::cuda::CUDAGuard guard(key_tab.device());
+  launch_hash_lookup(key_tab.data_ptr<int32_t>(), slot_tab.data_ptr<int32_t>(),
+                     n_buckets, slot_uid.data_ptr<int32_t>(), slot_uid.size(0),
+                     uids.data_ptr<int32_t>(), uids.size(0),
+                     out.data_ptr<int32_t>(),
+                     c10::cuda::getCurrentCUDAStream().stream());
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
@@ -196,4 +285,15 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
         "In-place AdaGrad push of precomputed (delta, g2) rows (CUDA)",
         py::arg("table"), py::arg("accum"), py::arg("uids"), py::arg("delta"),
         py::arg("g2"));
+  m.def("sparse_adagrad_cached_apply", &sparse_adagrad_cached_apply,
+        "In-place AdaGrad push into the device cache by slot (CUDA)",
+        py::arg("cache_rows"), py::arg("cache_accum"), py::arg("slots"),
+        py::arg("uids"), py::arg("delta"), py::arg("g2"));
+  m.def("gather_rows_cached", &gather_rows_cached,
+        "Row gather from the device cache by slot (CUDA)",
+        py::arg("cache_rows"), py::arg("slots"), py::arg("out"));
+  m.def("hash_lookup", &hash_lookup,
+        "Batch linear probe of the cache's id -> slot hash map (CUDA)",
+        py::arg("key_tab"), py::arg("slot_tab"), py::arg("slot_uid"),
+        py::arg("uids"), py::arg("out"));
 }

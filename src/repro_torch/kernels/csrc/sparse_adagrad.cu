@@ -1,11 +1,20 @@
-// The in-place AdaGrad push for Hopper (sm_90a):
+// The in-place AdaGrad pushes and the cached row gather for Hopper
+// (sm_90a):
 //
-//   table[uids[i]] += delta[i];  accum[uids[i]] += g2[i]   (every real i)
+//   push:         table[uids[i]] += delta[i];  accum[uids[i]] += g2[i]
+//   cached push:  cache[slots[i]] += delta[i]; cache_accum[slots[i]] += g2[i]
+//                 (every real i)
+//   cached gather: out[i] = cache_rows[slots[i]]
 //
-// Replaces the Pallas TPU kernel src/repro/kernels/sparse_adagrad.py
-// (sparse_adagrad_apply_pallas, pallas_call at :127).  As there, the
+// Replace the Pallas TPU kernels of src/repro/kernels/sparse_adagrad.py:
+// sparse_adagrad_apply_pallas (pallas_call at :127),
+// sparse_adagrad_cached_apply_pallas (:166) and gather_rows_cached_pallas
+// (:194).  The two pushes share one kernel body under two index streams:
+// the row of position i is uids[i] (the table) or slots[i] (the device
+// cache, the hash probe's output); the pad test below reads the uids in
+// both, because a slot order is not ascending.  As there, the
 // AdaGrad arithmetic is done once, outside, by adagrad_row_updates (shared
-// with the plain version), and this kernel only adds two loads: the result
+// with the plain version), and the pushes only add two loads: the result
 // is bit-equal to the plain index_add_ scatter.
 //
 // Contract on `uids`: laid out as pull_working_set lays them out, i.e. the
@@ -22,15 +31,28 @@
 // uids[i] <= uids[i-1]: exactly the pads.  Skipping is bit-exact, because
 // x + (-0.0) == x for every x and the accumulator is never -0.0.  A uid
 // outside [0, rows) is skipped too (the reference's scatter drops it).
+// In the cached push the pads' slots repeat slots[0] (the first id's
+// slot), so the same uid test finds them; a slot outside [0, C) is
+// skipped.
 //
-// What bounds it: bytes.  Per real row it reads the table row, the
-// accumulator row, delta and g2, and writes the two rows back (6 x 4 x dim
-// bytes), plus the uid stream; there is one add per element.
+// What bounds the pushes: bytes.  Per real row they read the table row, the
+// accumulator row, delta and g2, and write the two rows back (6 x 4 x dim
+// bytes), plus the uid (and slot) stream; there is one add per element.
+// The cached push's rows are the cache's, so it behaves like the table
+// push on a (C, dim) table.
 //
 // Design: one warp per uid position, eight per 256-thread block; lanes span
 // dim (coalesced 128-byte rows at dim 32k).  Every table offset is int64_t:
 // at 50 M rows x 64, uid * dim reaches 3.2e9.  The tensors are updated in
 // place; nothing of table size is allocated.
+//
+// The cached gather is pure data movement (bytes: one cache row read and
+// one row written per position, plus the slot stream): one warp per output
+// row, 64-bit row offsets, and 16-byte loads and stores (float4) when dim
+// is a multiple of 4 and both tensors are 16-byte aligned, else one float
+// per lane.  The wrapper demands 0 <= slots < C (the reference's lookup
+// passes "safe" slots); a slot outside that range writes a zero row.  The
+// copy is exact, so the result is bit-equal to the plain index_select.
 #include <cuda_runtime.h>
 #include <cstdint>
 
@@ -38,10 +60,14 @@ namespace {
 
 constexpr int kWarp = 32;
 constexpr int kUidsPerBlock = 8;
+constexpr int kRowsPerBlock = 8;
 
+// slots == nullptr: the row of position i is uids[i] (the table push);
+// otherwise slots[i] (the cached push).
 __global__ void sparse_adagrad_apply_kernel(
     float* __restrict__ table, float* __restrict__ accum, int64_t rows,
-    int dim, const int32_t* __restrict__ uids, int64_t cap,
+    int dim, const int32_t* __restrict__ uids,
+    const int32_t* __restrict__ slots, int64_t cap,
     const float* __restrict__ delta, const float* __restrict__ g2) {
   const int lane = threadIdx.x % kWarp;
   const int64_t i =
@@ -49,9 +75,10 @@ __global__ void sparse_adagrad_apply_kernel(
   if (i >= cap) return;  // whole warps leave together
   const int64_t u = uids[i];
   if (i > 0 && u <= static_cast<int64_t>(uids[i - 1])) return;  // a pad
-  if (u < 0 || u >= rows) return;
-  float* t = table + u * dim;
-  float* a = accum + u * dim;
+  const int64_t r = slots == nullptr ? u : static_cast<int64_t>(slots[i]);
+  if (r < 0 || r >= rows) return;
+  float* t = table + r * dim;
+  float* a = accum + r * dim;
   const float* d = delta + i * dim;
   const float* s = g2 + i * dim;
   for (int c = lane; c < dim; c += kWarp) {
@@ -60,15 +87,59 @@ __global__ void sparse_adagrad_apply_kernel(
   }
 }
 
+template <bool kVec4>
+__global__ void gather_rows_cached_kernel(
+    const float* __restrict__ cache_rows, int64_t n_slots, int dim,
+    const int32_t* __restrict__ slots, int64_t cap, float* __restrict__ out) {
+  const int lane = threadIdx.x % kWarp;
+  const int64_t i =
+      static_cast<int64_t>(blockIdx.x) * kRowsPerBlock + threadIdx.x / kWarp;
+  if (i >= cap) return;
+  const int64_t s = slots[i];
+  const bool ok = s >= 0 && s < n_slots;
+  if (kVec4) {
+    const int n4 = dim / 4;
+    const float4* src =
+        reinterpret_cast<const float4*>(cache_rows + (ok ? s : 0) * dim);
+    float4* dst = reinterpret_cast<float4*>(out + i * dim);
+    for (int c = lane; c < n4; c += kWarp) {
+      dst[c] = ok ? src[c] : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  } else {
+    const float* src = cache_rows + (ok ? s : 0) * dim;
+    float* dst = out + i * dim;
+    for (int c = lane; c < dim; c += kWarp) dst[c] = ok ? src[c] : 0.f;
+  }
+}
+
 }  // namespace
 
-// The binding checks every shape before it calls this; cap >= 1.
+// The binding checks every shape before these are called; cap >= 1.
 void launch_sparse_adagrad_apply(float* table, float* accum, int64_t rows,
-                                 int dim, const int32_t* uids, int64_t cap,
+                                 int dim, const int32_t* uids,
+                                 const int32_t* slots, int64_t cap,
                                  const float* delta, const float* g2,
                                  cudaStream_t stream) {
   const int64_t blocks = (cap + kUidsPerBlock - 1) / kUidsPerBlock;
   sparse_adagrad_apply_kernel<<<static_cast<unsigned>(blocks),
                                 kUidsPerBlock * kWarp, 0, stream>>>(
-      table, accum, rows, dim, uids, cap, delta, g2);
+      table, accum, rows, dim, uids, slots, cap, delta, g2);
+}
+
+void launch_gather_rows_cached(const float* cache_rows, int64_t n_slots,
+                               int dim, const int32_t* slots, int64_t cap,
+                               float* out, cudaStream_t stream) {
+  const int64_t blocks = (cap + kRowsPerBlock - 1) / kRowsPerBlock;
+  const bool vec4 = dim % 4 == 0 &&
+                    reinterpret_cast<uintptr_t>(cache_rows) % 16 == 0 &&
+                    reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  if (vec4) {
+    gather_rows_cached_kernel<true><<<static_cast<unsigned>(blocks),
+                                      kRowsPerBlock * kWarp, 0, stream>>>(
+        cache_rows, n_slots, dim, slots, cap, out);
+  } else {
+    gather_rows_cached_kernel<false><<<static_cast<unsigned>(blocks),
+                                       kRowsPerBlock * kWarp, 0, stream>>>(
+        cache_rows, n_slots, dim, slots, cap, out);
+  }
 }

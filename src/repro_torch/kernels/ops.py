@@ -6,8 +6,9 @@ Nothing falls back: a CUDA tensor the kernel does not take raises.
 
 ``launches`` counts, per path, the calls that ran each function: the CUDA
 kernels under their names (``embedding_bag``, ``embedding_bag_backward``,
-``sparse_adagrad_apply``), the plain versions under the same name with
-``_ref``.  A run resets it with ``reset_launches()`` and reads it afterwards
+``sparse_adagrad_apply``, and the cache tier's ``hash_lookup``,
+``gather_rows_cached``, ``sparse_adagrad_cached_apply``), the plain
+versions under the same name with ``_ref``.  A run resets it with ``reset_launches()`` and reads it afterwards
 to show which path it took.
 """
 
@@ -20,9 +21,12 @@ from repro_torch.kernels.embedding_bag import (
     embedding_bag_backward_cuda,
     embedding_bag_cuda,
 )
+from repro_torch.kernels.hash_map import hash_lookup_cuda
 from repro_torch.kernels.sparse_adagrad import (
     adagrad_row_updates,
+    gather_rows_cached_cuda,
     sparse_adagrad_apply_cuda,
+    sparse_adagrad_cached_apply_cuda,
 )
 
 _COMBINERS = ("sum", "mean", "sqrtn")
@@ -31,6 +35,9 @@ launches = {
     "embedding_bag": 0, "embedding_bag_ref": 0,
     "embedding_bag_backward": 0, "embedding_bag_backward_ref": 0,
     "sparse_adagrad_apply": 0, "sparse_adagrad_apply_ref": 0,
+    "hash_lookup": 0, "hash_lookup_ref": 0,
+    "gather_rows_cached": 0, "gather_rows_cached_ref": 0,
+    "sparse_adagrad_cached_apply": 0, "sparse_adagrad_cached_apply_ref": 0,
 }
 
 
@@ -151,4 +158,56 @@ def sparse_adagrad_apply(table, accum, uids, grads, *, lr, eps):
         return ref.sparse_adagrad_apply_ref(table, accum, uids, delta, g2)
     out = sparse_adagrad_apply_cuda(table, accum, uids, delta, g2)
     launches["sparse_adagrad_apply"] += 1
+    return out
+
+
+def hash_lookup(key_tab, slot_tab, slot_uid, uids):
+    """The cache tier's id -> slot probe: ``slots[i]`` = the live cache slot
+    of ``uids[i]``, or -1.  An integer result: the kernel and the plain
+    version walk the same chains and agree bit for bit."""
+    if kernel_mode(key_tab) == "ref":
+        launches["hash_lookup_ref"] += 1
+        return ref.hash_lookup_ref(key_tab, slot_tab, slot_uid, uids)
+    out = hash_lookup_cuda(key_tab, slot_tab, slot_uid, uids)
+    launches["hash_lookup"] += 1
+    return out
+
+
+def gather_rows_cached(cache_rows, slots):
+    """The cached pull's gather: ``out[i] = cache_rows[slots[i]]``, with the
+    probe's output as the index stream (``0 <= slots < C``)."""
+    if kernel_mode(cache_rows) == "ref":
+        launches["gather_rows_cached_ref"] += 1
+        return ref.gather_rows_cached_ref(cache_rows, slots)
+    out = gather_rows_cached_cuda(cache_rows, slots)
+    launches["gather_rows_cached"] += 1
+    return out
+
+
+def sparse_adagrad_cached_apply(cache_rows, cache_accum, slots, grads, *,
+                                lr, eps, uids=None):
+    """The cached push: AdaGrad row updates applied into the device cache
+    by slot, in place; returns the same ``(cache_rows, cache_accum)``.
+
+    The accumulator rows come through ``gather_rows_cached`` and the row
+    math through ``adagrad_row_updates``, as in the reference, so the
+    kernel and the plain ``index_add_`` receive the same bits.  The kernel
+    finds the pads by the working set's ``uids`` (a slot order is not
+    ascending), so on CUDA tensors ``uids`` is required.
+    """
+    on_cuda = kernel_mode(cache_rows) == "cuda"
+    if on_cuda and uids is None:
+        raise ValueError("sparse_adagrad_cached_apply on CUDA tensors needs "
+                         "the working set's uids (the kernel skips the pads "
+                         "by them)")
+    accum_rows = gather_rows_cached(cache_accum, slots)
+    delta, g2 = adagrad_row_updates(accum_rows, grads, cache_rows.dtype,
+                                    lr=lr, eps=eps)
+    if not on_cuda:
+        launches["sparse_adagrad_cached_apply_ref"] += 1
+        return ref.sparse_adagrad_apply_ref(cache_rows, cache_accum, slots,
+                                            delta, g2)
+    out = sparse_adagrad_cached_apply_cuda(cache_rows, cache_accum, slots,
+                                           uids, delta, g2)
+    launches["sparse_adagrad_cached_apply"] += 1
     return out

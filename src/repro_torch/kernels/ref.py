@@ -88,3 +88,39 @@ def sparse_adagrad_apply_ref(table, accum, uids, delta, g2):
     table.index_add_(0, idx, delta.to(table.dtype))
     accum.index_add_(0, idx, g2)
     return table, accum
+
+
+def gather_rows_cached_ref(cache_rows, slots):
+    """``out[i] = cache_rows[slots[i]]``: the cached pull's row gather."""
+    return cache_rows.index_select(0, slots.long())
+
+
+def hash_lookup_ref(key_tab, slot_tab, slot_uid, uids):
+    """The batch linear probe, the plain version of ``hash_lookup_cuda``:
+    ``slots[i]`` = the live cache slot of ``uids[i]`` (an entry ``(k, s)``
+    is live iff ``slot_uid[s] == k``), or -1.
+
+    Rounds over the batch as in the reference: every id still probing
+    advances one bucket per round until it has seen its key (at most one
+    bucket holds it) or an EMPTY bucket.  At most H rounds: an id that has
+    seen neither by then (a map with no EMPTY bucket on its chain) gets -1,
+    as from the kernel.
+    """
+    from repro_torch.kernels.hash_map import EMPTY, hash_bucket
+
+    H = key_tab.shape[0]
+    slot = torch.full(uids.shape, -1, dtype=torch.int32, device=uids.device)
+    idx = torch.arange(uids.shape[0], device=uids.device)
+    u = uids
+    b = hash_bucket(uids, H).to(torch.int64)
+    for _ in range(H):
+        if not idx.numel():
+            break
+        kb = key_tab[b]
+        found = kb == u
+        s = slot_tab[b[found]].long()
+        live = slot_uid[s] == u[found]
+        slot[idx[found][live]] = s[live].to(torch.int32)
+        active = ~found & (kb != EMPTY)
+        idx, u, b = idx[active], u[active], (b[active] + 1) & (H - 1)
+    return slot

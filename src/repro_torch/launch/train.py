@@ -4,16 +4,24 @@
         --steps 20 --device cpu                   # smoke size, on the CPU
     PYTHONPATH=src python -m repro_torch.launch.train --arch baidu-ctr \\
         --full --batch 1024 --capacity 65536      # full width, on the card
+    PYTHONPATH=src python -m repro_torch.launch.train --arch baidu-ctr \\
+        --placement cached --cache-rows 512 --device cpu   # the cache tier
 
 Counterpart of ``repro/launch/train.py``'s recsys branch for ``baidu-ctr``:
 the hybrid trainer (k-step Adam on the dense tower, AdaGrad pushes into the
-tables on the gather placement) through the online predict-then-train loop
+tables) through the online predict-then-train loop
 ``runtime.online.fit_online``, with the reference's defaults (n_pod 2, k 20,
 ``two_phase`` merge, sparse lr 0.5, initial accumulator 0.01).  ``--serve``
 co-locates a ``CTRServer`` that scores a second request stream through the
 engine's read-only lookup, draining after each step; the training
 trajectory is the same as without it.  The final line has the reference's
 form.
+
+Placements: ``gather`` (the table next to the model) and ``cached`` (the
+paper's §2.3 hierarchy: the full table and its AdaGrad accumulator in host
+memory, a device cache of ``--cache-rows`` rows, by default the capacity,
+serving the Zipf-hot working set; the final line adds ``cache_hit_rate``
+and ``evictions``, the serving line ``serve_hit_rate``).
 
 ``--full`` selects the full model config (2e9 rows, which one card cannot
 hold: pass ``--rows`` to cut the table, e.g. ``--rows 50000000``).
@@ -42,11 +50,15 @@ def build_argparser() -> argparse.ArgumentParser:
     ap.add_argument("--sparse-lr", type=float, default=0.5)
     ap.add_argument("--placement", default="gather",
                     choices=["gather", "routed", "cached"],
-                    help="sparse pull/push backend ('gather' is ported)")
+                    help="sparse pull/push backend ('gather' and 'cached' "
+                         "are ported)")
     ap.add_argument("--capacity", type=int, default=0,
                     help="working-set bound per batch (0: arch default)")
     ap.add_argument("--rows", type=int, default=0,
                     help="cut the table to this many rows (0: the config's)")
+    ap.add_argument("--cache-rows", type=int, default=0,
+                    help="device cache rows for --placement cached "
+                         "(0: the capacity)")
     ap.add_argument("--serve", action="store_true",
                     help="co-locate a CTR serving tier with training")
     ap.add_argument("--serve-batch", type=int, default=64,
@@ -61,7 +73,6 @@ def build_argparser() -> argparse.ArgumentParser:
     ap.add_argument("--prefetch", action="store_true")
     ap.add_argument("--ckpt-dir", default="")
     ap.add_argument("--store", default="host", choices=["host", "disk"])
-    ap.add_argument("--cache-rows", type=int, default=0)
     ap.add_argument("--merge-delay", type=int, default=0)
     ap.add_argument("--strict-transfers", action="store_true")
     return ap
@@ -72,7 +83,6 @@ def _reject_unported(args) -> None:
         (args.prefetch, "--prefetch", "A5 (prefetch)"),
         (bool(args.ckpt_dir), "--ckpt-dir", "A3 (checkpointing)"),
         (args.store != "host", "--store disk", "A7 (SSD tier)"),
-        (bool(args.cache_rows), "--cache-rows", "A4 (cached placement)"),
     ]
     for given, flag, item in unported:
         if given:
@@ -106,7 +116,7 @@ def main(argv=None):
         sparse=SparseAdagradConfig(lr=args.sparse_lr,
                                    initial_accumulator=0.01),
         placement=args.placement, capacity=args.capacity or None,
-        merge_delay=args.merge_delay,
+        cache_rows=args.cache_rows or None, merge_delay=args.merge_delay,
     )
     t0 = time.perf_counter()
     tr = build_trainer(args.arch, tcfg, model_cfg=cfg, device=args.device)
@@ -126,9 +136,11 @@ def main(argv=None):
             loss = tr.train_step(b)
             srv.drain()                         # commit boundary
         s = srv.summary()
+        hit = (f"serve_hit_rate {s['serve_hit_rate']:.3f} "
+               if "serve_hit_rate" in s else "")
         print(f"final loss {float(loss):.6f} "
               f"served {int(s['served'])} qps {s['qps']:.1f} "
-              f"p50 {s['p50'] * 1e3:.2f}ms p99 {s['p99'] * 1e3:.2f}ms "
+              f"p50 {s['p50'] * 1e3:.2f}ms p99 {s['p99'] * 1e3:.2f}ms {hit}"
               f"placement {args.placement} prefetch {args.prefetch} "
               f"({args.steps / (time.perf_counter() - t0):.2f} steps/s)")
         return
@@ -136,10 +148,16 @@ def main(argv=None):
     hist, online_auc = fit_online(tr, gen, args.steps, window=20, log=print,
                                   strict_transfers=args.strict_transfers)
     loss = hist[-1]["loss"] if hist else float("nan")
+    stats = tr.sparse_metrics()
+    cache = (
+        f"cache_hit_rate {stats['cache_hit_rate_total']:.3f} "
+        f"evictions {stats['evictions_total']} "
+        if "cache_hit_rate_total" in stats else ""
+    )
     auc_s = f"online AUC {online_auc:.4f} " if online_auc is not None else ""
     print(f"final loss {float(loss):.6f} {auc_s}"
           f"placement {args.placement} prefetch {args.prefetch} "
-          f"overflow_dropped {tr.overflow_dropped} "
+          f"overflow_dropped {tr.overflow_dropped} {cache}"
           f"({args.steps / (time.perf_counter() - t0):.2f} steps/s)")
 
 

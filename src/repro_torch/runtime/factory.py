@@ -4,6 +4,8 @@ Counterpart of ``repro/runtime/factory.py`` for the archs the port has
 reached (``baidu-ctr``):
 
     tr = build_trainer("baidu-ctr", TrainerConfig(placement="gather"))
+    tr = build_trainer("baidu-ctr", TrainerConfig(placement="cached",
+                                                  cache_rows=262144))
     history, auc = fit_online(tr, ctr_batches(...), steps)   # training
     server = build_ctr_server(tr, max_batch=1024)            # serving
 
@@ -42,15 +44,30 @@ def _default_capacity(max_rows: int) -> int:
 def build_ctr_engine(model_cfg: R.CTRConfig, cfg: TrainerConfig,
                      device="cuda") -> EmbeddingEngine:
     """EmbeddingEngine for the paper's CTR model, placement-selected; the
-    push runs its kernel per ``cfg.fused_kernels`` (``ops.resolve_fused``)."""
+    kernels run per ``cfg.fused_kernels`` (``ops.resolve_fused``).  The
+    cached placement's device cache holds ``cfg.cache_rows`` rows, by
+    default the capacity (one batch's working set); an explicit
+    ``cache_rows`` below the capacity raises."""
     device = resolve_device(device)
     specs = R.ctr_table_specs(model_cfg)
     capacity = cfg.capacity or _default_capacity(
         max(s.rows for s in specs.values()))
     fused = ops.resolve_fused(cfg.fused_kernels, device)
+    kwargs = {}
+    if cfg.placement == "cached":
+        # an EXPLICIT undersized cache_rows is an error, not a silent clamp
+        # (a cache-size experiment must run with the cache it asked for)
+        if cfg.cache_rows and cfg.cache_rows < capacity:
+            raise ValueError(
+                f"cache_rows ({cfg.cache_rows}) must cover the working-set "
+                f"capacity ({capacity}): one batch's pull must fit in the "
+                f"device cache"
+            )
+        kwargs["cache_rows"] = cfg.cache_rows or capacity
     return EmbeddingEngine(
         specs, capacity=capacity, optimizer=SparseAdagrad(cfg.sparse),
-        backend=make_backend(cfg.placement, fused=fused),
+        backend=make_backend(cfg.placement, fused=fused, device=device,
+                             **kwargs),
         store=make_store(cfg.store), device=device,
     )
 

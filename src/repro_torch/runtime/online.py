@@ -27,6 +27,8 @@ def _format_record(rec: dict, steps_this_run: int) -> str:
     parts = [f"step {rec['step']:5d}", f"loss {rec['loss']:.4f}"]
     if "auc" in rec:
         parts.append(f"AUC {rec['auc']:.4f}")
+    if "cache_hit_rate" in rec:
+        parts.append(f"cache_hit {rec['cache_hit_rate']:.3f}")
     if rec.get("overflow_dropped", 0):
         parts.append(f"dropped {rec['overflow_dropped']}")
     # throughput of THIS run: rec["step"] is the global counter, but

@@ -7,13 +7,15 @@ Algorithm 1's pull -> train -> push:
 
   1. stage the batch on the device;
   2. ``EmbeddingEngine.pull``: dedup the batch's ids into the working set
-     and gather its rows (plus the zero drop row);
+     and gather its rows (plus the zero drop row); under the cached
+     placement through the device cache (``core.cache_tier``);
   3. per pod, the bags over the working set (the CUDA kernel) and the loss;
      backward through the bag's CUDA backward and autograd for the tower;
      the working-row gradients are summed over pods and divided by
      ``n_pod``, the dense gradients stay per pod;
   4. ``KStepAdam.step``: the local step, or the merge step every k steps;
-  5. ``EmbeddingEngine.push``: the AdaGrad push (the CUDA kernel).
+  5. ``EmbeddingEngine.push``: the AdaGrad push (the CUDA kernel; under
+     the cached placement the cached push into the device cache).
 
 The dense parameters, the optimizer state, the tables and the accumulator
 are updated in place (the port's counterpart of the reference's buffer
@@ -61,8 +63,10 @@ class TrainerConfig:
     kstep: KStepConfig = dataclasses.field(default_factory=KStepConfig)
     sparse: SparseAdagradConfig = dataclasses.field(
         default_factory=SparseAdagradConfig)
-    placement: str = "gather"       # sparse backend ("gather" is ported)
+    placement: str = "gather"       # sparse backend: "gather" | "cached"
     capacity: Optional[int] = None  # working-set bound (None: arch default)
+    cache_rows: Optional[int] = None  # device cache size for "cached"
+                                      # (None: the capacity)
     prefetch: bool = False          # pull prefetch (not ported: A5)
     fused_kernels: Optional[bool] = None  # None = auto: the CUDA kernels on
                                           # the card, the plain versions on
@@ -181,13 +185,17 @@ class HybridTrainer:
                              f"{self.device}")
         self.engine = engine
         self.opt = KStepAdam(cfg.kstep, cfg.n_pod)
-        accum = opt_state = None
+        accum = opt_state = bstate = None
         if state is not None:
             if dense_params is not None or tables is not None:
                 raise ValueError("pass either state or dense_params/tables")
             self.dense = state.dense
-            tables, accum = state.tables, state.accum
+            # the placement decides where the tables live (the cached one
+            # keeps them, and so the accumulator, in host memory)
+            tables = engine.prepare(state.tables)
+            accum = {n: a.to(tables[n].device) for n, a in state.accum.items()}
             opt_state = state.opt_state
+            bstate = state.backend_state
             for leaf in leaves(self.dense):
                 if leaf.shape[0] != self.n_pod:
                     raise ValueError(
@@ -206,7 +214,8 @@ class HybridTrainer:
         self.tables = tables
         self.sparse_state = (engine.init_state(tables) if accum is None
                              else SparseAdagradState(accum))
-        self.backend_state = engine.init_backend_state(tables)
+        self.backend_state = (engine.init_backend_state(tables)
+                              if bstate is None else bstate)
         if opt_state is None:
             opt_state = self.opt.init(self.dense)
         elif (opt_state.ef is None) != (cfg.kstep.merge != "int8_ef"):
@@ -297,17 +306,25 @@ class HybridTrainer:
 
     def sparse_metrics(self, advance: bool = False) -> Dict[str, float]:
         """Sparse-path health PER INTERVAL (since the last logging
-        boundary): ``overflow_dropped``, with the whole-run value under
-        ``overflow_dropped_total``.  A pure read unless ``advance=True``
-        (what the fit loggers pass), which moves the interval baseline."""
+        boundary): ``overflow_dropped`` and, under the cached placement,
+        ``cache_hit_rate``, ``evictions`` and the host <-> device byte
+        meters; the whole-run values under ``*_total`` keys.  A pure read
+        unless ``advance=True`` (what the fit loggers pass), which moves the
+        interval baseline."""
         total = int(self._overflow)
+        counters = self.engine.cache_counters(self.backend_state)
+        prev = self._metrics_prev
         m: Dict[str, float] = {
-            "overflow_dropped": total - int(self._metrics_prev.get(
-                "overflow", 0)),
+            "overflow_dropped": total - int(prev.get("overflow", 0)),
             "overflow_dropped_total": total,
         }
+        if counters:
+            delta = {k: v - prev.get(k, 0.0) for k, v in counters.items()}
+            m.update(self.engine.derive_cache_stats(delta))
+            for k, v in self.engine.derive_cache_stats(counters).items():
+                m[f"{k}_total"] = v
         if advance:
-            self._metrics_prev = {"overflow": total}
+            self._metrics_prev = {"overflow": total, **counters}
         return m
 
     def suggest_capacity(self, history=None, safety: float = 1.25) -> int:
@@ -370,9 +387,14 @@ class HybridTrainer:
 
     def serve_metrics(self) -> Dict[str, float]:
         """Cumulative SERVING-side counters: ``serve_requests`` (instances
-        scored, tail pads included) and ``serve_lookups`` (id slots
-        served)."""
+        scored, tail pads included), ``serve_lookups`` (id slots served)
+        and, under the cached placement, ``serve_misses`` and
+        ``serve_hit_rate`` (``1 - misses / lookups``, as in training)."""
         m = dict(self._serve_counters)
+        if "serve_misses" in m:
+            lk = m.get("serve_lookups", 0.0)
+            m["serve_hit_rate"] = (
+                0.0 if lk <= 0.0 else 1.0 - m["serve_misses"] / lk)
         for k, v in self.engine.store.serve_stats().items():
             m[f"serve_{k}"] = float(v)
         return m

@@ -187,3 +187,188 @@ def test_cuda_push_addresses_rows_beyond_int32_offsets():
         assert torch.equal(accum[u], 1 + delta[i] * 2)
     assert int(torch.count_nonzero(table)) == int(
         torch.count_nonzero(delta))
+
+
+# ------------------------------------------------- the cache tier's kernels
+def _cache_map(seed, C, n_ids, id_hi, H=None):
+    """A hash map over a cache of C slots after two rounds of admissions
+    (the second evicts some of the first, so stale entries stand in the
+    map), built by the port's plain map maintenance on the CPU; probe ids
+    that hit, miss and hit stale entries.  ``H`` smaller than
+    ``hash_table_size(C)`` gives long chains."""
+    from repro_torch.kernels import hash_map as hm
+
+    rng = np.random.default_rng(seed)
+    H = H or hm.hash_table_size(C)
+    key_tab = torch.full((H,), hm.EMPTY, dtype=torch.int32)
+    slot_tab = torch.zeros((H,), dtype=torch.int32)
+    n_occ = torch.zeros((), dtype=torch.int32)
+    slot_uid = torch.full((C,), -1, dtype=torch.int32)
+    ids = rng.choice(id_hi, size=n_ids, replace=False).astype(np.int32)
+    first, second = ids[:C], ids[C:C + C // 2]
+    for batch, slots in ((first, np.arange(C)),
+                         (second, rng.choice(C, size=second.size,
+                                             replace=False))):
+        slots = torch.from_numpy(slots.astype(np.int32))
+        batch = torch.from_numpy(batch)
+        slot_uid[slots.long()] = batch
+        key_tab, slot_tab, n_occ = hm.hash_insert(
+            key_tab, slot_tab, n_occ, batch, slots,
+            torch.ones(batch.shape, dtype=torch.bool))
+    probe = torch.from_numpy(rng.choice(ids, size=2 * n_ids).astype(
+        np.int32))
+    return key_tab, slot_tab, slot_uid, probe
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("C,n_ids,id_hi,H", [
+    (512, 900, 100_000, None),                 # the slice's load factor
+    (32, 60, 1 << 20, 64),                     # tiny H: long chains
+    (256, 400, 2**31 - 1, None),               # ids up to 2^31 - 2
+])
+def test_cuda_hash_probe_matches_plain_version(C, n_ids, id_hi, H):
+    _cuda_or_skip()
+    from repro_torch.kernels.hash_map import hash_lookup_cuda
+
+    key_tab, slot_tab, slot_uid, probe = _cache_map(17, C, n_ids, id_hi, H)
+    want = tref.hash_lookup_ref(key_tab, slot_tab, slot_uid, probe)
+    dev = [t.cuda() for t in (key_tab, slot_tab, slot_uid, probe)]
+    got = hash_lookup_cuda(*dev)
+    again = hash_lookup_cuda(*dev)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want) and torch.equal(got, again)
+    assert (want >= 0).any() and (want < 0).any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("C,D,cap", [(300, 64, 1000), (77, 16, 50),
+                                     (129, 100, 257), (40, 3, 33)])
+def test_cuda_cached_gather_matches_plain_version(C, D, cap):
+    _cuda_or_skip()
+    from repro_torch.kernels.sparse_adagrad import gather_rows_cached_cuda
+
+    rng = np.random.default_rng(19)
+    rows = torch.from_numpy(rng.standard_normal((C, D)).astype(np.float32))
+    slots = torch.from_numpy(rng.integers(0, C, cap).astype(np.int32))
+    got = gather_rows_cached_cuda(rows.cuda(), slots.cuda())
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), tref.gather_rows_cached_ref(rows, slots))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("C,D,n_ids,capacity", [
+    (2048, 64, 900, 1024),       # pads
+    (700, 16, 600, 512),         # odd width, pads
+    (400, 100, 700, 256),        # overflow: no pads
+])
+def test_cuda_cached_push_matches_plain_version(C, D, n_ids, capacity):
+    """The cached push at slots that are a permutation of the cache (not
+    ascending), pads sharing the first id's slot: bit-equal to the plain
+    index_add_, untouched slots unchanged, two runs equal."""
+    _cuda_or_skip()
+    from repro_torch.core.embedding_backend import pull_working_set
+    from repro_torch.kernels.sparse_adagrad import (
+        adagrad_row_updates,
+        sparse_adagrad_cached_apply_cuda,
+    )
+
+    rng = np.random.default_rng(23)
+    rows = torch.from_numpy(rng.standard_normal((C, D)).astype(np.float32))
+    accum = torch.from_numpy((rng.random((C, D)) + 0.01).astype(np.float32))
+    ids = torch.from_numpy(rng.integers(0, 50_000, n_ids).astype(np.int32))
+    uids, _ = pull_working_set(ids, capacity)
+    n_real = min(int(torch.unique(ids).numel()), capacity)
+    perm = torch.from_numpy(rng.permutation(C)[:n_real].astype(np.int32))
+    slots = torch.cat([perm, perm[:1].expand(capacity - n_real)])
+    grads = torch.from_numpy(rng.standard_normal((capacity, D)).astype(
+        np.float32))
+    grads[n_real:] = 0.0
+    delta, g2 = adagrad_row_updates(accum[slots.long()], grads, rows.dtype,
+                                    lr=0.5, eps=1e-10)
+    want = tref.sparse_adagrad_apply_ref(rows.clone(), accum.clone(), slots,
+                                         delta, g2)
+    outs = []
+    for _ in range(2):
+        r, a = rows.cuda(), accum.cuda()
+        got = sparse_adagrad_cached_apply_cuda(r, a, slots.cuda(),
+                                               uids.cuda(), delta.cuda(),
+                                               g2.cuda())
+        torch.cuda.synchronize()
+        assert got[0] is r and got[1] is a
+        outs.append((r.cpu(), a.cpu()))
+    for r, a in outs:
+        assert torch.equal(r, want[0]) and torch.equal(a, want[1])
+    touched = torch.zeros(C, dtype=torch.bool)
+    touched[slots.long()] = True
+    assert torch.equal(outs[0][0][~touched], rows[~touched])
+
+
+@pytest.mark.gpu
+def test_cuda_cached_dispatch_counts_the_kernels():
+    """ops on CUDA tensors run the three kernels and count them."""
+    _cuda_or_skip()
+    key_tab, slot_tab, slot_uid, probe = _cache_map(29, 64, 100, 5000)
+    dev = [t.cuda() for t in (key_tab, slot_tab, slot_uid, probe)]
+    ops.reset_launches()
+    slots = ops.hash_lookup(*dev)
+    safe = torch.where(slots >= 0, slots, 0)
+    rows = torch.randn((64, 8), device="cuda")
+    accum = torch.ones((64, 8), device="cuda")
+    ops.gather_rows_cached(rows, safe)
+    uniq = torch.unique(safe)
+    with pytest.raises(ValueError, match="uids"):
+        ops.sparse_adagrad_cached_apply(rows, accum, uniq.to(torch.int32),
+                                        torch.ones((uniq.numel(), 8),
+                                                   device="cuda"),
+                                        lr=0.1, eps=1e-10)
+    ops.sparse_adagrad_cached_apply(
+        rows, accum, uniq.to(torch.int32),
+        torch.ones((uniq.numel(), 8), device="cuda"), lr=0.1, eps=1e-10,
+        uids=uniq.to(torch.int32))
+    torch.cuda.synchronize()
+    assert ops.launches["hash_lookup"] == 1
+    assert ops.launches["gather_rows_cached"] == 2   # + one inside the push
+    assert ops.launches["sparse_adagrad_cached_apply"] == 1
+    assert all(v == 0 for k, v in ops.launches.items() if k.endswith("_ref"))
+
+
+@pytest.mark.gpu
+def test_cuda_cached_backend_matches_the_cpu():
+    """The cached placement with its cache on the card and the table in
+    host memory (pinned staging, uploads and spills), against the same
+    backend on the CPU: working sets, lookups, the cache state and the host
+    table bit-equal over pulls with evictions, spills and rebuilds."""
+    _cuda_or_skip()
+    from repro_torch.core.cache_tier import CachedBackend
+    from repro_torch.core.sparse_optim import SparseAdagrad, SparseAdagradConfig
+
+    rng = np.random.default_rng(31)
+    rows, dim, cap, C = 50_000, 64, 2048, 3000
+    table = rng.standard_normal((rows, dim)).astype(np.float32)
+    opt = SparseAdagrad(SparseAdagradConfig(lr=0.5))
+    runs = []
+    for device in ("cuda", "cpu"):
+        cb = CachedBackend(cache_rows=C, decay=0.9, device=device)
+        t = cb.prepare(torch.from_numpy(table.copy()).to(device))
+        a = torch.full((rows, dim), 0.01)
+        s = cb.init_state(t)
+        got = []
+        gen = np.random.default_rng(7)
+        for _ in range(12):
+            ids = torch.from_numpy(((gen.zipf(1.2, 6000) - 1) % rows).astype(
+                np.int32)).to(device)
+            ws, t, a, s = cb.pull(t, a, s, ids, cap)
+            g = torch.from_numpy(gen.standard_normal((cap + 1, dim)).astype(
+                np.float32)).to(device)
+            g[1 + int((ws.uids[1:] > ws.uids[:-1]).sum()):cap] = 0.0
+            t, a, s = cb.push(t, a, s, ws, g, opt)
+            lws, aux = cb.lookup(t, a, s, ids.flip(0), cap)
+            got.append([x.cpu() for x in (*ws, *lws)]
+                       + [aux["serve_misses"].cpu()])
+        runs.append((got, [x.cpu() for x in s], t, a))
+    (g0, s0, t0, a0), (g1, s1, t1, a1) = runs
+    for x, y in zip(g0, g1):
+        assert all(torch.equal(p, q) for p, q in zip(x, y))
+    assert all(torch.equal(p, q) for p, q in zip(s0, s1))
+    assert torch.equal(t0, t1) and torch.equal(a0, a1)
+    assert float(s1[-1]) > 0 and float(s1[-3]) >= 1   # spills, rebuilds

@@ -1,4 +1,6 @@
-"""The port's embedding bag (``repro_torch.kernels``) against the reference.
+"""The port's kernels' plain versions and dispatch (``repro_torch.kernels``)
+against the reference: the embedding bag, the push's row math (bit-equal)
+and the cache tier's cached gather and cached push (exact).
 
 On the CPU the port runs the plain PyTorch version; it is held against the
 reference's jnp oracle and against the Pallas kernel itself
@@ -23,6 +25,7 @@ from repro.kernels.embedding_bag import embedding_bag_pallas
 from repro_torch.kernels import embedding_bag as tbag
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as tref
+from repro_torch.kernels import sparse_adagrad as tsa
 
 torch.set_num_threads(1)
 
@@ -117,7 +120,11 @@ def test_cpu_dispatch_runs_the_plain_version_and_counts_it():
     assert ops.launches == {
         "embedding_bag": 0, "embedding_bag_ref": 1,
         "embedding_bag_backward": 0, "embedding_bag_backward_ref": 0,
-        "sparse_adagrad_apply": 0, "sparse_adagrad_apply_ref": 0}
+        "sparse_adagrad_apply": 0, "sparse_adagrad_apply_ref": 0,
+        "hash_lookup": 0, "hash_lookup_ref": 0,
+        "gather_rows_cached": 0, "gather_rows_cached_ref": 0,
+        "sparse_adagrad_cached_apply": 0,
+        "sparse_adagrad_cached_apply_ref": 0}
     np.testing.assert_array_equal(
         out.numpy(), tref.embedding_bag_ref(_t(working), _t(inv), _t(seg),
                                             _t(w), SHAPES[1][3]).numpy())
@@ -306,3 +313,97 @@ def test_backward_wrapper_raises_on_cpu_tensors():
     with pytest.raises(ValueError, match="g must be"):
         tbag.embedding_bag_backward_cuda(g[:, :-1], _t(working), _t(inv),
                                          _t(seg), _t(w))
+
+
+# ------------------------------------------- the push's row math (bit-equal)
+@pytest.mark.parametrize("lr", [0.05, 0.5])
+def test_row_updates_bit_equal_to_reference_on_a_million_elements(lr):
+    """``adagrad_row_updates``: ``delta`` and ``g2`` bit-equal to the
+    reference's under ``jax.jit`` on 2^20 elements, with gradient scales
+    from 1e-3 to 10 and accumulators from 1e-2 to 100 (tolerance: none).
+    The port rounds ``a + g^2`` once and takes a correctly rounded root,
+    as XLA does there."""
+    import jax
+
+    from repro.kernels.sparse_adagrad import adagrad_row_updates as jrows
+    from repro_torch.kernels.sparse_adagrad import adagrad_row_updates
+
+    rng = np.random.default_rng(int(lr * 100))
+    rows = (1 << 20) // 64
+    g = (rng.standard_normal((rows, 64))
+         * 10.0 ** rng.uniform(-3, 1, (rows, 1))).astype(np.float32)
+    a = (rng.random((rows, 64)) * 10.0 ** rng.uniform(-2, 2, (rows, 1))
+         + 0.01).astype(np.float32)
+    jd, jg = jax.jit(lambda r, x: jrows(r, x, jnp.float32, lr=lr,
+                                        eps=1e-10))(a, g)
+    d, g2 = adagrad_row_updates(torch.from_numpy(a), torch.from_numpy(g),
+                                torch.float32, lr=lr, eps=1e-10)
+    assert d.numel() == 1 << 20
+    np.testing.assert_array_equal(d.numpy().view(np.int32),
+                                  np.asarray(jd).view(np.int32))
+    np.testing.assert_array_equal(g2.numpy().view(np.int32),
+                                  np.asarray(jg).view(np.int32))
+
+
+# ------------------------------------------------ the cache tier's kernels
+def test_cached_ops_on_the_cpu_run_the_plain_versions_and_count_them():
+    """ops.gather_rows_cached and ops.sparse_adagrad_cached_apply on CPU
+    tensors: the plain versions, counted, equal to the reference's jnp
+    oracle and its Pallas kernels in interpret mode (exact: the gather
+    copies, the push adds the same bits)."""
+    from repro.kernels.sparse_adagrad import (
+        gather_rows_cached_pallas,
+        sparse_adagrad_cached_apply_pallas,
+    )
+
+    rng = np.random.default_rng(7)
+    C, D = 40, 16
+    rows = rng.standard_normal((C, D)).astype(np.float32)
+    accum = (rng.random((C, D)) + 0.01).astype(np.float32)
+    uids = np.r_[np.sort(rng.choice(1000, 25, replace=False)),
+                 np.zeros(7)].astype(np.int32)
+    uids[25:] = uids[0]                                  # the pads
+    slots = np.r_[rng.permutation(C)[:25], np.zeros(7)].astype(np.int32)
+    slots[25:] = slots[0]
+    grads = rng.standard_normal((32, D)).astype(np.float32)
+    grads[25:] = 0.0
+    ops.reset_launches()
+    got = ops.gather_rows_cached(_t(rows), _t(slots))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(
+        gather_rows_cached_pallas(_j(rows), _j(slots), interpret=True)))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(
+        jref.gather_rows_cached_ref(_j(rows), _j(slots))))
+    r, a = _t(rows.copy()), _t(accum.copy())
+    out = ops.sparse_adagrad_cached_apply(r, a, _t(slots), _t(grads),
+                                          lr=0.5, eps=1e-10)
+    assert out[0] is r and out[1] is a                   # in place
+    jd, jg2 = _jit_rows(accum[slots], grads)
+    jr, ja = sparse_adagrad_cached_apply_pallas(
+        _j(rows), _j(accum), _j(slots), jd, jg2, interpret=True)
+    np.testing.assert_array_equal(r.numpy(), np.asarray(jr))
+    np.testing.assert_array_equal(a.numpy(), np.asarray(ja))
+    assert ops.launches == {
+        "embedding_bag": 0, "embedding_bag_ref": 0,
+        "embedding_bag_backward": 0, "embedding_bag_backward_ref": 0,
+        "sparse_adagrad_apply": 0, "sparse_adagrad_apply_ref": 0,
+        "hash_lookup": 0, "hash_lookup_ref": 0,
+        "gather_rows_cached": 0, "gather_rows_cached_ref": 2,
+        "sparse_adagrad_cached_apply": 0,
+        "sparse_adagrad_cached_apply_ref": 1}
+    for fn, args in (
+            (tsa.gather_rows_cached_cuda, (_t(rows), _t(slots))),
+            (tsa.sparse_adagrad_cached_apply_cuda,
+             (_t(rows), _t(accum), _t(slots), _t(uids), _t(grads),
+              _t(grads)))):
+        with pytest.raises(ValueError, match="CUDA"):
+            fn(*args)
+
+
+def _jit_rows(accum_rows, grads):
+    """The reference's row math, jitted as its train step runs it."""
+    import jax
+
+    from repro.kernels.sparse_adagrad import adagrad_row_updates as jrows
+
+    return jax.jit(lambda r, g: jrows(r, g, jnp.float32, lr=0.5,
+                                      eps=1e-10))(accum_rows, grads)

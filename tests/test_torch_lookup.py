@@ -136,8 +136,10 @@ def test_engine_memory_and_training_entry_points():
     touched[wss["sparse"].uids.long()] = True
     assert torch.equal(tables["sparse"][~touched], before[~touched])
     assert not torch.equal(tables["sparse"][touched], before[touched])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(TypeError, match="cache_rows"):
         tbe.make_backend("cached")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tbe.make_backend("routed")
     with pytest.raises(ValueError, match="unknown placement"):
         tbe.make_backend("nope")
     with pytest.raises(NotImplementedError, match="ROADMAP"):

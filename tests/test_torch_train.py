@@ -8,10 +8,12 @@ are numpy, from fixed seeds; both sides start from one state exported from
 the reference (``repro_torch.interop.from_reference``).
 
 Tolerances, and why:
-  - The push, across frameworks: the table within rtol = 1e-6 (atol 1e-9).
-    XLA's fused ``adagrad_row_updates`` recomputes ``a + g*g`` inside its
-    fusion, so its ``delta`` can differ from PyTorch's by up to 2 ulps; the
-    squared gradient ``g2``, and so the accumulator, are bit-equal.
+  - The push, across frameworks: bit-equal.  The reference's fused push is
+    its jitted ``adagrad_row_updates`` (XLA rounds ``a + g*g`` once there,
+    and takes a correctly rounded root; the port does the same) followed by
+    its Pallas scatter.  (Run op by op, outside jit, the reference rounds
+    ``a + g*g`` twice, and its ``delta`` then differs by an ulp here and
+    there; under a larger jit XLA may do either.)
   - Within the port, the kernel's pad rule (skip ``i > 0`` with
     ``uids[i] <= uids[i-1]``) gives the plain ``index_add_`` result bit for
     bit on the reference's own ``pull_working_set`` layouts.
@@ -37,9 +39,9 @@ import torch
 from repro import configs as jconfigs
 from repro.core import embedding_backend as jbe
 from repro.core.kstep import KStepConfig as JKStepConfig
-from repro.core.sparse_optim import SparseAdagrad as JSparseAdagrad
-from repro.core.sparse_optim import SparseAdagradConfig as JSparseConfig
 from repro.data import synthetic as JS
+from repro.kernels.sparse_adagrad import adagrad_row_updates as jrows
+from repro.kernels.sparse_adagrad import sparse_adagrad_apply_pallas
 from repro.runtime.factory import build_trainer as jbuild_trainer
 from repro.runtime.online import fit_online as jfit_online
 from repro.runtime.trainer import TrainerConfig as JTrainerConfig
@@ -104,12 +106,15 @@ def test_push_matches_reference_fused_push(case):
                                              torch.from_numpy(grads), opt)
     assert out[0] is t and out[1] is a                  # in place
     assert ops.launches["sparse_adagrad_apply_ref"] == 1
-    jws = jbe.WorkingSet(jnp.asarray(uids), None, None, None)
-    jt, ja, _ = jbe.GatherBackend(fused=True).push(
-        jnp.asarray(table), jnp.asarray(accum), (), jws, jnp.asarray(grads),
-        JSparseAdagrad(JSparseConfig(lr=LR, eps=EPS)))
-    np.testing.assert_allclose(t.numpy(), np.asarray(jt), rtol=1e-6,
-                               atol=1e-9)
+    # the reference's fused push (its ops.sparse_adagrad_apply): the row
+    # math jitted, as its train step runs it, then the Pallas scatter
+    jdelta, jg2 = jax.jit(lambda r, g: jrows(r, g, jnp.float32, lr=LR,
+                                             eps=EPS))(accum[uids],
+                                                       grads[:cap])
+    jt, ja = sparse_adagrad_apply_pallas(
+        jnp.asarray(table), jnp.asarray(accum), jnp.asarray(uids), jdelta,
+        jg2, interpret=True)
+    np.testing.assert_array_equal(t.numpy(), np.asarray(jt))
     np.testing.assert_array_equal(a.numpy(), np.asarray(ja))
     untouched = np.setdiff1d(np.arange(table.shape[0]), uids)
     np.testing.assert_array_equal(t.numpy()[untouched], table[untouched])
@@ -127,12 +132,10 @@ def test_row_updates_match_reference(case):
     delta, g2 = adagrad_row_updates(torch.from_numpy(rows),
                                     torch.from_numpy(g), torch.float32,
                                     lr=LR, eps=EPS)
-    from repro.kernels.sparse_adagrad import adagrad_row_updates as jrows
     jdelta, jg2 = jax.jit(lambda r, g: jrows(r, g, jnp.float32, lr=LR,
                                              eps=EPS))(rows, g)
     np.testing.assert_array_equal(g2.numpy(), np.asarray(jg2))
-    np.testing.assert_allclose(delta.numpy(), np.asarray(jdelta), rtol=1e-6,
-                               atol=1e-9)
+    np.testing.assert_array_equal(delta.numpy(), np.asarray(jdelta))
     # the pads' updates are -0.0 and +0.0, which change no bits
     pads = np.flatnonzero(np.r_[False, uids[1:] <= uids[:-1]])
     if pads.size:
@@ -270,7 +273,11 @@ def test_training_slice_matches_reference_end_to_end():
     assert ops.launches == {
         "embedding_bag": 0, "embedding_bag_ref": 6 * (1 + 2),
         "embedding_bag_backward": 0, "embedding_bag_backward_ref": 6 * 2,
-        "sparse_adagrad_apply": 0, "sparse_adagrad_apply_ref": 6}
+        "sparse_adagrad_apply": 0, "sparse_adagrad_apply_ref": 6,
+        "hash_lookup": 0, "hash_lookup_ref": 0,
+        "gather_rows_cached": 0, "gather_rows_cached_ref": 0,
+        "sparse_adagrad_cached_apply": 0,
+        "sparse_adagrad_cached_apply_ref": 0}
 
 
 def test_training_slice_int8_ef_merge_matches_reference():
@@ -331,9 +338,8 @@ def test_unported_knobs_raise():
     with pytest.raises(NotImplementedError, match="strict_transfers"):
         fit_online(build_trainer("baidu-ctr", TrainerConfig(), device="cpu"),
                    iter([]), 1, strict_transfers=True)
-    with pytest.raises(NotImplementedError, match="A4"):
-        build_trainer("baidu-ctr", TrainerConfig(placement="cached"),
-                      device="cpu")
+    with pytest.raises(NotImplementedError, match="A7"):
+        tbe.make_backend("cached", cache_rows=64, staged=True, device="cpu")
     with pytest.raises(NotImplementedError, match="A8"):
         build_trainer("baidu-ctr", TrainerConfig(placement="routed"),
                       device="cpu")
@@ -398,7 +404,8 @@ def test_launcher_serve_and_flags():
     for flags, err in ((["--prefetch"], NotImplementedError),
                        (["--ckpt-dir", "ckpt"], NotImplementedError),
                        (["--store", "disk"], NotImplementedError),
-                       (["--cache-rows", "64"], NotImplementedError),
+                       (["--placement", "cached", "--cache-rows", "64"],
+                        ValueError),
                        (["--strict-transfers"], NotImplementedError),
                        (["--placement", "routed"], NotImplementedError),
                        (["--merge-delay", "1"], ValueError)):
