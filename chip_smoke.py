@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Run the PyTorch port's baidu-ctr serving and training paths, on the
-gather and the cached placements, on one NVIDIA GPU (H100).
+gather and the cached placements and on the SSD tier, on one NVIDIA GPU
+(H100).
 
     python3 chip_smoke.py        # from the root of a checkout
 
@@ -27,6 +28,16 @@ Phases (any failure raises and the script exits non-zero):
        with long chains, ids near 2^31 - 1, D 16 and 100, an overflowed
        batch.  Bit-equal to the plain versions, two runs bit-equal,
        untouched cache slots unchanged.
+     - The k-step local Adam step (kernel 6) at the slice's leaves
+       (baidu-ctr's dense tower, 2 pods, 2,910,210 elements): warm-up on
+       before and after the first merge and off, bias correction on and
+       off, weight decay 0 and 1e-4, lr a float and a 0-dim tensor.
+       Params and moments bit-equal to the plain version, two runs
+       bit-equal.
+     - The staged push (kernel 7) at the staged slice's (65536, 64) rows
+       with a real batch's pads, an overflowed batch, D 16, 100 and 3.
+       Bit-equal to the plain version and, at every real position, to the
+       host push; pads unchanged.
      Times each kernel, its plain version and one PyTorch library call,
      each call after a 256 MB write that evicts the L2 (the kernel also
      L2-warm, back to back: ``ms_l2_warm`` in the kernels line).
@@ -39,8 +50,10 @@ Phases (any failure raises and the script exits non-zero):
   3. training: ``fit_online`` for 40 steps at the same width (n_pod 2,
      k 20, two_phase, sparse lr 0.5, initial accumulator 0.01), batch 1024.
      Finite losses, no overflow, launch counts per step (bag 1 + n_pod,
-     backward n_pod, push 1, plain versions 0), rows outside every batch
-     unchanged; the step's device time by part.
+     backward n_pod, push 1, the local Adam step 1 per local step, plain
+     versions 0), rows outside every batch unchanged; the step's device
+     time by part, its local k-step Adam steps under the sync debug mode
+     "error" and one under the profiler (no host-to-device copy, no sync).
   4. co-located serving changes nothing: 10 full-width steps twice, the
      second with a ``CTRServer`` draining between steps; per-step losses
      and the final state's checksums bit-equal.
@@ -62,6 +75,20 @@ Phases (any failure raises and the script exits non-zero):
      card; card vs CPU from one warm state (the cache's integer state
      equal, losses and parameters within phase 6's tolerance; the small
      cache evicts and rebuilds its hash map).
+  9. the SSD tier at full width with the table cut to 4 M rows (977 pages
+     of 4096 rows, 2.05 GB written and fsynced at init, in
+     ``build/phase9_spill``, which it checks has 3x that free and deletes
+     at the end): 20 steps each, with a 256-request drain between steps,
+     of (a) gather on the host store, (b) gather on the DiskStore with an
+     unbounded page cache, (c) cached (262144 rows) on the DiskStore with
+     a 256-page cache.  Losses and every drain's scores of (b) and (c)
+     bit-equal to (a)'s; launch counts per step (staged push 1 on (b),
+     cached push 1 on (c), the local Adam step per local step, plain
+     versions 0); store meters; 3 more steps split into parts (host dedup,
+     read-ahead, absorb, gather, upload, pull, forward, backward, k-step
+     Adam, push), losses bit-equal to (a)'s same steps; after ``close``, a
+     fresh DiskStore on the directory reads (a)'s rows and accumulators at
+     every touched uid.
 
 TF32 is off for matmuls and convolutions.  Prints the card (``nvidia-smi``
 name and power limit), a ``kernels`` JSON line, and as its last line
@@ -471,11 +498,12 @@ def phase_agreement(device):
           f"{np.abs(got[0] - got[1]).max():.3g}")
 
 
-def _train_batches(n, seed=1, batch=None):
-    """The first ``n`` batches of the training stream (50 M-row ids)."""
+def _train_batches(n, seed=1, batch=None, rows=ROWS):
+    """The first ``n`` batches of the training stream (50 M-row ids unless
+    ``rows`` says otherwise)."""
     from repro_torch.data.synthetic import ctr_batches
 
-    stream = ctr_batches(seed=seed, batch=batch or BATCH, rows=ROWS)
+    stream = ctr_batches(seed=seed, batch=batch or BATCH, rows=rows)
     return [next(stream) for _ in range(n)]
 
 
@@ -797,20 +825,21 @@ def phase_push(device):
 
 
 def _full_width_trainer(device, n_pod=2, seed=0, placement="gather",
-                        cache_rows=None):
-    """baidu-ctr at full width, 50 M rows, with the launcher's defaults."""
+                        cache_rows=None, rows=ROWS, **store):
+    """baidu-ctr at full width, 50 M rows (or ``rows``), with the
+    launcher's defaults; ``store``: the TrainerConfig's store fields."""
     from repro_torch.configs import baidu_ctr
     from repro_torch.core.kstep import KStepConfig
     from repro_torch.core.sparse_optim import SparseAdagradConfig
     from repro_torch.runtime.factory import build_trainer
     from repro_torch.runtime.trainer import TrainerConfig
 
-    mcfg = dataclasses.replace(baidu_ctr.MODEL, rows=ROWS)
+    mcfg = dataclasses.replace(baidu_ctr.MODEL, rows=rows)
     tcfg = TrainerConfig(
         n_pod=n_pod, kstep=KStepConfig(lr=1e-3, k=20, merge="two_phase"),
         sparse=SparseAdagradConfig(lr=0.5, initial_accumulator=0.01),
         placement=placement, capacity=CAPACITY, cache_rows=cache_rows,
-        log_every=10)
+        log_every=10, **store)
     return build_trainer("baidu-ctr", tcfg, smoke=False, model_cfg=mcfg,
                          seed=seed, device=device)
 
@@ -886,7 +915,8 @@ def phase_train(device):
     want = dict.fromkeys(ops.launches, 0)
     want.update({"embedding_bag": n * (1 + tr.n_pod),
                  "embedding_bag_backward": n * tr.n_pod,
-                 "sparse_adagrad_apply": n})
+                 "sparse_adagrad_apply": n,
+                 "fused_adam": n - n // tr.cfg.kstep.k})   # local steps
     if launches != want:
         raise AssertionError(f"launches {launches}, expected {want}")
     after = [t[sample] for t in (tr.tables["sparse"],
@@ -931,7 +961,7 @@ def _train_breakdown(tr, batches):
         ev[2].record()
         dense_g, work_g = tr._backward(dense, workings, losses)
         ev[3].record()
-        tr.opt.step(tr.dense, dense_g, tr.opt_state, merge=merge)
+        _adam_step_no_sync(tr, dense_g, merge)
         ev[4].record()
         tr.engine.push(tables, accum, bstate, wss, work_g)
         ev[5].record()
@@ -939,6 +969,7 @@ def _train_breakdown(tr, batches):
         for i, k in enumerate(names):
             sums[k] += ev[i].elapsed_time(ev[i + 1])
     parts = {k: v / len(steps) for k, v in sums.items()}
+    _adam_transfers(tr, dense_g)
     walls = []
     for b in batches[6:9]:
         torch.cuda.synchronize()
@@ -952,6 +983,52 @@ def _train_breakdown(tr, batches):
     print(f"  train_step wall (synchronized, {len(walls)} steps): mean "
           f"{np.mean(walls) * 1e3:.2f} ms, min {np.min(walls) * 1e3:.2f} ms")
     _busy_share(tr, batches[9:12])
+
+
+def _adam_step_no_sync(tr, dense_g, merge):
+    """``tr.opt.step``; a local step runs under the sync debug mode
+    "error", which raises on any synchronizing call."""
+    import torch
+
+    if merge:
+        tr.opt.step(tr.dense, dense_g, tr.opt_state, merge=True)
+        return
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        tr.opt.step(tr.dense, dense_g, tr.opt_state, merge=False)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def _adam_transfers(tr, dense_g):
+    """One more local k-step Adam step under the profiler: its CUDA kernels,
+    host-to-device copies and synchronizing calls (none is allowed)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    def traced(fn):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+        torch.cuda.synchronize()
+        ev = prof.key_averages()
+        count = lambda pred: sum(e.count for e in ev if pred(e.key))
+        return (count(lambda k: "HtoD" in k),
+                count(lambda k: "Synchronize" in k or k == "cudaMemcpy"),
+                count(lambda k: k in ("cudaLaunchKernel", "cuLaunchKernel",
+                                      "cudaLaunchKernelExC")))
+
+    base = traced(lambda: None)       # what the profiler itself records
+    step = traced(lambda: tr.opt.step(tr.dense, dense_g, tr.opt_state,
+                                      merge=False))
+    h2d, syncs, kernels = (a - b for a, b in zip(step, base))
+    if h2d or syncs:
+        raise AssertionError(f"a local k-step Adam step made {h2d} "
+                             f"host-to-device copies and {syncs} syncs")
+    print(f"  a local k-step Adam step (profiler): {kernels} kernel "
+          f"launches, 0 host-to-device copies, 0 synchronizing calls; the "
+          f"timed local steps ran under the sync debug mode 'error'")
 
 
 def _busy_share(tr, batches):
@@ -1203,7 +1280,8 @@ def phase_cached(device, gather_losses):
             "sparse_adagrad_cached_apply": n,
             "embedding_bag": n * (2 + tr.n_pod),
             "embedding_bag_backward": n * tr.n_pod,
-            "sparse_adagrad_apply": 0}
+            "sparse_adagrad_apply": 0, "sparse_adagrad": 0,
+            "fused_adam": n - n // tr.cfg.kstep.k}
     want.update({k + "_ref": 0 for k in list(want)})
     if launches != want:
         raise AssertionError(f"launches {launches}, expected {want}")
@@ -1641,6 +1719,467 @@ def phase_cached_smoke(device):
     return rebuilds
 
 
+# ------------------------------------------ the dense slice and the SSD tier
+def _adam_kwargs(t, device, warmup, bias, wd, lr_tensor, k=20):
+    """The local step's arguments as ``KStepAdam.step`` passes them: ``t``
+    and a tensor lr on the card, the bias-correction factors computed by
+    the same PyTorch ops."""
+    import torch
+
+    tt = torch.tensor(t, dtype=torch.int32, device=device)
+    lr = (torch.tensor(1e-3, dtype=torch.float32, device=device)
+          if lr_tensor else 1e-3)
+    mhat = vhat = None
+    b1 = 0.9 if bias else 0.0
+    if bias:
+        tf = tt.to(torch.float32)
+        mhat = 1.0 / (1.0 - b1 ** tf)
+        vhat = 1.0 / (1.0 - 0.999 ** tf)
+    return dict(t=tt, lr=lr, b1=b1, b2=0.999, k=k, local_v_warmup=warmup,
+                mhat_s=mhat, vhat_s=vhat, weight_decay=wd)
+
+
+def phase_fused_adam(device):
+    """Kernel 6, the k-step local Adam step, against its plain version at
+    the slice's leaves (baidu-ctr's dense tower, 2 pods); returns its
+    kernels-line entry (without ``launches``)."""
+    import torch
+
+    from repro_torch.configs import baidu_ctr
+    from repro_torch.core.kstep import leaves, pod_replicate
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.fused_adam import AdamTable, fused_adam_cuda
+    from repro_torch.models import recsys as R
+
+    gen = torch.Generator(device).manual_seed(41)
+    P = leaves(pod_replicate(R.ctr_init_dense(gen, baidu_ctr.MODEL,
+                                              device=device), 2))
+    n = sum(x.numel() for x in P)
+
+    def like(scale, positive=False):
+        out = []
+        for x in P:
+            y = torch.randn(x.shape, generator=gen, device=device) * scale
+            out.append(y.abs_() + 1e-3 * scale if positive else y)
+        return out
+
+    leaves5 = (P, like(0.01), like(0.01), like(1e-4, True),
+               like(1e-4, True))
+    print(f"phase 1: fused_adam (kernel 6, the k-step local step) against "
+          f"its plain version ({len(P)} leaves, {n} elements)")
+    max_err, cases = 0.0, 0
+    for warmup, t in ((True, 3), (True, 25), (False, 3)):
+        for bias in (False, True):
+            for wd in (0.0, 1e-4):
+                for lr_tensor in (False, True):
+                    kw = _adam_kwargs(t, device, warmup, bias, wd,
+                                      lr_tensor)
+                    want = [[x.clone() for x in g] for g in leaves5]
+                    ref.fused_adam_ref(*want, **kw)
+                    for run in range(2):
+                        got = [[x.clone() for x in g] for g in leaves5]
+                        fused_adam_cuda(*got, **kw)
+                        torch.cuda.synchronize()
+                        for i in (0, 2, 3):
+                            for a, b in zip(got[i], want[i]):
+                                max_err = max(max_err, (a - b).abs().max()
+                                              .item())
+                                if not torch.equal(a, b):
+                                    raise AssertionError(
+                                        f"fused_adam warmup={warmup} t={t} "
+                                        f"bias={bias} wd={wd} lr_tensor="
+                                        f"{lr_tensor} run {run}: kernel and "
+                                        "plain version differ")
+                    cases += 1
+    print(f"  {cases} cases (warm-up on before and after the first merge "
+          f"and off, bias correction on/off, weight decay 0 and 1e-4, lr "
+          f"a float and a 0-dim tensor): params, m and v_local bit-equal "
+          f"to the plain version, two runs bit-equal")
+
+    # ---- times: the local step after the first merge (v_hat read)
+    kw = _adam_kwargs(25, device, True, False, 0.0, False)
+    table = AdamTable()
+
+    def kernel():
+        return fused_adam_cuda(*leaves5, table=table, **kw)
+
+    ms, warm_ms = _time_ms(kernel), _time_ms(kernel, cold_l2=False)
+    plain_ms = _time_ms(lambda: ref.fused_adam_ref(*leaves5, **kw))
+    nbytes = 8 * 4 * n
+    bound_ms, bound_by = _bound(nbytes, 12 * n)
+    print(f"  times (ms, L2 cold): kernel {ms:.4f} (L2 warm {warm_ms:.4f}), "
+          f"plain version {plain_ms:.4f}, no single PyTorch call computes "
+          f"it; bound {bound_ms:.4f} ({nbytes / 1e6:.1f} MB: 8 streams x "
+          f"4 B x {n})")
+    return {
+        "name": "fused_adam",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/fused_adam.cu",
+        "replaces": "src/repro/kernels/fused_adam.py:44",
+        "launches": None,
+        "max_abs_err": max_err,
+        "ms": ms,
+        "ms_l2_warm": warm_ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": None,
+    }
+
+
+def phase_staged_push(device):
+    """Kernel 7, the SSD tier's staged push, against its plain version and
+    the host push at the staged slice's shapes; returns its kernels-line
+    entry (without ``launches``)."""
+    import torch
+
+    from repro_torch.core.embedding_backend import pull_working_set
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.sparse_adagrad import sparse_adagrad_staged_cuda
+
+    gen = torch.Generator(device).manual_seed(43)
+    max_err = 0.0
+
+    def checks(name, uids, n_real, table_rows, D):
+        nonlocal max_err
+        table = torch.randn((table_rows, D), generator=gen,
+                            device=device) * 0.05
+        accum = torch.rand((table_rows, D), generator=gen,
+                           device=device) + 0.01
+        rows, acc = table[uids.long()], accum[uids.long()]
+        grads = torch.randn((uids.numel(), D), generator=gen, device=device)
+        grads[n_real:] = 0.0                 # no id slot maps to a pad
+        want = ref.sparse_adagrad_ref(rows.clone(), acc.clone(), grads, 0.5,
+                                      1e-10)
+        runs = []
+        for _ in range(2):
+            r, a = rows.clone(), acc.clone()
+            sparse_adagrad_staged_cuda(r, a, grads, lr=0.5, eps=1e-10)
+            torch.cuda.synchronize()
+            runs.append((r, a))
+        for r, a in runs:
+            max_err = max(max_err, (r - want[0]).abs().max().item(),
+                          (a - want[1]).abs().max().item())
+            if not (torch.equal(r, want[0]) and torch.equal(a, want[1])):
+                raise AssertionError(f"staged push {name}: kernel and plain "
+                                     "version differ")
+        t, a = table.clone(), accum.clone()
+        ops.sparse_adagrad_apply(t, a, uids, grads, lr=0.5, eps=1e-10)
+        valid = torch.cat([torch.ones(1, dtype=torch.bool, device=device),
+                           uids[1:] > uids[:-1]])
+        vu = uids[valid].long()
+        if not (torch.equal(runs[0][0][valid], t[vu])
+                and torch.equal(runs[0][1][valid], a[vu])
+                and torch.equal(runs[0][0][~valid], rows[~valid])):
+            raise AssertionError(f"staged push {name}: rows differ from the "
+                                 "host push, or a pad changed")
+        print(f"  {name}: bit-equal to the plain version and, at every "
+              f"real position, to the host push; pads unchanged; two runs "
+              f"bit-equal ({n_real} real rows, {uids.numel() - n_real} pads)")
+        return rows, acc, grads
+
+    small_rows = 4_000_000
+    uids, n_real = _slice_uids(device, fit_rows=small_rows)
+    print(f"phase 1: sparse_adagrad (kernel 7, the staged push) against its "
+          f"plain version (staged rows {uids.numel()} x 64)")
+    rows, acc, grads = checks("slice layout, D=64", uids, n_real,
+                              small_rows, 64)
+    over, _ = _slice_uids(device, capacity=16384, fit_rows=small_rows)
+    checks("overflowed batch (capacity 16384), D=64", over, 16384,
+           small_rows, 64)
+    for cap, D in ((8192, 16), (8192, 100), (333, 3)):
+        ids = torch.randint(0, 30000, (min(5000, cap + cap // 2),),
+                            generator=gen, device=device, dtype=torch.int32)
+        u, _ = pull_working_set(ids, cap)
+        checks(f"random batch, capacity {cap}, D={D}", u,
+               min(cap, int(torch.unique(ids).numel())), 30000, D)
+
+    def kernel():
+        return sparse_adagrad_staged_cuda(rows, acc, grads, lr=0.5,
+                                          eps=1e-10)
+
+    ms, warm_ms = _time_ms(kernel), _time_ms(kernel, cold_l2=False)
+    plain_ms = _time_ms(lambda: ref.sparse_adagrad_ref(rows, acc, grads, 0.5,
+                                                       1e-10))
+    C, D = rows.shape
+    nbytes = 5 * 4 * C * D
+    bound_ms, bound_by = _bound(nbytes, 6 * C * D)
+    print(f"  times (ms, L2 cold): kernel {ms:.4f} (L2 warm {warm_ms:.4f}), "
+          f"plain version {plain_ms:.4f}, no single PyTorch call computes "
+          f"it; bound {bound_ms:.4f} ({nbytes / 1e6:.1f} MB: 5 streams x "
+          f"4 B x {C} x {D})")
+    return {
+        "name": "sparse_adagrad",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/sparse_adagrad.cu",
+        "replaces": "src/repro/kernels/sparse_adagrad.py:88",
+        "launches": None,
+        "max_abs_err": max_err,
+        "ms": ms,
+        "ms_l2_warm": warm_ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": None,
+    }
+
+
+DISK_ROWS = 4_000_000      # the one reduction of phase 9: 50 M -> 4 M rows
+PAGE_ROWS = 4096
+PAGE_CACHE_PAGES = 256     # of 977: pages evict and write behind
+DISK_STEPS = 20
+DISK_EXTRA = 3             # steps of the stream-time breakdown
+
+
+def _serve_scores(server, batch):
+    """Score one request batch through the server; the scores, in order."""
+    from repro_torch.runtime.serve_ctr import requests_from_batch
+
+    reqs = requests_from_batch(batch)
+    for r in reqs:
+        server.submit(r)
+    if server.drain() != len(reqs):
+        raise AssertionError("the server did not drain its batch")
+    return np.array([r.score for r in reqs], np.float32)
+
+
+def _disk_counted_run(tr, batches, requests):
+    """``DISK_STEPS`` train steps, each followed by a 256-request drain:
+    (losses, every drain's scores, launches, wall seconds)."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.runtime.factory import build_ctr_server
+
+    server = build_ctr_server(tr, max_batch=SERVE_BATCH)
+    losses, scores = [], []
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for b, r in zip(batches, requests):
+        losses.append(tr.train_step(b))
+        scores.append(_serve_scores(server, r))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return (torch.stack(losses).cpu().numpy(), scores, dict(ops.launches),
+            wall)
+
+
+def _disk_breakdown(tr, batches):
+    """``train_step`` on the DiskStore split into its parts, with CUDA
+    events between them (stream time, the host's gaps included); returns
+    the steps' losses."""
+    import torch
+
+    names = ("host dedup (stage batch, ids to host, np.unique)",
+             "read-ahead", "absorb (previous push to the store)",
+             "gather (store to pinned)", "upload", "pull (device dedup)",
+             "forward", "backward", "k-step Adam", "push")
+    eng = tr.engine
+    sums = dict.fromkeys(names, 0.0)
+    losses = []
+    for b in batches:
+        tr.step_num += 1
+        merge = tr.step_num % tr.cfg.kstep.k == 0
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(11)]
+        ev[0].record()
+        staged = tr._stage(b)
+        flat = eng.ids_from_batch(staged)
+        ded = {n: eng.host_dedup(x)
+               for n, x in eng._ids_to_host(flat).items()}
+        ev[1].record()
+        for n, (uids, valid) in ded.items():
+            eng.store.readahead(n, uids[valid])
+        ev[2].record()
+        eng.absorb_staged(tr.tables, tr.sparse_state.accum, tr.backend_state)
+        ev[3].record()
+        host = eng.read_staged(ded)
+        ev[4].record()
+        st_t, st_a = eng.upload_staged(host)
+        ev[5].record()
+        eng._staged_pending = ded
+        wss, tables, accum, bstate = eng.pull(st_t, st_a, tr.backend_state,
+                                              flat)
+        ev[6].record()
+        dense, workings, step_losses = tr._forward(wss, tr.pod_batch(staged))
+        ev[7].record()
+        dense_g, work_g = tr._backward(dense, workings, step_losses)
+        ev[8].record()
+        tr.opt.step(tr.dense, dense_g, tr.opt_state, merge=merge)
+        ev[9].record()
+        tr.tables, accum, tr.backend_state = eng.push(tables, accum, bstate,
+                                                      wss, work_g)
+        tr.sparse_state = tr.sparse_state._replace(accum=accum)
+        tr._overflow += eng.overflow(wss)
+        ev[10].record()
+        losses.append(step_losses.detach().sum() / tr.n_pod)
+        torch.cuda.synchronize()
+        for i, k in enumerate(names):
+            sums[k] += ev[i].elapsed_time(ev[i + 1])
+    parts = {k: v / len(batches) for k, v in sums.items()}
+    print("  one train step on the DiskStore, stream time by part (ms, "
+          f"{len(batches)} steps): " + ", ".join(
+              f"{k} {v:.3f}" for k, v in parts.items())
+          + f"; sum {sum(parts.values()):.3f}")
+    return torch.stack(losses).cpu().numpy()
+
+
+def phase_disk(device):
+    """The SSD tier at full width, the table cut to 4 M rows: (a) gather on
+    the host store, (b) gather on the DiskStore with an unbounded page
+    cache, (c) cached on the DiskStore with a 256-page cache; 20 steps
+    each with a 256-request drain between steps, then 3 steps split into
+    parts.  Losses and scores of (b) and (c) bit-equal to (a)'s; after
+    ``close``, a fresh DiskStore on the spill directory reads (a)'s rows
+    and accumulators at every touched uid.  Returns (b)'s launch counts."""
+    import shutil
+
+    import torch
+
+    from repro_torch.core import row_store
+
+    spill_root = ROOT / "build" / "phase9_spill"
+    page_bytes = DISK_ROWS * 64 * 4 * 2
+    n_pages = -(-DISK_ROWS // PAGE_ROWS)
+    shutil.rmtree(spill_root, ignore_errors=True)
+    spill_root.mkdir(parents=True)
+    free = shutil.disk_usage(spill_root).free
+    print(f"phase 9: the SSD tier, rows {DISK_ROWS} (pages of {PAGE_ROWS} "
+          f"rows: {n_pages} pages, {page_bytes / 1e9:.2f} GB of rows and "
+          f"accumulators), capacity {CAPACITY}, batch {BATCH}, n_pod 2, k "
+          f"20, two_phase, {DISK_STEPS} steps with a {SERVE_BATCH}-request "
+          f"drain between steps; free space in {spill_root.relative_to(ROOT)}"
+          f": {free / 1e9:.1f} GB")
+    if free < 3 * page_bytes:
+        raise AssertionError(f"phase 9 needs {3 * page_bytes / 1e9:.1f} GB "
+                             f"free for its pages, the disk has "
+                             f"{free / 1e9:.1f} GB")
+    batches = _train_batches(DISK_STEPS + DISK_EXTRA, rows=DISK_ROWS)
+    run, extra = batches[:DISK_STEPS], batches[DISK_STEPS:]
+    requests = _train_batches(DISK_STEPS, seed=2, batch=SERVE_BATCH,
+                              rows=DISK_ROWS)
+    touched = np.unique(np.concatenate([b["ids"].reshape(-1)
+                                        for b in batches])).astype(np.int64)
+    create_s = []
+    create_table = row_store.DiskStore.create_table
+
+    def timed_create(self, *args, **kwargs):
+        t0 = time.perf_counter()
+        out = create_table(self, *args, **kwargs)
+        create_s.append(time.perf_counter() - t0)
+        return out
+
+    try:
+        # ---- (a) gather on the host store: the reference run
+        tr = _full_width_trainer(device, rows=DISK_ROWS)
+        losses_a, scores_a, launches_a, wall = _disk_counted_run(
+            tr, run, requests)
+        extra_a = np.float32([float(tr.train_step(b)) for b in extra])
+        idx = torch.from_numpy(touched).to(device)
+        rows_a = (tr.tables["sparse"][idx].cpu().numpy(),
+                  tr.sparse_state.accum["sparse"][idx].cpu().numpy())
+        print(f"  (a) gather, host store: {wall / DISK_STEPS * 1e3:.2f} ms "
+              f"per step + drain; losses {losses_a[0]:.6f} ... "
+              f"{losses_a[-1]:.6f}; {touched.size} uids touched")
+        del tr
+        _release()
+
+        results = {}
+        for tag, placement, cache_rows, pages in (
+                ("b", "gather", None, None),
+                ("c", "cached", CACHE_ROWS, PAGE_CACHE_PAGES)):
+            spill = spill_root / tag
+            t0 = time.perf_counter()
+            row_store.DiskStore.create_table = timed_create
+            try:
+                tr = _full_width_trainer(
+                    device, placement=placement, cache_rows=cache_rows,
+                    rows=DISK_ROWS, store="disk", spill_dir=str(spill),
+                    page_rows=PAGE_ROWS, page_cache_pages=pages)
+            finally:
+                row_store.DiskStore.create_table = create_table
+            torch.cuda.synchronize()
+            what = (f"({tag}) {placement} on the DiskStore, page cache "
+                    f"{'unbounded' if pages is None else f'{pages} pages'}")
+            print(f"  {what}: trainer built in {time.perf_counter() - t0:.1f}"
+                  f" s, of which create_table {create_s[-1]:.1f} s "
+                  f"({n_pages} pages written and fsynced)")
+            torch.cuda.reset_peak_memory_stats()
+            losses, scores, launches, wall = _disk_counted_run(tr, run,
+                                                               requests)
+            if not np.array_equal(losses, losses_a):
+                raise AssertionError(
+                    f"({tag}) losses differ from (a)'s: max |diff| "
+                    f"{np.abs(losses - losses_a).max()}")
+            for i, (x, y) in enumerate(zip(scores, scores_a)):
+                if not np.array_equal(x, y):
+                    raise AssertionError(f"({tag}) drain {i}: scores differ "
+                                         "from (a)'s")
+            n, local = DISK_STEPS, DISK_STEPS - DISK_STEPS // 20
+            want = dict.fromkeys(launches, 0)
+            want.update({"embedding_bag": 3 * n,
+                         "embedding_bag_backward": 2 * n,
+                         "fused_adam": local})
+            if placement == "gather":
+                want["sparse_adagrad"] = n
+            else:
+                want.update({"hash_lookup": 3 * n,
+                             "gather_rows_cached": 3 * n,
+                             "sparse_adagrad_cached_apply": n})
+            if launches != want:
+                raise AssertionError(f"({tag}) launches {launches}, "
+                                     f"expected {want}")
+            st = tr.engine.store.stats()
+            sv = tr.engine.store.serve_stats()
+            peak_gb = torch.cuda.max_memory_allocated() / 1e9
+            print(f"  {what}: {wall / n * 1e3:.2f} ms per step + drain "
+                  f"({n / wall:.2f} steps/s), peak device memory "
+                  f"{peak_gb:.2f} GB; losses and all {n} drains' scores "
+                  f"bit-equal to (a)'s; launches {launches}")
+            print(f"  {what}, store meters over {n} steps: training page "
+                  f"hits {st['page_hits']:.0f}, misses "
+                  f"{st['page_misses']:.0f}, evictions "
+                  f"{st['pages_evicted']:.0f}, disk read "
+                  f"{st['disk_bytes_read'] / 1e9:.3f} GB, written "
+                  f"{st['disk_bytes_written'] / 1e9:.3f} GB (create_table "
+                  f"included); serving page hits {sv['page_hits']:.0f}, "
+                  f"misses {sv['page_misses']:.0f}, evictions "
+                  f"{sv['pages_evicted']:.0f}, read "
+                  f"{sv['disk_bytes_read'] / 1e9:.3f} GB")
+            if placement == "cached":
+                m = tr.sparse_metrics()
+                print(f"  {what}: cache hit rate "
+                      f"{m['cache_hit_rate_total']:.4f}, evictions "
+                      f"{m['evictions_total']}")
+            losses_x = _disk_breakdown(tr, extra)
+            if not np.array_equal(losses_x, extra_a):
+                raise AssertionError(f"({tag}) the breakdown's losses differ "
+                                     "from (a)'s")
+            t0 = time.perf_counter()
+            tr.close()
+            close_s = time.perf_counter() - t0
+            fresh = row_store.DiskStore(str(spill), page_rows=PAGE_ROWS)
+            fresh.create_table("sparse", DISK_ROWS, 64, np.float32)
+            got = fresh.gather("sparse", touched)
+            fresh.close()
+            if not (np.array_equal(got[0], rows_a[0])
+                    and np.array_equal(got[1], rows_a[1])):
+                raise AssertionError(f"({tag}) the reopened store's rows "
+                                     "differ from (a)'s table")
+            print(f"  {what}: close (sync_store + flush + stop) "
+                  f"{close_s:.1f} s; a fresh DiskStore on the directory "
+                  f"reads (a)'s rows and accumulators at all "
+                  f"{touched.size} touched uids, bit-equal")
+            results[tag] = launches
+            del tr
+            _release()
+            shutil.rmtree(spill)
+    finally:
+        row_store.DiskStore.create_table = create_table
+        shutil.rmtree(spill_root, ignore_errors=True)
+    return results["b"]
+
+
 def main() -> int:
     import torch
 
@@ -1666,10 +2205,12 @@ def main() -> int:
     bag = phase_kernels(device)
     backward = phase_backward(device)
     push = phase_push(device)
+    adam = phase_fused_adam(device)
+    staged = phase_staged_push(device)
     phase_slice(device)
     _release()
     launches, gather_losses = phase_train(device)
-    for entry in (bag, backward, push):
+    for entry in (bag, backward, push, adam):
         entry["launches"] = launches[entry["name"]]
     phase_colocated(device)
     phase_quickstart(device)
@@ -1682,7 +2223,9 @@ def main() -> int:
     rebuilds += phase_cached_smoke(device)
     if rebuilds < 1:
         raise AssertionError("no hash-map rebuild on the card")
-    print(json.dumps({"kernels": [bag, backward, push] + cache_entries}))
+    staged["launches"] = phase_disk(device)["sparse_adagrad"]
+    print(json.dumps({"kernels": [bag, backward, push] + cache_entries
+                      + [staged, adam]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -27,7 +27,15 @@ Per pull, as in the reference:
 
 ``push`` writes the AdaGrad update through to the cache only (the CUDA
 cached push) and marks the slots dirty; ``flush`` writes every dirty row
-back.  ``lookup`` is the read-only serving path: hits from the cache,
+back.
+
+Staged (the DiskStore, ``staged=True``): the pull's ``table``/``accum`` are
+the batch's ``(capacity, dim)`` working-set rows in uid order, staged by the
+engine from the store, and a miss takes its row from its own position;
+evicted dirty rows leave through the pull's table/accum OUTPUTS (ids in
+``state.spill_uid``, -1 where none) for the engine to commit to the store
+at the next step; ``flush`` only clears the dirty bits (the engine writes
+the rows, ``sync_store``).  ``lookup`` is the read-only serving path: hits from the cache,
 misses from the host table, nothing admitted and nothing counted in the
 state.  With ``cache_rows >= table rows`` nothing is ever evicted and the
 placement is bit-identical to the gather placement.
@@ -47,7 +55,7 @@ reference's return its new state.
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -72,7 +80,9 @@ class CacheState(NamedTuple):
     A "lookup" is one (non-dropped) id slot served by a pull; a fetched row
     serves every duplicate of its id in the batch, so
     ``hit_rate = 1 - fetched / lookups``.  The counters are f32 scalars.
-    ``spill_uid`` is the staged mode's (not ported); it stays 0-sized.
+    ``spill_uid`` is the staged (DiskStore) mode's: the evicted dirty ids
+    whose rows ride out through the pull's outputs, -1 where none,
+    ``(capacity,)``; the host mode keeps it 0-sized.
     """
 
     slot_uid: torch.Tensor    # (C,) int32: the id held by each slot; -1 empty
@@ -83,7 +93,7 @@ class CacheState(NamedTuple):
     accum: torch.Tensor       # (C, dim) f32: cached AdaGrad accumulator rows
     freq: torch.Tensor        # (C,) f32: LFU-with-decay counters
     dirty: torch.Tensor       # (C,) bool: row updated since admission
-    spill_uid: torch.Tensor   # (0,) int32
+    spill_uid: torch.Tensor   # (capacity,) int32 staged; (0,) host mode
     lookups: torch.Tensor     # () f32: id slots served
     fetched: torch.Tensor     # () f32: rows fetched from the host (misses)
     evictions: torch.Tensor   # () f32: occupied slots reassigned
@@ -119,17 +129,23 @@ class CachedBackend:
         full mirror, bit-identical to ``GatherBackend``.
     decay: the multiplicative LFU decay per pull (1.0 = plain LFU).
     device: where the cache state lives (CUDA unless the caller asks for
-        the CPU); the table and the accumulator live in host memory.
-
-    The reference's staged (DiskStore) mode is not ported (ROADMAP.md A7;
-    ``make_backend`` refuses ``staged=True``).
+        the CPU); the table and the accumulator live in host memory (or,
+        staged, in the DiskStore's pages).
+    staged: the DiskStore mode (see the module docstring); requires
+        ``capacity``, the pull capacity, which sizes ``spill_uid``.
     """
 
-    def __init__(self, cache_rows: int, decay: float = 0.95, device="cuda"):
+    def __init__(self, cache_rows: int, decay: float = 0.95, device="cuda",
+                 staged: bool = False, capacity: Optional[int] = None):
         if cache_rows <= 0:
             raise ValueError(f"cache_rows must be positive, got {cache_rows}")
         if not 0.0 < decay <= 1.0:
             raise ValueError(f"decay must be in (0, 1], got {decay}")
+        if staged and not capacity:
+            raise ValueError("staged CachedBackend requires capacity "
+                             "(sizes the per-pull spill buffers)")
+        self.staged = bool(staged)
+        self.capacity = int(capacity) if capacity else None
         self.device = resolve_device(device)
         self.cache_rows = int(cache_rows)
         self.decay = float(decay)
@@ -138,8 +154,9 @@ class CachedBackend:
 
     # -------------------------------------------------------------- layout
     def prepare(self, table: torch.Tensor) -> torch.Tensor:
-        """The cold tier lives in host memory: the table as a CPU tensor."""
-        return table.cpu()
+        """The cold tier lives in host memory: the table as a CPU tensor
+        (staged: the staging buffers stay where they are)."""
+        return table if self.staged else table.cpu()
 
     def export(self, table: torch.Tensor) -> torch.Tensor:
         return table
@@ -160,7 +177,8 @@ class CachedBackend:
             accum=torch.zeros((C, dim), dtype=torch.float32, device=dev),
             freq=torch.zeros((C,), dtype=torch.float32, device=dev),
             dirty=torch.zeros((C,), dtype=torch.bool, device=dev),
-            spill_uid=torch.full((0,), -1, dtype=torch.int32, device=dev),
+            spill_uid=torch.full((self.capacity if self.staged else 0,), -1,
+                                 dtype=torch.int32, device=dev),
             lookups=z(), fetched=z(), evictions=z(), rebuilds=z(),
             bytes_h2d=z(), bytes_d2h=z(),
         )
@@ -220,6 +238,7 @@ class CachedBackend:
                 f"cache_rows ({C}) must cover the pull capacity ({capacity}): "
                 f"one batch's working set must fit in the device cache"
             )
+        self._check_staged(table, capacity, "pull")
         H = self.hash_buckets
         uids, inverse, n_dropped = _dedup(flat_ids, capacity)
         valid = _unique_positions(uids)
@@ -254,14 +273,23 @@ class CachedBackend:
         evict = used & (v_old >= 0)
         spill = evict & state.dirty[victims]
 
-        # spill the evicted dirty rows to the host table
-        sp = torch.nonzero(spill).reshape(-1)
-        if sp.numel():
-            sv = victims[sp]
-            self._spill((table, accum), v_old[sp],
-                        (state.rows[sv], state.accum[sv]), capacity)
+        if self.staged:
+            # the evicted rows leave through the pull's outputs, the dirty
+            # ones marked by spill_uid; the engine commits them to the store
+            state.spill_uid.copy_(torch.where(spill, v_old, -1))
+            out_table = state.rows[victims].to(table.dtype)
+            out_accum = state.accum[victims]
+        else:
+            # spill the evicted dirty rows to the host table
+            sp = torch.nonzero(spill).reshape(-1)
+            if sp.numel():
+                sv = victims[sp]
+                self._spill((table, accum), v_old[sp],
+                            (state.rows[sv], state.accum[sv]), capacity)
+            out_table, out_accum = table, accum
 
-        # fetch the misses from the host in one gather and admit them
+        # fetch the misses from the cold tier in one gather (staged: the
+        # rows at their own positions) and admit them
         miss_rank = torch.cumsum(miss, 0) - 1
         target = torch.where(
             miss, victims[torch.clamp(miss_rank, 0, capacity - 1)], C).to(
@@ -269,7 +297,11 @@ class CachedBackend:
         mp = torch.nonzero(miss).reshape(-1)
         if mp.numel():
             m_ids, m_slots = uids[mp], target[mp].long()
-            f_rows, f_accum = self._fetch((table, accum), m_ids, capacity)
+            if self.staged:
+                f_rows, f_accum = table[mp], accum[mp]
+            else:
+                f_rows, f_accum = self._fetch((table, accum), m_ids,
+                                              capacity)
             state.slot_uid[m_slots] = m_ids
             state.rows[m_slots] = f_rows.to(state.rows.dtype)
             state.accum[m_slots] = f_accum
@@ -295,7 +327,13 @@ class CachedBackend:
         state.bytes_h2d.add_(n_miss_f * rb)
         state.bytes_d2h.add_(spill.sum(dtype=torch.float32) * rb)
         ws = WorkingSet(uids, inverse, _with_drop_row(wrows), n_dropped)
-        return ws, table, accum, state
+        return ws, out_table, out_accum, state
+
+    def _check_staged(self, table, capacity: int, what: str) -> None:
+        if self.staged and table.shape[0] != capacity:
+            raise ValueError(
+                f"staged {what} expects ({capacity}, dim) working-set rows "
+                f"from the RowStore, got {tuple(table.shape)}")
 
     # -------------------------------------------------------------- lookup
     def lookup(self, table, accum, state: CacheState, flat_ids,
@@ -304,8 +342,10 @@ class CachedBackend:
 
         Probes like ``pull`` and admits nothing: hits come from the cached
         rows (the freshest values: the push writes through to the cache),
-        misses from the host table, which holds their latest values (an
-        evicted dirty row was spilled before its entry died).  Nothing in
+        misses from the cold tier (the host table, or staged the
+        uid-aligned rows the engine staged with the pending spills laid
+        over them), which holds their latest values (an evicted dirty row
+        was spilled before its entry died).  Nothing in
         the state changes, so training is the same with or without it;
         ``aux`` meters the served id slots and the misses."""
         C = self.cache_rows
@@ -315,6 +355,7 @@ class CachedBackend:
                 f"({capacity}): one batch's working set must fit in the "
                 f"device cache"
             )
+        self._check_staged(table, capacity, "lookup")
         uids, inverse, n_dropped = _dedup(flat_ids, capacity)
         valid = _unique_positions(uids)
         slot = ops.hash_lookup(state.key_tab, state.slot_tab,
@@ -324,7 +365,10 @@ class CachedBackend:
         wrows = ops.gather_rows_cached(state.rows, safe)
         mp = torch.nonzero(~hit).reshape(-1)
         if mp.numel():
-            (cold,) = self._fetch((table,), uids[mp], capacity)
+            if self.staged:
+                cold = table[mp]
+            else:
+                (cold,) = self._fetch((table,), uids[mp], capacity)
             wrows[mp] = cold.to(wrows.dtype)
         ws = WorkingSet(uids, inverse, _with_drop_row(wrows), n_dropped)
         counts = _multiplicity(inverse, capacity)
@@ -353,11 +397,13 @@ class CachedBackend:
 
     def flush(self, table, accum, state: CacheState):
         """Write every dirty cached row (value + accumulator) back to the
-        host table and clear the dirty bits: the export consistency
-        point."""
+        host table and clear the dirty bits: the export consistency point.
+        Staged, the engine writes the dirty rows to the store itself
+        (``EmbeddingEngine.sync_store``, before this); here only the dirty
+        bits clear and the spill meter advances."""
         dirty_occ = state.dirty & (state.slot_uid >= 0)
         idx = torch.nonzero(dirty_occ).reshape(-1)
-        if idx.numel():
+        if idx.numel() and not self.staged:
             ids = state.slot_uid[idx].cpu().long()
             table.index_copy_(0, ids, state.rows[idx].to(table.dtype).cpu())
             accum.index_copy_(0, ids, state.accum[idx].cpu())

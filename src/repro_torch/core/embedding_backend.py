@@ -7,7 +7,10 @@ pull, ``lookup`` the read-only serving lookup, and ``push`` applies the
 sparse optimizer to the pulled rows in place.  Two placements are ported:
 ``gather`` (below: the table where the model is) and ``cached``
 (``core.cache_tier.CachedBackend``: a device cache over a host-resident
-table).  The routed placement comes with ROADMAP.md queue A8.
+table), each also ``staged`` for the DiskStore (the SSD tier), where the
+pull and the push see the batch's working-set rows, staged by the engine,
+instead of a resident table.  The routed placement comes with ROADMAP.md
+queue A8.
 """
 
 from __future__ import annotations
@@ -72,10 +75,20 @@ class GatherBackend:
     ``fused=True`` routes the push through ``ops.sparse_adagrad_apply`` (the
     CUDA kernel on the card); ``fused=False`` is the plain scatter, which
     only CPU tensors take.  Both are bit-identical.
+
+    ``staged=True`` is the DiskStore dataflow (``--store disk``): the
+    ``table``/``accum`` the pull and push see are the batch's
+    ``(capacity, dim)`` working-set rows, staged by the engine in
+    deduplicated-uid order.  The pull appends the drop row; the push is
+    ``SparseAdagrad.apply_staged`` (the staged AdaGrad kernel on the card)
+    and the updated rows ride out through the table/accum outputs for the
+    engine to commit.  Bit-identical to the resident path at every valid
+    (first-occurrence) position.
     """
 
-    def __init__(self, fused: bool = False):
+    def __init__(self, fused: bool = False, staged: bool = False):
         self.fused = fused
+        self.staged = staged
 
     def init_state(self, table: torch.Tensor):
         return ()
@@ -91,6 +104,14 @@ class GatherBackend:
 
     def _served_rows(self, table, uids, capacity: int) -> torch.Tensor:
         """(capacity + 1, dim) rows for ``uids``."""
+        if self.staged:
+            if table.shape[0] != capacity:
+                raise ValueError(
+                    f"staged pull expects ({capacity}, dim) working-set rows "
+                    f"from the RowStore, got {tuple(table.shape)}")
+            # the engine staged the rows in the device dedup's uid order
+            # (host_dedup mirrors it), so table[i] IS the row of uids[i]
+            return _with_drop_row(table)
         return _with_drop_row(table.index_select(0, uids.long()))
 
     def pull(self, table, accum, state, flat_ids, capacity: int):
@@ -111,7 +132,12 @@ class GatherBackend:
 
     def push(self, table, accum, state, ws: WorkingSet, row_grads, opt):
         """Apply ``opt`` to the working set's rows in place; the gradient of
-        the drop row (``row_grads[capacity]``) is discarded."""
+        the drop row (``row_grads[capacity]``) is discarded.  Staged: the
+        elementwise AdaGrad of the staged rows (``apply_staged``)."""
+        if self.staged:
+            table, accum = opt.apply_staged(
+                table, accum, row_grads[: ws.uids.shape[0]])
+            return table, accum, state
         table, accum = opt.apply_rows(
             table, accum, ws.uids, row_grads[: ws.uids.shape[0]],
             fused=self.fused)
@@ -127,21 +153,19 @@ def make_backend(placement: str, fused: bool = False, device="cuda",
     always runs its kernels through ``kernels.ops``).  ``cached`` takes
     ``cache_rows`` (the device cache size, required) and ``decay`` (the LFU
     decay, optional), and keeps its cache state on ``device``; see
-    ``repro_torch.core.cache_tier.CachedBackend``.  The staged (DiskStore)
-    dataflow and the routed placement are not ported yet and raise.
+    ``repro_torch.core.cache_tier.CachedBackend``.  ``staged=True``
+    (gather and cached; cached then also takes ``capacity``) selects the
+    DiskStore dataflow, which ``runtime.factory`` wires when
+    ``store="disk"``.  The routed placement is not ported yet and raises.
     """
-    if kwargs.get("staged"):
-        raise NotImplementedError(
-            "staged=True (the DiskStore dataflow) is not ported yet; see "
-            "ROADMAP.md queue A7 (SSD tier)")
-    kwargs.pop("staged", None)
     if placement == "gather":
+        staged = kwargs.pop("staged", False)
         if kwargs:
             raise TypeError(
                 f"placement 'gather' does not accept {sorted(kwargs)} "
                 f"(routed/cached-only options)"
             )
-        return GatherBackend(fused=fused)
+        return GatherBackend(fused=fused, staged=staged)
     if placement == "routed":
         raise NotImplementedError(
             "placement 'routed' is not ported yet; see ROADMAP.md queue A8 "

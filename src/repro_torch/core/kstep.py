@@ -16,7 +16,10 @@ are that tensor dimension and a merge is a pod-dim mean
 
 ``KStepAdam.step`` updates the parameters and the optimizer state in place
 (the port's counterpart of the reference's buffer donation) and returns the
-same objects.  The delayed-merge methods come with ``DenseTrainer``
+same objects.  A local step is one pass over every leaf,
+``kernels.ops.fused_adam`` (on the card one CUDA kernel launch, with no host
+sync and no host-to-device copy); a merge step stays PyTorch ops around the
+pod mean.  The delayed-merge methods come with ``DenseTrainer``
 (ROADMAP.md queue A10).
 """
 
@@ -29,6 +32,8 @@ import torch
 
 from repro_torch import tree_map
 from repro_torch.core import merge as merge_lib
+from repro_torch.kernels import ops
+from repro_torch.kernels.fused_adam import AdamTable
 
 Tree = Any
 
@@ -107,6 +112,8 @@ class KStepAdam:
         self.n_pod = int(n_pod)
         self.lr_schedule = lr_schedule
         self._mean = merge_lib.make_merge_fn(cfg.merge)
+        # the local step's kernel: the leaves' pointers, kept across steps
+        self._adam_table = AdamTable()
 
     # ------------------------------------------------------------------ init
     def init(self, params_podded: Tree) -> KStepAdamState:
@@ -155,50 +162,54 @@ class KStepAdam:
                   * scale.reshape((self.n_pod,) + (1,) * (g.dim() - 1))
                   ).to(g.dtype) for g in G]
 
+        if cfg.bias_correction:
+            tf = t.to(torch.float32)
+            mhat_s = (1.0 / (1.0 - cfg.b1 ** tf)) if cfg.b1 > 0 else None
+            vhat_s = 1.0 / (1.0 - cfg.b2 ** tf)
+        else:
+            mhat_s = vhat_s = None
+
+        if not merge:
+            # the local step (lines 5-9) in one pass over every leaf: the
+            # CUDA kernel on the card, its plain version on the CPU
+            ops.fused_adam(P, G, M, VL, VH, t=t, lr=lr, b1=cfg.b1, b2=cfg.b2,
+                           k=cfg.k, local_v_warmup=cfg.local_v_warmup,
+                           mhat_s=mhat_s, vhat_s=vhat_s,
+                           weight_decay=cfg.weight_decay,
+                           table=self._adam_table)
+            state.step.copy_(t)
+            return params, state
+
         # moment updates (Algorithm 2 lines 5-6), always local
         m_new = [cfg.b1 * mm + (1.0 - cfg.b1) * g.to(torch.float32)
                  for mm, g in zip(M, G)]
         vl_new = [cfg.b2 * vv + (1.0 - cfg.b2) * torch.square(
             g.to(torch.float32)) for vv, g in zip(VL, G)]
 
-        if cfg.bias_correction:
-            tf = t.to(torch.float32)
-            mhat_s = (1.0 / (1.0 - cfg.b1 ** tf)) if cfg.b1 > 0 else 1.0
-            vhat_s = 1.0 / (1.0 - cfg.b2 ** tf)
-        else:
-            mhat_s = 1.0
-            vhat_s = 1.0
-
         def adam_delta(mm, vh, p):
-            d = lr * (mm * mhat_s) / torch.sqrt(vh * vhat_s)
+            if mhat_s is not None:
+                mm = mm * mhat_s
+            if vhat_s is not None:
+                vh = vh * vhat_s
+            d = lr * mm / torch.sqrt(vh)
             if cfg.weight_decay > 0.0:
                 d = d + lr * cfg.weight_decay * p.to(torch.float32)
             return d
 
-        new_vh = new_ef = None
-        if not merge:
-            if cfg.local_v_warmup:
-                pre_first_merge = t <= cfg.k
-                v_use = [torch.where(pre_first_merge, vl, vh)
-                         for vh, vl in zip(VH, vl_new)]
-            else:
-                v_use = VH
-            new_p = [(p.to(torch.float32) - adam_delta(mm, vu, p)).to(p.dtype)
-                     for p, mm, vu in zip(P, m_new, v_use)]
+        # v_hat <- mean_i v_local (line 12); the v payload rides the merge
+        # schedule but is never lossy (positivity must hold)
+        new_vh = (self._mean(vl_new, allow_lossy=False) if cfg.merge_v
+                  else VH)
+        # x_i - lr * m_i / sqrt(v_hat_new), then the pod average (line 13)
+        local_x = [p.to(torch.float32) - adam_delta(mm, vh, p)
+                   for p, mm, vh in zip(P, m_new, new_vh)]
+        new_ef = None
+        if cfg.merge == "int8_ef":
+            merged, new_ef = merge_lib.int8_ef_mean(local_x,
+                                                    leaves(state.ef))
         else:
-            # v_hat <- mean_i v_local (line 12); the v payload rides the
-            # merge schedule but is never lossy (positivity must hold)
-            new_vh = (self._mean(vl_new, allow_lossy=False) if cfg.merge_v
-                      else VH)
-            # x_i - lr * m_i / sqrt(v_hat_new), then the pod average (line 13)
-            local_x = [p.to(torch.float32) - adam_delta(mm, vh, p)
-                       for p, mm, vh in zip(P, m_new, new_vh)]
-            if cfg.merge == "int8_ef":
-                merged, new_ef = merge_lib.int8_ef_mean(local_x,
-                                                        leaves(state.ef))
-            else:
-                merged = self._mean(local_x, allow_lossy=True)
-            new_p = [mx.to(p.dtype) for p, mx in zip(P, merged)]
+            merged = self._mean(local_x, allow_lossy=True)
+        new_p = [mx.to(p.dtype) for p, mx in zip(P, merged)]
 
         for dst, src in zip(P, new_p):
             dst.copy_(src)
@@ -206,7 +217,7 @@ class KStepAdam:
             dst.copy_(src)
         for dst, src in zip(VL, vl_new):
             dst.copy_(src)
-        if new_vh is not None and cfg.merge_v:
+        if cfg.merge_v:
             for dst, src in zip(VH, new_vh):
                 dst.copy_(src)
         if new_ef is not None:

@@ -70,6 +70,21 @@ class SparseAdagrad:
         return ref.sparse_adagrad_apply_ref(table, accum, unique_ids, delta,
                                             g2)
 
+    def apply_staged(self, rows, accum_rows, row_grads):
+        """Working-set-aligned AdaGrad: the DiskStore's staged push, in
+        place; returns ``(rows, accum_rows)``.
+
+        ``rows``/``accum_rows`` are the batch's ``(capacity, dim)`` rows in
+        deduplicated-uid order (the engine staged them), so the update is
+        elementwise: ``ops.sparse_adagrad`` (the CUDA kernel on the card,
+        its plain version on the CPU, counted).  Position i ends bit-equal
+        to row ``uids[i]`` after ``apply_rows`` on a resident table (the
+        same ``adagrad_row_updates`` bits); the pads' zero gradients leave
+        their rows as they were.
+        """
+        return ops.sparse_adagrad(rows, accum_rows, row_grads,
+                                  lr=self.cfg.lr, eps=self.cfg.eps)
+
     def step(self, tables, state: SparseAdagradState, updates):
         """``updates``: ``{name: (unique_ids, row_grads)}`` matching
         ``tables``; every table is updated in place by the unfused scatter

@@ -5,7 +5,10 @@ starts both from one state: the reference trainer's parameters, exported as
 numpy (``jax.device_get`` of ``tr.dense``, ``tr.tables``,
 ``tr.sparse_state.accum``, for training ``tr.opt_state`` and, under the
 cached placement, ``tr.backend_state``), go through ``from_reference`` and
-into ``HybridTrainer(..., state=...)``.  This module reads numpy only.
+into ``HybridTrainer(..., state=...)``.  Under the DiskStore,
+``from_reference`` writes the full tables and accumulators into the
+store's pages, so both packages start from one state on disk.  This
+module reads numpy only.
 """
 
 from __future__ import annotations
@@ -33,7 +36,8 @@ def _fields(x) -> dict:
 
 
 def from_reference(dense_np, tables_np, accum_np, opt_state_np=None,
-                   device="cuda", backend_state_np=None) -> ReferenceState:
+                   device="cuda", backend_state_np=None, store=None,
+                   capacity=None) -> ReferenceState:
     """The reference trainer's numpy state as tensors on ``device``.
 
     ``opt_state_np`` is the reference's ``KStepAdamState`` after
@@ -43,8 +47,16 @@ def from_reference(dense_np, tables_np, accum_np, opt_state_np=None,
     backend state after ``jax.device_get``: under the cached placement
     ``{table: CacheState}`` (or dicts with its fields), so a comparison can
     start from a warm cache; the cache state goes to ``device``.  The
-    trainer moves the tables where its placement keeps them."""
+    trainer moves the tables where its placement keeps them.
+
+    ``store``: a ``DiskStore`` (the trainer's engine's), into whose pages
+    the full ``tables_np`` and ``accum_np`` go; the returned tables and
+    accumulators are then the engine's ``(capacity, dim)`` staging buffers
+    (``capacity``: the engine's, required with ``store``)."""
     device = resolve_device(device)
+    if (store is None) != (capacity is None):
+        raise ValueError("pass store and capacity together (the DiskStore "
+                         "and its engine's pull capacity)")
 
     def conv(x):
         return torch.from_numpy(np.array(x, copy=True)).to(device)
@@ -66,10 +78,25 @@ def from_reference(dense_np, tables_np, accum_np, opt_state_np=None,
             ef=(None if fields.get("ef") is None
                 else tree_map(conv, fields["ef"])),
         )
+    if store is None:
+        tables = {n: conv(t) for n, t in tables_np.items()}
+        accum = {n: conv(a) for n, a in accum_np.items()}
+    else:
+        tables, accum = {}, {}
+        for n in sorted(tables_np):
+            t, a = np.asarray(tables_np[n]), np.asarray(accum_np[n])
+            store.create_table(n, t.shape[0], t.shape[1], t.dtype,
+                               init_rows_fn=lambda lo, hi, _t=t: _t[lo:hi],
+                               init_accum_fn=lambda lo, hi, _a=a: _a[lo:hi])
+            tables[n] = torch.zeros((capacity, t.shape[1]),
+                                    dtype=torch.from_numpy(t[:0]).dtype,
+                                    device=device)
+            accum[n] = torch.zeros((capacity, t.shape[1]),
+                                   dtype=torch.float32, device=device)
     return ReferenceState(
         dense=tree_map(conv, dense_np),
-        tables={n: conv(t) for n, t in tables_np.items()},
-        accum={n: conv(a) for n, a in accum_np.items()},
+        tables=tables,
+        accum=accum,
         opt_state=opt_state,
         backend_state=backend_state,
     )

@@ -7,6 +7,11 @@
 #include <c10/cuda/CUDAGuard.h>
 #include <c10/cuda/CUDAStream.h>
 
+#include <algorithm>
+#include <vector>
+
+#include "fused_adam.h"
+
 void launch_embedding_bag(const float* working, int dim, const int32_t* inv,
                           const float* weights, const int64_t* order,
                           const int64_t* offsets, int num_bags, float* out,
@@ -30,6 +35,9 @@ void launch_sparse_adagrad_apply(float* table, float* accum, int64_t rows,
 void launch_gather_rows_cached(const float* cache_rows, int64_t n_slots,
                                int dim, const int32_t* slots, int64_t cap,
                                float* out, cudaStream_t stream);
+void launch_sparse_adagrad_staged(float* rows, float* accum,
+                                  const float* grads, int64_t n, float neg_lr,
+                                  float eps, cudaStream_t stream);
 void launch_hash_lookup(const int32_t* key_tab, const int32_t* slot_tab,
                         int64_t n_buckets, const int32_t* slot_uid,
                         int64_t n_slots, const int32_t* uids, int64_t n,
@@ -267,6 +275,95 @@ void hash_lookup(const torch::Tensor& key_tab, const torch::Tensor& slot_tab,
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
+// rows += delta(accum, grads); accum += grads^2, elementwise and in place
+// (the staged push, csrc/sparse_adagrad.cu).
+void sparse_adagrad_staged(const torch::Tensor& rows,
+                           const torch::Tensor& accum,
+                           const torch::Tensor& grads, double lr, double eps) {
+  check_cuda(rows, "rows", torch::kFloat32, 2, rows);
+  check_cuda(accum, "accum", torch::kFloat32, 2, rows);
+  check_cuda(grads, "grads", torch::kFloat32, 2, rows);
+  TORCH_CHECK(accum.sizes() == rows.sizes() && grads.sizes() == rows.sizes(),
+              "rows, accum and grads must have one shape");
+  const int64_t n = rows.numel();
+  if (n == 0) return;
+  const c10::cuda::CUDAGuard guard(rows.device());
+  launch_sparse_adagrad_staged(
+      rows.data_ptr<float>(), accum.data_ptr<float>(),
+      grads.data_ptr<float>(), n, static_cast<float>(-lr),
+      static_cast<float>(eps), c10::cuda::getCurrentCUDAStream().stream());
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
+const float* optional_scalar(const c10::optional<torch::Tensor>& t,
+                             const char* name, const torch::Tensor& like) {
+  if (!t.has_value()) return nullptr;
+  check_cuda(*t, name, torch::kFloat32, 0, like);
+  return t->data_ptr<float>();
+}
+
+// The k-step local Adam step over every leaf, in place (csrc/fused_adam.cu).
+// `table` is the (L, 5) int64 CPU table of (p, m, v_local, v_hat, numel)
+// that kernels/fused_adam.py builds once per set of leaves (it checks
+// them); `grads` are this step's gradients, one per row of the table.
+void fused_adam(const torch::Tensor& table,
+                const std::vector<torch::Tensor>& grads,
+                const torch::Tensor& t,
+                const c10::optional<torch::Tensor>& lr_t, double lr,
+                const c10::optional<torch::Tensor>& mhat,
+                const c10::optional<torch::Tensor>& vhat, double b1,
+                double b2, double weight_decay, int64_t k, bool warmup) {
+  TORCH_CHECK(table.device().is_cpu() && table.scalar_type() == torch::kInt64
+              && table.dim() == 2 && table.size(1) == 5 &&
+              table.is_contiguous(), "table must be a contiguous (L, 5) int64 "
+              "CPU tensor");
+  const int64_t leaves = table.size(0);
+  TORCH_CHECK(static_cast<int64_t>(grads.size()) == leaves, "got ",
+              grads.size(), " gradients for ", leaves, " leaves");
+  if (leaves == 0) return;
+  check_cuda(t, "t", torch::kInt32, 0, t);
+  AdamScalars s{};
+  s.t = t.data_ptr<int32_t>();
+  s.k = static_cast<int32_t>(k);
+  s.warmup = warmup;
+  s.lr_ptr = optional_scalar(lr_t, "lr", t);
+  s.lr = static_cast<float>(lr);
+  s.mhat = optional_scalar(mhat, "mhat_s", t);
+  s.vhat = optional_scalar(vhat, "vhat_s", t);
+  s.b1 = static_cast<float>(b1);
+  s.c1 = static_cast<float>(1.0 - b1);
+  s.b2 = static_cast<float>(b2);
+  s.c2 = static_cast<float>(1.0 - b2);
+  s.has_wd = weight_decay > 0.0;
+  s.lrwd = static_cast<float>(lr * weight_decay);
+  s.wd = static_cast<float>(weight_decay);
+  const int64_t* rows = table.data_ptr<int64_t>();
+  const c10::cuda::CUDAGuard guard(t.device());
+  const cudaStream_t stream = c10::cuda::getCurrentCUDAStream().stream();
+  for (int64_t first = 0; first < leaves; first += kMaxLeaves) {
+    AdamLeaves a{};
+    a.count = static_cast<int>(std::min<int64_t>(kMaxLeaves, leaves - first));
+    a.block_start[0] = 0;
+    for (int j = 0; j < a.count; ++j) {
+      const int64_t* r = rows + (first + j) * 5;
+      const torch::Tensor& g = grads[first + j];
+      check_cuda(g, "grad", torch::kFloat32, g.dim(), t);
+      TORCH_CHECK(g.numel() == r[4], "gradient ", first + j, " has ",
+                  g.numel(), " elements, its leaf ", r[4]);
+      a.p[j] = reinterpret_cast<float*>(r[0]);
+      a.m[j] = reinterpret_cast<float*>(r[1]);
+      a.v[j] = reinterpret_cast<float*>(r[2]);
+      a.vh[j] = reinterpret_cast<const float*>(r[3]);
+      a.g[j] = g.data_ptr<float>();
+      a.n[j] = r[4];
+      a.block_start[j + 1] = a.block_start[j] + fused_adam_blocks(r[4]);
+    }
+    if (a.block_start[a.count] == 0) continue;
+    launch_fused_adam(a, s, stream);
+    C10_CUDA_KERNEL_LAUNCH_CHECK();
+  }
+}
+
 }  // namespace
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
@@ -292,6 +389,16 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("gather_rows_cached", &gather_rows_cached,
         "Row gather from the device cache by slot (CUDA)",
         py::arg("cache_rows"), py::arg("slots"), py::arg("out"));
+  m.def("sparse_adagrad_staged", &sparse_adagrad_staged,
+        "In-place dense-block AdaGrad over staged working-set rows (CUDA)",
+        py::arg("rows"), py::arg("accum"), py::arg("grads"), py::arg("lr"),
+        py::arg("eps"));
+  m.def("fused_adam", &fused_adam,
+        "In-place k-step local Adam step over every leaf in one launch "
+        "(CUDA)", py::arg("table"), py::arg("grads"), py::arg("t"),
+        py::arg("lr_t"), py::arg("lr"), py::arg("mhat"), py::arg("vhat"),
+        py::arg("b1"), py::arg("b2"), py::arg("weight_decay"), py::arg("k"),
+        py::arg("warmup"));
   m.def("hash_lookup", &hash_lookup,
         "Batch linear probe of the cache's id -> slot hash map (CUDA)",
         py::arg("key_tab"), py::arg("slot_tab"), py::arg("slot_uid"),

@@ -5,6 +5,8 @@
 //   cached push:  cache[slots[i]] += delta[i]; cache_accum[slots[i]] += g2[i]
 //                 (every real i)
 //   cached gather: out[i] = cache_rows[slots[i]]
+//   staged push:  rows += delta(accum, g); accum += g*g   (elementwise over
+//                 the pulled (C, D) rows; the row math in the kernel)
 //
 // Replace the Pallas TPU kernels of src/repro/kernels/sparse_adagrad.py:
 // sparse_adagrad_apply_pallas (pallas_call at :127),
@@ -53,6 +55,25 @@
 // per lane.  The wrapper demands 0 <= slots < C (the reference's lookup
 // passes "safe" slots); a slot outside that range writes a zero row.  The
 // copy is exact, so the result is bit-equal to the plain index_select.
+//
+// The staged push replaces the Pallas TPU kernel sparse_adagrad_pallas
+// (pallas_call at :88 of the same file): dense-block AdaGrad over the
+// working set's rows as the SSD tier stages them, aligned with the uids
+// (row i is table row uids[i]; pads repeat uids[0] and carry zero
+// gradients).  Unlike the pushes above it computes the row math itself,
+// with the exact roundings of adagrad_row_updates, so the staged rows end
+// bit-equal to the host push's table rows:
+//   g2 = g*g;  a_new = f32(f64(a) + f64(g)^2);  root = f32(sqrt(f64(a_new)))
+//   delta = (f32(-lr) * g) / (root + f32(eps));  rows += delta;  accum += g2
+// (every op IEEE-rounded: __fmul_rn, __dadd_rn, __dsqrt_rn, ...; g*g is
+// exact in double).  A pad row is left as it was: x + (-0.0) == x.
+// What bounds it: bytes.  Per element it reads the row, the accumulator
+// and the gradient and writes the row and the accumulator (5 x 4 B); the
+// float64 root is a few dozen instructions per element, far under the
+// card's float64 rate at these sizes.  Design: a flat grid-stride loop,
+// 16-byte loads and stores (float4) when the element count is a multiple
+// of 4 and the three tensors are 16-byte aligned, else one float per
+// thread.
 #include <cuda_runtime.h>
 #include <cstdint>
 
@@ -112,6 +133,54 @@ __global__ void gather_rows_cached_kernel(
   }
 }
 
+__device__ __forceinline__ void adagrad_element(float& w, float& a, float g,
+                                                float neg_lr, float eps) {
+  const float g2 = __fmul_rn(g, g);
+  const double gd = static_cast<double>(g);
+  const float a_new = __double2float_rn(
+      __dadd_rn(static_cast<double>(a), __dmul_rn(gd, gd)));
+  const float root = __double2float_rn(__dsqrt_rn(static_cast<double>(a_new)));
+  const float delta = __fdiv_rn(__fmul_rn(neg_lr, g), __fadd_rn(root, eps));
+  w = __fadd_rn(w, delta);
+  a = __fadd_rn(a, g2);
+}
+
+__global__ void sparse_adagrad_staged_kernel(float* __restrict__ rows,
+                                             float* __restrict__ accum,
+                                             const float* __restrict__ grads,
+                                             int64_t n, float neg_lr,
+                                             float eps) {
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                   threadIdx.x;
+       i < n; i += stride) {
+    float w = rows[i];
+    float a = accum[i];
+    adagrad_element(w, a, grads[i], neg_lr, eps);
+    rows[i] = w;
+    accum[i] = a;
+  }
+}
+
+__global__ void sparse_adagrad_staged_vec4_kernel(
+    float4* __restrict__ rows, float4* __restrict__ accum,
+    const float4* __restrict__ grads, int64_t n4, float neg_lr, float eps) {
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                   threadIdx.x;
+       i < n4; i += stride) {
+    float4 w = rows[i];
+    float4 a = accum[i];
+    const float4 g = grads[i];
+    adagrad_element(w.x, a.x, g.x, neg_lr, eps);
+    adagrad_element(w.y, a.y, g.y, neg_lr, eps);
+    adagrad_element(w.z, a.z, g.z, neg_lr, eps);
+    adagrad_element(w.w, a.w, g.w, neg_lr, eps);
+    rows[i] = w;
+    accum[i] = a;
+  }
+}
+
 }  // namespace
 
 // The binding checks every shape before these are called; cap >= 1.
@@ -141,5 +210,30 @@ void launch_gather_rows_cached(const float* cache_rows, int64_t n_slots,
     gather_rows_cached_kernel<false><<<static_cast<unsigned>(blocks),
                                        kRowsPerBlock * kWarp, 0, stream>>>(
         cache_rows, n_slots, dim, slots, cap, out);
+  }
+}
+
+// rows/accum/grads: n floats each (n >= 1); neg_lr = (float)(-lr).
+void launch_sparse_adagrad_staged(float* rows, float* accum,
+                                  const float* grads, int64_t n, float neg_lr,
+                                  float eps, cudaStream_t stream) {
+  constexpr int kThreads = 256;
+  constexpr int64_t kMaxBlocks = 132 * 16;
+  const bool vec4 = n % 4 == 0 &&
+                    reinterpret_cast<uintptr_t>(rows) % 16 == 0 &&
+                    reinterpret_cast<uintptr_t>(accum) % 16 == 0 &&
+                    reinterpret_cast<uintptr_t>(grads) % 16 == 0;
+  const int64_t work = vec4 ? n / 4 : n;
+  int64_t blocks = (work + kThreads - 1) / kThreads;
+  if (blocks > kMaxBlocks) blocks = kMaxBlocks;
+  if (vec4) {
+    sparse_adagrad_staged_vec4_kernel<<<static_cast<unsigned>(blocks),
+                                        kThreads, 0, stream>>>(
+        reinterpret_cast<float4*>(rows), reinterpret_cast<float4*>(accum),
+        reinterpret_cast<const float4*>(grads), work, neg_lr, eps);
+  } else {
+    sparse_adagrad_staged_kernel<<<static_cast<unsigned>(blocks), kThreads,
+                                   0, stream>>>(rows, accum, grads, n, neg_lr,
+                                                eps);
   }
 }

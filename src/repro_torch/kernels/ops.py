@@ -6,9 +6,10 @@ Nothing falls back: a CUDA tensor the kernel does not take raises.
 
 ``launches`` counts, per path, the calls that ran each function: the CUDA
 kernels under their names (``embedding_bag``, ``embedding_bag_backward``,
-``sparse_adagrad_apply``, and the cache tier's ``hash_lookup``,
-``gather_rows_cached``, ``sparse_adagrad_cached_apply``), the plain
-versions under the same name with ``_ref``.  A run resets it with ``reset_launches()`` and reads it afterwards
+``sparse_adagrad_apply``, the cache tier's ``hash_lookup``,
+``gather_rows_cached``, ``sparse_adagrad_cached_apply``, the SSD tier's
+staged push ``sparse_adagrad`` and the k-step local Adam step
+``fused_adam``), the plain versions under the same name with ``_ref``.  A run resets it with ``reset_launches()`` and reads it afterwards
 to show which path it took.
 """
 
@@ -21,12 +22,14 @@ from repro_torch.kernels.embedding_bag import (
     embedding_bag_backward_cuda,
     embedding_bag_cuda,
 )
+from repro_torch.kernels.fused_adam import fused_adam_cuda
 from repro_torch.kernels.hash_map import hash_lookup_cuda
 from repro_torch.kernels.sparse_adagrad import (
     adagrad_row_updates,
     gather_rows_cached_cuda,
     sparse_adagrad_apply_cuda,
     sparse_adagrad_cached_apply_cuda,
+    sparse_adagrad_staged_cuda,
 )
 
 _COMBINERS = ("sum", "mean", "sqrtn")
@@ -38,6 +41,8 @@ launches = {
     "hash_lookup": 0, "hash_lookup_ref": 0,
     "gather_rows_cached": 0, "gather_rows_cached_ref": 0,
     "sparse_adagrad_cached_apply": 0, "sparse_adagrad_cached_apply_ref": 0,
+    "sparse_adagrad": 0, "sparse_adagrad_ref": 0,
+    "fused_adam": 0, "fused_adam_ref": 0,
 }
 
 
@@ -210,4 +215,34 @@ def sparse_adagrad_cached_apply(cache_rows, cache_accum, slots, grads, *,
     out = sparse_adagrad_cached_apply_cuda(cache_rows, cache_accum, slots,
                                            uids, delta, g2)
     launches["sparse_adagrad_cached_apply"] += 1
+    return out
+
+
+def sparse_adagrad(rows, accum, grads, *, lr, eps):
+    """The SSD tier's staged push: dense-block AdaGrad over the pulled
+    ``(C, D)`` working-set rows, in place; returns the same
+    ``(rows, accum)``.  Row i ends bit-equal to row ``uids[i]`` after the
+    host push (the same ``adagrad_row_updates`` bits)."""
+    if kernel_mode(rows) == "ref":
+        launches["sparse_adagrad_ref"] += 1
+        return ref.sparse_adagrad_ref(rows, accum, grads, lr, eps)
+    out = sparse_adagrad_staged_cuda(rows, accum, grads, lr=lr, eps=eps)
+    launches["sparse_adagrad"] += 1
+    return out
+
+
+def fused_adam(params, grads, m, v_local, v_hat, *, t, lr, b1, b2, k,
+               local_v_warmup, mhat_s=None, vhat_s=None, weight_decay=0.0,
+               table=None):
+    """The k-step local Adam step over lists of leaves, in place (see
+    ``ref.fused_adam_ref``); returns ``(params, m, v_local)``.  On CUDA
+    leaves one kernel launch over every leaf; ``table`` is the caller's
+    ``AdamTable`` (its leaves' pointers, kept across steps)."""
+    kw = dict(t=t, lr=lr, b1=b1, b2=b2, k=k, local_v_warmup=local_v_warmup,
+              mhat_s=mhat_s, vhat_s=vhat_s, weight_decay=weight_decay)
+    if kernel_mode(params[0]) == "ref":
+        launches["fused_adam_ref"] += 1
+        return ref.fused_adam_ref(params, grads, m, v_local, v_hat, **kw)
+    out = fused_adam_cuda(params, grads, m, v_local, v_hat, table=table, **kw)
+    launches["fused_adam"] += 1
     return out

@@ -124,3 +124,52 @@ def hash_lookup_ref(key_tab, slot_tab, slot_uid, uids):
         active = ~found & (kb != EMPTY)
         idx, u, b = idx[active], u[active], (b[active] + 1) & (H - 1)
     return slot
+
+
+def fused_adam_ref(params, grads, m, v_local, v_hat, *, t, lr, b1, b2, k,
+                   local_v_warmup, mhat_s=None, vhat_s=None,
+                   weight_decay=0.0):
+    """The k-step local Adam step (Algorithm 2 lines 5-9) over lists of
+    float32 leaves, in place: the plain version of ``fused_adam_cuda``.
+
+    ``m = b1*m + (1-b1)*g``; ``v_local = b2*v_local + (1-b2)*g^2``;
+    ``p -= lr*(m*mhat_s) / sqrt(v_use*vhat_s) (+ lr*weight_decay*p)``, where
+    ``v_use`` is the new ``v_local`` while ``local_v_warmup`` holds and
+    ``t <= k`` (before the first merge), else ``v_hat``.  ``t`` is the step
+    count after this step (a 0-dim int32 tensor), ``lr`` a Python float or
+    a 0-dim float32 tensor, ``mhat_s``/``vhat_s`` the bias-correction
+    factors as 0-dim float32 tensors (None: no correction).  These are the
+    operations of ``core/kstep.py``'s local branch, one rounding each, in
+    its order.
+    """
+    for p, g, mm, vv, vh in zip(params, grads, m, v_local, v_hat):
+        g32 = g.to(torch.float32)
+        m_new = b1 * mm + (1.0 - b1) * g32
+        vl_new = b2 * vv + (1.0 - b2) * torch.square(g32)
+        if local_v_warmup:
+            v_use = torch.where(t <= k, vl_new, vh)
+        else:
+            v_use = vh
+        m_use = m_new if mhat_s is None else m_new * mhat_s
+        v_use = v_use if vhat_s is None else v_use * vhat_s
+        d = lr * m_use / torch.sqrt(v_use)
+        if weight_decay > 0.0:
+            d = d + lr * weight_decay * p.to(torch.float32)
+        p.copy_(p.to(torch.float32) - d)
+        mm.copy_(m_new)
+        vv.copy_(vl_new)
+    return params, m, v_local
+
+
+def sparse_adagrad_ref(rows, accum, grads, lr, eps):
+    """The staged push over pulled ``(C, D)`` rows, in place: the plain
+    version of ``sparse_adagrad_staged_cuda``.  ``(delta, g2)`` from
+    ``adagrad_row_updates`` (the port's host push's row math), then
+    ``rows += delta; accum += g2``; returns the same two tensors.  Row i
+    ends bit-equal to row ``uids[i]`` of a table the host push updated."""
+    from repro_torch.kernels.sparse_adagrad import adagrad_row_updates
+
+    delta, g2 = adagrad_row_updates(accum, grads, rows.dtype, lr=lr, eps=eps)
+    rows.add_(delta)
+    accum.add_(g2)
+    return rows, accum

@@ -10,7 +10,10 @@ bits.  The kernels are in ``csrc/sparse_adagrad.cu`` (its header states the
   - ``sparse_adagrad_apply_cuda``: the push into the table, by ``uids``;
   - ``sparse_adagrad_cached_apply_cuda``: the push into the device cache,
     by ``slots`` (the hash probe's output), the pads found by ``uids``;
-  - ``gather_rows_cached_cuda``: ``out[i] = cache_rows[slots[i]]``.
+  - ``gather_rows_cached_cuda``: ``out[i] = cache_rows[slots[i]]``;
+  - ``sparse_adagrad_staged_cuda``: the SSD tier's staged push, dense-block
+    AdaGrad over the pulled ``(C, D)`` rows, which computes the row math of
+    ``adagrad_row_updates`` itself, with the same roundings.
 
 The pushes update their two tensors in place, the port's counterpart of the
 reference's buffer donation (``input_output_aliases``).
@@ -124,3 +127,27 @@ def gather_rows_cached_cuda(cache_rows, slots):
                       dtype=cache_rows.dtype, device=cache_rows.device)
     extension().gather_rows_cached(cache_rows, slots, out)
     return out
+
+
+def sparse_adagrad_staged_cuda(rows, accum, grads, *, lr, eps):
+    """``rows += delta; accum += g^2`` in place over staged ``(C, D)``
+    working-set rows, with ``(delta, g^2)`` the bits of
+    ``adagrad_row_updates(accum, grads)``, by one kernel launch on the
+    current stream; returns the same ``(rows, accum)``."""
+    for name, t in (("rows", rows), ("accum", accum), ("grads", grads)):
+        if t.dim() != 2 or t.dtype != torch.float32:
+            raise ValueError(f"{name} must be 2-D float32, got "
+                             f"{tuple(t.shape)} {t.dtype}")
+        if t.shape != rows.shape or t.device != rows.device:
+            raise ValueError(f"{name} is {tuple(t.shape)} on {t.device}, "
+                             f"rows {tuple(rows.shape)} on {rows.device}")
+    if not rows.is_cuda:
+        raise ValueError(f"sparse_adagrad_staged_cuda takes CUDA tensors, "
+                         f"got {rows.device}")
+    if not (rows.is_contiguous() and accum.is_contiguous()
+            and grads.is_contiguous()):
+        raise ValueError("sparse_adagrad_staged_cuda takes contiguous "
+                         "tensors")
+    extension().sparse_adagrad_staged(rows, accum, grads, float(lr),
+                                      float(eps))
+    return rows, accum

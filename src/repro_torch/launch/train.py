@@ -6,6 +6,8 @@
         --full --batch 1024 --capacity 65536      # full width, on the card
     PYTHONPATH=src python -m repro_torch.launch.train --arch baidu-ctr \\
         --placement cached --cache-rows 512 --device cpu   # the cache tier
+    PYTHONPATH=src python -m repro_torch.launch.train --arch baidu-ctr \\
+        --store disk --spill-dir /tmp/pages --page-rows 64 --device cpu
 
 Counterpart of ``repro/launch/train.py``'s recsys branch for ``baidu-ctr``:
 the hybrid trainer (k-step Adam on the dense tower, AdaGrad pushes into the
@@ -22,6 +24,14 @@ paper's §2.3 hierarchy: the full table and its AdaGrad accumulator in host
 memory, a device cache of ``--cache-rows`` rows, by default the capacity,
 serving the Zipf-hot working set; the final line adds ``cache_hit_rate``
 and ``evictions``, the serving line ``serve_hit_rate``).
+
+``--store disk`` drops the cold tier one level (docs/storage.md): the full
+table and accumulator live in row pages under ``--spill-dir``
+(``--page-rows`` rows each) behind an in-RAM LRU page cache
+(``--page-cache-pages``, 0: unbounded), with read-ahead and write-behind;
+the engine stages each batch's rows out of it.  It works with ``gather``
+and ``cached``, and trains bit for bit as ``--store host`` does.  The store
+is synced and closed at the end.
 
 ``--full`` selects the full model config (2e9 rows, which one card cannot
 hold: pass ``--rows`` to cut the table, e.g. ``--rows 50000000``).
@@ -69,10 +79,21 @@ def build_argparser() -> argparse.ArgumentParser:
                     help="full model config (the card)")
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (the default) or 'cpu'")
+    ap.add_argument("--store", default="host", choices=["host", "disk"],
+                    help="cold tier below the device cache: 'host' keeps "
+                         "the full tables resident (default); 'disk' pages "
+                         "them to --spill-dir")
+    ap.add_argument("--spill-dir", default="",
+                    help="DiskStore page directory (required for --store "
+                         "disk)")
+    ap.add_argument("--page-rows", type=int, default=0,
+                    help="rows per page for --store disk (0: 1024)")
+    ap.add_argument("--page-cache-pages", type=int, default=0,
+                    help="in-RAM page-cache budget for --store disk "
+                         "(0: unbounded)")
     # the reference's flags the port does not have yet: they raise
     ap.add_argument("--prefetch", action="store_true")
     ap.add_argument("--ckpt-dir", default="")
-    ap.add_argument("--store", default="host", choices=["host", "disk"])
     ap.add_argument("--merge-delay", type=int, default=0)
     ap.add_argument("--strict-transfers", action="store_true")
     return ap
@@ -82,7 +103,6 @@ def _reject_unported(args) -> None:
     unported = [
         (args.prefetch, "--prefetch", "A5 (prefetch)"),
         (bool(args.ckpt_dir), "--ckpt-dir", "A3 (checkpointing)"),
-        (args.store != "host", "--store disk", "A7 (SSD tier)"),
     ]
     for given, flag, item in unported:
         if given:
@@ -102,8 +122,7 @@ def main(argv=None):
     from repro_torch.core.kstep import KStepConfig
     from repro_torch.core.sparse_optim import SparseAdagradConfig
     from repro_torch.data import synthetic as S
-    from repro_torch.runtime.factory import build_ctr_server, build_trainer
-    from repro_torch.runtime.online import fit_online
+    from repro_torch.runtime.factory import build_trainer
     from repro_torch.runtime.trainer import TrainerConfig
 
     spec = configs.get(args.arch)
@@ -117,10 +136,26 @@ def main(argv=None):
                                    initial_accumulator=0.01),
         placement=args.placement, capacity=args.capacity or None,
         cache_rows=args.cache_rows or None, merge_delay=args.merge_delay,
+        store=args.store, spill_dir=args.spill_dir or None,
+        page_rows=args.page_rows or None,
+        page_cache_pages=args.page_cache_pages or None,
     )
     t0 = time.perf_counter()
     tr = build_trainer(args.arch, tcfg, model_cfg=cfg, device=args.device)
     gen = S.recsys_batches(cfg, batch=args.batch, seed=1)
+
+    try:
+        _run(args, tr, cfg, gen, t0)
+    finally:
+        tr.close()
+
+
+def _run(args, tr, cfg, gen, t0):
+    """The training loop (with ``--serve`` the co-located one) and its
+    final line."""
+    from repro_torch.data import synthetic as S
+    from repro_torch.runtime.factory import build_ctr_server
+    from repro_torch.runtime.online import fit_online
 
     if args.serve:
         # co-located train + serve: the server reads the LIVE tables the

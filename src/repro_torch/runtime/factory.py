@@ -6,6 +6,8 @@ reached (``baidu-ctr``):
     tr = build_trainer("baidu-ctr", TrainerConfig(placement="gather"))
     tr = build_trainer("baidu-ctr", TrainerConfig(placement="cached",
                                                   cache_rows=262144))
+    tr = build_trainer("baidu-ctr", TrainerConfig(store="disk",
+                                                  spill_dir="/path/to/pages"))
     history, auc = fit_online(tr, ctr_batches(...), steps)   # training
     server = build_ctr_server(tr, max_batch=1024)            # serving
 
@@ -47,13 +49,35 @@ def build_ctr_engine(model_cfg: R.CTRConfig, cfg: TrainerConfig,
     kernels run per ``cfg.fused_kernels`` (``ops.resolve_fused``).  The
     cached placement's device cache holds ``cfg.cache_rows`` rows, by
     default the capacity (one batch's working set); an explicit
-    ``cache_rows`` below the capacity raises."""
+    ``cache_rows`` below the capacity raises.  ``cfg.store == "disk"`` puts
+    the tables in a ``DiskStore`` under ``cfg.spill_dir`` (pages of
+    ``cfg.page_rows`` rows, default 1024, behind a page cache of
+    ``cfg.page_cache_pages`` pages, default unbounded) and stages the
+    backend."""
     device = resolve_device(device)
     specs = R.ctr_table_specs(model_cfg)
     capacity = cfg.capacity or _default_capacity(
         max(s.rows for s in specs.values()))
     fused = ops.resolve_fused(cfg.fused_kernels, device)
+    # ---- the cold tier (three levels when store="disk")
+    if cfg.store == "host" and (cfg.page_rows is not None
+                                or cfg.page_cache_pages is not None):
+        # no silent config: page geometry without the disk tier is a
+        # mis-specified experiment, not a default to ignore
+        raise ValueError(
+            "page_rows/page_cache_pages are disk-store knobs; set "
+            "store='disk' (with spill_dir) to use them")
+    if cfg.store == "disk" and cfg.placement == "routed":
+        raise NotImplementedError(
+            "store='disk' with placement='routed' is not implemented: the "
+            "routed exchange addresses shard-resident rows, which the "
+            "staged working-set dataflow does not provide; use 'gather' "
+            "or 'cached'")
     kwargs = {}
+    if cfg.store == "disk":
+        kwargs["staged"] = True
+        if cfg.placement == "cached":
+            kwargs["capacity"] = capacity   # sizes the per-pull spill rows
     if cfg.placement == "cached":
         # an EXPLICIT undersized cache_rows is an error, not a silent clamp
         # (a cache-size experiment must run with the cache it asked for)
@@ -64,11 +88,16 @@ def build_ctr_engine(model_cfg: R.CTRConfig, cfg: TrainerConfig,
                 f"device cache"
             )
         kwargs["cache_rows"] = cfg.cache_rows or capacity
+    backend = make_backend(cfg.placement, fused=fused, device=device,
+                           **kwargs)
+    # the store last: a DiskStore starts its IO threads
+    store = make_store(
+        cfg.store, spill_dir=cfg.spill_dir,
+        page_rows=cfg.page_rows if cfg.page_rows is not None else 1024,
+        page_cache_pages=cfg.page_cache_pages)
     return EmbeddingEngine(
         specs, capacity=capacity, optimizer=SparseAdagrad(cfg.sparse),
-        backend=make_backend(cfg.placement, fused=fused, device=device,
-                             **kwargs),
-        store=make_store(cfg.store), device=device,
+        backend=backend, store=store, device=device,
     )
 
 

@@ -15,7 +15,13 @@ Algorithm 1's pull -> train -> push:
      ``n_pod``, the dense gradients stay per pod;
   4. ``KStepAdam.step``: the local step, or the merge step every k steps;
   5. ``EmbeddingEngine.push``: the AdaGrad push (the CUDA kernel; under
-     the cached placement the cached push into the device cache).
+     the cached placement the cached push into the device cache; under the
+     DiskStore the staged push over the staged rows).
+
+Under the DiskStore (``store="disk"``, the SSD tier) the pull is the
+engine's staged pull (``EmbeddingEngine.disk_pull``): the tables live in
+page files, and ``self.tables``/the accumulator hold the last step's
+staged ``(capacity, dim)`` rows until the next pull commits them.
 
 The dense parameters, the optimizer state, the tables and the accumulator
 are updated in place (the port's counterpart of the reference's buffer
@@ -71,7 +77,12 @@ class TrainerConfig:
     fused_kernels: Optional[bool] = None  # None = auto: the CUDA kernels on
                                           # the card, the plain versions on
                                           # the CPU (ops.resolve_fused)
-    store: str = "host"             # cold tier ("host" is ported)
+    store: str = "host"             # cold tier: "host" (resident tables)
+                                    # | "disk" (paged spill dir)
+    spill_dir: Optional[str] = None   # page directory (required for "disk")
+    page_rows: Optional[int] = None   # rows per page file (None: 1024)
+    page_cache_pages: Optional[int] = None  # RAM page-cache capacity
+                                            # (None: unbounded)
     ckpt_dir: Optional[str] = None  # checkpoints (not ported: A3)
     merge_quorum: float = 1.0       # reserved: only 1.0 (all pods)
     merge_delay: int = 0            # DenseTrainer only
@@ -206,11 +217,14 @@ class HybridTrainer:
                              "state")
         else:
             self.dense = pod_replicate(dense_params, self.n_pod)
+        disk = engine.store.kind == "disk"
         for name, spec in engine.specs.items():
-            if tuple(tables[name].shape) != (spec.rows, spec.dim):
+            # under the DiskStore the "tables" are the staging buffers
+            want = ((engine.capacity if disk else spec.rows), spec.dim)
+            if tuple(tables[name].shape) != want:
                 raise ValueError(
-                    f"table {name!r} is {tuple(tables[name].shape)}, spec "
-                    f"says {(spec.rows, spec.dim)}")
+                    f"table {name!r} is {tuple(tables[name].shape)}, "
+                    f"expected {want}")
         self.tables = tables
         self.sparse_state = (engine.init_state(tables) if accum is None
                              else SparseAdagradState(accum))
@@ -308,7 +322,9 @@ class HybridTrainer:
         """Sparse-path health PER INTERVAL (since the last logging
         boundary): ``overflow_dropped`` and, under the cached placement,
         ``cache_hit_rate``, ``evictions`` and the host <-> device byte
-        meters; the whole-run values under ``*_total`` keys.  A pure read
+        meters, under the DiskStore ``page_hit_rate``, ``pages_evicted``
+        and the disk byte meters; the whole-run values under ``*_total``
+        keys.  A pure read
         unless ``advance=True`` (what the fit loggers pass), which moves the
         interval baseline."""
         total = int(self._overflow)
@@ -356,11 +372,24 @@ class HybridTrainer:
     def predict(self, batch) -> np.ndarray:
         """Scores of a batch with pod 0's dense replica, on the engine's
         READ-ONLY lookup: the rows a pull would serve, with nothing
-        written."""
+        written.
+
+        Under the DiskStore the training staging buffers hold another
+        batch's rows, so predict stages this batch's own through
+        ``engine.stage_lookup``: serve-metered page reads with the pending
+        staged training outputs (un-absorbed pushed rows, in-flight cache
+        spills) laid over them on the host, so the freshest values are
+        served and nothing is written to the store."""
         with torch.inference_mode():
+            staged = self._stage(batch)
+            tables, accum = self.tables, self.sparse_state.accum
+            if self.engine.store.kind == "disk":
+                ids = self.engine.ids_from_batch(staged)
+                tables, accum = self.engine.stage_lookup(
+                    tables, accum, self.backend_state,
+                    {n: x.cpu().numpy() for n, x in ids.items()})
             scores, aux = self._predict_traced(
-                self.dense, self.tables, self.sparse_state.accum,
-                self.backend_state, self._stage(batch))
+                self.dense, tables, accum, self.backend_state, staged)
             return self._finish_predict(scores, aux)
 
     def _predict_traced(self, dense, tables, accum, bstate, batch):
@@ -389,7 +418,9 @@ class HybridTrainer:
         """Cumulative SERVING-side counters: ``serve_requests`` (instances
         scored, tail pads included), ``serve_lookups`` (id slots served)
         and, under the cached placement, ``serve_misses`` and
-        ``serve_hit_rate`` (``1 - misses / lookups``, as in training)."""
+        ``serve_hit_rate`` (``1 - misses / lookups``, as in training).
+        Under the DiskStore the page meters of serving reads ride along as
+        ``serve_page_*``/``serve_disk_*``."""
         m = dict(self._serve_counters)
         if "serve_misses" in m:
             lk = m.get("serve_lookups", 0.0)
@@ -398,3 +429,12 @@ class HybridTrainer:
         for k, v in self.engine.store.serve_stats().items():
             m[f"serve_{k}"] = float(v)
         return m
+
+    def close(self) -> None:
+        """Commit everything to the store and close it (the DiskStore:
+        ``sync_store``, then stop its threads; nothing for the host
+        store)."""
+        if self.engine.store.kind == "disk":
+            self.engine.sync_store(self.tables, self.sparse_state.accum,
+                                   self.backend_state)
+            self.engine.store.close()

@@ -372,3 +372,207 @@ def test_cuda_cached_backend_matches_the_cpu():
     assert all(torch.equal(p, q) for p, q in zip(s0, s1))
     assert torch.equal(t0, t1) and torch.equal(a0, a1)
     assert float(s1[-1]) > 0 and float(s1[-3]) >= 1   # spills, rebuilds
+
+
+# ------------------------------------------- the local Adam step (kernel 6)
+def _adam_leaves(seed, sizes, device):
+    """Leaves of a podded tree (params, grads, m, v_local, v_hat) with
+    positive second moments."""
+    gen = torch.Generator().manual_seed(seed)
+
+    def draw(scale=1.0, positive=False):
+        out = []
+        for n in sizes:
+            x = torch.randn((n,), generator=gen) * scale
+            out.append((x.abs() + 1e-3 if positive else x).to(device))
+        return out
+
+    return (draw(0.3), draw(0.01), draw(0.01), draw(1e-4, True),
+            draw(1e-4, True))
+
+
+def _adam_kwargs(t, device, warmup, bias, wd, lr_tensor, k=20):
+    tt = torch.tensor(t, dtype=torch.int32, device=device)
+    lr = (torch.tensor(1e-3, dtype=torch.float32, device=device)
+          if lr_tensor else 1e-3)
+    mhat = vhat = None
+    if bias:
+        tf = tt.to(torch.float32)
+        mhat = 1.0 / (1.0 - 0.9 ** tf)
+        vhat = 1.0 / (1.0 - 0.999 ** tf)
+    return dict(t=tt, lr=lr, b1=0.9 if bias else 0.0, b2=0.999, k=k,
+                local_v_warmup=warmup, mhat_s=mhat, vhat_s=vhat,
+                weight_decay=wd)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lr_tensor", [False, True])
+@pytest.mark.parametrize("wd", [0.0, 1e-4])
+@pytest.mark.parametrize("bias", [False, True])
+@pytest.mark.parametrize("warmup,t", [(True, 3), (True, 25), (False, 3)])
+def test_cuda_fused_adam_matches_plain_version(warmup, t, bias, wd,
+                                               lr_tensor):
+    """Kernel 6 against its plain version on the card, bit for bit, in
+    every branch: warm-up before and after the first merge and off, bias
+    correction, weight decay, lr as a float and as a 0-dim tensor; odd
+    leaf sizes; two runs bit-equal."""
+    _cuda_or_skip()
+    from repro_torch.kernels.fused_adam import fused_adam_cuda
+
+    sizes = [4096, 1, 1310720, 513, 131071, 7]
+    leaves = _adam_leaves(3, sizes, "cuda")
+    kw = _adam_kwargs(t, "cuda", warmup, bias, wd, lr_tensor)
+    want = [[x.clone() for x in grp] for grp in leaves]
+    tref.fused_adam_ref(*want, **kw)
+    runs = []
+    for _ in range(2):
+        got = [[x.clone() for x in grp] for grp in leaves]
+        out = fused_adam_cuda(*got, **kw)
+        torch.cuda.synchronize()
+        assert out[0] is got[0] and out[1] is got[2] and out[2] is got[3]
+        runs.append(got)
+    for got in runs:
+        for i in (0, 2, 3):                     # params, m, v_local
+            for a, b in zip(got[i], want[i]):
+                assert torch.equal(a, b)
+        for i in (1, 4):                        # grads and v_hat untouched
+            for a, b in zip(got[i], leaves[i]):
+                assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_cuda_fused_adam_many_leaves_and_table_reuse():
+    """More than 32 leaves (two launches in one call), a table kept across
+    steps and rebuilt when a leaf's storage changes; counted once per
+    call by ops."""
+    _cuda_or_skip()
+    from repro_torch.kernels.fused_adam import AdamTable
+
+    sizes = [int(x) for x in np.random.default_rng(5).integers(1, 3000, 40)]
+    leaves = _adam_leaves(4, sizes, "cuda")
+    want = [[x.clone() for x in grp] for grp in leaves]
+    got = [[x.clone() for x in grp] for grp in leaves]
+    table = AdamTable()
+    ops.reset_launches()
+    for t in (1, 2, 3):
+        kw = _adam_kwargs(t, "cuda", True, False, 0.0, False, k=2)
+        tref.fused_adam_ref(*want, **kw)
+        ops.fused_adam(*got, table=table, **kw)
+    first = table.get(got[0], got[2], got[3], got[4])
+    got[0][5] = got[0][5].clone()                # new storage for one leaf
+    assert table.get(got[0], got[2], got[3], got[4]) is not first
+    torch.cuda.synchronize()
+    for i in (0, 2, 3):
+        assert all(torch.equal(a, b) for a, b in zip(got[i], want[i]))
+    assert ops.launches["fused_adam"] == 3
+    assert ops.launches["fused_adam_ref"] == 0
+
+
+@pytest.mark.gpu
+def test_cuda_kstep_local_steps_make_no_host_sync():
+    """KStepAdam's local steps on the card: no synchronizing call (sync
+    debug mode "error") and the same bits as the plain version's steps."""
+    _cuda_or_skip()
+    from repro_torch.core import kstep as tk
+
+    gen = torch.Generator().manual_seed(6)
+    tree = {"w": torch.randn((2, 64, 33), generator=gen),
+            "b": [torch.randn((2, 5), generator=gen)]}
+    out = []
+    for device in ("cuda", "cpu"):
+        opt = tk.KStepAdam(tk.KStepConfig(lr=1e-2, k=4, merge="two_phase"), 2)
+        p = tk.tree_map(lambda x: x.clone().to(device), tree)
+        s = opt.init(p)
+        g = tk.tree_map(lambda x: (x * 0.1).to(device), tree)
+        for step in range(1, 4):
+            if device == "cuda":
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                opt.step(p, g, s, merge=False)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        out.append(p)
+    torch.testing.assert_close(out[0]["w"].cpu(), out[1]["w"], rtol=1e-6,
+                               atol=1e-7)
+
+
+# ------------------------------------------- the staged push (kernel 7)
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows,D,n_ids,capacity", [
+    (5000, 64, 900, 1024),       # pads
+    (3000, 16, 600, 512),        # odd width, pads
+    (4000, 100, 700, 256),       # overflow: no pads
+    (900, 3, 500, 333),          # no float4 path
+])
+def test_cuda_staged_push_matches_plain_version_and_host_push(rows, D,
+                                                              n_ids,
+                                                              capacity):
+    """Kernel 7 over staged rows against its plain version on the card and
+    against the host push on a resident table: bit-equal at every valid
+    position, pads unchanged, two runs bit-equal."""
+    _cuda_or_skip()
+    from repro_torch.kernels.sparse_adagrad import sparse_adagrad_staged_cuda
+
+    table, accum, uids, grads = _push_case(17, rows, D, n_ids, capacity)
+    table, accum, uids, grads = (x.cuda() for x in (table, accum, uids,
+                                                    grads))
+    staged = table[uids.long()], accum[uids.long()]
+    want = tref.sparse_adagrad_ref(staged[0].clone(), staged[1].clone(),
+                                   grads, 0.5, 1e-10)
+    runs = []
+    for _ in range(2):
+        r, a = staged[0].clone(), staged[1].clone()
+        out = sparse_adagrad_staged_cuda(r, a, grads, lr=0.5, eps=1e-10)
+        torch.cuda.synchronize()
+        assert out[0] is r and out[1] is a
+        runs.append((r, a))
+    for r, a in runs:
+        assert torch.equal(r, want[0]) and torch.equal(a, want[1])
+    t, ac = table.clone(), accum.clone()
+    ops.sparse_adagrad_apply(t, ac, uids, grads, lr=0.5, eps=1e-10)
+    valid = torch.cat([torch.ones(1, dtype=torch.bool, device="cuda"),
+                       uids[1:] > uids[:-1]])
+    assert torch.equal(runs[0][0][valid], t[uids[valid].long()])
+    assert torch.equal(runs[0][1][valid], ac[uids[valid].long()])
+    assert torch.equal(runs[0][0][~valid], staged[0][~valid])   # the pads
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("placement", ["gather", "cached"])
+def test_cuda_disk_store_trains_as_the_host_store(placement, tmp_path):
+    """The SSD tier on the card: a small trainer on the DiskStore (bounded
+    page cache) against the same trainer on the host store, losses and
+    predictions bit-equal; the staged push ran as kernel 7 on gather."""
+    _cuda_or_skip()
+    from repro_torch.configs import baidu_ctr
+    from repro_torch.core.kstep import KStepConfig
+    from repro_torch.data.synthetic import recsys_batches
+    from repro_torch.runtime.factory import build_trainer
+    from repro_torch.runtime.trainer import TrainerConfig
+
+    smoke = baidu_ctr.SMOKE
+    gen = recsys_batches(smoke, batch=48, seed=1)
+    batches = [next(gen) for _ in range(5)]
+    out = []
+    for store in ("host", "disk"):
+        disk = store == "disk"
+        tcfg = TrainerConfig(
+            n_pod=2, kstep=KStepConfig(k=3), capacity=512,
+            placement=placement,
+            cache_rows=1024 if placement == "cached" else None, store=store,
+            spill_dir=str(tmp_path / "spill") if disk else None,
+            page_rows=256 if disk else None,
+            page_cache_pages=8 if disk else None)
+        tr = build_trainer("baidu-ctr", tcfg, seed=2, device="cuda")
+        ops.reset_launches()
+        losses = [tr.train_step(b) for b in batches]
+        pred = tr.predict(batches[0])
+        launches = dict(ops.launches)
+        out.append((torch.stack(losses).cpu(), pred, launches))
+        tr.close()
+    assert torch.equal(out[0][0], out[1][0])
+    np.testing.assert_array_equal(out[0][1], out[1][1])
+    staged = out[1][2]
+    assert staged["sparse_adagrad"] == (5 if placement == "gather" else 0)
+    assert all(v == 0 for k, v in staged.items() if k.endswith("_ref"))
+    assert staged["fused_adam"] == 4                 # steps 1, 2, 4, 5

@@ -124,7 +124,9 @@ def test_cpu_dispatch_runs_the_plain_version_and_counts_it():
         "hash_lookup": 0, "hash_lookup_ref": 0,
         "gather_rows_cached": 0, "gather_rows_cached_ref": 0,
         "sparse_adagrad_cached_apply": 0,
-        "sparse_adagrad_cached_apply_ref": 0}
+        "sparse_adagrad_cached_apply_ref": 0,
+        "sparse_adagrad": 0, "sparse_adagrad_ref": 0,
+        "fused_adam": 0, "fused_adam_ref": 0}
     np.testing.assert_array_equal(
         out.numpy(), tref.embedding_bag_ref(_t(working), _t(inv), _t(seg),
                                             _t(w), SHAPES[1][3]).numpy())
@@ -389,7 +391,9 @@ def test_cached_ops_on_the_cpu_run_the_plain_versions_and_count_them():
         "hash_lookup": 0, "hash_lookup_ref": 0,
         "gather_rows_cached": 0, "gather_rows_cached_ref": 2,
         "sparse_adagrad_cached_apply": 0,
-        "sparse_adagrad_cached_apply_ref": 1}
+        "sparse_adagrad_cached_apply_ref": 1,
+        "sparse_adagrad": 0, "sparse_adagrad_ref": 0,
+        "fused_adam": 0, "fused_adam_ref": 0}
     for fn, args in (
             (tsa.gather_rows_cached_cuda, (_t(rows), _t(slots))),
             (tsa.sparse_adagrad_cached_apply_cuda,
@@ -407,3 +411,84 @@ def _jit_rows(accum_rows, grads):
 
     return jax.jit(lambda r, g: jrows(r, g, jnp.float32, lr=0.5,
                                       eps=1e-10))(accum_rows, grads)
+
+
+# ------------------------------------- the staged push and the local Adam
+@pytest.mark.parametrize("C,D,n_real", [(96, 64, 70), (50, 16, 50),
+                                        (33, 3, 20)])
+def test_staged_push_plain_version_matches_pallas_and_the_host_push(
+        C, D, n_real):
+    """Kernel 7's plain version (``ref.sparse_adagrad_ref``, the CPU path):
+    within rtol 1e-6 (atol 1e-7 for values crossing zero) of the reference's
+    ``sparse_adagrad_pallas(interpret=True)``, and bit-equal at every real
+    position to the port's host push on a resident table (the same
+    ``adagrad_row_updates`` bits, then one add); pads (zero gradients)
+    unchanged."""
+    from repro.kernels.sparse_adagrad import sparse_adagrad_pallas
+
+    rng = np.random.default_rng(C + D)
+    table = rng.standard_normal((400, D)).astype(np.float32)
+    accum = (rng.random((400, D)) + 0.01).astype(np.float32)
+    real = np.sort(rng.choice(400, n_real, replace=False)).astype(np.int32)
+    uids = np.r_[real, np.full(C - n_real, real[0])].astype(np.int32)
+    grads = rng.standard_normal((C, D)).astype(np.float32)
+    grads[n_real:] = 0.0
+    rows, acc = _t(table[uids].copy()), _t(accum[uids].copy())
+    ops.reset_launches()
+    out = ops.sparse_adagrad(rows, acc, _t(grads), lr=0.5, eps=1e-10)
+    assert out[0] is rows and out[1] is acc            # in place
+    assert ops.launches["sparse_adagrad_ref"] == 1
+    jw, ja = sparse_adagrad_pallas(_j(table[uids]), _j(accum[uids]),
+                                   _j(grads), lr=0.5, eps=1e-10,
+                                   interpret=True)
+    np.testing.assert_allclose(rows.numpy(), np.asarray(jw), rtol=1e-6,
+                               atol=1e-7)
+    np.testing.assert_allclose(acc.numpy(), np.asarray(ja), rtol=1e-6)
+    t, a = _t(table.copy()), _t(accum.copy())
+    ops.sparse_adagrad_apply(t, a, _t(uids), _t(grads), lr=0.5, eps=1e-10)
+    np.testing.assert_array_equal(rows.numpy()[:n_real], t.numpy()[real])
+    np.testing.assert_array_equal(acc.numpy()[:n_real], a.numpy()[real])
+    np.testing.assert_array_equal(rows.numpy()[n_real:],
+                                  table[uids[n_real:]])
+    with pytest.raises(ValueError, match="CUDA"):
+        tsa.sparse_adagrad_staged_cuda(rows, acc, _t(grads), lr=0.5,
+                                       eps=1e-10)
+
+
+def test_fused_adam_plain_version_matches_pallas():
+    """Kernel 6's plain version on the step ``fused_adam_pallas`` computes
+    (no warm-up, no bias correction, no weight decay), within 1e-6 of
+    ``fused_adam_pallas(interpret=True)`` leaf by leaf; counted once for
+    all leaves."""
+    from repro.kernels.fused_adam import fused_adam_pallas
+
+    rng = np.random.default_rng(12)
+    sizes = (300, 1, 4097)
+    draw = lambda s, pos=False: [
+        (np.abs(x) + 1e-3 if pos else x).astype(np.float32)
+        for x in (rng.standard_normal(n) * s for n in sizes)]
+    p, g, m, v, vh = draw(0.3), draw(0.01), draw(0.01), draw(1e-4, True), \
+        draw(1e-4, True)
+    got = [[_t(x.copy()) for x in grp] for grp in (p, g, m, v, vh)]
+    ops.reset_launches()
+    ops.fused_adam(*got, t=torch.tensor(5, dtype=torch.int32), lr=1e-3,
+                   b1=0.0, b2=0.999, k=20, local_v_warmup=False)
+    assert ops.launches["fused_adam_ref"] == 1
+    for i in range(len(sizes)):
+        want = fused_adam_pallas(_j(p[i]), _j(g[i]), _j(m[i]), _j(v[i]),
+                                 _j(vh[i]), lr=1e-3, b1=0.0, b2=0.999,
+                                 interpret=True)
+        for leaf, w in zip((got[0][i], got[2][i], got[3][i]), want):
+            np.testing.assert_allclose(leaf.numpy(), np.asarray(w),
+                                       rtol=1e-6, atol=1e-6)
+
+
+def test_fused_adam_cuda_wrapper_rejects_cpu_leaves():
+    from repro_torch.kernels.fused_adam import AdamTable, fused_adam_cuda
+
+    leaves = [[torch.zeros(3)] for _ in range(5)]
+    with pytest.raises(ValueError, match="CUDA"):
+        AdamTable().get(leaves[0], leaves[2], leaves[3], leaves[4])
+    with pytest.raises(ValueError, match="CUDA"):
+        fused_adam_cuda(*leaves, t=torch.tensor(1, dtype=torch.int32),
+                        lr=1e-3, b1=0.0, b2=0.999, k=2, local_v_warmup=True)

@@ -203,3 +203,47 @@ def test_pod_replicate_and_slice():
         tmerge.make_merge_fn("ring")
     with pytest.raises(NotImplementedError, match="A8"):
         tmerge.spec_aware_mean(tree, specs={"a": None})
+
+
+LOCAL = {
+    "warmup": dict(merge="two_phase", k=5),
+    "no warmup": dict(merge="two_phase", k=5, local_v_warmup=False, eps=1e-4),
+    "bias correction": dict(merge="flat", k=5, bias_correction=True, b1=0.9),
+    "weight decay": dict(merge="flat", k=5, weight_decay=1e-4),
+    "lr schedule": dict(merge="flat", k=5, schedule=True),
+}
+
+
+@pytest.mark.parametrize("case", sorted(LOCAL))
+def test_local_steps_run_fused_adam_within_1e6_of_reference(case):
+    """The local branch now runs ``ops.fused_adam`` (the plain version on
+    the CPU, once per local step over every leaf): within 1e-6 of the
+    reference's ``KStepAdam.step`` over local steps before and after a
+    merge, in every branch of the local step."""
+    from repro_torch.kernels import ops
+
+    kw = dict(lr=1e-2, **LOCAL[case])
+    sched = (lambda t: 1e-2 / (1.0 + t)) if kw.pop("schedule", False) \
+        else None
+    rng = np.random.default_rng(40 + sorted(LOCAL).index(case))
+    params = _tree(rng)
+    jopt = jk.KStepAdam(jk.KStepConfig(**kw), N_POD, lr_schedule=sched)
+    topt = tk.KStepAdam(tk.KStepConfig(**kw), N_POD, lr_schedule=sched)
+    jp = jax.tree.map(jnp.asarray, params)
+    js = jopt.init(jp)
+    tp = _to_torch(params)
+    ts = topt.init(tp)
+    ops.reset_launches()
+    n_local = 0
+    for step in range(1, 9):
+        grads = _tree(rng)
+        merge = step % kw["k"] == 0
+        n_local += not merge
+        jp, js = jopt.step(jp, jax.tree.map(jnp.asarray, grads), js,
+                           merge=merge)
+        topt.step(tp, _to_torch(grads), ts, merge=merge)
+        _close(tp, jp, rtol=1e-6, atol=1e-6)
+        for f in ("m", "v_local"):
+            _close(getattr(ts, f), getattr(js, f), rtol=1e-6, atol=1e-6)
+    assert ops.launches["fused_adam_ref"] == n_local == 7
+    assert ops.launches["fused_adam"] == 0

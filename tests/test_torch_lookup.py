@@ -142,5 +142,5 @@ def test_engine_memory_and_training_entry_points():
         tbe.make_backend("routed")
     with pytest.raises(ValueError, match="unknown placement"):
         tbe.make_backend("nope")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="requires spill_dir"):
         make_store("disk")

@@ -277,7 +277,9 @@ def test_training_slice_matches_reference_end_to_end():
         "hash_lookup": 0, "hash_lookup_ref": 0,
         "gather_rows_cached": 0, "gather_rows_cached_ref": 0,
         "sparse_adagrad_cached_apply": 0,
-        "sparse_adagrad_cached_apply_ref": 0}
+        "sparse_adagrad_cached_apply_ref": 0,
+        "sparse_adagrad": 0, "sparse_adagrad_ref": 0,
+        "fused_adam": 0, "fused_adam_ref": 3}   # the local steps 1, 3, 5
 
 
 def test_training_slice_int8_ef_merge_matches_reference():
@@ -338,12 +340,12 @@ def test_unported_knobs_raise():
     with pytest.raises(NotImplementedError, match="strict_transfers"):
         fit_online(build_trainer("baidu-ctr", TrainerConfig(), device="cpu"),
                    iter([]), 1, strict_transfers=True)
-    with pytest.raises(NotImplementedError, match="A7"):
+    with pytest.raises(ValueError, match="requires capacity"):
         tbe.make_backend("cached", cache_rows=64, staged=True, device="cpu")
     with pytest.raises(NotImplementedError, match="A8"):
         build_trainer("baidu-ctr", TrainerConfig(placement="routed"),
                       device="cpu")
-    with pytest.raises(NotImplementedError, match="SSD"):
+    with pytest.raises(ValueError, match="requires spill_dir"):
         build_trainer("baidu-ctr", TrainerConfig(store="disk"), device="cpu")
     with pytest.raises(NotImplementedError, match="A9"):
         S.recsys_batches(object(), batch=4)
@@ -403,7 +405,7 @@ def test_launcher_serve_and_flags():
     assert np.isfinite(_final_loss(last)) and "served 24" in last
     for flags, err in ((["--prefetch"], NotImplementedError),
                        (["--ckpt-dir", "ckpt"], NotImplementedError),
-                       (["--store", "disk"], NotImplementedError),
+                       (["--store", "disk"], ValueError),
                        (["--placement", "cached", "--cache-rows", "64"],
                         ValueError),
                        (["--strict-transfers"], NotImplementedError),
