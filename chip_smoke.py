@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Run the PyTorch port's baidu-ctr serving and training paths, on the
-gather and the cached placements and on the SSD tier, on one NVIDIA GPU
-(H100).
+gather and the cached placements and on the SSD tier, and its dlrm-mlperf
+serving path, on one NVIDIA GPU (H100).
 
     python3 chip_smoke.py        # from the root of a checkout
 
@@ -89,6 +89,24 @@ Phases (any failure raises and the script exits non-zero):
      Adam, push), losses bit-equal to (a)'s same steps; after ``close``, a
      fresh DiskStore on the directory reads (a)'s rows and accumulators at
      every touched uid.
+ 10. dlrm-mlperf serving at full width (embed 128, bottom MLP
+     13-512-256-128, top MLP 479-1024-1024-512-256-1, f32), each of the
+     26 tables cut to at most 8 M rows (44,063,992 rows; table and
+     accumulator 45.1 GB on the card), capacity 16384:
+     (a) the dot interaction (kernel 8) against its plain version at
+     (512, 27, 128) and (16384, 27, 128) f32, (33, 13, 17) f32,
+     (512, 27, 128) bf16, F = 2 and F = 1; f32 within atol 1e-5 D and
+     rtol 4e-5, bf16 within atol 2e-2 D and rtol 8e-2 (the reference's
+     kernel test); two runs bit-equal; timed as in phase 1, with
+     ``bmm`` + the triangle's ``index_select`` as the library call;
+     (b) a ``CTRServer`` (max_batch 512, serve_p99) scores 2048 requests:
+     QPS, p50/p99, one kernel launch per predict and no plain version,
+     2048 served, every score finite in (0, 1), no id dropped;
+     (c) one predict of 16384: its wall and the stream time of its parts;
+     (d) smoke size, card vs CPU from one state: scores within
+     rtol = atol = 1e-5;
+     (e) the interaction's call under the sync debug mode "error" and the
+     profiler: one kernel launch, no sync, no host-to-device copy.
 
 TF32 is off for matmuls and convolutions.  Prints the card (``nvidia-smi``
 name and power limit), a ``kernels`` JSON line, and as its last line
@@ -1000,9 +1018,10 @@ def _adam_step_no_sync(tr, dense_g, merge):
         torch.cuda.set_sync_debug_mode("default")
 
 
-def _adam_transfers(tr, dense_g):
-    """One more local k-step Adam step under the profiler: its CUDA kernels,
-    host-to-device copies and synchronizing calls (none is allowed)."""
+def _transfers(fn):
+    """``fn()`` under the profiler: its host-to-device copies, synchronizing
+    calls and CUDA kernel launches, beyond what the profiler itself
+    records."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1019,10 +1038,15 @@ def _adam_transfers(tr, dense_g):
                 count(lambda k: k in ("cudaLaunchKernel", "cuLaunchKernel",
                                       "cudaLaunchKernelExC")))
 
-    base = traced(lambda: None)       # what the profiler itself records
-    step = traced(lambda: tr.opt.step(tr.dense, dense_g, tr.opt_state,
-                                      merge=False))
-    h2d, syncs, kernels = (a - b for a, b in zip(step, base))
+    base = traced(lambda: None)
+    return tuple(a - b for a, b in zip(traced(fn), base))
+
+
+def _adam_transfers(tr, dense_g):
+    """One more local k-step Adam step under the profiler: its CUDA kernels,
+    host-to-device copies and synchronizing calls (none is allowed)."""
+    h2d, syncs, kernels = _transfers(
+        lambda: tr.opt.step(tr.dense, dense_g, tr.opt_state, merge=False))
     if h2d or syncs:
         raise AssertionError(f"a local k-step Adam step made {h2d} "
                              f"host-to-device copies and {syncs} syncs")
@@ -1276,13 +1300,12 @@ def phase_cached(device, gather_losses):
     # per step: the predict and the server's predict (a lookup each: probe
     # + cached gather, one bag), the pull (probe + cached gather) and the
     # push (probe + the accumulator rows' cached gather + cached push)
-    want = {"hash_lookup": 4 * n, "gather_rows_cached": 4 * n,
-            "sparse_adagrad_cached_apply": n,
-            "embedding_bag": n * (2 + tr.n_pod),
-            "embedding_bag_backward": n * tr.n_pod,
-            "sparse_adagrad_apply": 0, "sparse_adagrad": 0,
-            "fused_adam": n - n // tr.cfg.kstep.k}
-    want.update({k + "_ref": 0 for k in list(want)})
+    want = dict.fromkeys(launches, 0)
+    want.update({"hash_lookup": 4 * n, "gather_rows_cached": 4 * n,
+                 "sparse_adagrad_cached_apply": n,
+                 "embedding_bag": n * (2 + tr.n_pod),
+                 "embedding_bag_backward": n * tr.n_pod,
+                 "fused_adam": n - n // tr.cfg.kstep.k})
     if launches != want:
         raise AssertionError(f"launches {launches}, expected {want}")
     stats = tr.sparse_metrics()
@@ -2180,6 +2203,324 @@ def phase_disk(device):
     return results["b"]
 
 
+DLRM_ROW_CAP = 8_000_000   # the one reduction of phase 10: rows per table
+DLRM_SERVE_BATCH = 512     # recsys_shapes()["serve_p99"]
+DLRM_REQUESTS = 2048
+DLRM_BULK = 16384          # one bulk predict; the pull capacity, 16384, holds
+                           # its <= 16384 distinct ids per table
+
+
+def _dot_times(feats):
+    """Kernel 8's times (cold and warm L2), its plain version's, the library
+    call's (``bmm`` then the triangle's ``index_select``) and its bound at
+    ``feats``."""
+    import torch
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.dot_interaction import dot_interaction_cuda
+
+    B, F, D = feats.shape
+    P = F * (F - 1) // 2
+    li, lj = torch.tril_indices(F, F, offset=-1, device=feats.device)
+    flat = li * F + lj
+
+    def library():
+        return torch.bmm(feats, feats.transpose(1, 2)).reshape(
+            B, F * F).index_select(1, flat)
+
+    def kernel():
+        return dot_interaction_cuda(feats)
+
+    lib = library()
+    tol = 1e-5 if feats.dtype == torch.float32 else 2e-2
+    if not torch.allclose(lib.float(), kernel().float(), atol=tol * D,
+                          rtol=4 * tol):
+        raise AssertionError(f"dot_interaction {tuple(feats.shape)}: the "
+                             "library call and the kernel differ")
+    elem = feats.element_size()
+    nbytes = (B * F * D + B * P) * elem
+    bound_ms, bound_by = _bound(nbytes, 2 * B * P * D)
+    return {
+        "shape": [B, F, D], "dtype": str(feats.dtype).split(".")[-1],
+        "ms": _time_ms(kernel), "ms_l2_warm": _time_ms(kernel, cold_l2=False),
+        "plain_ms": _time_ms(lambda: ref.dot_interaction_ref(feats)),
+        "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": _time_ms(library), "mb": nbytes / 1e6,
+    }
+
+
+def phase_dot_interaction(device):
+    """Phase 10 (a): kernel 8 against its plain version, and timed, at
+    phase 10's shapes; returns its kernels-line entry (without
+    ``launches``): the serve_p99 shape, with the bulk shape under
+    ``bulk``."""
+    import torch
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.dot_interaction import dot_interaction_cuda
+
+    gen = torch.Generator(device).manual_seed(47)
+    cases = [((DLRM_SERVE_BATCH, 27, 128), torch.float32),
+             ((DLRM_BULK, 27, 128), torch.float32),
+             ((33, 13, 17), torch.float32),
+             ((DLRM_SERVE_BATCH, 27, 128), torch.bfloat16),
+             ((DLRM_SERVE_BATCH, 2, 128), torch.float32),
+             ((DLRM_SERVE_BATCH, 1, 128), torch.float32)]
+    print("phase 10 (a): dot_interaction (kernel 8) against its plain "
+          "version (tolerance: f32 atol 1e-5 D, rtol 4e-5; bf16 atol "
+          "2e-2 D, rtol 8e-2)")
+    max_err, max_err_bf16, times = 0.0, 0.0, []
+    for (B, F, D), dtype in cases:
+        feats = torch.randn((B, F, D), generator=gen, device=device).to(dtype)
+        got = dot_interaction_cuda(feats)
+        again = dot_interaction_cuda(feats)
+        torch.cuda.synchronize()
+        want = ref.dot_interaction_ref(feats)
+        tol = 1e-5 if dtype == torch.float32 else 2e-2
+        err = ((got.float() - want.float()).abs().max().item()
+               if got.numel() else 0.0)
+        if (got.shape != want.shape or got.dtype != dtype
+                or not torch.equal(got, again)
+                or not torch.allclose(got.float(), want.float(),
+                                      atol=tol * D, rtol=4 * tol)):
+            raise AssertionError(f"dot_interaction {(B, F, D)} {dtype}: "
+                                 f"kernel and plain version differ (max "
+                                 f"|diff| {err}) or two runs differ")
+        if dtype == torch.float32:
+            max_err = max(max_err, err)
+        else:
+            max_err_bf16 = max(max_err_bf16, err)
+        print(f"  {(B, F, D)} {str(dtype).split('.')[-1]}: output "
+              f"{tuple(got.shape)}, max |kernel - plain| {err:.3g}, two runs "
+              f"bit-equal")
+        if got.numel():
+            times.append(_dot_times(feats))
+    for t in times:
+        print(f"  times {tuple(t['shape'])} {t['dtype']} (ms): kernel "
+              f"{t['ms']:.4f} cold, {t['ms_l2_warm']:.4f} warm; plain "
+              f"{t['plain_ms']:.4f}; library (bmm + index_select) "
+              f"{t['library_ms']:.4f}; bound {t['bound_ms']:.4f} "
+              f"({t['mb']:.2f} MB, {t['bound_by']})")
+    serve, bulk = times[0], times[1]
+    return {
+        "name": "dot_interaction",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/dot_interaction.cu",
+        "replaces": "src/repro/kernels/dot_interaction.py:44",
+        "launches": None,
+        "max_abs_err": max_err,
+        "max_abs_err_bf16": max_err_bf16,
+        "shape": serve["shape"],
+        "ms": serve["ms"],
+        "ms_l2_warm": serve["ms_l2_warm"],
+        "plain_ms": serve["plain_ms"],
+        "bound_ms": serve["bound_ms"],
+        "bound_by": serve["bound_by"],
+        "library_ms": serve["library_ms"],
+        "bulk": {k: bulk[k] for k in ("shape", "ms", "ms_l2_warm",
+                                      "plain_ms", "bound_ms", "bound_by",
+                                      "library_ms")},
+    }
+
+
+def _dlrm_breakdown(tr, batch):
+    """Phase 10 (c) and (e): one predict's parts in stream time (CUDA
+    events), then the interaction's call under the sync debug mode "error"
+    and under the profiler (no sync, no host-to-device copy allowed)."""
+    import torch
+
+    from repro_torch.models import recsys as R
+    from repro_torch.models.common import mlp_apply
+    from repro_torch.runtime.trainer import pod_slice
+
+    eng = tr.engine
+    with torch.inference_mode():
+        b = tr._stage(batch)
+        wss, _ = eng.lookup_batch(tr.tables, tr.sparse_state.accum,
+                                  tr.backend_state, b)
+        workings = {n: ws.rows for n, ws in wss.items()}
+        invs = {n: ws.inverse for n, ws in wss.items()}
+        emb = tr._embed(workings, invs, b)
+        dense0 = pod_slice(tr.dense, 0)
+        x = mlp_apply(dense0["bot"], b["dense"], act=torch.relu)
+        feats = torch.cat([x[:, None, :], emb], dim=1)
+        inter = R.dot_interaction(feats)
+        parts = {
+            "stage batch": lambda: tr._stage(batch),
+            "lookup (26 dedups + gathers)": lambda: eng.lookup_batch(
+                tr.tables, tr.sparse_state.accum, tr.backend_state, b),
+            "embed (26 takes)": lambda: tr._embed(workings, invs, b),
+            "bottom MLP": lambda: mlp_apply(dense0["bot"], b["dense"],
+                                            act=torch.relu),
+            "interaction (kernel 8)": lambda: R.dot_interaction(feats),
+            "top MLP + sigmoid": lambda: torch.sigmoid(mlp_apply(
+                dense0["top"], torch.cat([x, inter], dim=-1),
+                act=torch.relu)[:, 0]),
+            "whole predict": lambda: tr.predict(batch),
+        }
+        times = {k: _time_ms(fn, iters=10, warmup=2, cold_l2=False)
+                 for k, fn in parts.items()}
+        print(f"  one predict of {b['dense'].shape[0]}, stream time by part "
+              "(ms): " + ", ".join(f"{k} {v:.3f}" for k, v in times.items()))
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            R.dot_interaction(feats)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        h2d, syncs, kernels = _transfers(lambda: R.dot_interaction(feats))
+    if h2d or syncs or kernels != 1:
+        raise AssertionError(f"the interaction's call made {h2d} host-to-"
+                             f"device copies, {syncs} syncs and {kernels} "
+                             "kernel launches")
+    print(f"  phase 10 (e): the interaction's call on {tuple(feats.shape)} "
+          f"ran under the sync debug mode 'error'; profiler: 1 kernel "
+          f"launch, 0 host-to-device copies, 0 synchronizing calls")
+
+
+def phase_dlrm(device):
+    """Phase 10 (b), (c), (e): dlrm-mlperf served at full width through the
+    CTRServer, and one bulk predict; returns the launch counts of the
+    serving run."""
+    import torch
+
+    from repro_torch.configs import dlrm_mlperf
+    from repro_torch.data.synthetic import dlrm_batches
+    from repro_torch.kernels import ops
+    from repro_torch.runtime.factory import build_ctr_server, build_trainer
+    from repro_torch.runtime.trainer import TrainerConfig
+
+    mcfg = dataclasses.replace(dlrm_mlperf.MODEL, rows=tuple(
+        min(r, DLRM_ROW_CAP) for r in dlrm_mlperf.MODEL.rows))
+    t0 = time.perf_counter()
+    tr = build_trainer("dlrm-mlperf", TrainerConfig(placement="gather"),
+                       smoke=False, model_cfg=mcfg, seed=0, device=device)
+    torch.cuda.synchronize()
+    state_gb = sum(t.numel() * t.element_size() for t in
+                   list(tr.tables.values())
+                   + list(tr.sparse_state.accum.values())) / 1e9
+    print(f"phase 10: dlrm-mlperf serving at full width (embed 128, bottom "
+          f"MLP 13-512-256-128, top MLP {mcfg.interact_dim}-1024-1024-512-"
+          f"256-1, f32), 26 tables of {sum(mcfg.rows)} rows (each capped "
+          f"at {DLRM_ROW_CAP}), capacity {tr.engine.capacity}; trainer "
+          f"built in {time.perf_counter() - t0:.1f} s, table + accumulator "
+          f"{state_gb:.2f} GB on the card")
+    if tr.engine.capacity != DLRM_BULK:
+        raise AssertionError(f"capacity {tr.engine.capacity}, not "
+                             f"{DLRM_BULK}")
+
+    warm = build_ctr_server(tr, max_batch=DLRM_SERVE_BATCH)
+    warm.submit_batch(next(dlrm_batches(seed=1, batch=DLRM_SERVE_BATCH,
+                                        rows=mcfg.rows)))
+    warm.drain()
+
+    # ---- (b) the server: 2048 requests in dynamic batches of 512
+    batch = next(dlrm_batches(seed=2, batch=DLRM_REQUESTS, rows=mcfg.rows))
+    before = tr.serve_metrics()
+    server = build_ctr_server(tr, max_batch=DLRM_SERVE_BATCH)
+    server.submit_batch(batch)
+    reqs = list(server.pending)
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    server.drain()
+    torch.cuda.synchronize()
+    launches = dict(ops.launches)
+    summ = server.summary()
+    scores = np.array([r.score for r in reqs])
+    steps = int(summ["steps"])
+    looked = tr.serve_metrics()["serve_lookups"] - before["serve_lookups"]
+    if summ["served"] != DLRM_REQUESTS or steps != (
+            DLRM_REQUESTS // DLRM_SERVE_BATCH):
+        raise AssertionError(f"served {summ['served']} of {DLRM_REQUESTS} "
+                             f"requests in {steps} predicts")
+    if launches["dot_interaction"] != steps or any(
+            v for k, v in launches.items() if k.endswith("_ref")):
+        raise AssertionError(f"the interaction did not run as its kernel "
+                             f"once per predict: {launches}")
+    if not (np.isfinite(scores).all() and ((scores > 0) & (scores < 1)).all()):
+        raise AssertionError("a score is not a finite value in (0, 1)")
+    if looked != DLRM_REQUESTS * mcfg.n_sparse:
+        raise AssertionError(f"{DLRM_REQUESTS * mcfg.n_sparse - looked:.0f} "
+                             "ids dropped by the capacity")
+    print(f"  phase 10 (b): {DLRM_REQUESTS} requests in {steps} predicts of "
+          f"{DLRM_SERVE_BATCH}: qps {summ['qps']:.1f}, p50 "
+          f"{summ['p50'] * 1e3:.2f} ms, p99 {summ['p99'] * 1e3:.2f} ms, "
+          f"predict wall {summ['wall_s'] / steps * 1e3:.2f} ms each; served "
+          f"{summ['served']:.0f}; all scores finite in (0, 1), from "
+          f"{scores.min():.4f} to {scores.max():.4f}; no id dropped")
+    print(f"  launches during the run: dot_interaction "
+          f"{launches['dot_interaction']} (= {steps} predicts), "
+          f"dot_interaction_ref {launches['dot_interaction_ref']}: {launches}")
+
+    # ---- (c) one bulk predict, and its parts
+    bulk = {k: v for k, v in next(dlrm_batches(
+        seed=3, batch=DLRM_BULK, rows=mcfg.rows)).items() if k != "label"}
+    tr.predict(bulk)                      # the first call at this shape
+    before = tr.serve_metrics()["serve_lookups"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = tr.predict(bulk)                # ends in the scores' copy to host
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    looked = tr.serve_metrics()["serve_lookups"] - before
+    if out.shape != (DLRM_BULK,) or not (
+            np.isfinite(out).all() and ((out > 0) & (out < 1)).all()):
+        raise AssertionError("a bulk score is not a finite value in (0, 1)")
+    if looked != DLRM_BULK * mcfg.n_sparse:
+        raise AssertionError("the bulk predict dropped ids")
+    print(f"  phase 10 (c): one predict of {DLRM_BULK}: wall {wall_ms:.2f} "
+          f"ms ({DLRM_BULK / wall_ms * 1e3:.1f} instances/s), no id "
+          "dropped")
+    _dlrm_breakdown(tr, bulk)
+    del tr, warm, server
+    _release()
+    return launches
+
+
+def phase_dlrm_agreement(device):
+    """Phase 10 (d): DLRM served at smoke size on the card and on the CPU
+    from one state, the same requests; scores within phase 6's
+    tolerance."""
+    from repro_torch import tree_map
+    from repro_torch.configs import dlrm_mlperf
+    from repro_torch.data.synthetic import dlrm_batches
+    from repro_torch.interop import ReferenceState
+    from repro_torch.models import recsys as R
+    from repro_torch.runtime.factory import (
+        build_ctr_server,
+        build_dlrm_engine,
+        build_trainer,
+    )
+    from repro_torch.runtime.trainer import HybridTrainer, TrainerConfig
+
+    smoke = dlrm_mlperf.SMOKE
+    tcfg = TrainerConfig(placement="gather", capacity=32)
+    gpu = build_trainer("dlrm-mlperf", tcfg, seed=3, device=device)
+    state = ReferenceState(
+        dense=tree_map(lambda x: x.cpu(), gpu.dense),
+        tables={n: t.cpu() for n, t in gpu.tables.items()},
+        accum={n: a.cpu() for n, a in gpu.sparse_state.accum.items()})
+    cpu = HybridTrainer(None, build_dlrm_engine(smoke, tcfg, device="cpu"),
+                        R.dlrm_embed_from_workings(smoke),
+                        R.dlrm_hybrid_loss(smoke), tcfg, state=state,
+                        device="cpu")
+    stream = dlrm_batches(seed=4, batch=64, rows=smoke.rows)
+    batches = [next(stream) for _ in range(3)]
+    batches[-1] = {k: v[:10] for k, v in batches[-1].items()}
+    got = []
+    for tr in (gpu, cpu):
+        server = build_ctr_server(tr, max_batch=64)
+        for b in batches:
+            server.submit_batch(b)
+        reqs = list(server.pending)
+        server.drain()
+        got.append(np.array([r.score for r in reqs]))
+    np.testing.assert_allclose(got[0], got[1], **TOL)
+    print(f"phase 10 (d): dlrm-mlperf at smoke size, card vs CPU from one "
+          f"state (capacity 32: some ids drop, a padded tail): "
+          f"{got[0].size} scores, max |diff| "
+          f"{np.abs(got[0] - got[1]).max():.3g} (rtol = atol = 1e-5)")
+
+
 def main() -> int:
     import torch
 
@@ -2224,8 +2565,12 @@ def main() -> int:
     if rebuilds < 1:
         raise AssertionError("no hash-map rebuild on the card")
     staged["launches"] = phase_disk(device)["sparse_adagrad"]
+    _release()
+    dot = phase_dot_interaction(device)
+    dot["launches"] = phase_dlrm(device)["dot_interaction"]
+    phase_dlrm_agreement(device)
     print(json.dumps({"kernels": [bag, backward, push] + cache_entries
-                      + [staged, adam]}))
+                      + [staged, adam, dot]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -12,6 +12,7 @@ from typing import Any, Dict
 
 _MODULES = {
     "baidu-ctr": "repro_torch.configs.baidu_ctr",
+    "dlrm-mlperf": "repro_torch.configs.dlrm_mlperf",
 }
 
 
@@ -38,3 +39,15 @@ def get(name: str) -> ArchSpec:
         raise KeyError(f"arch {name!r} is not in the port yet; ported: "
                        f"{sorted(_MODULES)}")
     return importlib.import_module(_MODULES[name]).ARCH
+
+
+def recsys_shapes() -> Dict[str, ShapeSpec]:
+    """The recsys archs' cells (``repro/configs/__init__.py``)."""
+    return {
+        "train_batch": ShapeSpec("train_batch", "train", {"batch": 65536}),
+        "serve_p99": ShapeSpec("serve_p99", "serve", {"batch": 512}),
+        "serve_bulk": ShapeSpec("serve_bulk", "serve", {"batch": 262144}),
+        "retrieval_cand": ShapeSpec(
+            "retrieval_cand", "retrieval", {"batch": 1, "n_candidates": 1_000_000}
+        ),
+    }

@@ -10,10 +10,10 @@ All generators are numpy-side (host pipeline territory) and deterministic in
 their seed; different worker shards draw i.i.d. slices (paper §2.3: "the
 streamed data for different nodes are in an i.i.d. distribution").
 
-A copy of ``repro/data/synthetic.py``'s CTR stream: the same seed gives
-byte-identical batches, so the port and the reference see the same inputs.
-``recsys_batches`` picks the stream for a model config; the other recsys
-archs' streams come with their slice (ROADMAP.md queue A9).
+A copy of ``repro/data/synthetic.py``'s CTR and DLRM streams: the same seed
+gives byte-identical batches, so the port and the reference see the same
+inputs.  ``recsys_batches`` picks the stream for a model config; the other
+recsys archs' streams come with their slice (ROADMAP.md queue A9).
 """
 
 from __future__ import annotations
@@ -67,17 +67,44 @@ def ctr_batches(
         }
 
 
+def dlrm_batches(
+    seed: int, batch: int, rows, n_dense: int = 13, worker: int = 0,
+) -> Iterator[Dict[str, np.ndarray]]:
+    """DLRM stream: 13 dense features, 26 single-hot Zipf ids (one per
+    table) and teacher labels."""
+    rng = np.random.default_rng(seed + worker * 1_000_003)
+    rows = list(rows)
+    while True:
+        dense = rng.standard_normal((batch, n_dense)).astype(np.float32)
+        ids = np.stack(
+            [_zipf_ids(rng, (batch,), r) for r in rows], axis=1
+        )
+        w = np.stack([_id_weights(ids[:, i], salt=31 * i + 7) for i in range(len(rows))], 1)
+        score = w.mean(1) * 2.0 + 0.3 * dense[:, :4].sum(1) / 2.0 + 0.4 * w[:, 0] * w[:, 1]
+        p = 1.0 / (1.0 + np.exp(-2.0 * score))
+        label = (rng.random(batch) < p).astype(np.float32)
+        yield {
+            "dense": dense,
+            "sparse_ids": ids.astype(np.int32),
+            "label": label,
+        }
+
+
 def recsys_batches(
     model_cfg, batch: int, seed: int = 1, worker: int = 0,
 ) -> Iterator[Dict[str, np.ndarray]]:
     """The synthetic stream for a recsys model config (``CTRConfig``: the
-    CTR stream; the other configs are not ported yet)."""
+    CTR stream, ``DLRMConfig``: the DLRM stream; the other configs are not
+    ported yet)."""
     from repro_torch.models import recsys as R
 
     if isinstance(model_cfg, R.CTRConfig):
         return ctr_batches(seed=seed, batch=batch, rows=model_cfg.rows,
                            n_fields=model_cfg.n_fields,
                            nnz=model_cfg.nnz_per_instance, worker=worker)
+    if isinstance(model_cfg, R.DLRMConfig):
+        return dlrm_batches(seed=seed, batch=batch, rows=model_cfg.rows,
+                            n_dense=model_cfg.n_dense, worker=worker)
     raise NotImplementedError(
         f"recsys_batches: {type(model_cfg).__name__} is not ported yet "
         "(ROADMAP.md queue A9, the other recsys archs)")

@@ -38,6 +38,9 @@ void launch_gather_rows_cached(const float* cache_rows, int64_t n_slots,
 void launch_sparse_adagrad_staged(float* rows, float* accum,
                                   const float* grads, int64_t n, float neg_lr,
                                   float eps, cudaStream_t stream);
+void launch_dot_interaction(const void* feats, void* out, int64_t B, int F,
+                            int D, bool bf16, cudaStream_t stream);
+int dot_interaction_max_features();
 void launch_hash_lookup(const int32_t* key_tab, const int32_t* slot_tab,
                         int64_t n_buckets, const int32_t* slot_uid,
                         int64_t n_slots, const int32_t* uids, int64_t n,
@@ -275,6 +278,31 @@ void hash_lookup(const torch::Tensor& key_tab, const torch::Tensor& slot_tab,
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
+// out[b, p] = dot of rows (i, j) of feats[b], the p-th pair of the strict
+// lower triangle (csrc/dot_interaction.cu).
+void dot_interaction(const torch::Tensor& feats, const torch::Tensor& out) {
+  const auto dtype = feats.scalar_type();
+  TORCH_CHECK(dtype == torch::kFloat32 || dtype == torch::kBFloat16,
+              "feats must be float32 or bfloat16, got ", dtype);
+  check_cuda(feats, "feats", dtype, 3, feats);
+  check_cuda(out, "out", dtype, 2, feats);
+  const int64_t B = feats.size(0), F = feats.size(1), D = feats.size(2);
+  TORCH_CHECK(F >= 1 && F <= dot_interaction_max_features(),
+              "feats must have 1 to ", dot_interaction_max_features(),
+              " features, got ", F);
+  TORCH_CHECK(B < kMaxRows && D < kMaxRows, "B and D must lie below 2^31");
+  const int64_t P = F * (F - 1) / 2;
+  TORCH_CHECK(out.size(0) == B && out.size(1) == P, "out must be (", B, ", ",
+              P, ")");
+  if (B * P == 0) return;
+  const c10::cuda::CUDAGuard guard(feats.device());
+  launch_dot_interaction(feats.data_ptr(), out.data_ptr(), B,
+                         static_cast<int>(F), static_cast<int>(D),
+                         dtype == torch::kBFloat16,
+                         c10::cuda::getCurrentCUDAStream().stream());
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
 // rows += delta(accum, grads); accum += grads^2, elementwise and in place
 // (the staged push, csrc/sparse_adagrad.cu).
 void sparse_adagrad_staged(const torch::Tensor& rows,
@@ -399,6 +427,9 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
         py::arg("lr_t"), py::arg("lr"), py::arg("mhat"), py::arg("vhat"),
         py::arg("b1"), py::arg("b2"), py::arg("weight_decay"), py::arg("k"),
         py::arg("warmup"));
+  m.def("dot_interaction", &dot_interaction,
+        "DLRM dot interaction: the strict lower triangle of each instance's "
+        "self-Gram (CUDA)", py::arg("feats"), py::arg("out"));
   m.def("hash_lookup", &hash_lookup,
         "Batch linear probe of the cache's id -> slot hash map (CUDA)",
         py::arg("key_tab"), py::arg("slot_tab"), py::arg("slot_uid"),

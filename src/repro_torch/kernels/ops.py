@@ -8,9 +8,10 @@ Nothing falls back: a CUDA tensor the kernel does not take raises.
 kernels under their names (``embedding_bag``, ``embedding_bag_backward``,
 ``sparse_adagrad_apply``, the cache tier's ``hash_lookup``,
 ``gather_rows_cached``, ``sparse_adagrad_cached_apply``, the SSD tier's
-staged push ``sparse_adagrad`` and the k-step local Adam step
-``fused_adam``), the plain versions under the same name with ``_ref``.  A run resets it with ``reset_launches()`` and reads it afterwards
-to show which path it took.
+staged push ``sparse_adagrad``, the k-step local Adam step ``fused_adam``
+and DLRM's ``dot_interaction``), the plain versions under the same name
+with ``_ref``.  A run resets it with ``reset_launches()`` and reads it
+afterwards to show which path it took.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import ref
+from repro_torch.kernels.dot_interaction import dot_interaction_cuda
 from repro_torch.kernels.embedding_bag import (
     embedding_bag_backward_cuda,
     embedding_bag_cuda,
@@ -43,6 +45,7 @@ launches = {
     "sparse_adagrad_cached_apply": 0, "sparse_adagrad_cached_apply_ref": 0,
     "sparse_adagrad": 0, "sparse_adagrad_ref": 0,
     "fused_adam": 0, "fused_adam_ref": 0,
+    "dot_interaction": 0, "dot_interaction_ref": 0,
 }
 
 
@@ -246,3 +249,30 @@ def fused_adam(params, grads, m, v_local, v_hat, *, t, lr, b1, b2, k,
     out = fused_adam_cuda(params, grads, m, v_local, v_hat, table=table, **kw)
     launches["fused_adam"] += 1
     return out
+
+
+class _DotInteraction(torch.autograd.Function):
+    """Forward: the CUDA kernel.  Its backward comes with DLRM training."""
+
+    @staticmethod
+    def forward(ctx, feats):
+        out = dot_interaction_cuda(feats)
+        if out.numel():
+            launches["dot_interaction"] += 1
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        raise NotImplementedError(
+            "the dot interaction's backward on the card is not ported yet: "
+            "ROADMAP.md queue A9b (DLRM training)")
+
+
+def dot_interaction(feats):
+    """DLRM's interaction ``(B, F, D) -> (B, F (F - 1) / 2)``, in the input
+    dtype (see ``ref.dot_interaction_ref``).  CUDA: the kernel, forward
+    only; CPU: the plain version under PyTorch's autograd."""
+    if kernel_mode(feats) == "ref":
+        launches["dot_interaction_ref"] += 1
+        return ref.dot_interaction_ref(feats)
+    return _DotInteraction.apply(feats)

@@ -173,3 +173,15 @@ def sparse_adagrad_ref(rows, accum, grads, lr, eps):
     rows.add_(delta)
     accum.add_(g2)
     return rows, accum
+
+
+def dot_interaction_ref(feats):
+    """DLRM's dot interaction: the strict lower triangle of each instance's
+    self-Gram, ``(B, F, D) -> (B, F (F - 1) / 2)`` in
+    ``np.tril_indices(F, k=-1)`` order, summed in float32 and cast back to
+    the input dtype."""
+    F = feats.shape[1]
+    f = feats.to(torch.float32)
+    z = torch.einsum("bfd,bgd->bfg", f, f)
+    li, lj = torch.tril_indices(F, F, offset=-1, device=feats.device)
+    return z[:, li, lj].to(feats.dtype)

@@ -37,7 +37,9 @@ is synced and closed at the end.
 hold: pass ``--rows`` to cut the table, e.g. ``--rows 50000000``).
 
 Flags of the reference that the port does not have yet raise, naming the
-ROADMAP.md item that brings them.
+ROADMAP.md item that brings them.  ``--arch dlrm-mlperf`` builds and serves
+(the first online step's predict), then raises ``NotImplementedError`` at
+its first training step: DLRM training is ROADMAP.md queue A9b.
 """
 
 from __future__ import annotations

@@ -1,9 +1,13 @@
 """The paper's CTR model (Fig. 2): multi-hot sparse input -> 64-d embedding
-bags per field -> field self-attention -> MLP.
+bags per field -> field self-attention -> MLP; and DLRM (MLPerf): 13 dense
+features through a bottom MLP, 26 single-hot embeddings, the pairwise dot
+interaction, a top MLP.
 
-Counterpart of the CTR part of ``repro/models/recsys.py``.  The dense
-parameters are a plain dict of tensors in the reference's layout
-(``wq``/``wk``/``wv`` are (d, d), the MLP is a list of ``{"w", "b"}``).
+Counterpart of the CTR and DLRM parts of ``repro/models/recsys.py``.  The
+dense parameters are a plain dict of tensors in the reference's layout
+(``wq``/``wk``/``wv`` are (d, d), an MLP is a list of ``{"w", "b"}``).
+DLRM serves here; its training (the interaction's backward) is ROADMAP.md
+queue A9b, and its loss adapter raises for it.
 """
 
 from __future__ import annotations
@@ -14,6 +18,7 @@ from typing import Any, Dict, Sequence
 import torch
 
 from repro_torch.core.embedding_engine import EmbeddingEngine, TableSpec
+from repro_torch.kernels import ops
 from repro_torch.models.common import (
     bce_with_logits,
     he_init,
@@ -115,3 +120,107 @@ def ctr_forward_from_emb(dense, emb, batch, cfg: CTRConfig) -> torch.Tensor:
 
 def pointwise_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     return torch.mean(bce_with_logits(logits, labels))
+
+
+# ======================================================================= DLRM
+# Criteo-1TB per-feature cardinalities (MLPerf DLRM reference).
+CRITEO_ROWS = [
+    39884406, 39043, 17289, 7420, 20263, 3, 7120, 1543, 63, 38532951,
+    2953546, 403346, 10, 2208, 11938, 155, 4, 976, 14, 39979771,
+    25641295, 39664984, 585935, 12972, 108, 36,
+]
+
+
+@dataclasses.dataclass(frozen=True)
+class DLRMConfig:
+    name: str = "dlrm"
+    n_dense: int = 13
+    n_sparse: int = 26
+    embed_dim: int = 128
+    bot_mlp: Sequence[int] = (13, 512, 256, 128)
+    top_mlp: Sequence[int] = (1024, 1024, 512, 256, 1)
+    rows: Sequence[int] = tuple(CRITEO_ROWS)
+    dtype: Any = torch.float32
+
+    @property
+    def interact_dim(self) -> int:
+        n = self.n_sparse + 1
+        return n * (n - 1) // 2 + self.embed_dim
+
+
+def dlrm_table_specs(cfg: DLRMConfig) -> Dict[str, TableSpec]:
+    # 26 single-hot tables share one (B, 26) ``sparse_ids`` batch field:
+    # table i reads column i (TableSpec.id_col).
+    return {
+        f"emb_{i:02d}": TableSpec(
+            f"emb_{i:02d}", rows=cfg.rows[i], dim=cfg.embed_dim,
+            id_field="sparse_ids", id_col=i,
+        )
+        for i in range(cfg.n_sparse)
+    }
+
+
+def dlrm_init_dense(generator: torch.Generator, cfg: DLRMConfig,
+                    device="cuda"):
+    """The bottom and top MLPs on ``device`` (CUDA unless the caller asks
+    for the CPU; ``generator`` must live there)."""
+    return {
+        "bot": mlp_init(generator, list(cfg.bot_mlp), cfg.dtype,
+                        device=device),
+        "top": mlp_init(generator, [cfg.interact_dim] + list(cfg.top_mlp),
+                        cfg.dtype, device=device),
+    }
+
+
+def dot_interaction(feats: torch.Tensor) -> torch.Tensor:
+    """feats (B, F, D) -> lower-triangle pairwise dots (B, F*(F-1)/2), in
+    ``np.tril_indices(F, k=-1)`` order; on the card the CUDA kernel."""
+    return ops.dot_interaction(feats)
+
+
+def dlrm_embed_batch(tables, batch, cfg: DLRMConfig) -> torch.Tensor:
+    """sparse_ids (B, 26) single-hot -> (B, 26, D), from the full tables
+    (the oracle the working-set path is held against)."""
+    ids = batch["sparse_ids"].long()
+    return torch.stack([tables[f"emb_{i:02d}"][ids[:, i]]
+                        for i in range(cfg.n_sparse)], dim=1)
+
+
+def dlrm_forward_from_emb(dense, emb, batch, cfg: DLRMConfig) -> torch.Tensor:
+    x = mlp_apply(dense["bot"], batch["dense"].to(cfg.dtype), act=torch.relu)
+    feats = torch.cat([x[:, None, :], emb.to(cfg.dtype)], dim=1)  # (B,27,D)
+    inter = dot_interaction(feats)
+    top_in = torch.cat([x, inter], dim=-1)
+    return mlp_apply(dense["top"], top_in, act=torch.relu)[:, 0]
+
+
+def dlrm_embed_from_workings(cfg: DLRMConfig, fused: bool = True):
+    """The HybridTrainer embed adapter: the 26 single-hot takes from each
+    table's working set (``invs["emb_XX"]`` has shape (B,), one row per
+    instance; ids the capacity dropped read the zero drop row).  ``fused``
+    is accepted for the adapters' common signature: a single-hot take has
+    no bag to fuse."""
+    del fused
+
+    def embed(workings, invs, batch):
+        return torch.stack(
+            [workings[f"emb_{i:02d}"][invs[f"emb_{i:02d}"].long()]
+             for i in range(cfg.n_sparse)], dim=1)           # (B, 26, D)
+
+    return embed
+
+
+def dlrm_hybrid_loss(cfg: DLRMConfig):
+    """The HybridTrainer loss adapter: ``predict=True`` returns the sigmoid
+    click scores of the dot-interaction tower.  Training raises: the
+    interaction's backward is not ported yet (ROADMAP.md queue A9b)."""
+
+    def loss(dense, emb, batch, predict=False):
+        if not predict:
+            raise NotImplementedError(
+                "DLRM training is not ported yet: the dot interaction's "
+                "backward comes with ROADMAP.md queue A9b (DLRM training); "
+                "DLRM serves (HybridTrainer.predict, CTRServer)")
+        return torch.sigmoid(dlrm_forward_from_emb(dense, emb, batch, cfg))
+
+    return loss

@@ -1,9 +1,10 @@
 """Config-driven construction: ``build_trainer(arch, TrainerConfig)``.
 
 Counterpart of ``repro/runtime/factory.py`` for the archs the port has
-reached (``baidu-ctr``):
+reached (``baidu-ctr``, and ``dlrm-mlperf`` for serving):
 
     tr = build_trainer("baidu-ctr", TrainerConfig(placement="gather"))
+    tr = build_trainer("dlrm-mlperf", TrainerConfig(placement="gather"))
     tr = build_trainer("baidu-ctr", TrainerConfig(placement="cached",
                                                   cache_rows=262144))
     tr = build_trainer("baidu-ctr", TrainerConfig(store="disk",
@@ -43,19 +44,17 @@ def _default_capacity(max_rows: int) -> int:
     return next_pow2(min(DEFAULT_CTR_CAPACITY, max_rows))
 
 
-def build_ctr_engine(model_cfg: R.CTRConfig, cfg: TrainerConfig,
-                     device="cuda") -> EmbeddingEngine:
-    """EmbeddingEngine for the paper's CTR model, placement-selected; the
-    kernels run per ``cfg.fused_kernels`` (``ops.resolve_fused``).  The
-    cached placement's device cache holds ``cfg.cache_rows`` rows, by
-    default the capacity (one batch's working set); an explicit
-    ``cache_rows`` below the capacity raises.  ``cfg.store == "disk"`` puts
-    the tables in a ``DiskStore`` under ``cfg.spill_dir`` (pages of
-    ``cfg.page_rows`` rows, default 1024, behind a page cache of
-    ``cfg.page_cache_pages`` pages, default unbounded) and stages the
-    backend."""
+def _build_engine(specs, cfg: TrainerConfig, device) -> EmbeddingEngine:
+    """Placement-selected engine over ``specs`` (shared by the recsys
+    archs); the kernels run per ``cfg.fused_kernels``
+    (``ops.resolve_fused``).  The cached placement's device cache holds
+    ``cfg.cache_rows`` rows, by default the capacity (one batch's working
+    set); an explicit ``cache_rows`` below the capacity raises.
+    ``cfg.store == "disk"`` puts the tables in a ``DiskStore`` under
+    ``cfg.spill_dir`` (pages of ``cfg.page_rows`` rows, default 1024,
+    behind a page cache of ``cfg.page_cache_pages`` pages, default
+    unbounded) and stages the backend."""
     device = resolve_device(device)
-    specs = R.ctr_table_specs(model_cfg)
     capacity = cfg.capacity or _default_capacity(
         max(s.rows for s in specs.values()))
     fused = ops.resolve_fused(cfg.fused_kernels, device)
@@ -101,6 +100,36 @@ def build_ctr_engine(model_cfg: R.CTRConfig, cfg: TrainerConfig,
     )
 
 
+def build_ctr_engine(model_cfg: R.CTRConfig, cfg: TrainerConfig,
+                     device="cuda") -> EmbeddingEngine:
+    """EmbeddingEngine for the paper's CTR model (``_build_engine``)."""
+    return _build_engine(R.ctr_table_specs(model_cfg), cfg, device)
+
+
+def build_dlrm_engine(model_cfg: R.DLRMConfig, cfg: TrainerConfig,
+                      device="cuda") -> EmbeddingEngine:
+    """DLRM: 26 per-feature tables sharing the (B, 26) ``sparse_ids``
+    field (``_build_engine``)."""
+    return _build_engine(R.dlrm_table_specs(model_cfg), cfg, device)
+
+
+def _recsys_wiring(mcfg):
+    """(init_dense, build_engine, embed_adapter, loss_adapter) for a recsys
+    model config, dispatched on the config type."""
+    wiring = {
+        R.CTRConfig: (R.ctr_init_dense, build_ctr_engine,
+                      R.ctr_embed_from_workings, R.ctr_hybrid_loss),
+        R.DLRMConfig: (R.dlrm_init_dense, build_dlrm_engine,
+                       R.dlrm_embed_from_workings, R.dlrm_hybrid_loss),
+    }
+    for cls, w in wiring.items():
+        if isinstance(mcfg, cls):
+            return w
+    raise NotImplementedError(
+        f"build_trainer: {type(mcfg).__name__} is not ported yet "
+        "(ROADMAP.md queue A9, the other recsys archs)")
+
+
 def build_trainer(arch: str, cfg: TrainerConfig, *, smoke: bool = True,
                   seed: int = 0, model_cfg: Any = None,
                   table_scale: float = TABLE_SCALE,
@@ -112,18 +141,15 @@ def build_trainer(arch: str, cfg: TrainerConfig, *, smoke: bool = True,
     spec = configs.get(arch)
     mcfg = model_cfg if model_cfg is not None else (
         spec.smoke_cfg if smoke else spec.model_cfg)
-    if not isinstance(mcfg, R.CTRConfig):
-        raise NotImplementedError(
-            f"build_trainer: {type(mcfg).__name__} is not ported yet "
-            "(ROADMAP.md queue A)")
+    init_dense, build_engine, embed_of, loss_of = _recsys_wiring(mcfg)
     generator = torch.Generator(device).manual_seed(seed)
-    dense = R.ctr_init_dense(generator, mcfg, device=device)
-    engine = build_ctr_engine(mcfg, cfg, device=device)
+    dense = init_dense(generator, mcfg, device=device)
+    engine = build_engine(mcfg, cfg, device=device)
     tables = engine.init(generator, scale=table_scale)
     fused = ops.resolve_fused(cfg.fused_kernels, device)
     return HybridTrainer(
-        dense, engine, R.ctr_embed_from_workings(mcfg, fused=fused),
-        R.ctr_hybrid_loss(mcfg), cfg, tables=tables, device=device,
+        dense, engine, embed_of(mcfg, fused=fused), loss_of(mcfg), cfg,
+        tables=tables, device=device,
     )
 
 

@@ -207,6 +207,9 @@ def test_predict_on_disk_writes_nothing(placement, tmp_path):
             losses.append(float(tr.train_step(b)))
             if serve:
                 st = tr.engine.store
+                # the step's read-ahead lands first: the reader thread's
+                # page traffic is training's, and may trail the step
+                st._read_q.join()
                 every = np.arange(SMOKE.rows, dtype=np.int64)
                 train_meters = ("page_hits", "page_misses", "pages_evicted",
                                 "disk_bytes_read")

@@ -576,3 +576,51 @@ def test_cuda_disk_store_trains_as_the_host_store(placement, tmp_path):
     assert staged["sparse_adagrad"] == (5 if placement == "gather" else 0)
     assert all(v == 0 for k, v in staged.items() if k.endswith("_ref"))
     assert staged["fused_adam"] == 4                 # steps 1, 2, 4, 5
+
+
+# ---- kernel 8, DLRM's dot interaction (phase 10 (a)'s shapes; the
+# reference kernel test's tolerances: the sums run in other orders)
+DOT_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,F,D,dtype", [
+    (512, 27, 128, torch.float32), (16384, 27, 128, torch.float32),
+    (33, 13, 17, torch.float32), (512, 27, 128, torch.bfloat16),
+    (100, 2, 128, torch.float32), (7, 1, 128, torch.float32),
+    (3, 300, 50, torch.float32), (5, 27, 3001, torch.bfloat16),
+])
+def test_cuda_dot_interaction_matches_plain_version(B, F, D, dtype):
+    _cuda_or_skip()
+    from repro_torch.kernels.dot_interaction import dot_interaction_cuda
+
+    gen = torch.Generator("cuda").manual_seed(B + F + D)
+    feats = torch.randn((B, F, D), generator=gen, device="cuda").to(dtype)
+    got = dot_interaction_cuda(feats)
+    again = dot_interaction_cuda(feats)
+    torch.cuda.synchronize()
+    want = tref.dot_interaction_ref(feats)
+    assert got.dtype == dtype and got.shape == (B, F * (F - 1) // 2)
+    assert torch.equal(got, again)
+    tol = DOT_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=tol * D,
+                               rtol=tol * 4)
+
+
+@pytest.mark.gpu
+def test_cuda_dot_interaction_launches_the_kernel_forward_only():
+    _cuda_or_skip()
+    feats = torch.randn((64, 27, 128), device="cuda")
+    ops.reset_launches()
+    out = ops.dot_interaction(feats)
+    torch.cuda.synchronize()
+    assert ops.launches["dot_interaction"] == 1
+    assert ops.launches["dot_interaction_ref"] == 0
+    assert out.shape == (64, 351)
+    x = feats.clone().requires_grad_(True)
+    with pytest.raises(NotImplementedError, match="A9b"):
+        ops.dot_interaction(x).sum().backward()
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.dot_interaction(feats.transpose(1, 2))
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        ops.dot_interaction(feats.double())

@@ -279,7 +279,8 @@ def test_training_slice_matches_reference_end_to_end():
         "sparse_adagrad_cached_apply": 0,
         "sparse_adagrad_cached_apply_ref": 0,
         "sparse_adagrad": 0, "sparse_adagrad_ref": 0,
-        "fused_adam": 0, "fused_adam_ref": 3}   # the local steps 1, 3, 5
+        "fused_adam": 0, "fused_adam_ref": 3,   # the local steps 1, 3, 5
+        "dot_interaction": 0, "dot_interaction_ref": 0}
 
 
 def test_training_slice_int8_ef_merge_matches_reference():
@@ -415,4 +416,4 @@ def test_launcher_serve_and_flags():
             _launch("--arch", "baidu-ctr", "--steps", "1", "--device", "cpu",
                     *flags)
     with pytest.raises(KeyError, match="not in the port"):
-        _launch("--arch", "dlrm-mlperf", "--steps", "1", "--device", "cpu")
+        _launch("--arch", "din", "--steps", "1", "--device", "cpu")
