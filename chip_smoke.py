@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Run the PyTorch port's baidu-ctr serving and training paths, on the
-gather and the cached placements and on the SSD tier, and its dlrm-mlperf
-serving path, on one NVIDIA GPU (H100).
+gather and the cached placements and on the SSD tier, its dlrm-mlperf
+serving path and its qwen3-14b prefill, on one NVIDIA GPU (H100).
 
     python3 chip_smoke.py        # from the root of a checkout
 
@@ -107,6 +107,29 @@ Phases (any failure raises and the script exits non-zero):
      rtol = atol = 1e-5;
      (e) the interaction's call under the sync debug mode "error" and the
      profiler: one kernel launch, no sync, no host-to-device copy.
+ 11. qwen3-14b prefill at full width (40 layers, d 5120, 40 heads over 8
+     KV heads, hd 128, d_ff 17408, vocab 151936, bf16; 29.5 GB of random
+     weights drawn on the card from a seed), after phase 10's memory is
+     released:
+     (a) flash attention (kernel 9) against its plain version at
+     (B, S, H, Kv, hd) = (4, 4096, 40, 8, 128) bf16 (the path's),
+     (1, 4096, 40, 8, 128) bf16 and f32, (2, 64, 8, 2, 16) f32 causal and
+     not, (1, 1000, 40, 8, 128) bf16 (ragged) and (2, 96, 4, 2, 32) f32;
+     f32 within atol = rtol = 1e-5, bf16 within atol 4e-3, rtol 8e-3; two
+     runs bit-equal; timed as in phase 1 at the first three shapes, with
+     ``F.scaled_dot_product_attention(is_causal, enable_gqa)`` as the
+     library call;
+     (b) ``prefill`` of 4 x 4096 tokens: a warm-up and 3 timed prefills
+     (wall, tokens/s, peak memory), 40 kernel launches per prefill and no
+     plain version, finite logits, the same bits each time; one prefill's
+     stream time by part; one under the sync debug mode "error" and one
+     under the profiler (no sync, no host-to-device copy);
+     (c) one prefill of 1 x 32768 (prefill_32k's sequence, its batch cut
+     from 32 to 1), whose hidden states at positions < 4096 agree with a
+     1 x 4096 run bit for bit (the kernel's KV tiles have fixed edges in
+     absolute positions, so a row's sums do not depend on S);
+     (d) smoke size (f32, 2 layers), card vs CPU from one state: logits
+     within atol 5e-5, rtol 1e-5.
 
 TF32 is off for matmuls and convolutions.  Prints the card (``nvidia-smi``
 name and power limit), a ``kernels`` JSON line, and as its last line
@@ -137,6 +160,7 @@ TOL = dict(rtol=1e-5, atol=1e-5)
 # cores.  They assume the 700 W limit; the printed power limit says more.
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
+BF16_FLOP_PER_S = 989e12   # dense, on the tensor cores
 
 
 def _time_ms(fn, iters=100, warmup=10, cold_l2=True):
@@ -1210,9 +1234,10 @@ CACHE_ROWS = 262144        # 4 x the capacity, 0.5 % of the 50 M rows
 SERVE_BATCH = 256          # requests the co-located server scores per step
 
 
-def _bound(nbytes, flops=0):
-    """(ms, what bounds it) for the card's peaks."""
-    t_b, t_f = nbytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S
+def _bound(nbytes, flops=0, flop_per_s=F32_FLOP_PER_S):
+    """(ms, what bounds it) for the card's peaks (``flop_per_s``: the peak
+    of the operands' type; float32 without tensor cores by default)."""
+    t_b, t_f = nbytes / HBM_BYTES_PER_S, flops / flop_per_s
     return max(t_b, t_f) * 1e3, ("bytes" if t_b >= t_f else "operations")
 
 
@@ -2521,6 +2546,333 @@ def phase_dlrm_agreement(device):
           f"{np.abs(got[0] - got[1]).max():.3g} (rtol = atol = 1e-5)")
 
 
+# --------------------------------------------------------- the LM prefill
+LM_BATCH, LM_SEQ = 4, 4096  # the path's prefill: 4 x 4096 tokens
+LM_LONG = 32768            # lm_shapes()["prefill_32k"]'s seq, batch 32 -> 1
+LM_PREFIX = 4096           # the causal check's prefix of the long run
+LM_PREFILLS = 3            # timed prefills
+LM_SEED = 0
+FLASH_TOL = {"float32": dict(atol=1e-5, rtol=1e-5),
+             "bfloat16": dict(atol=4e-3, rtol=8e-3)}
+
+
+def _flash_times(q, k, v, causal=True, iters=10):
+    """Kernel 9's times (cold and warm L2), its plain version's,
+    ``F.scaled_dot_product_attention``'s (timed only: the port never calls
+    it) and its bound at ``q, k, v``."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+
+    B, S, H, hd = q.shape
+    dtype = str(q.dtype).split(".")[-1]
+
+    def library():
+        return F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            is_causal=causal, enable_gqa=True)
+
+    def kernel():
+        return flash_attention_cuda(q, k, v, causal)
+
+    got = kernel()
+    lib = library().transpose(1, 2)
+    if not torch.allclose(lib.float(), got.float(),
+                          atol=2e-2 if dtype == "bfloat16" else 1e-3):
+        raise AssertionError(f"flash_attention {tuple(q.shape)} {dtype}: "
+                             "SDPA and the kernel differ")
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    pairs = S * (S + 1) // 2 if causal else S * S
+    flops = 4 * B * H * hd * pairs
+    bound_ms, bound_by = _bound(nbytes, flops, BF16_FLOP_PER_S
+                                if dtype == "bfloat16" else F32_FLOP_PER_S)
+    return {
+        "shape": [B, S, H, k.shape[2], hd], "dtype": dtype,
+        "ms": _time_ms(kernel, iters=iters, warmup=2),
+        "ms_l2_warm": _time_ms(kernel, iters=iters, warmup=2, cold_l2=False),
+        "plain_ms": _time_ms(lambda: ref.flash_attention_ref(q, k, v, causal),
+                             iters=max(2, iters // 2), warmup=1),
+        "library_ms": _time_ms(library, iters=iters, warmup=2),
+        "bound_ms": bound_ms, "bound_by": bound_by, "gflop": flops / 1e9,
+        "mb": nbytes / 1e6,
+    }
+
+
+def phase_flash_attention(device):
+    """Phase 11 (a): kernel 9 against its plain version on the card, and
+    timed; returns its kernels-line entry (without ``launches``): the
+    path's shape (4, 4096) bf16, with (1, 4096) in bf16 and f32 under
+    ``one_sequence``."""
+    import torch
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+
+    gen = torch.Generator(device).manual_seed(53)
+    # (B, S, H, Kv, hd), dtype, causal, timed
+    cases = [((LM_BATCH, LM_SEQ, 40, 8, 128), torch.bfloat16, True, True),
+             ((1, LM_SEQ, 40, 8, 128), torch.bfloat16, True, True),
+             ((1, LM_SEQ, 40, 8, 128), torch.float32, True, True),
+             ((2, 64, 8, 2, 16), torch.float32, True, False),
+             ((2, 64, 8, 2, 16), torch.float32, False, False),
+             ((1, 1000, 40, 8, 128), torch.bfloat16, True, False),
+             ((2, 96, 4, 2, 32), torch.float32, True, False)]
+    print("phase 11 (a): flash_attention (kernel 9) against its plain "
+          "version (tolerance: f32 atol = rtol = 1e-5; bf16 atol 4e-3, "
+          "rtol 8e-3, one bf16 rounding of the same float32 math)")
+    max_err, max_err_bf16, times = 0.0, 0.0, []
+    for (B, S, H, Kv, hd), dtype, causal, timed in cases:
+        q = torch.randn((B, S, H, hd), generator=gen, device=device).to(dtype)
+        k, v = [torch.randn((B, S, Kv, hd), generator=gen,
+                            device=device).to(dtype) for _ in range(2)]
+        got = flash_attention_cuda(q, k, v, causal)
+        again = flash_attention_cuda(q, k, v, causal)
+        torch.cuda.synchronize()
+        want = ref.flash_attention_ref(q, k, v, causal)
+        name = str(dtype).split(".")[-1]
+        err = (got.float() - want.float()).abs().max().item()
+        if (got.shape != want.shape or got.dtype != dtype
+                or not torch.equal(got, again)
+                or not torch.allclose(got.float(), want.float(),
+                                      **FLASH_TOL[name])):
+            raise AssertionError(f"flash_attention {(B, S, H, Kv, hd)} "
+                                 f"{name} causal {causal}: kernel and plain "
+                                 f"version differ (max |diff| {err}) or two "
+                                 "runs differ")
+        del want
+        if dtype == torch.float32:
+            max_err = max(max_err, err)
+        else:
+            max_err_bf16 = max(max_err_bf16, err)
+        print(f"  {(B, S, H, Kv, hd)} {name} causal {causal}: max |kernel - "
+              f"plain| {err:.3g}, two runs bit-equal")
+        if timed:
+            times.append(_flash_times(q, k, v, causal))
+        del q, k, v, got, again
+        _release()
+    for t in times:
+        print(f"  times {tuple(t['shape'])} {t['dtype']} causal (ms): kernel "
+              f"{t['ms']:.4f} cold, {t['ms_l2_warm']:.4f} warm "
+              f"({t['gflop'] / t['ms']:.2f} TFLOP/s cold); plain "
+              f"{t['plain_ms']:.4f}; library (SDPA, is_causal, enable_gqa) "
+              f"{t['library_ms']:.4f}; bound {t['bound_ms']:.4f} "
+              f"({t['gflop']:.1f} GFLOP, {t['mb']:.1f} MB, {t['bound_by']})")
+    path = times[0]
+    keys = ("shape", "dtype", "ms", "ms_l2_warm", "plain_ms", "bound_ms",
+            "bound_by", "library_ms")
+    return {
+        "name": "flash_attention",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:79",
+        "launches": None,
+        "max_abs_err": max_err,
+        "max_abs_err_bf16": max_err_bf16,
+        **{k: path[k] for k in keys},
+        "one_sequence": [{k: t[k] for k in keys} for t in times[1:]],
+    }
+
+
+def _lm_breakdown(params, tokens, cfg, want):
+    """Phase 11 (b): one prefill's stream time by part (CUDA events around
+    each part of each layer, summed over the layers); its logits must be
+    ``want``'s bits (the same calls as ``prefill``)."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+    from repro_torch.models.common import rms_norm
+
+    events = []
+
+    def timed(part, fn):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn()
+        end.record()
+        events.append((part, start, end))
+        return out
+
+    B, S = tokens.shape
+    x = timed("embed", lambda: params["embed"].index_select(
+        0, tokens.reshape(-1)).reshape(B, S, -1))
+    q_pos = torch.arange(S, dtype=torch.int32, device=tokens.device)
+    for i in range(cfg.n_layers):
+        lp = {k: v[i] for k, v in params["layers"].items()}
+        q, k, v = timed("norms + QKV + qk-norm + rope",
+                        lambda: T._qkv(cfg, lp, x, q_pos))
+        o = timed("attention (kernel 9)",
+                  lambda: ops.flash_attention(q, k, v, causal=True))
+        x = timed("o-proj", lambda: x + o.reshape(B, S, -1) @ lp["wo"])
+        x = timed("FFN", lambda: T._ffn_block(cfg, lp, x))
+    logits = timed("final norm + head", lambda: rms_norm(
+        x, params["final_norm"], cfg.norm_eps)[:, -1] @ T._head(params, cfg))
+    torch.cuda.synchronize()
+    if not torch.equal(logits, want):
+        raise AssertionError("the timed parts' logits differ from prefill's")
+    parts = {}
+    for part, start, end in events:
+        parts[part] = parts.get(part, 0.0) + start.elapsed_time(end)
+    return parts
+
+
+def phase_lm(device, cfg=None):
+    """Phase 11 (b) and (c): qwen3-14b prefill at full width through
+    ``prefill`` (4 x 4096 tokens), then one 32768-token prefill held
+    causally against a 4096-token run; returns the launch counts of the
+    timed prefills."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+
+    cfg = cfg or configs.get("qwen3-14b").model_cfg
+    t0 = time.perf_counter()
+    params = T.init_params(torch.Generator(device).manual_seed(LM_SEED), cfg,
+                           device=device)
+    torch.cuda.synchronize()
+    leaves = [params["embed"], params["final_norm"], params.get("head")]
+    leaves += list(params["layers"].values())
+    weights_gb = sum(t.numel() * t.element_size() for t in leaves
+                     if t is not None) / 1e9
+    print(f"phase 11: {cfg.name} prefill at full width ({cfg.n_layers} "
+          f"layers, d {cfg.d_model}, {cfg.n_heads} heads over "
+          f"{cfg.n_kv_heads} KV heads, hd {cfg.hd}, d_ff {cfg.d_ff}, vocab "
+          f"{cfg.vocab}, {str(cfg.dtype).split('.')[-1]}), random weights "
+          f"from seed {LM_SEED}: {weights_gb:.2f} GB drawn on the card in "
+          f"{time.perf_counter() - t0:.1f} s")
+    rng = np.random.default_rng(LM_SEED)
+    tokens = torch.from_numpy(rng.integers(
+        0, cfg.vocab, (LM_BATCH, LM_SEQ))).to(device)
+    n_tok = LM_BATCH * LM_SEQ
+    with torch.inference_mode():
+        want = T.prefill(params, tokens, cfg)          # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        walls = []
+        for _ in range(LM_PREFILLS):
+            t0 = time.perf_counter()
+            logits = T.prefill(params, tokens, cfg)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        launches = dict(ops.launches)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        want_launches = dict.fromkeys(launches, 0)
+        want_launches["flash_attention"] = LM_PREFILLS * cfg.n_layers
+        if launches != want_launches:
+            raise AssertionError(f"launches {launches}, expected "
+                                 f"{want_launches}")
+        if (logits.shape != (LM_BATCH, cfg.vocab)
+                or not torch.isfinite(logits).all().item()):
+            raise AssertionError("prefill logits are not finite of shape "
+                                 f"{(LM_BATCH, cfg.vocab)}")
+        if not torch.equal(logits, want):
+            raise AssertionError("two prefills of the same tokens differ")
+        wall = float(np.mean(walls))
+        print(f"  phase 11 (b): {LM_PREFILLS} prefills of {LM_BATCH} x "
+              f"{LM_SEQ} tokens: wall {', '.join(f'{w:.4f}' for w in walls)}"
+              f" s (mean {wall:.4f} s, {n_tok / wall:.1f} tokens/s), peak "
+              f"memory {peak_gb:.2f} GB; logits {tuple(logits.shape)} "
+              f"finite, from {logits.min().item():.4f} to "
+              f"{logits.max().item():.4f}, bit-equal across the prefills; "
+              f"next tokens {logits.argmax(-1).tolist()}")
+        print(f"  launches during the timed prefills: flash_attention "
+              f"{launches['flash_attention']} (= {cfg.n_layers} layers x "
+              f"{LM_PREFILLS}), flash_attention_ref "
+              f"{launches['flash_attention_ref']}, every other counter 0")
+        parts = _lm_breakdown(params, tokens, cfg, want)
+        total = sum(parts.values())
+        print(f"  one prefill, stream time by part (ms, CUDA events, summed "
+              f"over {cfg.n_layers} layers): " + ", ".join(
+                  f"{k} {v:.3f}" for k, v in parts.items())
+              + f"; all parts {total:.3f}")
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            again = T.prefill(params, tokens, cfg)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        if not torch.equal(again, want):
+            raise AssertionError("the prefill under the sync debug mode "
+                                 "differs")
+        h2d, syncs, kernels = _transfers(lambda: T.prefill(params, tokens,
+                                                           cfg))
+        if h2d or syncs:
+            raise AssertionError(f"a prefill made {h2d} host-to-device "
+                                 f"copies and {syncs} syncs")
+        print(f"  a prefill ran under the sync debug mode 'error'; profiler: "
+              f"{kernels} kernel launches, 0 host-to-device copies, 0 "
+              "synchronizing calls")
+        del logits, again, want
+
+        # ---- (c) one long prefill, held causally against its prefix
+        long_tokens = torch.from_numpy(rng.integers(
+            0, cfg.vocab, (1, LM_LONG))).to(device)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        x_long, _ = T.trunk(params, long_tokens, cfg)
+        torch.cuda.synchronize()
+        long_s = time.perf_counter() - t0
+        long_peak = torch.cuda.max_memory_allocated() / 1e9
+        x_short, _ = T.trunk(params, long_tokens[:, :LM_PREFIX], cfg)
+        head = x_long[:, :LM_PREFIX]
+        bit_equal = torch.equal(head, x_short)
+        diff = (head.float() - x_short.float()).abs().max().item()
+        rel = ((head.float() - x_short.float()).norm()
+               / x_short.float().norm()).item()
+        finite = torch.isfinite(x_long).all().item()
+        print(f"  phase 11 (c): one prefill of 1 x {LM_LONG} (prefill_32k's "
+              f"sequence, its batch cut from 32 to 1: the FFN activations "
+              f"of 32 x {LM_LONG} tokens do not fit one card): trunk in "
+              f"{long_s:.2f} s ({LM_LONG / long_s:.1f} tokens/s), peak "
+              f"memory {long_peak:.2f} GB, finite {finite}; positions < "
+              f"{LM_PREFIX} against a 1 x {LM_PREFIX} run: bit-equal "
+              f"{bit_equal} (required), max |diff| {diff:.3g}, relative "
+              f"norm {rel:.3g}")
+        if not finite or not bit_equal:
+            raise AssertionError("the long prefill is not finite or its "
+                                 "prefix is not bit-equal to the short run")
+    del params, x_long, x_short, head
+    _release()
+    return launches
+
+
+def phase_lm_agreement(device):
+    """Phase 11 (d): qwen3-14b SMOKE (float32, 2 layers) on the card and on
+    the CPU from one state drawn on the CPU; prefill logits within
+    atol 5e-5, rtol 1e-5 (float32 products summed in other orders)."""
+    import torch
+
+    from repro_torch import configs, tree_map
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+
+    cfg = configs.get("qwen3-14b").smoke_cfg
+    cpu = T.init_params(torch.Generator("cpu").manual_seed(7), cfg,
+                        device="cpu")
+    gpu = tree_map(lambda t: t.to(device), cpu)
+    tokens = torch.from_numpy(np.random.default_rng(8).integers(
+        0, cfg.vocab, (2, 300)))
+    ops.reset_launches()
+    got = T.prefill(gpu, tokens.to(device), cfg)
+    torch.cuda.synchronize()
+    if ops.launches["flash_attention"] != cfg.n_layers:
+        raise AssertionError(f"launches {ops.launches}")
+    want = T.prefill(cpu, tokens, cfg)
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), atol=5e-5,
+                               rtol=1e-5)
+    print(f"phase 11 (d): {cfg.name} ({cfg.n_layers} layers, f32), 2 x 300 "
+          f"tokens, card vs CPU from one state: logits max |diff| "
+          f"{(got.cpu() - want).abs().max().item():.3g} (atol 5e-5, rtol "
+          f"1e-5); {cfg.n_layers} kernel launches on the card")
+
+
 def main() -> int:
     import torch
 
@@ -2569,8 +2921,14 @@ def main() -> int:
     dot = phase_dot_interaction(device)
     dot["launches"] = phase_dlrm(device)["dot_interaction"]
     phase_dlrm_agreement(device)
+    _release()
+    t11 = time.perf_counter()
+    flash = phase_flash_attention(device)
+    flash["launches"] = phase_lm(device)["flash_attention"]
+    phase_lm_agreement(device)
+    print(f"phase 11 took {time.perf_counter() - t11:.1f} s")
     print(json.dumps({"kernels": [bag, backward, push] + cache_entries
-                      + [staged, adam, dot]}))
+                      + [staged, adam, dot, flash]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -8,10 +8,11 @@ from __future__ import annotations
 
 import dataclasses
 import importlib
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 _MODULES = {
     "baidu-ctr": "repro_torch.configs.baidu_ctr",
+    "qwen3-14b": "repro_torch.configs.qwen3_14b",
     "dlrm-mlperf": "repro_torch.configs.dlrm_mlperf",
 }
 
@@ -22,6 +23,7 @@ class ShapeSpec:
     name: str
     kind: str                 # train | prefill | decode | serve | retrieval
     dims: Dict[str, int]
+    skip: Optional[str] = None  # reason string if inapplicable
 
 
 @dataclasses.dataclass(frozen=True)
@@ -39,6 +41,16 @@ def get(name: str) -> ArchSpec:
         raise KeyError(f"arch {name!r} is not in the port yet; ported: "
                        f"{sorted(_MODULES)}")
     return importlib.import_module(_MODULES[name]).ARCH
+
+
+def lm_shapes() -> Dict[str, ShapeSpec]:
+    """The LM archs' cells (``repro/configs/__init__.py``)."""
+    return {
+        "train_4k": ShapeSpec("train_4k", "train", {"seq": 4096, "batch": 256}),
+        "prefill_32k": ShapeSpec("prefill_32k", "prefill", {"seq": 32768, "batch": 32}),
+        "decode_32k": ShapeSpec("decode_32k", "decode", {"seq": 32768, "batch": 128}),
+        "long_500k": ShapeSpec("long_500k", "decode", {"seq": 524288, "batch": 1}),
+    }
 
 
 def recsys_shapes() -> Dict[str, ShapeSpec]:

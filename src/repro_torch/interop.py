@@ -7,8 +7,9 @@ numpy (``jax.device_get`` of ``tr.dense``, ``tr.tables``,
 cached placement, ``tr.backend_state``), go through ``from_reference`` and
 into ``HybridTrainer(..., state=...)``.  Under the DiskStore,
 ``from_reference`` writes the full tables and accumulators into the
-store's pages, so both packages start from one state on disk.  This
-module reads numpy only.
+store's pages, so both packages start from one state on disk.  The LM's
+parameter tree goes through ``lm_from_reference``.  This module reads
+numpy only.
 """
 
 from __future__ import annotations
@@ -100,3 +101,22 @@ def from_reference(dense_np, tables_np, accum_np, opt_state_np=None,
         opt_state=opt_state,
         backend_state=backend_state,
     )
+
+
+def _leaf_from_numpy(x, device) -> torch.Tensor:
+    """One exported leaf as a tensor on ``device``.  bfloat16 leaves come as
+    ``ml_dtypes.bfloat16`` arrays, which ``torch.from_numpy`` refuses: their
+    bits travel as uint16 and are viewed as bfloat16."""
+    x = np.asarray(x)
+    if x.dtype.name == "bfloat16":
+        bits = np.ascontiguousarray(x).view(np.uint16)
+        return torch.from_numpy(bits.copy()).view(torch.bfloat16).to(device)
+    return torch.from_numpy(np.array(x, copy=True)).to(device)
+
+
+def lm_from_reference(params_np, device="cuda"):
+    """The reference LM's parameter tree (``repro.models.transformer``,
+    numpy after ``jax.device_get``) as the port's tree on ``device``: the
+    same keys and layouts, every leaf bit for bit."""
+    device = resolve_device(device)
+    return tree_map(lambda x: _leaf_from_numpy(x, device), params_np)

@@ -18,7 +18,8 @@ _REPO = pathlib.Path(__file__).resolve().parents[3]
 BUILD_DIR = _REPO / "build" / "torch_kernels"
 CUDA_FLAGS = ["-O3", "-gencode=arch=compute_90a,code=sm_90a"]
 SOURCES = ("bindings.cpp", "embedding_bag.cu", "sparse_adagrad.cu",
-           "hash_map.cu", "fused_adam.cu", "dot_interaction.cu")
+           "hash_map.cu", "fused_adam.cu", "dot_interaction.cu",
+           "flash_attention.cu")
 
 _ext = None
 

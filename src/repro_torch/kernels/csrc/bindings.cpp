@@ -41,6 +41,11 @@ void launch_sparse_adagrad_staged(float* rows, float* accum,
 void launch_dot_interaction(const void* feats, void* out, int64_t B, int F,
                             int D, bool bf16, cudaStream_t stream);
 int dot_interaction_max_features();
+cudaError_t launch_flash_attention(const void* q, const void* k,
+                                   const void* v, void* o, int64_t B, int S,
+                                   int H, int Kv, int hd, bool causal,
+                                   bool bf16, cudaStream_t stream);
+int flash_attention_max_head_dim();
 void launch_hash_lookup(const int32_t* key_tab, const int32_t* slot_tab,
                         int64_t n_buckets, const int32_t* slot_uid,
                         int64_t n_slots, const int32_t* uids, int64_t n,
@@ -303,6 +308,44 @@ void dot_interaction(const torch::Tensor& feats, const torch::Tensor& out) {
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
+// out (B, S, H, hd) = softmax(q k^T / sqrt(hd) + mask) v with KV head
+// h / (H / Kv) for q head h, causal or full (csrc/flash_attention.cu).
+void flash_attention(const torch::Tensor& q, const torch::Tensor& k,
+                     const torch::Tensor& v, const torch::Tensor& out,
+                     bool causal) {
+  const auto dtype = q.scalar_type();
+  TORCH_CHECK(dtype == torch::kFloat32 || dtype == torch::kBFloat16,
+              "q must be float32 or bfloat16, got ", dtype);
+  check_cuda(q, "q", dtype, 4, q);
+  check_cuda(k, "k", dtype, 4, q);
+  check_cuda(v, "v", dtype, 4, q);
+  check_cuda(out, "out", dtype, 4, q);
+  const int64_t B = q.size(0), S = q.size(1), H = q.size(2), hd = q.size(3);
+  const int64_t Kv = k.size(2);
+  TORCH_CHECK(k.size(0) == B && k.size(1) == S && k.size(3) == hd &&
+              v.sizes() == k.sizes(), "k and v must be (", B, ", ", S,
+              ", Kv, ", hd, "), got ", k.sizes(), " and ", v.sizes());
+  TORCH_CHECK(out.sizes() == q.sizes(), "out must have q's shape");
+  TORCH_CHECK(Kv >= 1 && H % Kv == 0, "H (", H, ") must be a multiple of "
+              "Kv (", Kv, ")");
+  TORCH_CHECK(hd >= 8 && hd % 8 == 0 && hd <= flash_attention_max_head_dim(),
+              "head_dim must be a multiple of 8 up to ",
+              flash_attention_max_head_dim(), ", got ", hd);
+  TORCH_CHECK(B < 65536 && H < 65536 && S < kMaxRows,
+              "B and H must lie below 2^16 and S below 2^31");
+  for (const torch::Tensor* t : {&q, &k, &v, &out})
+    TORCH_CHECK(reinterpret_cast<uintptr_t>(t->data_ptr()) % 16 == 0,
+                "q, k, v and out must be 16-byte aligned");
+  if (B * S == 0) return;
+  const c10::cuda::CUDAGuard guard(q.device());
+  C10_CUDA_CHECK(launch_flash_attention(
+      q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B,
+      static_cast<int>(S), static_cast<int>(H), static_cast<int>(Kv),
+      static_cast<int>(hd), causal, dtype == torch::kBFloat16,
+      c10::cuda::getCurrentCUDAStream().stream()));
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
 // rows += delta(accum, grads); accum += grads^2, elementwise and in place
 // (the staged push, csrc/sparse_adagrad.cu).
 void sparse_adagrad_staged(const torch::Tensor& rows,
@@ -430,6 +473,10 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("dot_interaction", &dot_interaction,
         "DLRM dot interaction: the strict lower triangle of each instance's "
         "self-Gram (CUDA)", py::arg("feats"), py::arg("out"));
+  m.def("flash_attention", &flash_attention,
+        "Causal or full GQA softmax attention with the online-softmax "
+        "recurrence, forward (CUDA)", py::arg("q"), py::arg("k"),
+        py::arg("v"), py::arg("out"), py::arg("causal"));
   m.def("hash_lookup", &hash_lookup,
         "Batch linear probe of the cache's id -> slot hash map (CUDA)",
         py::arg("key_tab"), py::arg("slot_tab"), py::arg("slot_uid"),

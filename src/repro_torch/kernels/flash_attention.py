@@ -1,0 +1,59 @@
+"""Flash attention on the card: the CUDA kernel's wrapper.
+
+Counterpart of ``repro/kernels/flash_attention.py::flash_attention_pallas``;
+the kernel is ``csrc/flash_attention.cu`` (its header states the
+arithmetic, what bounds it and its design).  It works in the model's
+layout: q (B, S, H, hd), k and v (B, S, Kv, hd), contiguous, float32 or
+bfloat16, q head h reading KV head ``h // (H // Kv)``, any S, hd a multiple
+of 8 up to 256.  The plain version is ``ref.flash_attention_ref``.
+
+No host sync and no host-to-device copy per call: the wrapper checks the
+inputs from their metadata only and allocates the output on the card.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.build import extension
+
+DTYPES = (torch.float32, torch.bfloat16)
+MAX_HEAD_DIM = 256
+
+
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if not t.is_cuda:
+            raise ValueError(f"flash_attention_cuda takes CUDA tensors, "
+                             f"{name} is on {t.device}")
+        if t.dtype != q.dtype or t.dtype not in DTYPES:
+            raise ValueError(f"flash_attention_cuda takes float32 or "
+                             f"bfloat16 q, k, v of one dtype, got {name} "
+                             f"{t.dtype} with q {q.dtype}")
+        if t.dim() != 4:
+            raise ValueError(f"{name} must be 4-D, got {tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"flash_attention_cuda takes contiguous "
+                             f"tensors, {name} is not")
+    B, S, H, hd = q.shape
+    Kv = k.shape[2]
+    if k.shape != v.shape or (k.shape[0], k.shape[1], k.shape[3]) != (B, S,
+                                                                      hd):
+        raise ValueError(f"k and v must be (B, S, Kv, hd) = ({B}, {S}, Kv, "
+                         f"{hd}), got {tuple(k.shape)} and {tuple(v.shape)}")
+    if Kv < 1 or H % Kv:
+        raise ValueError(f"H ({H}) must be a multiple of Kv ({Kv})")
+    if hd % 8 or not 8 <= hd <= MAX_HEAD_DIM:
+        raise ValueError(f"head_dim must be a multiple of 8 up to "
+                         f"{MAX_HEAD_DIM}, got {hd}")
+
+
+def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         causal: bool = True) -> torch.Tensor:
+    """The attention of ``q`` over ``k`` and ``v`` by one kernel launch on
+    the current stream (none when the output is empty)."""
+    _check(q, k, v)
+    out = torch.empty_like(q)
+    if out.numel():
+        extension().flash_attention(q, k, v, out, bool(causal))
+    return out

@@ -8,9 +8,9 @@ Nothing falls back: a CUDA tensor the kernel does not take raises.
 kernels under their names (``embedding_bag``, ``embedding_bag_backward``,
 ``sparse_adagrad_apply``, the cache tier's ``hash_lookup``,
 ``gather_rows_cached``, ``sparse_adagrad_cached_apply``, the SSD tier's
-staged push ``sparse_adagrad``, the k-step local Adam step ``fused_adam``
-and DLRM's ``dot_interaction``), the plain versions under the same name
-with ``_ref``.  A run resets it with ``reset_launches()`` and reads it
+staged push ``sparse_adagrad``, the k-step local Adam step ``fused_adam``,
+DLRM's ``dot_interaction`` and the LM's ``flash_attention``), the plain
+versions under the same name with ``_ref``.  A run resets it with ``reset_launches()`` and reads it
 afterwards to show which path it took.
 """
 
@@ -24,6 +24,7 @@ from repro_torch.kernels.embedding_bag import (
     embedding_bag_backward_cuda,
     embedding_bag_cuda,
 )
+from repro_torch.kernels.flash_attention import flash_attention_cuda
 from repro_torch.kernels.fused_adam import fused_adam_cuda
 from repro_torch.kernels.hash_map import hash_lookup_cuda
 from repro_torch.kernels.sparse_adagrad import (
@@ -46,6 +47,7 @@ launches = {
     "sparse_adagrad": 0, "sparse_adagrad_ref": 0,
     "fused_adam": 0, "fused_adam_ref": 0,
     "dot_interaction": 0, "dot_interaction_ref": 0,
+    "flash_attention": 0, "flash_attention_ref": 0,
 }
 
 
@@ -276,3 +278,31 @@ def dot_interaction(feats):
         launches["dot_interaction_ref"] += 1
         return ref.dot_interaction_ref(feats)
     return _DotInteraction.apply(feats)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Forward: the CUDA kernel.  Its backward comes with LM training."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        out = flash_attention_cuda(q, k, v, causal)
+        if out.numel():
+            launches["flash_attention"] += 1
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        raise NotImplementedError(
+            "flash attention's backward on the card is not ported yet: "
+            "ROADMAP.md queue A10c (LM training)")
+
+
+def flash_attention(q, k, v, causal=True):
+    """Softmax attention in the model's layout, q (B, S, H, hd) over k and v
+    (B, S, Kv, hd), in q's dtype (see ``ref.flash_attention_ref``).  CUDA:
+    the kernel, forward only; CPU: the plain version under PyTorch's
+    autograd."""
+    if kernel_mode(q) == "ref":
+        launches["flash_attention_ref"] += 1
+        return ref.flash_attention_ref(q, k, v, causal)
+    return _FlashAttention.apply(q, k, v, causal)

@@ -185,3 +185,30 @@ def dot_interaction_ref(feats):
     z = torch.einsum("bfd,bgd->bfg", f, f)
     li, lj = torch.tril_indices(F, F, offset=-1, device=feats.device)
     return z[:, li, lj].to(feats.dtype)
+
+
+def flash_attention_ref(q, k, v, causal=True):
+    """Softmax attention in the model's layout, in one pass: q (B, S, H, hd),
+    k and v (B, S, Kv, hd) -> (B, S, H, hd) in q's dtype, q head h reading
+    KV head ``h // (H // Kv)``.
+
+    The arithmetic of the TPU kernel's body (``_flash_kernel``) over the
+    whole kv axis at once: q widened and scaled by ``1/sqrt(hd)`` in
+    float32, float32 scores, masked scores ``-1e30``, ``p = exp(s - max)``,
+    ``(p @ v) / max(sum p, 1e-30)`` in float32, one cast back.  The max is
+    taken without a gradient (the softmax does not depend on it), so
+    autograd differentiates the rest, through the in-place steps.
+    """
+    B, S, H, hd = q.shape
+    Kv = k.shape[2]
+    qg = (q.to(torch.float32) * (1.0 / hd ** 0.5)).reshape(B, S, Kv,
+                                                            H // Kv, hd)
+    s = torch.einsum("bskgd,btkd->bkgst", qg, k.to(torch.float32))
+    if causal:
+        pos = torch.arange(S, device=q.device)
+        s.masked_fill_(pos[None, :] > pos[:, None], -1e30)
+    # in place: the (B, Kv, G, S, S) scores are the one large buffer
+    p = s.sub_(s.amax(-1, keepdim=True).detach()).exp_()
+    o = torch.einsum("bkgst,btkd->bkgsd", p, v.to(torch.float32))
+    o = o / p.sum(-1, keepdim=True).clamp_min(1e-30)
+    return o.permute(0, 3, 1, 2, 4).reshape(B, S, H, hd).to(q.dtype)

@@ -40,6 +40,8 @@ Flags of the reference that the port does not have yet raise, naming the
 ROADMAP.md item that brings them.  ``--arch dlrm-mlperf`` builds and serves
 (the first online step's predict), then raises ``NotImplementedError`` at
 its first training step: DLRM training is ROADMAP.md queue A9b.
+``--arch qwen3-14b`` raises ``NotImplementedError`` when the trainer is
+built: LM training is ROADMAP.md queue A10c.
 """
 
 from __future__ import annotations

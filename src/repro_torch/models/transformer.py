@@ -1,0 +1,255 @@
+"""Decoder-only LM family: the serving forward (``prefill``) of
+``repro/models/transformer.py``.
+
+Ported: GQA, qk-norm, QKV bias, RoPE, tied or untied embeddings, dense
+FFNs; ``init_params``, ``trunk``, ``forward`` and ``prefill``.  The layers'
+attention (the no-cache branch of ``_attn_block``) is ``ops.flash_attention``:
+the hand-written CUDA kernel on the card (TPU kernel 9), its plain version
+on the CPU.
+
+Parameters keep the reference's tree and layout, so its exports load as
+they are (``interop.lm_from_reference``): ``embed`` (vocab, d),
+``layers[name]`` stacked with a leading L, ``final_norm``, ``head``
+(d, vocab) unless tied, and ``x @ w`` weights.  Layers run as a Python loop
+over the stacked leaves (the reference's ``lax.scan``); the mesh hints
+(``shard_hint``, ``_whint``) have no counterpart on one card.
+
+Not ported yet, and raising ``NotImplementedError`` on every device: MoE
+FFNs and the windowed and chunked masks (ROADMAP.md A10d), sequence-sharded
+activations (A8), decoding with a KV cache (A10b; the masked dense
+attention ``_mask`` / ``_sdpa_dense`` that decode runs comes with it), and
+training, the attention's backward and ``loss_fn`` (A10c).  The
+reference's attention-choice and loss knobs (``dense_attn_threshold``,
+``attn_block_kv``, ``attn_block_q``, ``ce_chunk_tokens``) have no field
+here: the port runs the flash kernel at every length and has no loss yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.kernels import ops
+from repro_torch.models.common import apply_rope, he_init, rms_norm
+
+
+@dataclasses.dataclass(frozen=True)
+class TransformerConfig:
+    name: str = "lm"
+    n_layers: int = 4
+    d_model: int = 256
+    n_heads: int = 4
+    n_kv_heads: int = 4
+    d_ff: int = 1024
+    vocab: int = 1024
+    head_dim: Optional[int] = None          # default d_model // n_heads
+    rope_theta: float = 1e6
+    qk_norm: bool = False                   # qwen3
+    qkv_bias: bool = False                  # qwen2
+    norm_eps: float = 1e-6
+    tie_embeddings: bool = False
+    # Attention pattern: full | window (SWA, mixtral) | chunked (llama4 iRoPE)
+    attn_window: Optional[int] = None       # sliding window size
+    attn_chunk: Optional[int] = None        # local chunk size
+    global_every: int = 0                   # with attn_chunk: every Nth layer full
+    # MoE (0 experts = dense FFN)
+    n_experts: int = 0
+    top_k: int = 2
+    capacity_factor: float = 1.25
+    moe_group_size: int = 4096
+    shared_expert: bool = False             # llama4 shared expert
+    router_aux_coef: float = 0.0
+    dtype: Any = torch.bfloat16
+    seq_shard: bool = False       # sequence-sharded activations (A8)
+
+    @property
+    def hd(self) -> int:
+        return self.head_dim or self.d_model // self.n_heads
+
+    def active_params(self) -> int:
+        """Parameters touched per token (for MODEL_FLOPS = 6 * N_active * D)."""
+        d, hd, H, Kv, L = self.d_model, self.hd, self.n_heads, self.n_kv_heads, self.n_layers
+        attn = d * (H * hd) + 2 * d * (Kv * hd) + (H * hd) * d
+        if self.n_experts:
+            ffn = 3 * d * self.d_ff * self.top_k
+            ffn += d * self.n_experts  # router
+            if self.shared_expert:
+                ffn += 3 * d * self.d_ff
+        else:
+            ffn = 3 * d * self.d_ff
+        embed = 0 if self.tie_embeddings else d * self.vocab
+        return L * (attn + ffn) + d * self.vocab + embed
+
+    def total_params(self) -> int:
+        d, hd, H, Kv, L = self.d_model, self.hd, self.n_heads, self.n_kv_heads, self.n_layers
+        attn = d * (H * hd) + 2 * d * (Kv * hd) + (H * hd) * d
+        if self.n_experts:
+            ffn = 3 * d * self.d_ff * self.n_experts + d * self.n_experts
+            if self.shared_expert:
+                ffn += 3 * d * self.d_ff
+        else:
+            ffn = 3 * d * self.d_ff
+        return L * (attn + ffn + 2 * d) + 2 * d * self.vocab + d
+
+
+def _check_ported(cfg: TransformerConfig) -> None:
+    """Raise for the config fields the port does not have yet."""
+    if cfg.n_experts:
+        raise NotImplementedError(
+            "MoE FFNs (n_experts > 0) are not ported yet: ROADMAP.md queue "
+            "A10d (MoE and the windowed and chunked masks)")
+    if cfg.attn_window is not None or cfg.attn_chunk is not None:
+        raise NotImplementedError(
+            "the windowed and chunked attention masks are not ported yet: "
+            "ROADMAP.md queue A10d (MoE and the windowed and chunked masks)")
+    if cfg.seq_shard:
+        raise NotImplementedError(
+            "sequence-sharded activations (seq_shard) are not ported yet: "
+            "ROADMAP.md queue A8 (the multi-GPU exchange)")
+
+
+# ----------------------------------------------------------------- params
+def init_params(generator: torch.Generator, cfg: TransformerConfig,
+                device="cuda") -> Dict[str, Any]:
+    """The reference's parameter tree on ``device`` (CUDA unless the caller
+    asks for the CPU; ``generator`` must live there), with its
+    distributions: He-normal weights with the reference's ``fan_in``, ones
+    for the norms, zeros for the biases.  Stacked leaves are drawn layer by
+    layer, so the largest float32 temporary is one layer's matrix."""
+    _check_ported(cfg)
+    device = resolve_device(device)
+    d, hd, H, Kv, L, F = (
+        cfg.d_model, cfg.hd, cfg.n_heads, cfg.n_kv_heads, cfg.n_layers, cfg.d_ff,
+    )
+    dt = cfg.dtype
+
+    def stack(shape, fan_in):
+        out = torch.empty((L,) + shape, dtype=dt, device=device)
+        for i in range(L):
+            out[i] = he_init(generator, shape, dt, device=device,
+                             fan_in=fan_in)
+        return out
+
+    def full(shape, value):
+        return torch.full(shape, value, dtype=dt, device=device)
+
+    layers: Dict[str, Any] = {
+        "attn_norm": full((L, d), 1.0),
+        "ffn_norm": full((L, d), 1.0),
+        "wq": stack((d, H * hd), d),
+        "wk": stack((d, Kv * hd), d),
+        "wv": stack((d, Kv * hd), d),
+        "wo": stack((H * hd, d), H * hd),
+    }
+    if cfg.qkv_bias:
+        layers["bq"] = full((L, H * hd), 0.0)
+        layers["bk"] = full((L, Kv * hd), 0.0)
+        layers["bv"] = full((L, Kv * hd), 0.0)
+    if cfg.qk_norm:
+        layers["q_norm"] = full((L, hd), 1.0)
+        layers["k_norm"] = full((L, hd), 1.0)
+    layers["w_gate"] = stack((d, F), d)
+    layers["w_up"] = stack((d, F), d)
+    layers["w_down"] = stack((F, d), F)
+
+    params = {
+        "embed": he_init(generator, (cfg.vocab, d), dt, device=device,
+                         fan_in=d),
+        "layers": layers,
+        "final_norm": full((d,), 1.0),
+    }
+    if not cfg.tie_embeddings:
+        params["head"] = he_init(generator, (d, cfg.vocab), dt,
+                                 device=device, fan_in=d)
+    return params
+
+
+# ------------------------------------------------------------------ layer
+def _qkv(cfg, lp, x, q_pos):
+    """The attention sublayer's inputs: rms_norm, the q, k, v projections
+    (and biases), qk-norm and RoPE -> q (B,S,H,hd), k and v (B,S,Kv,hd)."""
+    B, S, _ = x.shape
+    H, Kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
+    q = h @ lp["wq"]
+    kx = h @ lp["wk"]
+    vx = h @ lp["wv"]
+    if cfg.qkv_bias:
+        q, kx, vx = q + lp["bq"], kx + lp["bk"], vx + lp["bv"]
+    q = q.reshape(B, S, H, hd)
+    kx = kx.reshape(B, S, Kv, hd)
+    vx = vx.reshape(B, S, Kv, hd)
+    if cfg.qk_norm:
+        q = rms_norm(q, lp["q_norm"], cfg.norm_eps)
+        kx = rms_norm(kx, lp["k_norm"], cfg.norm_eps)
+    pos = q_pos[None, :].expand(B, S)
+    q = apply_rope(q, pos, cfg.rope_theta)
+    kx = apply_rope(kx, pos, cfg.rope_theta)
+    return q, kx, vx
+
+
+def _attn_block(cfg, lp, layer_idx, x, q_pos, cache=None):
+    """Self-attention sublayer over x, causal, through the flash kernel;
+    returns ``(x + o @ wo, (k, v))``.  Attending over a cache (decode) is
+    A10b."""
+    if cache is not None:
+        raise NotImplementedError(
+            "attention over a KV cache (decode_step) is not ported yet: "
+            "ROADMAP.md queue A10b (decode and BatchedServer)")
+    B, S, _ = x.shape
+    q, kx, vx = _qkv(cfg, lp, x, q_pos)
+    o = ops.flash_attention(q, kx, vx, causal=True)
+    return x + o.reshape(B, S, -1) @ lp["wo"], (kx, vx)
+
+
+def _ffn_block(cfg, lp, x):
+    """The dense FFN sublayer: x + (silu(h @ w_gate) * (h @ w_up)) @ w_down."""
+    h = rms_norm(x, lp["ffn_norm"], cfg.norm_eps)
+    g = torch.nn.functional.silu(h @ lp["w_gate"]) * (h @ lp["w_up"])
+    return x + g @ lp["w_down"]
+
+
+def _layer(cfg, lp, layer_idx, x, q_pos, cache=None):
+    x, new_cache = _attn_block(cfg, lp, layer_idx, x, q_pos, cache)
+    return _ffn_block(cfg, lp, x), new_cache
+
+
+# ---------------------------------------------------------------- forward
+def trunk(params, tokens, cfg: TransformerConfig):
+    """tokens (B, S) -> (final-normed hidden (B, S, D), aux_loss).  The
+    tokens go to the parameters' device; aux_loss is 0 (dense FFNs)."""
+    _check_ported(cfg)
+    embed = params["embed"]
+    tokens = torch.as_tensor(tokens, device=embed.device)
+    B, S = tokens.shape
+    x = embed.index_select(0, tokens.reshape(-1)).reshape(B, S, -1)
+    q_pos = torch.arange(S, dtype=torch.int32, device=embed.device)
+    for i in range(cfg.n_layers):
+        lp = {k: v[i] for k, v in params["layers"].items()}
+        x, _ = _layer(cfg, lp, i, x, q_pos)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return x, torch.zeros((), dtype=torch.float32, device=embed.device)
+
+
+def _head(params, cfg: TransformerConfig) -> torch.Tensor:
+    return params["embed"].T if cfg.tie_embeddings else params["head"]
+
+
+def forward(params, tokens, cfg: TransformerConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+    """tokens (B, S) -> (logits (B, S, V), aux_loss scalar)."""
+    x, aux = trunk(params, tokens, cfg)
+    return x @ _head(params, cfg), aux
+
+
+def prefill(params, tokens, cfg: TransformerConfig) -> torch.Tensor:
+    """Inference prefill: tokens (B, S) -> next-token logits (B, V).
+
+    The reference computes every position's logits and keeps the last; the
+    head is the same function at each position, so this applies it to the
+    last position only (the full (B, S, V) logits of 4 x 4096 tokens would
+    be 5 GB of bfloat16)."""
+    x, _ = trunk(params, tokens, cfg)
+    return x[:, -1] @ _head(params, cfg)

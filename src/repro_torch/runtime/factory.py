@@ -1,7 +1,8 @@
 """Config-driven construction: ``build_trainer(arch, TrainerConfig)``.
 
 Counterpart of ``repro/runtime/factory.py`` for the archs the port has
-reached (``baidu-ctr``, and ``dlrm-mlperf`` for serving):
+reached (``baidu-ctr``, and ``dlrm-mlperf`` for serving; the LM
+``qwen3-14b`` has no trainer yet and raises naming A10c):
 
     tr = build_trainer("baidu-ctr", TrainerConfig(placement="gather"))
     tr = build_trainer("dlrm-mlperf", TrainerConfig(placement="gather"))
@@ -139,6 +140,11 @@ def build_trainer(arch: str, cfg: TrainerConfig, *, smoke: bool = True,
     ``table_scale``)."""
     device = resolve_device(device)
     spec = configs.get(arch)
+    if spec.family == "lm":
+        raise NotImplementedError(
+            f"build_trainer({arch!r}): LM training is not ported yet: "
+            "ROADMAP.md queue A10c (LM training); the port serves the LM "
+            "through repro_torch.models.transformer.prefill")
     mcfg = model_cfg if model_cfg is not None else (
         spec.smoke_cfg if smoke else spec.model_cfg)
     init_dense, build_engine, embed_of, loss_of = _recsys_wiring(mcfg)

@@ -624,3 +624,81 @@ def test_cuda_dot_interaction_launches_the_kernel_forward_only():
         ops.dot_interaction(feats.transpose(1, 2))
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         ops.dot_interaction(feats.double())
+
+
+# ---- kernel 9, flash attention (phase 11 (a)'s small shapes and the edges
+# the kernel takes: ragged S, hd 8 to 256 in multiples of 8, GQA).
+# Tolerances: float32 atol = rtol = 1e-5 (the same float32 math, the dot
+# products and sums in another order); bfloat16 atol 4e-3, rtol 8e-3 (the
+# same float32 math, each output then rounded to 8 bits: an ulp apart).
+FLASH_TOL = {torch.float32: dict(atol=1e-5, rtol=1e-5),
+             torch.bfloat16: dict(atol=4e-3, rtol=8e-3)}
+
+
+def _qkv(B, S, H, Kv, hd, dtype, seed):
+    gen = torch.Generator("cuda").manual_seed(seed)
+    return [torch.randn(shape, generator=gen, device="cuda").to(dtype)
+            for shape in ((B, S, H, hd), (B, S, Kv, hd), (B, S, Kv, hd))]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("B,S,H,Kv,hd,dtype", [
+    (2, 64, 8, 2, 16, torch.float32), (2, 96, 4, 2, 32, torch.float32),
+    (1, 1000, 8, 2, 128, torch.bfloat16), (1, 257, 4, 4, 128, torch.float32),
+    (3, 5, 2, 1, 8, torch.float32), (1, 130, 2, 1, 40, torch.bfloat16),
+    (1, 70, 2, 1, 256, torch.float32), (1, 1, 4, 2, 64, torch.bfloat16),
+])
+def test_cuda_flash_attention_matches_plain_version(B, S, H, Kv, hd, dtype,
+                                                    causal):
+    _cuda_or_skip()
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+
+    q, k, v = _qkv(B, S, H, Kv, hd, dtype, seed=S + hd)
+    got = flash_attention_cuda(q, k, v, causal)
+    again = flash_attention_cuda(q, k, v, causal)
+    torch.cuda.synchronize()
+    want = tref.flash_attention_ref(q, k, v, causal)
+    assert got.dtype == dtype and got.shape == (B, S, H, hd)
+    assert torch.equal(got, again)
+    torch.testing.assert_close(got.float(), want.float(), **FLASH_TOL[dtype])
+
+
+@pytest.mark.gpu
+def test_cuda_flash_attention_launches_the_kernel_forward_only():
+    _cuda_or_skip()
+    q, k, v = _qkv(2, 96, 4, 2, 32, torch.float32, seed=3)
+    ops.reset_launches()
+    out = ops.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert ops.launches["flash_attention"] == 1
+    assert ops.launches["flash_attention_ref"] == 0
+    assert out.shape == q.shape
+    x = q.clone().requires_grad_(True)
+    with pytest.raises(NotImplementedError, match="A10c"):
+        ops.flash_attention(x, k, v).sum().backward()
+
+
+@pytest.mark.gpu
+def test_cuda_flash_attention_rejects_what_it_does_not_take():
+    _cuda_or_skip()
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+
+    q, k, v = _qkv(1, 32, 4, 2, 16, torch.float32, seed=4)
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention_cuda(q.cpu(), k, v)
+    with pytest.raises(ValueError, match="multiple of Kv"):
+        flash_attention_cuda(*_qkv(1, 32, 6, 4, 16, torch.float32, seed=5))
+    with pytest.raises(ValueError, match="multiple of 8"):
+        flash_attention_cuda(*_qkv(1, 32, 4, 2, 12, torch.float32, seed=6))
+    with pytest.raises(ValueError, match="multiple of 8"):
+        flash_attention_cuda(*_qkv(1, 32, 4, 2, 264, torch.float32, seed=7))
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attention_cuda(q.transpose(1, 2).contiguous().transpose(1, 2),
+                             k, v)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        flash_attention_cuda(q.half(), k.half(), v.half())
+    with pytest.raises(ValueError, match="one dtype"):
+        flash_attention_cuda(q, k.to(torch.bfloat16), v)
+    with pytest.raises(ValueError, match="k and v"):
+        flash_attention_cuda(q, k[:, :16].contiguous(), v[:, :16].contiguous())

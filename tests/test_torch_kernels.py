@@ -127,7 +127,8 @@ def test_cpu_dispatch_runs_the_plain_version_and_counts_it():
         "sparse_adagrad_cached_apply_ref": 0,
         "sparse_adagrad": 0, "sparse_adagrad_ref": 0,
         "fused_adam": 0, "fused_adam_ref": 0,
-        "dot_interaction": 0, "dot_interaction_ref": 0}
+        "dot_interaction": 0, "dot_interaction_ref": 0,
+        "flash_attention": 0, "flash_attention_ref": 0}
     np.testing.assert_array_equal(
         out.numpy(), tref.embedding_bag_ref(_t(working), _t(inv), _t(seg),
                                             _t(w), SHAPES[1][3]).numpy())
@@ -395,7 +396,8 @@ def test_cached_ops_on_the_cpu_run_the_plain_versions_and_count_them():
         "sparse_adagrad_cached_apply_ref": 1,
         "sparse_adagrad": 0, "sparse_adagrad_ref": 0,
         "fused_adam": 0, "fused_adam_ref": 0,
-        "dot_interaction": 0, "dot_interaction_ref": 0}
+        "dot_interaction": 0, "dot_interaction_ref": 0,
+        "flash_attention": 0, "flash_attention_ref": 0}
     for fn, args in (
             (tsa.gather_rows_cached_cuda, (_t(rows), _t(slots))),
             (tsa.sparse_adagrad_cached_apply_cuda,
