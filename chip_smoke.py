@@ -111,19 +111,24 @@ Phases (any failure raises and the script exits non-zero):
      KV heads, hd 128, d_ff 17408, vocab 151936, bf16; 29.5 GB of random
      weights drawn on the card from a seed), after phase 10's memory is
      released:
-     (a) flash attention (kernel 9) against its plain version at
+     (a) flash attention (kernel 9: bf16 runs its mma kernel on the
+     tensor cores, f32 its fma kernel; a CUDA graph captured around each
+     call names the kernel it launched) against its plain version at
      (B, S, H, Kv, hd) = (4, 4096, 40, 8, 128) bf16 (the path's),
      (1, 4096, 40, 8, 128) bf16 and f32, (2, 64, 8, 2, 16) f32 causal and
      not, (1, 1000, 40, 8, 128) bf16 (ragged) and (2, 96, 4, 2, 32) f32;
-     f32 within atol = rtol = 1e-5, bf16 within atol 4e-3, rtol 8e-3; two
-     runs bit-equal; timed as in phase 1 at the first three shapes, with
+     f32 within atol = rtol = 1e-5, bf16 within atol 4e-3, rtol 8e-3 and
+     every element within one bf16 ulp (``bf16_ulps``); two runs
+     bit-equal; timed as in phase 1 at the first three shapes, with
      ``F.scaled_dot_product_attention(is_causal, enable_gqa)`` as the
-     library call;
+     library call; each instantiation's registers, stack, spill stores
+     and HMMA count (``cuobjdump`` of the built extension);
      (b) ``prefill`` of 4 x 4096 tokens: a warm-up and 3 timed prefills
      (wall, tokens/s, peak memory), 40 kernel launches per prefill and no
      plain version, finite logits, the same bits each time; one prefill's
      stream time by part; one under the sync debug mode "error" and one
-     under the profiler (no sync, no host-to-device copy);
+     under the profiler (no sync, no host-to-device copy); a CUDA graph
+     captured around one holds 40 mma kernels and no fma kernel;
      (c) one prefill of 1 x 32768 (prefill_32k's sequence, its batch cut
      from 32 to 1), whose hidden states at positions < 4096 agree with a
      1 x 4096 run bit for bit (the kernel's KV tiles have fixed edges in
@@ -1064,6 +1069,27 @@ def _transfers(fn):
 
     base = traced(lambda: None)
     return tuple(a - b for a, b in zip(traced(fn), base))
+
+
+def _graph_kernels(fn, names):
+    """For each name in ``names``, the kernel nodes of that name in a CUDA
+    graph captured around ``fn()`` (never replayed): the kernels ``fn``
+    launches, as ``cudaGraphDebugDotPrint`` names them.  The profiler's
+    trace is not used for this: on the card it drops the device events of
+    short calls at random."""
+    import torch
+
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    graph.enable_debug_mode()
+    with torch.cuda.graph(graph):
+        fn()
+    path = ROOT / "build" / "captured_graph.dot"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    graph.debug_dump(str(path))
+    dot = path.read_text()
+    path.unlink()
+    del graph
+    return [dot.count(name) for name in names]
 
 
 def _adam_transfers(tr, dense_g):
@@ -2552,6 +2578,8 @@ LM_LONG = 32768            # lm_shapes()["prefill_32k"]'s seq, batch 32 -> 1
 LM_PREFIX = 4096           # the causal check's prefix of the long run
 LM_PREFILLS = 3            # timed prefills
 LM_SEED = 0
+# kernel 9's two kernels (bf16, f32), as their mangled names hold them
+FLASH_KERNELS = ("flash_attention_mma_kernel", "flash_attention_kernel")
 FLASH_TOL = {"float32": dict(atol=1e-5, rtol=1e-5),
              "bfloat16": dict(atol=4e-3, rtol=8e-3)}
 
@@ -2600,6 +2628,59 @@ def _flash_times(q, k, v, causal=True, iters=10):
     }
 
 
+def _flash_sass_report():
+    """Phase 11 (a): each instantiation of kernel 9 in the extension that
+    ran, from ``cuobjdump -res-usage`` and ``cuobjdump -sass`` of its
+    shared library: registers, stack frame bytes, local-memory stores
+    (``STL``: spills) and tensor-core instructions (``HMMA``).  Keys:
+    "mma<HDP>" (bf16) and "fma<HDP>" (float32), HDP the padded head
+    width."""
+    import re
+
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    from repro_torch.kernels.build import extension
+
+    tool = str(pathlib.Path(CUDA_HOME) / "bin" / "cuobjdump")
+    lib = extension().__file__
+
+    def dump(flag):
+        return subprocess.run([tool, flag, lib], check=True,
+                              capture_output=True, text=True,
+                              timeout=300).stdout
+
+    def short(mangled):
+        m = re.search(r"flash_attention_(mma_)?kernelI(?:f)?Li(\d+)E",
+                      mangled)
+        return m and f"{'mma' if m.group(1) else 'fma'}<{m.group(2)}>"
+
+    usage = dump("-res-usage")
+    report = {}
+    for m in re.finditer(r"Function (\w+):\s+REG:(\d+)\s+STACK:(\d+)",
+                         usage):
+        name = short(m.group(1))
+        if name:
+            report[name] = {"registers": int(m.group(2)),
+                            "stack_bytes": int(m.group(3))}
+    for chunk in dump("-sass").split("Function : ")[1:]:
+        name = short(chunk.split(None, 1)[0])
+        if name in report:
+            report[name].update(stl=len(re.findall(r"\bSTL\b", chunk)),
+                                hmma=len(re.findall(r"\bHMMA\b", chunk)))
+    if sorted(report) != sorted(f"{k}<{w}>" for k in ("fma", "mma")
+                                for w in (64, 128, 256)):
+        raise AssertionError(f"kernel 9's instantiations in {lib}: "
+                             f"{sorted(report)}; cuobjdump -res-usage "
+                             f"began:\n{usage[:3000]}")
+    for name, r in sorted(report.items()):
+        if "hmma" not in r or (r["hmma"] > 0) != name.startswith("mma"):
+            raise AssertionError(f"kernel 9 {name}: SASS report {r}")
+        print(f"  cuobjdump {name}: {r['registers']} registers, stack "
+              f"{r['stack_bytes']} B, {r['stl']} STL (spill stores), "
+              f"{r['hmma']} HMMA in its SASS")
+    return report
+
+
 def phase_flash_attention(device):
     """Phase 11 (a): kernel 9 against its plain version on the card, and
     timed; returns its kernels-line entry (without ``launches``): the
@@ -2608,7 +2689,8 @@ def phase_flash_attention(device):
     import torch
 
     from repro_torch.kernels import ref
-    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.flash_attention import (bf16_ulps,
+                                                     flash_attention_cuda)
 
     gen = torch.Generator(device).manual_seed(53)
     # (B, S, H, Kv, hd), dtype, causal, timed
@@ -2621,8 +2703,11 @@ def phase_flash_attention(device):
              ((2, 96, 4, 2, 32), torch.float32, True, False)]
     print("phase 11 (a): flash_attention (kernel 9) against its plain "
           "version (tolerance: f32 atol = rtol = 1e-5; bf16 atol 4e-3, "
-          "rtol 8e-3, one bf16 rounding of the same float32 math)")
-    max_err, max_err_bf16, times = 0.0, 0.0, []
+          "rtol 8e-3, one bf16 rounding of the same float32 math, and every "
+          "element within one bf16 ulp, as flash_attention.bf16_ulps "
+          "measures it)")
+    sass = _flash_sass_report()
+    max_err, max_err_bf16, max_ulps, times = 0.0, 0.0, 0.0, []
     for (B, S, H, Kv, hd), dtype, causal, timed in cases:
         q = torch.randn((B, S, H, hd), generator=gen, device=device).to(dtype)
         k, v = [torch.randn((B, S, Kv, hd), generator=gen,
@@ -2641,13 +2726,41 @@ def phase_flash_attention(device):
                                  f"{name} causal {causal}: kernel and plain "
                                  f"version differ (max |diff| {err}) or two "
                                  "runs differ")
+        ran = _graph_kernels(lambda: flash_attention_cuda(q, k, v, causal),
+                             FLASH_KERNELS)
+        if ran != ([1, 0] if dtype == torch.bfloat16 else [0, 1]):
+            raise AssertionError(f"flash_attention {name}: its graph holds "
+                                 f"{ran[0]} {FLASH_KERNELS[0]} and {ran[1]} "
+                                 f"{FLASH_KERNELS[1]}")
+        ran = FLASH_KERNELS[ran.index(1)]
+        ulps = ""
+        if dtype == torch.bfloat16:
+            u = bf16_ulps(got, want)
+            # the same in the element's own ulp, for the record: elements
+            # far below their row's scale differ by more (bf16_ulps' doc)
+            w = want.float()
+            own = ((got.float() - w).abs() / torch.ldexp(
+                torch.ones_like(w),
+                torch.frexp(w.abs().clamp_min(2.0 ** -126))[1] - 8))
+            n_off = int((u > 1).sum().item())
+            ulps = (f", max {u.max().item():.3g} bf16 ulps, {n_off} elements "
+                    f"more than one ulp off (in the element's own ulp: max "
+                    f"{own.max().item():.4g}, {int((own > 1).sum().item())} "
+                    f"of {w.numel()})")
+            max_ulps = max(max_ulps, u.max().item())
+            del u, w, own
+            if n_off:
+                raise AssertionError(f"flash_attention {(B, S, H, Kv, hd)} "
+                                     f"bf16: {n_off} elements more than one "
+                                     "bf16 ulp from the plain version")
         del want
         if dtype == torch.float32:
             max_err = max(max_err, err)
         else:
             max_err_bf16 = max(max_err_bf16, err)
-        print(f"  {(B, S, H, Kv, hd)} {name} causal {causal}: max |kernel - "
-              f"plain| {err:.3g}, two runs bit-equal")
+        print(f"  {(B, S, H, Kv, hd)} {name} causal {causal}, {ran} (its "
+              f"graph): max |kernel - plain| {err:.3g}{ulps}, two runs "
+              "bit-equal")
         if timed:
             times.append(_flash_times(q, k, v, causal))
         del q, k, v, got, again
@@ -2670,6 +2783,8 @@ def phase_flash_attention(device):
         "launches": None,
         "max_abs_err": max_err,
         "max_abs_err_bf16": max_err_bf16,
+        "max_ulps_bf16": max_ulps,
+        "sass": sass,
         **{k: path[k] for k in keys},
         "one_sequence": [{k: t[k] for k in keys} for t in times[1:]],
     }
@@ -2805,9 +2920,16 @@ def phase_lm(device, cfg=None):
         if h2d or syncs:
             raise AssertionError(f"a prefill made {h2d} host-to-device "
                                  f"copies and {syncs} syncs")
+        n_mma, n_fma = _graph_kernels(lambda: T.prefill(params, tokens, cfg),
+                                      FLASH_KERNELS)
+        if (n_mma, n_fma) != (cfg.n_layers, 0):
+            raise AssertionError(f"a prefill's graph holds {n_mma} "
+                                 f"{FLASH_KERNELS[0]} and {n_fma} "
+                                 f"{FLASH_KERNELS[1]}")
         print(f"  a prefill ran under the sync debug mode 'error'; profiler: "
               f"{kernels} kernel launches, 0 host-to-device copies, 0 "
-              "synchronizing calls")
+              f"synchronizing calls; a CUDA graph of a prefill holds {n_mma} "
+              f"{FLASH_KERNELS[0]} and {n_fma} {FLASH_KERNELS[1]}")
         del logits, again, want
 
         # ---- (c) one long prefill, held causally against its prefix

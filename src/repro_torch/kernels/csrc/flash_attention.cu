@@ -4,12 +4,13 @@
 //   O[b, t, h] = sum_j softmax_j(q[b, t, h] . k[b, j, h / G] / sqrt(hd)
 //                                + mask(t, j)) v[b, j, h / G],   G = H / Kv
 //
-// q (B, S, H, hd) and k, v (B, S, Kv, hd), contiguous, float32 or
-// bfloat16 -> out (B, S, H, hd) in q's dtype.  Everything inside is
-// float32: q is widened and scaled by 1/sqrt(hd) in float32, the scores,
-// the running max m, the running sum l and the accumulator are float32,
-// masked scores are -1e30, and the result is acc / max(l, 1e-30), cast
-// back once.
+// q (B, S, H, hd) and k, v (B, S, Kv, hd), contiguous -> out (B, S, H, hd)
+// in q's dtype.  Two kernels, picked by the dtype alone
+// (launch_flash_attention):
+// - bfloat16 -> the mma kernel (tensor cores, below);
+// - float32  -> the fma kernel (CUDA cores, below).
+// Neither stands in for the other; any other dtype, hd not a multiple of 8
+// in [8, 256], or H not a multiple of Kv is refused.
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/flash_attention.py
 // (flash_attention_pallas, pallas_call at :79; the body _flash_kernel at
@@ -18,15 +19,73 @@
 // group by its caller, walks the kv blocks as the TPU's sequential grid
 // axis with m, l and acc in VMEM scratch, and asserts S % block == 0.
 //
-// What bounds it: operations.  At the prefill's shape (B 4, S 4096, H 40,
-// Kv 8, hd 128, bf16, causal) the two products are 4 B H hd S (S + 1) / 2
-// = 6.87e11 FLOP: 0.695 ms at the card's 989 TFLOP/s on bf16 tensor
-// cores, while reading Q, K, V and writing O once is 403 MB, 0.120 ms at
-// 3.35 TB/s.  This kernel does its FLOP as float32 FMAs on the CUDA cores,
-// whose peak is 67 TFLOP/s, so it cannot take less than ~10 ms there.
+// The numbers.  Masked scores are -1e30 (after the scale), m_new =
+// max(m, rowmax), corr = expf(m - m_new), p = expf(s - m_new), l = l corr +
+// sum p over the float32 p, and out = acc / max(l, 1e-30) in float32, cast
+// back once.  Both kernels keep p in float32 for the product with v, as
+// the TPU kernel does.  They differ in the scores:
+// - fma: q is widened and scaled by 1/sqrt(hd) in float32 before the
+//   product (the TPU kernel's order); products and sums in float32.
+// - mma: the raw bf16 q and k go into the mma (exact products, float32
+//   sums), then s = acc * scale: one float32 rounding per score away from
+//   the TPU kernel's order.  p enters P V as two bf16 halves, p_hi =
+//   bf16(p) and p_lo = bf16(p - p_hi), acc = acc corr + p_hi V + p_lo V:
+//   p is carried to ~2^-18 relative and the products are exact.  Rounding
+//   p once to bf16 (SDPA's way) would move the output tens of bf16 ulps.
 //
-// Design (a first, simple kernel; mma/wgmma, TMA and warp specialisation
-// are later work):
+// What bounds them: operations.  At the prefill's shape (B 4, S 4096, H
+// 40, Kv 8, hd 128, bf16, causal) the two products are 4 B H hd S (S + 1)
+// / 2 = 6.87e11 FLOP: 0.695 ms at the card's 989 TFLOP/s on bf16 tensor
+// cores, while reading Q, K, V and writing O once is 403 MB, 0.120 ms at
+// 3.35 TB/s.  The fma kernel does its FLOP on the CUDA cores (67 TFLOP/s
+// peak in float32), so it cannot take less than ~10 ms there.
+//
+// The mma kernel (a first tensor-core kernel, FlashAttention-2's design
+// with warp-level mma.sync; wgmma, TMA and warp specialisation are later
+// work):
+// - Blocks and warps: one block per (q tile of 128 rows, head h, batch b),
+//   the heaviest causal tiles first; 8 warps of 16 q rows.  GQA in place:
+//   KV head h / G of k and v, (B, S, Kv, hd), nothing repeated.  At
+//   (4, 4096) the blocks read 5.5 GB of K and V (1056 tiles of 64 rows per
+//   (b, h), mostly from L2); 64-row q tiles would read 10.9 GB.
+// - Q: staged once by cp.async, then each warp keeps its 16 x HDP
+//   fragments in registers (ldmatrix; 32 registers a thread at HDP 128).
+//   At HDP 256 the output accumulator alone takes 128 registers, so Q
+//   stays in shared memory and its fragments are reloaded per kv tile.
+// - K and V: tiles of 64 rows in a two-stage shared-memory buffer, filled
+//   by cp.async.cg (16 bytes a thread) for tile j + 1 while tile j
+//   computes; one barrier per tile both publishes tile j and frees tile
+//   j - 1's stage.  Rows are padded by 16 bytes, so the 8 row addresses of an
+//   ldmatrix phase fall in distinct bank groups.  K feeds S = Q K^T
+//   through ldmatrix (B operand, column major), V feeds P V through
+//   ldmatrix.trans.
+// - S = Q K^T and O += P V by mma.sync.aligned.m16n8k16.row.col.f32.bf16:
+//   a warp keeps S (16 x 64, 32 floats a thread), m and l (its quad's
+//   part, summed over the quad by shuffles at the end) and the output
+//   accumulator (16 x HDP, 64 floats a thread at HDP 128) in registers;
+//   the row max is reduced over the 4 threads of a quad by __shfl_xor_sync.
+//   P goes from S's accumulator layout straight into the A operand's
+//   (FlashAttention-2's trick), never through shared memory.  The two
+//   halves of p make P V 1.5x the mma work of a bf16-p kernel: at
+//   (4, 4096) 1.05e12 FLOP of mma issued for 6.87e11 useful.
+// - Kv tiles have fixed absolute edges (0, 64, 128, ...); the loop walks up
+//   from 0 and, under causal, stops at the tile that holds the block's
+//   last row; a warp skips the last tile when it lies wholly above its
+//   rows.  Skipped tiles would add exp(-1e30 - m) = 0 and leave m, l and
+//   acc as they are, and nothing depends on S, so row t's bits do not
+//   either.
+// - Any S: rows and kv positions at or past S are staged as zeros (cp.async
+//   with a zero source size) and masked; hd is padded with zeros to the
+//   template width HDP = 64, 128 or 256 (a multiple of the mma's k of 16).
+// - Registers (sm_90a; cuobjdump -res-usage of the built extension, as
+//   chip_smoke.py phase 11 (a) prints it): mma<64> 158, mma<128> 235,
+//   neither with a stack frame or a spill store; mma<256> 255 with an
+//   8-byte stack frame and one STL.  One block of 256 threads per SM at
+//   HDP 128 (235 x 256 registers).  Tried at (4, 4096) and not faster: 64-row q tiles
+//   (two blocks per SM), 32-row kv tiles (PERF.md section 6).
+//
+// The fma kernel (cuobjdump: fma<64> 126 registers, fma<128> 128 with an
+// 8-byte stack frame and two STL, fma<256> 167):
 // - Layout and GQA in the kernel: one block per (q tile of 64 rows, head h,
 //   batch b) reads q in place, (B, S, H, hd), and KV head h / G of k and v
 //   in place, (B, S, Kv, hd); nothing is transposed or repeated.
@@ -46,7 +105,7 @@
 //   A row's max and sum are reduced across its 16 threads by shuffles.
 // - Any S: rows and kv positions at or past S are staged as zeros and
 //   masked; hd any multiple of 8 up to 256, padded with zeros to 64, 128 or
-//   256 (the template width); f32 and bf16 in, 16-byte-aligned tensors.
+//   256 (the template width); 16-byte-aligned tensors.
 // - The heaviest q tiles (the last, under causal) are scheduled first.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -67,25 +126,9 @@ constexpr float kMasked = -1e30f;
 __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
-  return make_float4(__uint_as_float(u.x << 16),
-                     __uint_as_float(u.x & 0xffff0000u),
-                     __uint_as_float(u.y << 16),
-                     __uint_as_float(u.y & 0xffff0000u));
-}
 
 __device__ __forceinline__ void store4(float* p, float4 x) {
   *reinterpret_cast<float4*>(p) = x;
-}
-__device__ __forceinline__ uint32_t bf16_bits(float x) {
-  return static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16_rn(x)));
-}
-__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 x) {
-  uint2 u;
-  u.x = bf16_bits(x.x) | (bf16_bits(x.y) << 16);
-  u.y = bf16_bits(x.z) | (bf16_bits(x.w) << 16);
-  *reinterpret_cast<uint2*>(p) = u;
 }
 
 template <int HDP>
@@ -305,22 +348,357 @@ cudaError_t launch_dtype(const void* q, const void* k, const void* v,
   return launch<T, 256>(q, k, v, o, B, S, H, Kv, hd, causal, stream);
 }
 
+// ------------------------------------- the bfloat16 kernel: tensor cores
+
+constexpr int kMmaWarps = 8;                  // 16 q rows each
+constexpr int kMmaBQ = 16 * kMmaWarps;        // q rows of a block
+constexpr int kMmaThreads = 32 * kMmaWarps;
+constexpr int kMmaBK = 64;                    // kv rows of a tile
+
+// bf16s a staged row takes: 16 bytes of padding put the 8 rows that one
+// ldmatrix phase reads into 8 distinct 16-byte bank groups
+template <int HDP>
+__host__ __device__ constexpr int mma_stride() { return HDP + 8; }
+
+// the block's q rows, then two stages of (K tile, V tile)
+template <int HDP>
+constexpr size_t mma_smem_bytes() {
+  return static_cast<size_t>(kMmaBQ + 4 * kMmaBK) * mma_stride<HDP>() *
+         sizeof(__nv_bfloat16);
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes from global to shared memory past L1; zeros when src_bytes is 0
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(dst), "l"(src), "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// four 8 x 8 bf16 matrices, lane i giving a row address of matrix i / 8
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, "
+               "[%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
+}
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
+                                              uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, "
+               "%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
+}
+
+// d += a b for a 16 x 16 bf16 (row major) and b 16 x 8 bf16 (column
+// major): exact products, float32 sums
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// (x, y) as two bf16 (round to nearest even), x in the low half
+__device__ __forceinline__ uint32_t pack_bf16(float x, float y) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// (x, y) = hi + lo to ~2^-18: hi = bf16(x, y), lo = bf16((x, y) - hi)
+__device__ __forceinline__ void split_bf16(float x, float y, uint32_t& hi,
+                                           uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = pack_bf16(x - __low2float(h), y - __high2float(h));
+}
+
+template <int HDP>
+__global__ void __launch_bounds__(kMmaThreads, 1)
+flash_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
+                           const __nv_bfloat16* __restrict__ k,
+                           const __nv_bfloat16* __restrict__ v,
+                           __nv_bfloat16* __restrict__ o, int S, int H,
+                           int Kv, int hd, float scale, bool causal) {
+  constexpr int kStride = mma_stride<HDP>();
+  constexpr int kChunks = HDP / 8;     // 16-byte chunks of a staged row
+  constexpr int kKs = HDP / 16;        // k steps of q . k over hd
+  constexpr int kN = kMmaBK / 8;       // 8-column score tiles of a warp
+  constexpr int kOutN = HDP / 8;       // 8-column output tiles of a warp
+  constexpr bool kQInRegs = HDP <= 128;
+  constexpr uint32_t kStageBytes = 2 * kMmaBK * kStride * 2;
+  extern __shared__ float4 smem4[];
+  __nv_bfloat16* sq = reinterpret_cast<__nv_bfloat16*>(smem4);
+  __nv_bfloat16* skv = sq + kMmaBQ * kStride;
+
+  const int n_qt = (S + kMmaBQ - 1) / kMmaBQ;
+  const int q0 = (n_qt - 1 - static_cast<int>(blockIdx.x)) * kMmaBQ;
+  const int h = blockIdx.y;
+  const int64_t b = blockIdx.z;
+  const int kvh = h / (H / Kv);
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int g = lane >> 2;             // the fragments' row in 8
+  const int t = lane & 3;              // the fragments' column pair
+  const int64_t q_row = static_cast<int64_t>(H) * hd;
+  const int64_t kv_row = static_cast<int64_t>(Kv) * hd;
+  const __nv_bfloat16* qb = q + b * S * q_row + static_cast<int64_t>(h) * hd;
+  const __nv_bfloat16* kb = k + b * S * kv_row + static_cast<int64_t>(kvh) * hd;
+  const __nv_bfloat16* vb = v + b * S * kv_row + static_cast<int64_t>(kvh) * hd;
+  __nv_bfloat16* ob = o + b * S * q_row + static_cast<int64_t>(h) * hd;
+
+  // rows [r0, r0 + n) of a (S, hd) slice with row stride `row` into dst by
+  // cp.async; zeros past S and past hd
+  auto stage = [&](__nv_bfloat16* dst, const __nv_bfloat16* src, int64_t row,
+                   int r0, int n) {
+    for (int e = tid; e < n * kChunks; e += kMmaThreads) {
+      const int r = e / kChunks;
+      const int c = (e - r * kChunks) * 8;
+      const bool in = r0 + r < S && c < hd;
+      cp_async16(smem_addr(dst + r * kStride + c),
+                 in ? src + static_cast<int64_t>(r0 + r) * row + c : src,
+                 in ? 16 : 0);
+    }
+  };
+  auto stage_kv = [&](int kt) {
+    __nv_bfloat16* dst = skv + (kt & 1) * 2 * kMmaBK * kStride;
+    stage(dst, kb, kv_row, kt * kMmaBK, kMmaBK);
+    stage(dst + kMmaBK * kStride, vb, kv_row, kt * kMmaBK, kMmaBK);
+  };
+
+  const int last_row = min(q0 + kMmaBQ, S) - 1;
+  const int n_kt = causal ? last_row / kMmaBK + 1 : (S + kMmaBK - 1) / kMmaBK;
+  stage(sq, qb, q_row, q0, kMmaBQ);
+  stage_kv(0);
+  cp_async_commit();
+
+  // the lanes' row addresses for ldmatrix: Q as the A operand, K as B
+  // (kv rows are B's columns), V transposed as B
+  const int wr0 = warp * 16;           // the warp's first row in the block
+  const uint32_t q_lane = smem_addr(
+      sq + (wr0 + (lane & 7) + ((lane >> 3) & 1) * 8) * kStride +
+      (lane >> 4) * 8);
+  const uint32_t k_lane =
+      (((lane & 7) + (lane >> 4) * 8) * kStride + ((lane >> 3) & 1) * 8) * 2;
+  const uint32_t v_lane =
+      (((lane & 7) + ((lane >> 3) & 1) * 8) * kStride + (lane >> 4) * 8) * 2;
+  const uint32_t skv0 = smem_addr(skv);
+
+  uint32_t qf[kQInRegs ? kKs : 1][4];
+  float acc[kOutN][4];
+#pragma unroll
+  for (int n = 0; n < kOutN; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  // rows row0 (fragment elements 0, 1) and row0 + 8 (elements 2, 3); l is
+  // this thread's part of the row sum, added over the quad at the end
+  const int row0 = q0 + wr0 + g;
+  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
+
+  for (int kt = 0; kt < n_kt; ++kt) {
+    cp_async_wait<0>();                // tile kt (and, first, q) landed
+    // every warp is past tile kt - 1, so its stage may be refilled
+    __syncthreads();
+    if (kt + 1 < n_kt) {
+      stage_kv(kt + 1);
+      cp_async_commit();
+    }
+    if constexpr (kQInRegs) {
+      if (kt == 0) {
+#pragma unroll
+        for (int kk = 0; kk < kKs; ++kk) ldsm_x4(qf[kk], q_lane + kk * 32);
+      }
+    }
+    const int k0 = kt * kMmaBK;
+    // under causal a tile wholly above the warp's rows would add exp(-1e30
+    // - m) = 0 and leave m, l and acc as they are: skipped
+    if (!causal || k0 <= q0 + wr0 + 15) {
+      const uint32_t sk = skv0 + (kt & 1) * kStageBytes;
+      const uint32_t sv = sk + kMmaBK * kStride * 2;
+
+      // ---- s = q . k over the tile's 64 columns
+      float s[kN][4];
+#pragma unroll
+      for (int j = 0; j < kN; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < kKs; ++kk) {
+        uint32_t qa[4];
+        if constexpr (kQInRegs) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) qa[e] = qf[kk][e];
+        } else {
+          ldsm_x4(qa, q_lane + kk * 32);
+        }
+#pragma unroll
+        for (int nn = 0; nn < kN / 2; ++nn) {
+          uint32_t kf[4];
+          ldsm_x4(kf, sk + k_lane + (nn * 16 * kStride + kk * 16) * 2);
+          mma_bf16(s[2 * nn], qa, kf[0], kf[1]);
+          mma_bf16(s[2 * nn + 1], qa, kf[2], kf[3]);
+        }
+      }
+
+      // ---- scale, mask, then the online-softmax update of m, l and acc
+      const bool edge = k0 + kMmaBK > S ||
+                        (causal && k0 + kMmaBK - 1 > q0 + wr0);
+      float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < kN; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float x = s[j][e] * scale;
+          if (edge) {
+            const int c = k0 + 8 * j + 2 * t + (e & 1);
+            const int r = row0 + (e >> 1) * 8;
+            if (c >= S || (causal && c > r)) x = kMasked;
+          }
+          s[j][e] = x;
+          if (e < 2) mx0 = fmaxf(mx0, x);
+          else mx1 = fmaxf(mx1, x);
+        }
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1) {
+        mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+        mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+      }
+      const float mn0 = fmaxf(m0, mx0);
+      const float mn1 = fmaxf(m1, mx1);
+      const float corr0 = expf(m0 - mn0);
+      const float corr1 = expf(m1 - mn1);
+      m0 = mn0;
+      m1 = mn1;
+      l0 *= corr0;
+      l1 *= corr1;
+      // p as the A operand of P V, in two bf16 halves: 16-column chunk
+      // j / 2, elements 0 and 2 for row0, 1 and 3 for row0 + 8
+      uint32_t ph[kN / 2][4], pl[kN / 2][4];
+#pragma unroll
+      for (int j = 0; j < kN; ++j) {
+        const float p0 = expf(s[j][0] - mn0);
+        const float p1 = expf(s[j][1] - mn0);
+        const float p2 = expf(s[j][2] - mn1);
+        const float p3 = expf(s[j][3] - mn1);
+        l0 += p0;
+        l0 += p1;
+        l1 += p2;
+        l1 += p3;
+        split_bf16(p0, p1, ph[j / 2][(j & 1) * 2], pl[j / 2][(j & 1) * 2]);
+        split_bf16(p2, p3, ph[j / 2][(j & 1) * 2 + 1],
+                   pl[j / 2][(j & 1) * 2 + 1]);
+      }
+#pragma unroll
+      for (int n = 0; n < kOutN; ++n) {
+        acc[n][0] *= corr0;
+        acc[n][1] *= corr0;
+        acc[n][2] *= corr1;
+        acc[n][3] *= corr1;
+      }
+
+      // ---- acc += p_hi v + p_lo v
+#pragma unroll
+      for (int kc = 0; kc < kN / 2; ++kc)
+#pragma unroll
+        for (int np = 0; np < kOutN / 2; ++np) {
+          uint32_t vf[4];
+          ldsm_x4_trans(vf, sv + v_lane + (kc * 16 * kStride + np * 16) * 2);
+          mma_bf16(acc[2 * np], ph[kc], vf[0], vf[1]);
+          mma_bf16(acc[2 * np], pl[kc], vf[0], vf[1]);
+          mma_bf16(acc[2 * np + 1], ph[kc], vf[2], vf[3]);
+          mma_bf16(acc[2 * np + 1], pl[kc], vf[2], vf[3]);
+        }
+    }
+  }
+
+  // ---- out = acc / max(l, 1e-30), cast once; staged in the warp's own
+  // q rows, then stored 16 bytes a lane
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+  }
+  const float den0 = fmaxf(l0, 1e-30f);
+  const float den1 = fmaxf(l1, 1e-30f);
+  __nv_bfloat16* so = sq + wr0 * kStride;
+  __syncwarp();
+#pragma unroll
+  for (int n = 0; n < kOutN; ++n) {
+    *reinterpret_cast<uint32_t*>(so + g * kStride + 8 * n + 2 * t) =
+        pack_bf16(acc[n][0] / den0, acc[n][1] / den0);
+    *reinterpret_cast<uint32_t*>(so + (g + 8) * kStride + 8 * n + 2 * t) =
+        pack_bf16(acc[n][2] / den1, acc[n][3] / den1);
+  }
+  __syncwarp();
+  for (int e = lane; e < 16 * kChunks; e += 32) {
+    const int r = e / kChunks;
+    const int c = (e - r * kChunks) * 8;
+    const int row = q0 + wr0 + r;
+    if (row < S && c < hd)
+      *reinterpret_cast<uint4*>(ob + static_cast<int64_t>(row) * q_row + c) =
+          *reinterpret_cast<const uint4*>(so + r * kStride + c);
+  }
+}
+
+template <int HDP>
+cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o,
+                       int64_t B, int S, int H, int Kv, int hd, bool causal,
+                       cudaStream_t stream) {
+  constexpr size_t smem = mma_smem_bytes<HDP>();
+  const cudaError_t err = cudaFuncSetAttribute(
+      flash_attention_mma_kernel<HDP>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const dim3 grid((S + kMmaBQ - 1) / kMmaBQ, H, static_cast<unsigned>(B));
+  const float scale =
+      static_cast<float>(1.0 / std::sqrt(static_cast<double>(hd)));
+  using bf16 = __nv_bfloat16;
+  flash_attention_mma_kernel<HDP><<<grid, kMmaThreads, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<bf16*>(o), S, H, Kv, hd,
+      scale, causal);
+  return cudaSuccess;
+}
+
+cudaError_t launch_mma_width(const void* q, const void* k, const void* v,
+                             void* o, int64_t B, int S, int H, int Kv, int hd,
+                             bool causal, cudaStream_t stream) {
+  if (hd <= 64)
+    return launch_mma<64>(q, k, v, o, B, S, H, Kv, hd, causal, stream);
+  if (hd <= 128)
+    return launch_mma<128>(q, k, v, o, B, S, H, Kv, hd, causal, stream);
+  return launch_mma<256>(q, k, v, o, B, S, H, Kv, hd, causal, stream);
+}
+
 }  // namespace
 
-// The widest head the kernel takes.
+// The widest head either kernel takes.
 int flash_attention_max_head_dim() { return 256; }
 
 // q (B, S, H, hd), k and v (B, S, Kv, hd) -> o (B, S, H, hd), all
-// contiguous, 16-byte aligned and of one dtype (bf16: bfloat16, else
-// float32); B, S >= 1, H % Kv == 0, hd % 8 == 0, hd <= 256, and B, H below
-// 2^16.  Launches on ``stream``; returns the error of the shared-memory
-// opt-in (the launch's own is left for cudaGetLastError).
+// contiguous, 16-byte aligned and of one dtype (bf16: bfloat16, the mma
+// kernel; else float32, the fma kernel); B, S >= 1, H % Kv == 0,
+// hd % 8 == 0, hd <= 256, and B, H below 2^16; anything else returns
+// cudaErrorInvalidValue.  Launches on ``stream``; returns the error of the
+// shared-memory opt-in (the launch's own is left for cudaGetLastError).
 cudaError_t launch_flash_attention(const void* q, const void* k,
                                    const void* v, void* o, int64_t B, int S,
                                    int H, int Kv, int hd, bool causal,
                                    bool bf16, cudaStream_t stream) {
+  if (B < 1 || S < 1 || Kv < 1 || H % Kv || hd < 8 || hd % 8 ||
+      hd > flash_attention_max_head_dim())
+    return cudaErrorInvalidValue;
   if (bf16)
-    return launch_dtype<__nv_bfloat16>(q, k, v, o, B, S, H, Kv, hd, causal,
-                                       stream);
+    return launch_mma_width(q, k, v, o, B, S, H, Kv, hd, causal, stream);
   return launch_dtype<float>(q, k, v, o, B, S, H, Kv, hd, causal, stream);
 }

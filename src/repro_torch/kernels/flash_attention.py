@@ -1,11 +1,14 @@
-"""Flash attention on the card: the CUDA kernel's wrapper.
+"""Flash attention on the card: the CUDA kernels' wrapper.
 
 Counterpart of ``repro/kernels/flash_attention.py::flash_attention_pallas``;
-the kernel is ``csrc/flash_attention.cu`` (its header states the
-arithmetic, what bounds it and its design).  It works in the model's
+the kernels are in ``csrc/flash_attention.cu`` (its header states the
+arithmetic, what bounds them and their design).  They work in the model's
 layout: q (B, S, H, hd), k and v (B, S, Kv, hd), contiguous, float32 or
 bfloat16, q head h reading KV head ``h // (H // Kv)``, any S, hd a multiple
-of 8 up to 256.  The plain version is ``ref.flash_attention_ref``.
+of 8 up to 256.  The dtype picks the kernel: bfloat16 runs on the tensor
+cores (``flash_attention_mma_kernel``), float32 on the CUDA cores
+(``flash_attention_kernel``).  The plain version is
+``ref.flash_attention_ref``.
 
 No host sync and no host-to-device copy per call: the wrapper checks the
 inputs from their metadata only and allocates the output on the card.
@@ -46,6 +49,19 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     if hd % 8 or not 8 <= hd <= MAX_HEAD_DIM:
         raise ValueError(f"head_dim must be a multiple of 8 up to "
                          f"{MAX_HEAD_DIM}, got {hd}")
+
+
+def bf16_ulps(got: torch.Tensor, want: torch.Tensor) -> torch.Tensor:
+    """``|got - want|`` in bfloat16 ulps of ``want``, element by element
+    (float32).  An output row (the last dim) is a convex mix of v's rows;
+    an element below 2^-8 of its row's largest magnitude is measured in the
+    ulp at that magnitude: its own ulp would lie below 2^-16 of the row's
+    scale, where two float32 computations of the row's sums in other orders
+    already differ."""
+    w = want.float()
+    mag = torch.maximum(w.abs(), w.abs().amax(-1, keepdim=True) * 2.0 ** -8)
+    exp = torch.frexp(mag.clamp_min(2.0 ** -126))[1] - 1
+    return (got.float() - w).abs() / torch.ldexp(torch.ones_like(w), exp - 7)
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -627,10 +627,12 @@ def test_cuda_dot_interaction_launches_the_kernel_forward_only():
 
 
 # ---- kernel 9, flash attention (phase 11 (a)'s small shapes and the edges
-# the kernel takes: ragged S, hd 8 to 256 in multiples of 8, GQA).
+# the kernels take: ragged S, hd 8 to 256 in multiples of 8, GQA; bfloat16
+# runs the mma kernel, float32 the fma kernel).
 # Tolerances: float32 atol = rtol = 1e-5 (the same float32 math, the dot
 # products and sums in another order); bfloat16 atol 4e-3, rtol 8e-3 (the
-# same float32 math, each output then rounded to 8 bits: an ulp apart).
+# same float32 math up to p's two bf16 halves, each output then rounded to
+# 8 bits: an ulp apart).
 FLASH_TOL = {torch.float32: dict(atol=1e-5, rtol=1e-5),
              torch.bfloat16: dict(atol=4e-3, rtol=8e-3)}
 
@@ -648,11 +650,21 @@ def _qkv(B, S, H, Kv, hd, dtype, seed):
     (1, 1000, 8, 2, 128, torch.bfloat16), (1, 257, 4, 4, 128, torch.float32),
     (3, 5, 2, 1, 8, torch.float32), (1, 130, 2, 1, 40, torch.bfloat16),
     (1, 70, 2, 1, 256, torch.float32), (1, 1, 4, 2, 64, torch.bfloat16),
+    (2, 15, 5, 1, 8, torch.bfloat16), (1, 17, 8, 1, 256, torch.bfloat16),
+    (2, 63, 4, 4, 64, torch.bfloat16), (1, 65, 10, 2, 128, torch.bfloat16),
+    (1, 1, 2, 2, 8, torch.bfloat16), (2, 129, 8, 8, 128, torch.bfloat16),
+    (1, 1000, 8, 1, 256, torch.bfloat16), (1, 1000, 5, 1, 64, torch.bfloat16),
+    (1, 300, 16, 2, 8, torch.bfloat16), (1, 96, 8, 1, 136, torch.bfloat16),
+    (1, 1024, 40, 8, 128, torch.bfloat16), (1, 1000, 40, 8, 128, torch.bfloat16),
 ])
 def test_cuda_flash_attention_matches_plain_version(B, S, H, Kv, hd, dtype,
                                                     causal):
+    """Within FLASH_TOL, two runs bit-equal, and in bfloat16 every output
+    within one bf16 ulp of the plain version's (``bf16_ulps``: p's two
+    halves carry it to ~2^-18, the sums are float32)."""
     _cuda_or_skip()
-    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.flash_attention import (bf16_ulps,
+                                                     flash_attention_cuda)
 
     q, k, v = _qkv(B, S, H, Kv, hd, dtype, seed=S + hd)
     got = flash_attention_cuda(q, k, v, causal)
@@ -662,16 +674,45 @@ def test_cuda_flash_attention_matches_plain_version(B, S, H, Kv, hd, dtype,
     assert got.dtype == dtype and got.shape == (B, S, H, hd)
     assert torch.equal(got, again)
     torch.testing.assert_close(got.float(), want.float(), **FLASH_TOL[dtype])
+    if dtype == torch.bfloat16:
+        assert bf16_ulps(got, want).max().item() <= 1.0
 
 
 @pytest.mark.gpu
-def test_cuda_flash_attention_launches_the_kernel_forward_only():
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_cuda_flash_attention_prefix_is_bit_equal(dtype):
+    """Causal rows do not depend on S: a 1 x 2048 run equals a 1 x 256 run
+    bit for bit on the first 256 positions (phase 11 (c) at test size)."""
+    _cuda_or_skip()
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+
+    q, k, v = _qkv(1, 2048, 8, 2, 128, dtype, seed=11)
+    long = flash_attention_cuda(q, k, v, True)
+    short = flash_attention_cuda(*(x[:, :256].contiguous() for x in (q, k, v)),
+                                 True)
+    assert torch.equal(long[:, :256], short)
+
+
+@pytest.mark.gpu
+def test_cuda_flash_attention_launches_the_kernel_forward_only(tmp_path):
+    """One counted launch per call; a CUDA graph captured around the calls
+    holds the fma kernel for float32 and the mma kernel for bfloat16, as
+    ``cudaGraphDebugDotPrint`` names them."""
     _cuda_or_skip()
     q, k, v = _qkv(2, 96, 4, 2, 32, torch.float32, seed=3)
+    half = [x.to(torch.bfloat16) for x in (q, k, v)]
     ops.reset_launches()
-    out = ops.flash_attention(q, k, v)
-    torch.cuda.synchronize()
-    assert ops.launches["flash_attention"] == 1
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    graph.enable_debug_mode()
+    with torch.cuda.graph(graph):
+        out = ops.flash_attention(q, k, v)
+        ops.flash_attention(*half)
+    dot = tmp_path / "graph.dot"
+    graph.debug_dump(str(dot))
+    dot = dot.read_text()
+    assert dot.count("flash_attention_kernel") == 1
+    assert dot.count("flash_attention_mma_kernel") == 1
+    assert ops.launches["flash_attention"] == 2
     assert ops.launches["flash_attention_ref"] == 0
     assert out.shape == q.shape
     x = q.clone().requires_grad_(True)

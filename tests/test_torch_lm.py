@@ -25,6 +25,7 @@ Tolerances (each check states its own):
 """
 
 import dataclasses
+import math
 
 import jax
 import jax.numpy as jnp
@@ -40,7 +41,8 @@ from repro_torch import configs
 from repro_torch.interop import lm_from_reference
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as tref
-from repro_torch.kernels.flash_attention import flash_attention_cuda
+from repro_torch.kernels.flash_attention import (bf16_ulps,
+                                                  flash_attention_cuda)
 from repro_torch.launch import train as launch
 from repro_torch.models import common as C
 from repro_torch.models import transformer as T
@@ -202,6 +204,112 @@ def test_flash_ref_gqa_matches_model_attention_and_pallas():
         assert got.dtype == tdt
         np.testing.assert_allclose(got.float().numpy(), pallas,
                                    **ATTN_TOL[dtype])
+
+
+def _mma_kernel_arithmetic(q, k, v, causal, p_as="halves", tile=64):
+    """The bfloat16 kernel's arithmetic (``csrc/flash_attention.cu``, the
+    mma kernel) in float64 torch, on bf16 q, k, v in the model's layout:
+    exact bf16 products summed and rounded to float32 (the mma's float32
+    sums, up to their order), the scale after the sum, the online softmax
+    over fixed 64-column tiles with float32 m, l and p, and P V from p's two
+    bf16 halves, ``acc * corr + p_hi v + p_lo v`` in float32.  ``p_as``
+    "once" rounds p to bf16 alone (SDPA's way), "float32" keeps it whole:
+    the controls."""
+    B, S, H, hd = q.shape
+    Kv = k.shape[2]
+    scale = torch.tensor(1.0 / math.sqrt(hd), dtype=torch.float32)
+    qg = q.double().reshape(B, S, Kv, H // Kv, hd)
+    pos = torch.arange(S)
+    m = torch.full((B, Kv, H // Kv, S, 1), -math.inf)
+    l = torch.zeros_like(m)
+    acc = torch.zeros((B, Kv, H // Kv, S, hd))
+    for k0 in range(0, S, tile):
+        kt, vt = k[:, k0:k0 + tile].double(), v[:, k0:k0 + tile].double()
+        s = torch.einsum("bskgd,btkd->bkgst", qg, kt).float() * scale
+        if causal:
+            s.masked_fill_(pos[k0:k0 + tile][None, :] > pos[:, None], -1e30)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        corr = torch.exp(m - m_new)
+        p = torch.exp(s - m_new)
+        l = l * corr + p.sum(-1, keepdim=True)
+        hi = p.to(torch.bfloat16)
+        parts = {"halves": (hi, (p - hi.float()).to(torch.bfloat16)),
+                 "once": (hi,), "float32": (p,)}[p_as]
+        acc = acc * corr
+        for part in parts:
+            acc = acc + torch.einsum("bkgst,btkd->bkgsd", part.double(),
+                                     vt).float()
+        m = m_new
+    out = acc / l.clamp_min(1e-30)
+    return out.permute(0, 3, 1, 2, 4).reshape(B, S, H, hd).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("BH,S,hd,bq,bkv", [
+    (2, 64, 16, 16, 16),
+    (4, 128, 32, 32, 64),
+    (1, 256, 64, 64, 32),
+    (2, 200, 128, 40, 40),
+])
+def test_mma_kernel_arithmetic_matches_pallas_kernel(causal, BH, S, hd, bq,
+                                                     bkv):
+    """The bf16 kernel's arithmetic (tensor-core products, the scale after
+    the sum, p in two bf16 halves) against the TPU kernel in interpret mode
+    on bf16 inputs.  Tolerance: one bf16 ulp per element (``bf16_ulps``),
+    the two computations being the same float32 math up to one rounding of
+    the scale, p carried to 2^-18 and the sums' order; a p rounded once to
+    bf16 would be tens of ulps off."""
+    rng = np.random.default_rng(S + hd)
+    q, k, v = [rng.standard_normal((BH, S, hd)).astype(np.float32)
+               for _ in range(3)]
+    want = flash_attention_pallas(*(jnp.asarray(x, jnp.bfloat16)
+                                    for x in (q, k, v)),
+                                  causal=causal, block_q=bq, block_kv=bkv,
+                                  interpret=True)
+    want = torch.from_numpy(np.asarray(want, np.float32))
+    tq, tk, tv = [torch.from_numpy(x).to(torch.bfloat16).transpose(0, 1)[None]
+                  .contiguous() for x in (q, k, v)]
+    got = _mma_kernel_arithmetic(tq, tk, tv, causal)[0].transpose(0, 1)
+    assert got.dtype == torch.bfloat16
+    assert bf16_ulps(got, want).max().item() <= 1.0
+
+
+def test_one_ulp_check_rejects_p_rounded_once():
+    """The control: the same arithmetic with p rounded once to bf16 lies
+    more than one ulp (``bf16_ulps``) from the TPU kernel, so the check
+    above tells the two halves from SDPA's rounding."""
+    rng = np.random.default_rng(200 + 128)
+    q, k, v = [rng.standard_normal((2, 200, 128)).astype(np.float32)
+               for _ in range(3)]
+    want = flash_attention_pallas(*(jnp.asarray(x, jnp.bfloat16)
+                                    for x in (q, k, v)),
+                                  causal=True, block_q=40, block_kv=40,
+                                  interpret=True)
+    want = torch.from_numpy(np.asarray(want, np.float32))
+    tq, tk, tv = [torch.from_numpy(x).to(torch.bfloat16).transpose(0, 1)[None]
+                  .contiguous() for x in (q, k, v)]
+    once = _mma_kernel_arithmetic(tq, tk, tv, True, p_as="once")
+    assert bf16_ulps(once[0].transpose(0, 1), want).max().item() > 8.0
+
+
+def test_one_ulp_check_needs_the_row_floor():
+    """Why ``bf16_ulps`` measures an element below 2^-8 of its row's largest
+    magnitude in the ulp at that magnitude: the plain version's own
+    arithmetic with the sums in the kernel's order (p kept in float32, no
+    halves) already puts some such elements more than one of their own
+    ulps from the plain version, while every element stays within one
+    ``bf16_ulps``."""
+    gen = torch.Generator().manual_seed(53)
+    q = torch.randn((1, 512, 8, 128), generator=gen).bfloat16()
+    k, v = [torch.randn((1, 512, 2, 128), generator=gen).bfloat16()
+            for _ in range(2)]
+    want = tref.flash_attention_ref(q, k, v, True)
+    got = _mma_kernel_arithmetic(q, k, v, True, p_as="float32")
+    w = want.float()
+    own_ulp = torch.ldexp(torch.ones_like(w), torch.frexp(
+        w.abs().clamp_min(2.0 ** -126))[1] - 8)
+    assert ((got.float() - w).abs() / own_ulp).max().item() > 1.0
+    assert bf16_ulps(got, want).max().item() <= 1.0
 
 
 def test_flash_attention_dispatch_on_the_cpu():
