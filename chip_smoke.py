@@ -14,9 +14,19 @@ Phases (any failure raises and the script exits non-zero):
        the sum/mean/sqrtn combiners and their gradients.  Forward within
        rtol = atol = 1e-5; two runs bit-equal.
      - The bag's backward: at the training path's per-pod shapes (51200
-       ids, 20480 bags) and the small odd shapes.  Working-row gradients
-       bit-equal to the CPU plain vjp, weight gradients within
-       rtol = atol = 1e-5, two runs bit-equal.
+       ids, 20480 bags, a hot working row of 4130 entries) and the small
+       odd shapes.  Working-row gradients bit-equal to the CPU plain vjp,
+       weight gradients within rtol = atol = 1e-5, two runs bit-equal.
+       Its wrapper makes no sync and no host-to-device copy (the sync
+       debug mode "error" and the profiler); the wrapper and its library
+       call are also timed on the device alone (CUDA graph replays) and on
+       the host; its index streams alone, the wrapper and the streams
+       without the hot row's entries, beside the order floor (the hot
+       row's dependent adds) and the bytes bound; the wrapper, the streams
+       and ``index_add_`` at four times the batch (the long rows' ordered
+       placement reads all of inv once per long row); registers, stack and
+       local-memory stores and loads of its and kernel 8's
+       instantiations (``cuobjdump`` of the built extension).
      - The push: the slice's uid layout (one batch deduplicated at
        capacity 65536, with its pads), odd widths, an overflowed batch (no
        pads), and the slice batch on a 50 M-row table (uids above
@@ -201,6 +211,48 @@ def _time_ms(fn, iters=100, warmup=10, cold_l2=True):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def _graph_ms(fn, iters=40):
+    """Device time of one ``fn`` call with no host in it: ``fn`` captured in
+    a CUDA graph, each replay after the 256 MB write that evicts the L2,
+    an event pair around the replay alone."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    scrub = torch.empty(64 << 20, dtype=torch.int32, device="cuda")
+    pairs = [(torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True)) for _ in range(iters)]
+    for start, end in pairs:
+        scrub.zero_()
+        start.record()
+        graph.replay()
+        end.record()
+    torch.cuda.synchronize()
+    del graph
+    return sum(a.elapsed_time(b) for a, b in pairs) / iters
+
+
+def _host_us(fn, calls=50):
+    """Host time of one ``fn`` call, back to back (the device's time hidden
+    behind the enqueue while the queue has room)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return us
 
 
 def _bag_case(gen, C, D, nnz, num_bags, weighted, device):
@@ -554,20 +606,23 @@ def _train_batches(n, seed=1, batch=None, rows=ROWS):
     return [next(stream) for _ in range(n)]
 
 
-def _backward_slice_case(device):
+def _backward_slice_case(device, scale=1):
     """The bag backward's inputs on the training path, pod 0 of n_pod 2:
     the first training batch deduplicated at capacity 65536, its first 512
-    instances (51200 ids, 20480 bags), mask weights, a random cotangent."""
+    instances (51200 ids, 20480 bags), mask weights, a random cotangent.
+    ``scale`` multiplies the batch and the capacity (the same stream's
+    first batch of ``scale`` times the instances)."""
     import torch
 
     from repro_torch.configs import baidu_ctr
     from repro_torch.core.embedding_backend import _dedup
 
     cfg = baidu_ctr.MODEL
-    b = _train_batches(1)[0]
+    b = _train_batches(1, batch=BATCH * scale)[0]
     ids = torch.from_numpy(b["ids"]).to(device).reshape(-1)
-    _, inv, _ = _dedup(ids, CAPACITY)
-    half = BATCH // 2
+    capacity = CAPACITY * scale
+    _, inv, _ = _dedup(ids, capacity)
+    half = BATCH * scale // 2
     nnz = half * cfg.nnz_per_instance
     inv = inv[:nnz].contiguous()
     inst = torch.arange(half, dtype=torch.int32, device=device)[:, None]
@@ -575,9 +630,9 @@ def _backward_slice_case(device):
         b["field_ids"][:half]).to(device)).reshape(-1).contiguous()
     w = torch.from_numpy(b["mask"][:half]).to(device).reshape(-1)
     gen = torch.Generator(device).manual_seed(21)
-    working = torch.randn((CAPACITY + 1, cfg.embed_dim), generator=gen,
+    working = torch.randn((capacity + 1, cfg.embed_dim), generator=gen,
                           device=device)
-    working[CAPACITY] = 0
+    working[capacity] = 0
     g = torch.randn((half * cfg.n_fields, cfg.embed_dim), generator=gen,
                     device=device) * 1e-3
     return g, working, inv, seg, w
@@ -626,13 +681,18 @@ def phase_backward(device):
             msg += f", g_w max |diff| {err_w:.3g}"
         print(msg + f"; vs the plain vjp on the card max |diff| {err:.3g}")
 
+    def long_rows(inv, rows):
+        per_row = torch.bincount(inv.long(), minlength=rows)
+        return (per_row, int((per_row > kb.LONG_ROW).sum()),
+                int((per_row > kb.VERY_LONG).sum()))
+
     g, working, inv, seg, w = _backward_slice_case(device)
-    per_row = torch.bincount(inv.long(), minlength=working.shape[0])
+    per_row, n_long, n_very = long_rows(inv, working.shape[0])
     print(f"phase 1: embedding_bag backward against the plain vjp "
           f"(g {tuple(g.shape)}, working {tuple(working.shape)}, nnz "
           f"{inv.numel()}; the hottest working row holds "
-          f"{int(per_row.max())} entries, {int((per_row > 32).sum())} rows "
-          f"hold more than 32)")
+          f"{int(per_row.max())} entries, {n_long} rows hold more than "
+          f"{kb.LONG_ROW}, {n_very} more than {kb.VERY_LONG})")
     checks("slice shape, mask weights", g, working, inv, seg, w)
     gen = torch.Generator(device).manual_seed(6)
     for C, D, nnz, nb in [(37, 24, 101, 53), (200, 16, 333, 97),
@@ -650,9 +710,27 @@ def phase_backward(device):
                                               False)
 
     ms, warm_ms = _time_ms(kernel), _time_ms(kernel, cold_l2=False)
-    streams = kb.sorted_streams(inv, working.shape[0], seg, w)
-    launch_ms = _time_ms(lambda: kb.launch_backward(g, *streams,
-                                                    working.shape[0]))
+    rows = working.shape[0]
+    # the index streams alone (the call's first part); the kernels' time
+    # is the wrapper's less theirs
+    prep_ms = _time_ms(lambda: kb.backward_streams(g, inv, seg, w, rows))
+    # the same inputs without the hottest row's entries: what the one long
+    # row costs
+    hot = int(per_row.argmax())
+    keep = inv != hot
+    cool = [x[keep].contiguous() for x in (inv, seg, w)]
+    no_hot_ms = _time_ms(lambda: kb.embedding_bag_backward_cuda(
+        g, working, cool[0], cool[1], cool[2], True, False))
+    no_hot_prep_ms = _time_ms(lambda: kb.backward_streams(g, *cool, rows))
+    # the fixed order's floor: the hot row's dependent float32 adds, one
+    # per entry and column chain, at an FADD latency of 4 cycles at the
+    # card's maximum SM clock
+    hot_n = int(per_row[hot])
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], check=True, capture_output=True,
+        text=True, timeout=60).stdout.split()[0])
+    order_ms = hot_n * 4 / (mhz * 1e6) * 1e3
     plain_ms = _time_ms(lambda: ref.embedding_bag_backward_ref(
         g, working, inv, seg, w, True, False))
     inv64, seg64 = inv.long(), seg.long()
@@ -671,11 +749,60 @@ def phase_backward(device):
     bound_by = ("bytes" if nbytes / HBM_BYTES_PER_S
                 >= flops / F32_FLOP_PER_S else "operations")
     print(f"  times (ms, L2 cold): wrapper {ms:.4f} (L2 warm "
-          f"{warm_ms:.4f}; kernel launch alone {launch_ms:.4f}), plain vjp "
-          f"{plain_ms:.4f}, index_add_ library "
+          f"{warm_ms:.4f}), plain vjp {plain_ms:.4f}, index_add_ library "
           f"call {library_ms:.4f}; bound {bound_ms:.4f} "
           f"({nbytes / 1e6:.2f} MB: {g_rows} cotangent rows read, "
           f"{working.shape[0]} working rows written)")
+    graph_ms, graph_lib_ms = _graph_ms(kernel), _graph_ms(library)
+    host_us, host_lib_us = _host_us(kernel), _host_us(library)
+    print(f"  the device's time alone (CUDA graph replays, L2 cold): wrapper "
+          f"{graph_ms:.4f}, index_add_ library call {graph_lib_ms:.4f}; the "
+          f"host's time per call: wrapper {host_us:.1f} us, library call "
+          f"{host_lib_us:.1f} us")
+    print(f"  index streams alone {prep_ms:.4f} ms, so the kernels "
+          f"{ms - prep_ms:.4f} (the wrapper less the streams); without the "
+          f"hottest row's {hot_n} entries: wrapper {no_hot_ms:.4f}, streams "
+          f"{no_hot_prep_ms:.4f}, kernels {no_hot_ms - no_hot_prep_ms:.4f}; "
+          f"the order floor (the hot row's {hot_n} dependent adds at 4 "
+          f"cycles, {mhz:.0f} MHz) {order_ms:.4f} ms beside the bytes bound "
+          f"{bound_ms:.4f}")
+    # the placement reads all of inv once per long row: the same stream's
+    # first batch at four times the instances (and capacity)
+    big = _backward_slice_case(device, scale=4)
+    _, big_long, big_very = long_rows(big[2], big[1].shape[0])
+    big_inv64, big_seg64 = big[2].long(), big[3].long()
+    scaled = {
+        "nnz": big[2].numel(), "long_rows": big_long,
+        "very_long_rows": big_very,
+        "ms": _time_ms(lambda: kb.embedding_bag_backward_cuda(
+            *big, True, False)),
+        "prep_ms": _time_ms(lambda: kb.backward_streams(
+            big[0], big[2], big[3], big[4], big[1].shape[0])),
+        "library_ms": _time_ms(lambda: torch.zeros_like(big[1]).index_add_(
+            0, big_inv64, big[0][big_seg64] * big[4][:, None]))}
+    print(f"  at four times the pod's batch (nnz {scaled['nnz']}, "
+          f"{big_long} rows of more than {kb.LONG_ROW} entries, {big_very} "
+          f"of more than {kb.VERY_LONG}; phase 1's: {n_long}, {n_very}): "
+          f"wrapper {scaled['ms']:.4f} ms, index streams alone "
+          f"{scaled['prep_ms']:.4f}, index_add_ library call "
+          f"{scaled['library_ms']:.4f}")
+    del big, big_inv64, big_seg64
+    # the wrapper as the training path calls it: no sync, no host-to-device
+    # copy (the index streams' sort and the long rows' discovery run on the
+    # card)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        kernel()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    h2d, syncs, launched = _transfers(kernel)
+    if h2d or syncs:
+        raise AssertionError(f"backward wrapper: {h2d} host-to-device "
+                             f"copies, {syncs} syncs")
+    print(f"  the wrapper under the sync debug mode \"error\" and the "
+          f"profiler: {h2d} host-to-device copies, {syncs} syncs, "
+          f"{launched} kernel launches")
+    sass = _bag_dot_sass_report()
     return {
         "name": "embedding_bag_backward",
         "route": "cuda",
@@ -690,6 +817,17 @@ def phase_backward(device):
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": library_ms,
+        "graph_ms": graph_ms,
+        "library_graph_ms": graph_lib_ms,
+        "host_us": host_us,
+        "library_host_us": host_lib_us,
+        "prep_ms": prep_ms,
+        "ms_without_hot_row": no_hot_ms,
+        "prep_ms_without_hot_row": no_hot_prep_ms,
+        "long_rows": n_long,
+        "at_four_times_the_batch": scaled,
+        "order_floor_ms": order_ms,
+        "sass": sass,
     }
 
 
@@ -2628,13 +2766,12 @@ def _flash_times(q, k, v, causal=True, iters=10):
     }
 
 
-def _flash_sass_report():
-    """Phase 11 (a): each instantiation of kernel 9 in the extension that
-    ran, from ``cuobjdump -res-usage`` and ``cuobjdump -sass`` of its
-    shared library: registers, stack frame bytes, local-memory stores
-    (``STL``: spills) and tensor-core instructions (``HMMA``).  Keys:
-    "mma<HDP>" (bf16) and "fma<HDP>" (float32), HDP the padded head
-    width."""
+def _sass_report(short):
+    """Each kernel of the extension that ran whose mangled name ``short``
+    maps to a short name, from ``cuobjdump -res-usage`` and ``cuobjdump
+    -sass`` of its shared library: registers, stack frame bytes,
+    local-memory stores and loads (``STL``, ``LDL``: spills or an array in
+    local memory) and tensor-core instructions (``HMMA``)."""
     import re
 
     from torch.utils.cpp_extension import CUDA_HOME
@@ -2649,11 +2786,6 @@ def _flash_sass_report():
                               capture_output=True, text=True,
                               timeout=300).stdout
 
-    def short(mangled):
-        m = re.search(r"flash_attention_(mma_)?kernelI(?:f)?Li(\d+)E",
-                      mangled)
-        return m and f"{'mma' if m.group(1) else 'fma'}<{m.group(2)}>"
-
     usage = dump("-res-usage")
     report = {}
     for m in re.finditer(r"Function (\w+):\s+REG:(\d+)\s+STACK:(\d+)",
@@ -2666,18 +2798,70 @@ def _flash_sass_report():
         name = short(chunk.split(None, 1)[0])
         if name in report:
             report[name].update(stl=len(re.findall(r"\bSTL\b", chunk)),
+                                ldl=len(re.findall(r"\bLDL\b", chunk)),
                                 hmma=len(re.findall(r"\bHMMA\b", chunk)))
+    return report, usage
+
+
+def _print_sass(report):
+    for name, r in sorted(report.items()):
+        print(f"  cuobjdump {name}: {r['registers']} registers, stack "
+              f"{r['stack_bytes']} B, {r['stl']} STL, {r['ldl']} LDL "
+              f"(local-memory stores and loads), {r['hmma']} HMMA in its "
+              f"SASS")
+
+
+def _bag_dot_sass_report():
+    """Phase 1: the bag backward's and kernel 8's instantiations in the
+    extension that ran (``_sass_report``).  Keys: "bag_backward<C>" (the
+    short rows' kernel, C columns a lane), "bag_backward_long" (the long
+    rows' kernel) and "dot_interaction<T>" (T the element type)."""
+    import re
+
+    def short(mangled):
+        if "embedding_bag_backward_long_kernel" in mangled:
+            return "bag_backward_long"
+        m = re.search(r"embedding_bag_backward_kernelILi(\d+)E", mangled)
+        if m:
+            return f"bag_backward<{m.group(1)}>"
+        m = re.search(r"dot_interaction_kernelI(f|13__nv_bfloat16)E",
+                      mangled)
+        return m and ("dot_interaction<float>" if m.group(1) == "f"
+                      else "dot_interaction<bf16>")
+
+    report, usage = _sass_report(short)
+    want = {f"bag_backward<{c}>" for c in (1, 2, 4, 8)} | {
+        "bag_backward_long", "dot_interaction<float>",
+        "dot_interaction<bf16>"}
+    if set(report) != want:
+        raise AssertionError(f"bag backward and kernel 8 instantiations: "
+                             f"{sorted(report)}; cuobjdump -res-usage "
+                             f"began:\n{usage[:3000]}")
+    _print_sass(report)
+    return report
+
+
+def _flash_sass_report():
+    """Phase 11 (a): each instantiation of kernel 9 (``_sass_report``).
+    Keys: "mma<HDP>" (bf16) and "fma<HDP>" (float32), HDP the padded head
+    width."""
+    import re
+
+    def short(mangled):
+        m = re.search(r"flash_attention_(mma_)?kernelI(?:f)?Li(\d+)E",
+                      mangled)
+        return m and f"{'mma' if m.group(1) else 'fma'}<{m.group(2)}>"
+
+    report, usage = _sass_report(short)
     if sorted(report) != sorted(f"{k}<{w}>" for k in ("fma", "mma")
                                 for w in (64, 128, 256)):
-        raise AssertionError(f"kernel 9's instantiations in {lib}: "
+        raise AssertionError(f"kernel 9's instantiations: "
                              f"{sorted(report)}; cuobjdump -res-usage "
                              f"began:\n{usage[:3000]}")
     for name, r in sorted(report.items()):
         if "hmma" not in r or (r["hmma"] > 0) != name.startswith("mma"):
             raise AssertionError(f"kernel 9 {name}: SASS report {r}")
-        print(f"  cuobjdump {name}: {r['registers']} registers, stack "
-              f"{r['stack_bytes']} B, {r['stl']} STL (spill stores), "
-              f"{r['hmma']} HMMA in its SASS")
+    _print_sass(report)
     return report
 
 

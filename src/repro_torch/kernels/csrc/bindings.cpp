@@ -16,11 +16,13 @@ void launch_embedding_bag(const float* working, int dim, const int32_t* inv,
                           const float* weights, const int64_t* order,
                           const int64_t* offsets, int num_bags, float* out,
                           cudaStream_t stream);
-void launch_embedding_bag_backward(const float* g, int64_t num_bags, int dim,
-                                   const int32_t* seg_sorted,
-                                   const float* w_sorted,
-                                   const int64_t* offsets, int working_rows,
-                                   float* g_work, cudaStream_t stream);
+int64_t backward_list_ints(int64_t nnz);
+size_t backward_scratch_bytes(int64_t nnz, int working_rows, bool weighted,
+                              size_t streams_at[5]);
+cudaError_t launch_embedding_bag_backward(
+    const float* g, int64_t num_bags, int dim, const int32_t* inv,
+    const int32_t* seg, const float* w, int64_t nnz, int working_rows,
+    void* scratch, float* g_work, cudaStream_t stream);
 void launch_embedding_bag_weight_grad(const float* g, int64_t num_bags,
                                       int dim, const int32_t* seg,
                                       const float* working,
@@ -120,30 +122,58 @@ void embedding_bag_forward(const torch::Tensor& working,
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
-// g_work[r] = sum over i in [offsets[r], offsets[r+1]) of w[i] * g[seg[i]]
-// (seg and w sorted by working row).
-void embedding_bag_backward(const torch::Tensor& g, const torch::Tensor& seg,
-                            const c10::optional<torch::Tensor>& weights,
-                            const torch::Tensor& offsets,
-                            const torch::Tensor& g_work) {
+// g_work[r] = sum over j with inv[j] == r of w[j] * g[seg[j]], every row
+// written, in one call: the index streams by working row built on the card
+// (a stable order, no sort, no host sync), then the kernels, with every
+// intermediate in one scratch allocation; returns [g_work] (working_rows x
+// dim).  With streams_only it builds only the streams and returns them,
+// views of the scratch: [seg_sorted, w_sorted (undefined without
+// weights), offsets (int64, working_rows + 1), keys_sorted (inv, the
+// entries outside [0, working_rows) as working_rows, last), the row lists
+// (int32, the layout of csrc/embedding_bag.cu's kListHead)].
+std::vector<torch::Tensor> embedding_bag_backward(
+    const torch::Tensor& g, const torch::Tensor& inv,
+    const torch::Tensor& seg, const c10::optional<torch::Tensor>& weights,
+    int64_t working_rows, bool streams_only) {
   check_cuda(g, "g", torch::kFloat32, 2, g);
+  check_cuda(inv, "inv", torch::kInt32, 1, g);
   check_cuda(seg, "seg", torch::kInt32, 1, g);
-  check_cuda(g_work, "g_work", torch::kFloat32, 2, g);
   const int64_t dim = g.size(1);
-  const int64_t working_rows = g_work.size(0);
+  const int64_t nnz = inv.size(0);
   check_dim(dim);
   check_rows(g.size(0), "num_bags");
   check_rows(working_rows, "working rows");
-  TORCH_CHECK(g_work.size(1) == dim, "g_work must have ", dim, " columns");
-  check_offsets(offsets, working_rows, g);
-  const float* w = optional_weights(weights, g, seg.size(0));
+  TORCH_CHECK(seg.size(0) == nnz, "seg and inv differ in length");
+  TORCH_CHECK(nnz < kMaxRows, "nnz must lie below 2^31");
+  const float* w = optional_weights(weights, g, nnz);
   const c10::cuda::CUDAGuard guard(g.device());
-  launch_embedding_bag_backward(
+  size_t at[5];
+  const size_t bytes = backward_scratch_bytes(
+      nnz, static_cast<int>(working_rows), w != nullptr, at);
+  auto scratch = torch::empty({static_cast<int64_t>(bytes)},
+                              g.options().dtype(torch::kUInt8));
+  torch::Tensor g_work;
+  if (!streams_only) g_work = torch::empty({working_rows, dim}, g.options());
+  const cudaError_t err = launch_embedding_bag_backward(
       g.data_ptr<float>(), g.size(0), static_cast<int>(dim),
-      seg.data_ptr<int32_t>(), w, offsets.data_ptr<int64_t>(),
-      static_cast<int>(working_rows),
-      g_work.data_ptr<float>(), c10::cuda::getCurrentCUDAStream().stream());
-  C10_CUDA_KERNEL_LAUNCH_CHECK();
+      inv.data_ptr<int32_t>(), seg.data_ptr<int32_t>(), w, nnz,
+      static_cast<int>(working_rows), scratch.data_ptr(),
+      streams_only ? nullptr : g_work.data_ptr<float>(),
+      c10::cuda::getCurrentCUDAStream().stream());
+  TORCH_CHECK(err == cudaSuccess, "embedding_bag_backward: ",
+              cudaGetErrorString(err));
+  if (!streams_only) return {g_work};
+  auto view = [&](int part, int64_t n, torch::ScalarType dtype) {
+    const int64_t size = n * static_cast<int64_t>(c10::elementSize(dtype));
+    return scratch.narrow(0, static_cast<int64_t>(at[part]), size)
+        .view(dtype);
+  };
+  torch::Tensor w_sorted;
+  if (w != nullptr) w_sorted = view(2, nnz, torch::kFloat32);
+  return {view(0, nnz, torch::kInt32), w_sorted,
+          view(3, working_rows + 1, torch::kInt64),
+          view(1, nnz, torch::kInt32),
+          view(4, backward_list_ints(nnz), torch::kInt32)};
 }
 
 // g_w[j] = sum_d g[seg[j], d] * working[inv[j], d].
@@ -443,9 +473,10 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
         py::arg("working"), py::arg("inv"), py::arg("weights"),
         py::arg("order"), py::arg("offsets"), py::arg("out"));
   m.def("embedding_bag_backward", &embedding_bag_backward,
-        "Working-row gradient of the bag, streams sorted by working row "
-        "(CUDA)", py::arg("g"), py::arg("seg"), py::arg("weights"),
-        py::arg("offsets"), py::arg("g_work"));
+        "Working-row gradient of the bag from inv and seg in one call, or "
+        "its index streams alone (CUDA)", py::arg("g"), py::arg("inv"),
+        py::arg("seg"), py::arg("weights"), py::arg("working_rows"),
+        py::arg("streams_only") = false);
   m.def("embedding_bag_weight_grad", &embedding_bag_weight_grad,
         "Per-entry weight gradient of the bag (CUDA)", py::arg("g"),
         py::arg("seg"), py::arg("working"), py::arg("inv"), py::arg("g_w"));

@@ -47,26 +47,79 @@
 //     and two runs give equal bits (no atomics);
 //   - every bag row is written, an empty bag as zeros.
 //
-// Design of g_work: the same walk, one warp per working row, with two
-// changes for the Zipf-hot rows.  The hottest id holds ~8 % of a batch's
-// ids, so one working row gathers thousands of entries, and its sum is a
-// chain of dependent adds in a fixed order that one warp must walk alone:
-//   - the wrapper gathers seg and the weights into the row-sorted order, so
-//     the lanes read 32 (row, weight) pairs coalesced, and the next 32 load
-//     while these are added;
-//   - a batch of more than 8 entries loads all its g rows into registers
-//     first (up to 32 at dim <= 64) and only then adds them in order, so
-//     the memory latencies overlap instead of adding up.  The hottest row
-//     still sets the kernel's time: its one warp walks ~4 k entries in
-//     order (PERF.md);
-//   - an entry whose segment lies outside [0, num_bags) adds a zero, as
-//     the plain vjp does;
-//   - every working row is written, untouched ones (pads, the drop row) as
-//     zeros.
+// Design of g_work.  Every working row adds its entries in ascending
+// original position, acc = __fadd_rn(acc, __fmul_rn(g[seg[j], c], w[j]))
+// (unweighted: acc = __fadd_rn(acc, g[seg[j], c])), so only the adds are a
+// chain; the loads of g rows and the multiplies are not, and the design
+// takes them off it.  What bounds it: the bytes (6.6 us at the training
+// path's pod shapes, PERF.md), and the order: the hottest id holds ~8 % of
+// a batch's ids, so one working row adds ~4 k entries, a chain of ~4 k
+// dependent adds per column (~8 us at 4 cycles an add), which no bit-exact
+// design goes below.
+//   - Index streams (build_streams: a memset and four small launches, no
+//     sort, no host sync, no copy, in one scratch allocation with
+//     everything else).  inv's entries outside [0, working_rows) form a
+//     sentinel group after the rows.  Count each group (warp-aggregated
+//     atomics); scan the counts into the CSR offsets (a tile a block,
+//     decoupled look-back) and put every row with entries on a row list:
+//     very long (> kVeryLong = 1024 entries), long (> kLongRow = 128) or
+//     short; place each long group (and a long sentinel group) with one
+//     block that walks inv in order and compacts its matches (ballots and
+//     one prefix sum a round), so its order is the original one, while
+//     each entry of a short group takes a slot of its group by an atomic;
+//     then each short entry moves to its rank among its group's at most
+//     kLongRow slots.  seg and the weights land in that order, so the
+//     kernels read them contiguously.  This is the stable order, the same
+//     as a stable sort's (a radix sort took ~55 us and a dozen API calls,
+//     PERF.md).  What bounds the placement: each long group reads all of
+//     inv once, so it costs O(n_long x nnz) reads, one block a group and
+//     one group a block at a time over an SM's worth of blocks (132 on the
+//     H100); the rows of more than kLongRow entries grow with the batch
+//     under Zipf traffic, so this part grows faster than the batch
+//     (PERF.md times it at phase 1's batch and at four times it).
+//   - Then g_work is zeroed (a memset: rows without entries stay zero) and
+//     two kernels run side by side on the caller's stream, so each has its
+//     own launch bounds: the short rows' kernel is a programmatic
+//     dependent launch that starts while the long rows' runs, and its
+//     blocks wait for that one only before they exit (fork and join events
+//     between two streams cost more on the device than both kernels' work
+//     overlapped).  embedding_bag_backward_long_kernel: one block an SM
+//     takes the long-row list's (row, 8 columns) items one at a time from
+//     a counter, the very long rows' first, so the hottest row's bytes
+//     spread over eight blocks at dim 64 and the blocks done early take the
+//     rest (a fixed share of the items a block is 5x slower at four times
+//     the training batch, whose long rows outnumber the blocks; PERF.md).
+//     Warp 0 adds; warps 1..7 each own one 5 KB slot of a
+//     shared-memory ring and fill it with the next 128 entries' g values
+//     (cp.async, 4 B a lane, four entries a warp instruction, the segments
+//     of the stage after loaded while the copies fly), column by column (a
+//     12-float pad keeps both sides free of bank conflicts), multiply them
+//     by their weights once they land, and hand the slot over by named
+//     barriers (bar.arrive / bar.sync, one full and one empty barrier a
+//     slot).  Warp 0 reads four entries of its column as one float4, eight
+//     entries ahead of their adds, so its chain waits only on itself with
+//     up to seven stages in flight; the launch bounds (two blocks an SM)
+//     leave it the registers for that.
+//   - embedding_bag_backward_kernel: the short rows' warps walk the
+//     short-row list, a row a warp at a time, lanes across dim as in the
+//     forward: a row's 32 (segment, weight) pairs load coalesced and the
+//     next 32 while these add; the g rows of up to 16 floats a lane load
+//     ahead of their adds (64 registers, four blocks an SM, no spills at
+//     dim <= 128).
+//   - an entry whose segment lies outside [0, num_bags) adds a zero
+//     (multiplied by its weight), as the plain vjp does;
+//   - every working row is written exactly once, by its adds, or by the
+//     memset when it has no entries (pads, the drop row).
 #include <cuda_runtime.h>
+
 #include <cstdint>
 
+
+#include "device.h"
+
 namespace {
+
+size_t aligned(size_t bytes) { return (bytes + 255) / 256 * 256; }
 
 constexpr int kWarp = 32;
 constexpr int kRowsPerBlock = 8;
@@ -120,30 +173,553 @@ __global__ void embedding_bag_kernel(
   }
 }
 
-// Entries of a batch that g_work adds one at a time; longer batches load
-// their rows ahead.
-constexpr int kFew = 8;
+// ---- the backward's index streams: a stable order by working row, without
+// a sort (build_streams)
 
-template <int kColsPerLane>
-__global__ void embedding_bag_backward_kernel(
+// Rows of more than kLongRow entries are long: the long rows' kernel adds
+// them, and the placement compacts their entries in order.  Those of more
+// than kVeryLong are very long and handed out first.
+constexpr int kLongRow = 128;
+constexpr int kVeryLong = 1024;
+
+// The row lists that build_streams writes and the kernels read: [the count
+// of rows of more than kVeryLong entries, the count of the other rows of
+// more than kLongRow entries, kLongRow, the count of the rows of 1 to
+// kLongRow entries; then room for max_long long rows, the very long ones
+// from the front and the others from the back; then room for nnz short
+// rows].  Each part is in no fixed order: the lists decide only which block
+// or warp adds a row, never how.
+constexpr int kListHead = 4;
+constexpr int kScanThreads = 1024;
+constexpr int kScanItems = 8;        // counts a scan thread takes per round
+constexpr int kPlaceThreads = 1024;
+constexpr int kPlaceBallots = 16;    // a compacting warp's ballots a round
+
+// The group of entry j: its working row, or rows (the sentinel group, last)
+// when inv[j] lies outside [0, rows).
+__device__ __forceinline__ int group_of(const int32_t* inv, int64_t j,
+                                        int rows) {
+  const int32_t r = inv[j];
+  return r >= 0 && r < rows ? r : rows;
+}
+
+// counts[k] = the entries of group k, k in [0, rows] (zeroed before).
+// Thread 0 also clears the row lists' counts.
+__global__ void backward_count_kernel(const int32_t* __restrict__ inv,
+                                      int64_t nnz, int rows,
+                                      int32_t* __restrict__ counts,
+                                      int32_t* __restrict__ long_rows) {
+  const int64_t j = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                    threadIdx.x;
+  if (j == 0) long_rows[0] = long_rows[1] = long_rows[3] = 0;
+  const bool ok = j < nnz;
+  const unsigned active = __ballot_sync(0xffffffffu, ok);
+  if (!ok) return;
+  const int k = group_of(inv, j, rows);
+  const unsigned peers = __match_any_sync(active, k);  // one atomic a group
+  if (static_cast<int>(threadIdx.x % kWarp) == __ffs(peers) - 1) {
+    atomicAdd(counts + k, __popc(peers));
+  }
+}
+
+// Exclusive prefix sum of v over a block of blockDim.x threads (a multiple
+// of 32, at most 1024); *total gets the block's sum.  sh: 32 ints.
+__device__ __forceinline__ int block_scan(int v, int* sh, int* total) {
+  const int lane = threadIdx.x % kWarp;
+  const int warp = threadIdx.x / kWarp;
+  const int warps = blockDim.x / kWarp;
+  int x = v;
+#pragma unroll
+  for (int o = 1; o < kWarp; o <<= 1) {
+    const int y = __shfl_up_sync(0xffffffffu, x, o);
+    if (lane >= o) x += y;
+  }
+  if (lane == kWarp - 1) sh[warp] = x;
+  __syncthreads();
+  if (warp == 0) {
+    int s = lane < warps ? sh[lane] : 0;
+#pragma unroll
+    for (int o = 1; o < kWarp; o <<= 1) {
+      const int y = __shfl_up_sync(0xffffffffu, s, o);
+      if (lane >= o) s += y;
+    }
+    sh[lane] = s;
+  }
+  __syncthreads();
+  const int pre = (warp > 0 ? sh[warp - 1] : 0) + x - v;
+  *total = sh[warps - 1];
+  __syncthreads();  // sh is free again
+  return pre;
+}
+
+// A tile of kScanThreads * items ints in shared memory, padded by one int
+// every 32 so that a thread's run of consecutive items reads free of bank
+// conflicts; loads and stores go through it coalesced.
+__device__ __forceinline__ int pad32(int i) { return i + i / kWarp; }
+
+// offsets[k] = the entries of groups before k, for k in [0, rows], a tile
+// of counts a block (taken in launch order from *next_tile), its prefix
+// found by a decoupled look-back over the tiles before it (status: 0 not
+// out yet, 1 << 32 | the tile's sum, 2 << 32 | the sum up to and with it);
+// each row with entries goes on its row list by an atomic append.
+__global__ void __launch_bounds__(kScanThreads) backward_scan_kernel(
+    const int32_t* __restrict__ counts, int rows, int max_long,
+    int* __restrict__ next_tile,
+    unsigned long long* __restrict__ status, int64_t* __restrict__ offsets,
+    int32_t* __restrict__ long_rows) {
+  constexpr int kTile = kScanThreads * kScanItems;
+  __shared__ int tile[kTile + kTile / kWarp];
+  __shared__ int sh[kWarp];
+  __shared__ int tile_id, tile_prefix;
+  if (threadIdx.x == 0) tile_id = atomicAdd(next_tile, 1);
+  __syncthreads();
+  const int t = tile_id;
+  const int64_t n = static_cast<int64_t>(rows) + 1;
+  const int64_t base = static_cast<int64_t>(t) * kTile;
+#pragma unroll
+  for (int u = 0; u < kScanItems; ++u) {
+    const int i = u * kScanThreads + threadIdx.x;
+    tile[pad32(i)] = base + i < n ? counts[base + i] : 0;
+  }
+  __syncthreads();
+  const int i0 = threadIdx.x * kScanItems;
+  int c[kScanItems];
+  int sum = 0;
+#pragma unroll
+  for (int u = 0; u < kScanItems; ++u) {
+    c[u] = tile[pad32(i0 + u)];
+    sum += c[u];
+    const int64_t k = base + i0 + u;
+    if (k < rows && c[u] > kVeryLong) {
+      long_rows[kListHead + atomicAdd(long_rows, 1)] = static_cast<int>(k);
+    } else if (k < rows && c[u] > kLongRow) {
+      long_rows[kListHead + max_long - 1 - atomicAdd(long_rows + 1, 1)] =
+          static_cast<int>(k);
+    } else if (k < rows && c[u] > 0) {
+      long_rows[kListHead + max_long + atomicAdd(long_rows + 3, 1)] =
+          static_cast<int>(k);
+    }
+  }
+  int total;
+  int at = block_scan(sum, sh, &total);
+  if (threadIdx.x < kWarp) {
+    // warp 0 looks back 32 tiles at a time: it sums the aggregates up to
+    // the nearest tile whose full prefix is out, once all of them are
+    const int lane = threadIdx.x;
+    if (lane == 0 && t > 0) {
+      atomicExch(status + t, (1ull << 32) | static_cast<unsigned>(total));
+    }
+    int prefix = 0;
+    for (int top = t - 1; top >= 0;) {
+      const int i = top - lane;
+      const unsigned long long v =
+          i >= 0 ? *reinterpret_cast<volatile unsigned long long*>(status + i)
+                 : 2ull << 32;
+      const int flag = static_cast<int>(v >> 32);
+      const unsigned full = __ballot_sync(0xffffffffu, flag == 2);
+      const unsigned ready = __ballot_sync(0xffffffffu, flag != 0);
+      const int stop = full != 0 ? __ffs(full) - 1 : kWarp - 1;
+      const unsigned need =
+          stop == kWarp - 1 ? 0xffffffffu : (2u << stop) - 1u;
+      if ((ready & need) != need) continue;  // not all out yet: look again
+      int part = lane <= stop && i >= 0
+                     ? static_cast<int>(v & 0xffffffffull) : 0;
+#pragma unroll
+      for (int o = kWarp / 2; o > 0; o /= 2) {
+        part += __shfl_down_sync(0xffffffffu, part, o);
+      }
+      prefix += __shfl_sync(0xffffffffu, part, 0);
+      if (full != 0) break;
+      top -= kWarp;
+    }
+    if (lane == 0) {
+      atomicExch(status + t,
+                 (2ull << 32) | static_cast<unsigned>(prefix + total));
+      tile_prefix = prefix;
+      if (t == 0) long_rows[2] = kLongRow;
+    }
+  }
+  __syncthreads();
+  at += tile_prefix;
+#pragma unroll
+  for (int u = 0; u < kScanItems; ++u) {
+    tile[pad32(i0 + u)] = at;
+    at += c[u];
+  }
+  __syncthreads();
+#pragma unroll
+  for (int u = 0; u < kScanItems; ++u) {
+    const int i = u * kScanThreads + threadIdx.x;
+    if (base + i < n) offsets[base + i] = tile[pad32(i)];
+  }
+}
+
+// Group k's entries (k long, or the sentinel group) written in ascending
+// original position from sorted position `at` on.  The whole block walks
+// inv in rounds of kPlaceThreads * kPlaceBallots entries: warp w's lanes
+// read entries u * kPlaceThreads + w * 32 + lane (coalesced) for u <
+// kPlaceBallots and ballot their matches; one prefix sum over the (u, w) counts, in that
+// order, is the order of the entries, and each match goes to its prefix
+// plus its rank in its ballot.
+__device__ void compact_group(const int32_t* __restrict__ inv,
+                              const int32_t* __restrict__ seg,
+                              const float* __restrict__ w, int64_t nnz,
+                              int rows, int k, int at, int* counts_uw,
+                              int* sh, int32_t* __restrict__ keys_sorted,
+                              int32_t* __restrict__ seg_sorted,
+                              float* __restrict__ w_sorted) {
+  constexpr int kRound = kPlaceThreads * kPlaceBallots;
+  const int lane = threadIdx.x % kWarp;
+  const int warp = threadIdx.x / kWarp;
+  const unsigned below = (1u << lane) - 1u;
+  for (int64_t base = 0; base < nnz; base += kRound) {
+    unsigned hits[kPlaceBallots];
+#pragma unroll
+    for (int u = 0; u < kPlaceBallots; ++u) {
+      const int64_t j = base + u * kPlaceThreads + warp * kWarp + lane;
+      hits[u] = __ballot_sync(0xffffffffu,
+                              j < nnz && group_of(inv, j, rows) == k);
+    }
+    if (lane < kPlaceBallots) {
+      // lane u of warp w holds the count of (u, w): in (u, w) order the
+      // block's first threads then hold consecutive counts
+      int c = 0;
+#pragma unroll
+      for (int u = 0; u < kPlaceBallots; ++u) {
+        c = lane == u ? __popc(hits[u]) : c;
+      }
+      counts_uw[lane * (kPlaceThreads / kWarp) + warp] = c;
+    }
+    __syncthreads();
+    int total;
+    const int n_uw = kPlaceBallots * (kPlaceThreads / kWarp);
+    const int pre = block_scan(
+        static_cast<int>(threadIdx.x) < n_uw ? counts_uw[threadIdx.x] : 0, sh,
+        &total);
+    if (static_cast<int>(threadIdx.x) < n_uw) counts_uw[threadIdx.x] = pre;
+    __syncthreads();
+#pragma unroll
+    for (int u = 0; u < kPlaceBallots; ++u) {
+      if ((hits[u] >> lane) & 1u) {
+        const int64_t j = base + u * kPlaceThreads + warp * kWarp + lane;
+        const int pos = at + counts_uw[u * (kPlaceThreads / kWarp) + warp] +
+                        __popc(hits[u] & below);
+        keys_sorted[pos] = k;
+        seg_sorted[pos] = seg[j];
+        if (w != nullptr) w_sorted[pos] = w[j];
+      }
+    }
+    at += total;
+    __syncthreads();  // counts_uw is free again
+  }
+}
+
+// The first place_blocks blocks compact the long groups (the list's rows,
+// then the sentinel group if it is long), a block a group at a time; the
+// others give each entry of a short group a slot of its group (in no
+// order yet: tmp holds its position j) and its key.
+__global__ void __launch_bounds__(kPlaceThreads) backward_place_kernel(
+    const int32_t* __restrict__ inv, const int32_t* __restrict__ seg,
+    const float* __restrict__ w, int64_t nnz, int rows,
+    const int32_t* __restrict__ counts, const int64_t* __restrict__ offsets,
+    const int32_t* __restrict__ long_rows, int max_long, int place_blocks,
+    int32_t* __restrict__ fill, int32_t* __restrict__ tmp,
+    int32_t* __restrict__ keys_sorted, int32_t* __restrict__ seg_sorted,
+    float* __restrict__ w_sorted) {
+  __shared__ int counts_uw[kPlaceThreads];
+  __shared__ int sh[kWarp];
+  if (static_cast<int>(blockIdx.x) < place_blocks) {
+    const int n_very = long_rows[0];
+    const int n_long = n_very + long_rows[1];
+    const int groups = n_long + (counts[rows] > kLongRow ? 1 : 0);
+    for (int q = blockIdx.x; q < groups; q += place_blocks) {
+      const int k = q < n_very ? long_rows[kListHead + q]
+                    : q < n_long
+                        ? long_rows[kListHead + max_long - 1 - (q - n_very)]
+                        : rows;
+      compact_group(inv, seg, w, nnz, rows, k, static_cast<int>(offsets[k]),
+                    counts_uw, sh, keys_sorted, seg_sorted, w_sorted);
+    }
+    return;
+  }
+  const int64_t j =
+      static_cast<int64_t>(blockIdx.x - place_blocks) * kPlaceThreads +
+      threadIdx.x;
+  if (j >= nnz) return;
+  const int k = group_of(inv, j, rows);
+  if (counts[k] > kLongRow) return;
+  const int pos = static_cast<int>(offsets[k]) + atomicAdd(fill + k, 1);
+  tmp[pos] = static_cast<int32_t>(j);
+  keys_sorted[pos] = k;
+}
+
+// Each entry of a short group moves to its rank in ascending original
+// position among its group's (at most kLongRow) entries.
+__global__ void backward_rank_kernel(const int32_t* __restrict__ seg,
+                                     const float* __restrict__ w,
+                                     int64_t nnz,
+                                     const int32_t* __restrict__ counts,
+                                     const int64_t* __restrict__ offsets,
+                                     const int32_t* __restrict__ tmp,
+                                     const int32_t* __restrict__ keys_sorted,
+                                     int32_t* __restrict__ seg_sorted,
+                                     float* __restrict__ w_sorted) {
+  const int64_t q = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                    threadIdx.x;
+  if (q >= nnz) return;
+  const int k = keys_sorted[q];
+  const int c = counts[k];
+  if (c > kLongRow) return;
+  const int start = static_cast<int>(offsets[k]);
+  const int j = tmp[q];
+  int p = start;
+  for (int i = start; i < start + c; ++i) p += tmp[i] < j;
+  seg_sorted[p] = seg[j];
+  if (w != nullptr) w_sorted[p] = w[j];
+}
+
+// ---- the working-row gradient
+
+// The long rows' path: a block of 256 threads adds kSlice columns of one
+// working row.  Warp 0 adds; warps 1..kProducers each own one slot of a
+// shared-memory ring and fill it, a stage of kStage entries at a time.
+constexpr int kSlice = 8;                        // columns a long block adds
+constexpr int kSub = kWarp / kSlice;             // entries a warp copies at once
+constexpr int kStage = kWarp * kSub;             // entries a slot holds
+constexpr int kProducers = kRowsPerBlock - 1;
+// A slot holds column c of its kStage entries at c * kColStride (so warp
+// 0's lane c reads four entries as one float4; the stride's 12-float pad
+// keeps those reads and the producers' 4 B copies free of bank conflicts),
+// then the kStage weights, each part padded for warp 0's read-ahead.
+constexpr int kColStride = kStage + 12;
+constexpr int kSlotW = kSlice * kColStride;                 // weights' offset
+constexpr int kSlotFloats = kSlotW + kStage + 8;
+constexpr int kRingBytes = kProducers * kSlotFloats * 4;
+constexpr int kLongBlocksPerSm = 1;   // blocks an SM that walk each list
+constexpr int kShortBlocksPerSm = 3;
+
+// The hand-over of slot k between its producer warp and warp 0, for the
+// ring's stage s, by named barriers: full at 1 + k, empty at
+// 1 + kProducers + k (ids 1..14; 0 is __syncthreads).
+__device__ __forceinline__ void bar_sync(int id) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(2 * kWarp) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id) {
+  asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(2 * kWarp) : "memory");
+}
+
+// warp 0 waits until stage s is in slot k
+__device__ __forceinline__ void wait_full(int k) { bar_sync(1 + k); }
+
+// warp 0 is done with stage s in slot k (the producer waits for that only
+// if it fills the slot again)
+__device__ __forceinline__ void release(int k, int s, int stages) {
+  if (s + kProducers < stages) bar_arrive(1 + kProducers + k);
+}
+
+// producer k waits until slot k's last stage (s - kProducers) is added
+__device__ __forceinline__ void wait_empty(int k, int s) {
+  if (s >= kProducers) bar_sync(1 + kProducers + k);
+}
+
+// producer k has staged stage s in slot k (its copies have landed)
+__device__ __forceinline__ void publish(int k) { bar_arrive(1 + k); }
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
+               "l"(src));
+}
+
+__device__ __forceinline__ float4 lds4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+__device__ __forceinline__ float add4(float acc, float4 x) {
+  acc = __fadd_rn(acc, x.x);
+  acc = __fadd_rn(acc, x.y);
+  acc = __fadd_rn(acc, x.z);
+  return __fadd_rn(acc, x.w);
+}
+
+// Warp 0's adds of one stage of m entries, lane c's column xs (the
+// producers have multiplied the weights in).  A full stage reads eight
+// entries (two float4) one step ahead of their adds, so only the adds
+// wait on each other.
+__device__ __forceinline__ float add_stage(float acc, const float* xs,
+                                           int m) {
+  if (m == kStage) {
+    float4 x0 = lds4(xs), x1 = lds4(xs + 4);
+#pragma unroll 8
+    for (int t = 0; t < kStage; t += 8) {
+      // the pad holds what the last step reads ahead
+      const float4 y0 = lds4(xs + t + 8), y1 = lds4(xs + t + 12);
+      acc = add4(add4(acc, x0), x1);
+      x0 = y0;
+      x1 = y1;
+    }
+  } else {
+    for (int t = 0; t < m; ++t) acc = __fadd_rn(acc, xs[t]);
+  }
+  return acc;
+}
+
+// Columns [col0, col0 + kSlice) of g_work[r]: the entries [begin, end) of
+// the streams sorted by working row, added in order by warp 0 from the
+// ring while the producer warps stage the next ones (g rows gathered by
+// seg, 4 B cp.async copies, kSub entries a warp instruction; an entry
+// outside g stages a zero, which is then multiplied by its weight).
+__device__ __forceinline__ void long_row_slice(
+    const float* __restrict__ g, int64_t num_bags, int dim,
+    const int32_t* __restrict__ seg_sorted,
+    const float* __restrict__ w_sorted, int64_t begin, int64_t end,
+    int col0, float* __restrict__ dst, float* ring) {
+  const int warp = threadIdx.x / kWarp;
+  const int lane = threadIdx.x % kWarp;
+  const int sub = lane / kSlice;
+  const int col = col0 + lane % kSlice;
+  const bool weighted = w_sorted != nullptr;
+  const int64_t n = end - begin;
+  const int stages = static_cast<int>((n + kStage - 1) / kStage);
+
+  if (warp == 0) {
+    float acc = 0.0f;
+    for (int s = 0; s < stages; ++s) {
+      const int k = s % kProducers;
+      const float* xs = ring + k * kSlotFloats + (lane % kSlice) * kColStride;
+      const int64_t left = n - static_cast<int64_t>(s) * kStage;
+      const int m = static_cast<int>(left < kStage ? left : kStage);
+      wait_full(k);
+      acc = add_stage(acc, xs, m);
+      release(k, s, stages);
+    }
+    if (sub == 0 && col < dim) dst[col] = acc;
+    return;
+  }
+
+  const int k = warp - 1;
+  float* slot = ring + k * kSlotFloats;
+  float* sw = slot + kSlotW;
+  // this warp's stages are k, k + kProducers, ...; lane l holds the
+  // (segment, weight) of entries l, l + 32, ... of its next stage, loaded
+  // while the copies of the current one are in flight
+  int32_t b[kSub];
+  float w[kSub];
+  auto fetch = [&](int s) {
+    const int64_t base = begin + static_cast<int64_t>(s) * kStage;
+#pragma unroll
+    for (int q = 0; q < kSub; ++q) {
+      const int64_t i = base + q * kWarp + lane;
+      b[q] = -1;
+      w[q] = 1.0f;
+      if (s < stages && i < end) {
+        b[q] = seg_sorted[i];
+        if (weighted) w[q] = w_sorted[i];
+      }
+    }
+  };
+  fetch(k);
+  for (int s = k; s < stages; s += kProducers) {
+    wait_empty(k, s);
+    const int64_t left = n - static_cast<int64_t>(s) * kStage;
+    const int m = static_cast<int>(left < kStage ? left : kStage);
+#pragma unroll
+    for (int q = 0; q < kSub; ++q) {
+      if (q * kWarp + lane < m) sw[q * kWarp + lane] = w[q];
+    }
+#pragma unroll
+    for (int t = 0; t < kStage; t += kSub) {
+      const int e = t + sub;                        // this lane's entry
+      const int64_t bt = __shfl_sync(0xffffffffu, b[t / kWarp], e % kWarp);
+      if (e < m && col < dim) {
+        float* d = slot + (lane % kSlice) * kColStride + e;
+        if (bt >= 0 && bt < num_bags) {
+          cp_async4(d, g + bt * dim + col);
+        } else {
+          *d = 0.0f;
+        }
+      }
+    }
+    asm volatile("cp.async.commit_group;\n" ::);
+    fetch(s + kProducers);
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    if (weighted) {
+      // the multiplies are off warp 0's chain too: each lane scales the
+      // values it copied by their weights (staged above) before handing over
+      __syncwarp();
+#pragma unroll
+      for (int t = 0; t < kStage; t += kSub) {
+        const int e = t + sub;
+        if (e < m && col < dim) {
+          float* d = slot + (lane % kSlice) * kColStride + e;
+          *d = __fmul_rn(*d, sw[e]);
+        }
+      }
+    }
+    publish(k);
+  }
+}
+
+// The rows of the long-row list (g_work is zeroed before): the list's
+// (row, kSlice columns) items, the very long rows' first, each block
+// taking the next item from *next_item (zeroed before) when it is done
+// with its last.  Its own launch bounds leave warp 0 the registers to read
+// ahead of its chain of adds.
+__global__ void __launch_bounds__(kRowsPerBlock * kWarp, 2)
+embedding_bag_backward_long_kernel(
     const float* __restrict__ g, int64_t num_bags, int dim,
     const int32_t* __restrict__ seg_sorted,
     const float* __restrict__ w_sorted, const int64_t* __restrict__ offsets,
-    int working_rows, float* __restrict__ g_work) {
-  // rows loaded ahead of their adds: up to 32 at dim <= 64, fewer at wider
-  // dims, so the buffer stays at 64 floats a lane
-  constexpr int kPre = kColsPerLane <= 2 ? kWarp : 64 / kColsPerLane;
+    const int32_t* __restrict__ long_rows, int max_long,
+    int* __restrict__ next_item, float* __restrict__ g_work) {
+  extern __shared__ __align__(16) float ring[];
+  __shared__ int item;
+  // the short rows' kernel, launched after this one, may start now
+  asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
+  const int slices = (dim + kSlice - 1) / kSlice;
+  const int very = long_rows[0];
+  const int items = (very + long_rows[1]) * slices;
+  for (;;) {
+    if (threadIdx.x == 0) item = atomicAdd(next_item, 1);
+    __syncthreads();
+    const int it = item;
+    if (it >= items) break;  // the whole block together
+    const int q = it / slices;
+    const int r = long_rows[kListHead + (q < very ? q
+                                         : max_long - 1 - (q - very))];
+    long_row_slice(g, num_bags, dim, seg_sorted, w_sorted, offsets[r],
+                   offsets[r + 1], (it - q * slices) * kSlice,
+                   g_work + static_cast<int64_t>(r) * dim, ring);
+    __syncthreads();  // the ring and `item` are free for the next item
+  }
+}
+
+// The rows of the short-row list: warp i of the grid walks the list's rows
+// i, i + (its warps), ..., lanes across dim as in the forward.
+template <int kColsPerLane>
+__global__ void __launch_bounds__(kRowsPerBlock * kWarp, 4)
+embedding_bag_backward_kernel(
+    const float* __restrict__ g, int64_t num_bags, int dim,
+    const int32_t* __restrict__ seg_sorted,
+    const float* __restrict__ w_sorted, const int64_t* __restrict__ offsets,
+    const int32_t* __restrict__ long_rows, int max_long,
+    float* __restrict__ g_work) {
+  // entries whose g rows load ahead of their adds: 16 floats a lane
+  constexpr int kPre = kColsPerLane >= 16 ? 1 : 16 / kColsPerLane;
   const int lane = threadIdx.x % kWarp;
-  const int r = blockIdx.x * kRowsPerBlock + threadIdx.x / kWarp;
-  if (r >= working_rows) return;  // whole warps leave together
+  const int n_short = long_rows[3];
+  const int* short_rows = long_rows + kListHead + max_long;
+  const int stride = gridDim.x * kRowsPerBlock;
+  for (int q = blockIdx.x * kRowsPerBlock + threadIdx.x / kWarp;
+       q < n_short; q += stride) {  // whole warps together
+  const int64_t r = short_rows[q];
   const int64_t begin = offsets[r];
   const int64_t end = offsets[r + 1];
 
   float acc[kColsPerLane];
 #pragma unroll
   for (int v = 0; v < kColsPerLane; ++v) acc[v] = 0.0f;
-
-  int64_t next_b = -1;
+  int32_t next_b = -1;
   float next_w = 1.0f;
   if (begin + lane < end) {
     next_b = seg_sorted[begin + lane];
@@ -151,7 +727,7 @@ __global__ void embedding_bag_backward_kernel(
   }
   for (int64_t base = begin; base < end; base += kWarp) {
     const int n = static_cast<int>(end - base < kWarp ? end - base : kWarp);
-    const int64_t my_b = next_b;
+    const int32_t my_b = next_b;
     const float my_w = next_w;
     // the next batch's (row, weight) pairs load while this batch adds
     next_b = -1;
@@ -160,31 +736,16 @@ __global__ void embedding_bag_backward_kernel(
       next_b = seg_sorted[base + kWarp + lane];
       if (w_sorted != nullptr) next_w = w_sorted[base + kWarp + lane];
     }
-    if (n <= kFew) {  // warp-uniform
-      for (int t = 0; t < n; ++t) {
-        const int64_t b = __shfl_sync(0xffffffffu, my_b, t);
-        const float w = __shfl_sync(0xffffffffu, my_w, t);
-        const bool ok = b >= 0 && b < num_bags;
-#pragma unroll
-        for (int v = 0; v < kColsPerLane; ++v) {
-          const int c = lane + v * kWarp;
-          if (c < dim) {
-            float x = ok ? g[b * dim + c] : 0.0f;
-            if (w_sorted != nullptr) x = __fmul_rn(x, w);
-            acc[v] = __fadd_rn(acc[v], x);
-          }
-        }
-      }
-      continue;
-    }
 #pragma unroll
     for (int t0 = 0; t0 < kWarp; t0 += kPre) {
       if (t0 >= n) break;  // warp-uniform
       // all the loads first, so they overlap; the adds below keep the
       // entries' order.  The loads are unconditional, from an address
       // that is always valid (row 0, the last column), and an entry that
-      // lies outside g is zeroed at its add: a load under a condition
-      // would have to land before the next one issues.
+      // lies outside g or the batch is zeroed at its add: a load under a
+      // condition would have to land before the next one issues.  The
+      // inner loops do not break early, so they unroll fully and x stays
+      // in registers.
       float x[kPre][kColsPerLane];
       unsigned ok_mask = 0;
 #pragma unroll
@@ -201,25 +762,31 @@ __global__ void embedding_bag_backward_kernel(
       }
 #pragma unroll
       for (int t = 0; t < kPre; ++t) {
-        if (t0 + t >= n) break;  // warp-uniform
         const float w = __shfl_sync(0xffffffffu, my_w, t0 + t);
-        const bool ok = (ok_mask >> t) & 1u;
+        if (t0 + t < n) {  // warp-uniform
+          const bool ok = (ok_mask >> t) & 1u;
 #pragma unroll
-        for (int v = 0; v < kColsPerLane; ++v) {
-          float xv = ok ? x[t][v] : 0.0f;
-          if (w_sorted != nullptr) xv = __fmul_rn(xv, w);
-          acc[v] = __fadd_rn(acc[v], xv);
+          for (int v = 0; v < kColsPerLane; ++v) {
+            float xv = ok ? x[t][v] : 0.0f;
+            if (w_sorted != nullptr) xv = __fmul_rn(xv, w);
+            acc[v] = __fadd_rn(acc[v], xv);
+          }
         }
       }
     }
   }
 
-  float* dst = g_work + static_cast<int64_t>(r) * dim;
+  float* dst = g_work + r * dim;
 #pragma unroll
   for (int v = 0; v < kColsPerLane; ++v) {
     const int c = lane + v * kWarp;
     if (c < dim) dst[c] = acc[v];
   }
+  }
+  // a block leaves only once the long rows' kernel (launched before this
+  // one, which may have started early) has finished: whatever follows on
+  // the stream then sees every row of g_work
+  asm volatile("griddepcontrol.wait;" ::: "memory");
 }
 
 template <int kColsPerLane>
@@ -236,13 +803,35 @@ void launch_forward(const float* working, int dim, const int32_t* inv,
 template <int kColsPerLane>
 void launch_backward(const float* g, int64_t num_bags, int dim,
                      const int32_t* seg_sorted, const float* w_sorted,
-                     const int64_t* offsets, int working_rows, float* g_work,
-                     cudaStream_t stream) {
-  const int blocks = (working_rows + kRowsPerBlock - 1) / kRowsPerBlock;
-  embedding_bag_backward_kernel<kColsPerLane>
-      <<<blocks, kRowsPerBlock * kWarp, 0, stream>>>(
-          g, num_bags, dim, seg_sorted, w_sorted, offsets, working_rows,
-          g_work);
+                     const int64_t* offsets, const int32_t* long_rows,
+                     int max_long, int* next_item, int working_rows,
+                     float* g_work, cudaStream_t stream) {
+  const int sms = sm_count();
+  cudaMemsetAsync(g_work, 0,
+                  static_cast<size_t>(working_rows) * dim * sizeof(float),
+                  stream);
+  if (max_long > 0) {
+    embedding_bag_backward_long_kernel<<<kLongBlocksPerSm * sms,
+                                         kRowsPerBlock * kWarp, kRingBytes,
+                                         stream>>>(
+        g, num_bags, dim, seg_sorted, w_sorted, offsets, long_rows,
+        max_long, next_item, g_work);
+  }
+  // a programmatic dependent launch: the short rows' kernel starts while
+  // the long rows' runs (its blocks wait for it only before they exit)
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(kShortBlocksPerSm * sms);
+  config.blockDim = dim3(kRowsPerBlock * kWarp);
+  config.dynamicSmemBytes = 0;
+  config.stream = stream;
+  config.attrs = attr;
+  config.numAttrs = max_long > 0 ? 1 : 0;
+  cudaLaunchKernelEx(&config, embedding_bag_backward_kernel<kColsPerLane>, g,
+                     num_bags, dim, seg_sorted, w_sorted, offsets, long_rows,
+                     max_long, g_work);
 }
 
 // g_w[j] = <g[seg[j]], working[inv[j]]>: one warp per entry.  Lane l adds
@@ -277,6 +866,83 @@ __global__ void bag_weight_grad_kernel(
   if (lane == 0) g_w[j] = acc;
 }
 
+// Tiles of counts the scan takes.
+size_t scan_tiles(int working_rows) {
+  const size_t groups = static_cast<size_t>(working_rows) + 1;
+  constexpr size_t kTile = static_cast<size_t>(kScanThreads) * kScanItems;
+  return (groups + kTile - 1) / kTile;
+}
+
+// The most rows of more than kLongRow entries that nnz entries can make.
+int64_t max_long_rows(int64_t nnz) { return nnz / (kLongRow + 1); }
+
+// The byte offsets of the backward's scratch parts, each 256-byte aligned,
+// in this order: seg_sorted, keys_sorted, w_sorted (weighted only),
+// offsets, the row lists (what build_streams hands the kernels and the
+// binding hands back), then the groups' counts and fills, the counters
+// (the scan's next tile, the long rows' next item) and the scan's
+// look-back words (these four cleared by one memset), the short groups'
+// unordered positions, and the end.
+enum Part { kSeg, kKeys, kW, kOffsets, kLists, kCounts, kFill, kCounters,
+            kStatus, kTmp, kEnd, kParts };
+
+void scratch_layout(int64_t nnz, int working_rows, bool weighted,
+                    size_t at[kParts]) {
+  const size_t n4 = aligned(static_cast<size_t>(nnz) * 4);
+  const size_t groups = static_cast<size_t>(working_rows) + 1;
+  const size_t groups4 = aligned(groups * 4);
+  const size_t sizes[kParts - 1] = {
+      n4, n4, weighted ? n4 : 0, aligned(groups * 8),
+      aligned(static_cast<size_t>(kListHead + max_long_rows(nnz) + nnz) * 4),
+      groups4, groups4, 256, aligned(scan_tiles(working_rows) * 8), n4};
+  at[0] = 0;
+  for (int i = 0; i + 1 < kParts; ++i) at[i + 1] = at[i] + sizes[i];
+}
+
+// The backward's streams sorted by working row, in a memset and four
+// launches, with no host sync: count the groups, scan the counts (the
+// offsets and the row lists), place the long groups by an ordered
+// compaction and scatter the short groups' entries, then order each short
+// group by rank.
+void build_streams(const int32_t* inv, const int32_t* seg, const float* w,
+                   int64_t nnz, int working_rows, char* scratch,
+                   const size_t at[kParts], cudaStream_t stream) {
+  auto part = [&](Part k) { return scratch + at[k]; };
+  auto* keys_sorted = reinterpret_cast<int32_t*>(part(kKeys));
+  auto* seg_sorted = reinterpret_cast<int32_t*>(part(kSeg));
+  auto* w_sorted = w != nullptr ? reinterpret_cast<float*>(part(kW))
+                                : nullptr;
+  auto* offsets = reinterpret_cast<int64_t*>(part(kOffsets));
+  auto* lists = reinterpret_cast<int32_t*>(part(kLists));
+  auto* counts = reinterpret_cast<int32_t*>(part(kCounts));
+  auto* fill = reinterpret_cast<int32_t*>(part(kFill));
+  auto* next_tile = reinterpret_cast<int*>(part(kCounters));
+  auto* status = reinterpret_cast<unsigned long long*>(part(kStatus));
+  auto* tmp = reinterpret_cast<int32_t*>(part(kTmp));
+  const int max_long = static_cast<int>(max_long_rows(nnz));
+  cudaMemsetAsync(counts, 0, at[kTmp] - at[kCounts], stream);
+  constexpr int kThreads = 256;
+  const unsigned entry_blocks =
+      static_cast<unsigned>((nnz + kThreads - 1) / kThreads);
+  backward_count_kernel<<<entry_blocks > 0 ? entry_blocks : 1, kThreads, 0,
+                          stream>>>(inv, nnz, working_rows, counts, lists);
+  backward_scan_kernel<<<static_cast<unsigned>(scan_tiles(working_rows)),
+                         kScanThreads, 0, stream>>>(
+      counts, working_rows, max_long, next_tile, status, offsets, lists);
+  if (nnz > 0) {
+    const int place_blocks = sm_count();
+    const unsigned scatter_blocks = static_cast<unsigned>(
+        (nnz + kPlaceThreads - 1) / kPlaceThreads);
+    backward_place_kernel<<<place_blocks + scatter_blocks, kPlaceThreads, 0,
+                            stream>>>(
+        inv, seg, w, nnz, working_rows, counts, offsets, lists, max_long,
+        place_blocks, fill, tmp, keys_sorted, seg_sorted, w_sorted);
+    backward_rank_kernel<<<entry_blocks, kThreads, 0, stream>>>(
+        seg, w, nnz, counts, offsets, tmp, keys_sorted, seg_sorted,
+        w_sorted);
+  }
+}
+
 }  // namespace
 
 // The bindings check every shape before they call these: dim lies in
@@ -303,26 +969,52 @@ void launch_embedding_bag(const float* working, int dim, const int32_t* inv,
   }
 }
 
-// g_work[r] = sum over i in [offsets[r], offsets[r+1]) of w[i] * g[seg[i]],
-// with seg and w gathered into the order of a stable sort by working row.
-void launch_embedding_bag_backward(const float* g, int64_t num_bags, int dim,
-                                   const int32_t* seg_sorted,
-                                   const float* w_sorted,
-                                   const int64_t* offsets, int working_rows,
-                                   float* g_work, cudaStream_t stream) {
-  if (dim <= 32) {
-    launch_backward<1>(g, num_bags, dim, seg_sorted, w_sorted, offsets,
-                       working_rows, g_work, stream);
-  } else if (dim <= 64) {
-    launch_backward<2>(g, num_bags, dim, seg_sorted, w_sorted, offsets,
-                       working_rows, g_work, stream);
-  } else if (dim <= 128) {
-    launch_backward<4>(g, num_bags, dim, seg_sorted, w_sorted, offsets,
-                       working_rows, g_work, stream);
-  } else {
-    launch_backward<8>(g, num_bags, dim, seg_sorted, w_sorted, offsets,
-                       working_rows, g_work, stream);
+// The row lists' length in ints, for nnz entries.
+int64_t backward_list_ints(int64_t nnz) {
+  return kListHead + max_long_rows(nnz) + nnz;
+}
+
+// The scratch bytes of launch_embedding_bag_backward; at[0..4] get the
+// byte offsets of the streams it leaves there: seg_sorted, keys_sorted,
+// w_sorted (weighted only), offsets, the row lists.
+size_t backward_scratch_bytes(int64_t nnz, int working_rows, bool weighted,
+                              size_t streams_at[5]) {
+  size_t at[kParts];
+  scratch_layout(nnz, working_rows, weighted, at);
+  for (int i = 0; i < 5; ++i) streams_at[i] = at[i];
+  return at[kEnd];
+}
+
+// g_work[r] = sum over j with inv[j] == r of w[j] * g[seg[j]], every row
+// written: the streams by working row in `scratch` (keys_sorted: inv, the
+// entries outside [0, working_rows) as working_rows, last; seg and w
+// gathered into that order; offsets[r] for r in [0, working_rows]; the row
+// lists), then g_work zeroed by a memset and the long rows' kernel with
+// the short rows' beside it.  With g_work null only the streams are built.
+cudaError_t launch_embedding_bag_backward(
+    const float* g, int64_t num_bags, int dim, const int32_t* inv,
+    const int32_t* seg, const float* w, int64_t nnz, int working_rows,
+    void* scratch, float* g_work, cudaStream_t stream) {
+  size_t at[kParts];
+  scratch_layout(nnz, working_rows, w != nullptr, at);
+  char* base = static_cast<char*>(scratch);
+  build_streams(inv, seg, w, nnz, working_rows, base, at, stream);
+  if (g_work != nullptr) {
+    const auto* seg_sorted = reinterpret_cast<const int32_t*>(base + at[kSeg]);
+    const auto* w_sorted =
+        w != nullptr ? reinterpret_cast<const float*>(base + at[kW]) : nullptr;
+    const auto* offsets = reinterpret_cast<const int64_t*>(base + at[kOffsets]);
+    const auto* lists = reinterpret_cast<const int32_t*>(base + at[kLists]);
+    const int max_long = static_cast<int>(max_long_rows(nnz));
+    auto* next_item = reinterpret_cast<int*>(base + at[kCounters]) + 1;
+    auto* run = dim <= 32    ? &launch_backward<1>
+                : dim <= 64  ? &launch_backward<2>
+                : dim <= 128 ? &launch_backward<4>
+                             : &launch_backward<8>;
+    run(g, num_bags, dim, seg_sorted, w_sorted, offsets, lists, max_long,
+        next_item, working_rows, g_work, stream);
   }
+  return cudaGetLastError();
 }
 
 void launch_embedding_bag_weight_grad(const float* g, int64_t num_bags,

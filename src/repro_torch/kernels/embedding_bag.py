@@ -13,16 +13,19 @@ run to run.
 
 The kernels are ``csrc/embedding_bag.cu`` (its header says how they are laid
 out and what bounds them), bound by ``csrc/bindings.cpp`` and built by
-``kernels.build``.  The wrappers prepare the index streams with PyTorch ops:
-a stable sort gives each output row's entries in ascending original
-position (``order``) and the CSR ``offsets`` — by ``seg`` for the forward,
-by ``inv`` for the backward, whose ``seg`` and weight streams are also
-gathered into that order, so its kernel reads them contiguously.  Entries
-whose ``seg`` lies outside
-[0, num_bags) fall in no bag: the forward drops them and their gradients
-are zero, as in the reference's segment sum.  ``inv`` must index rows of
-``working``; on the working-set path it does by construction (the drop row
-is the last row).
+``kernels.build``.  Both walks need each output row's entries in ascending
+original position.  The forward's wrapper gets them with PyTorch ops (a
+stable sort of ``seg`` gives ``order`` and the CSR ``offsets``).  The
+backward makes one call of the extension, which builds them on the card
+without a sort (the stable order by ``inv``, the offsets, ``seg`` and the
+weights gathered into that order, so its kernels read them contiguously,
+and the lists of the rows of more and of at most ``LONG_ROW`` entries)
+and then runs the kernels; ``backward_streams`` returns those streams
+alone.  Entries
+whose ``seg`` lies outside [0, num_bags) fall in no bag: the forward drops
+them and their gradients are zero, as in the reference's segment sum.
+``inv`` must index rows of ``working``; on the working-set path it does by
+construction (the drop row is the last row).
 """
 
 from __future__ import annotations
@@ -63,6 +66,13 @@ def _check_cuda(tensors, what):
         raise ValueError(f"{what} takes contiguous tensors")
 
 
+# The backward kernel's thresholds (kLongRow and kVeryLong in
+# csrc/embedding_bag.cu): rows of more entries than LONG_ROW take its
+# long-row path, and those of more than VERY_LONG are handed out first.
+LONG_ROW = 128
+VERY_LONG = 1024
+
+
 def csr_from_segments(seg, num_bags):
     """(order, offsets): entries of bag b are ``order[offsets[b]:offsets[b+1]]``
     in ascending original position."""
@@ -71,13 +81,22 @@ def csr_from_segments(seg, num_bags):
     return order, torch.searchsorted(sorted_seg, bounds)
 
 
-def sorted_streams(keys, num_rows, index, weights):
-    """``(index_sorted, weights_sorted, offsets)``: the entries grouped by
-    ``keys`` in ascending original position (``csr_from_segments``), with
-    the index and weight streams gathered into that order."""
-    order, offsets = csr_from_segments(keys, num_rows)
-    w = None if weights is None else weights.index_select(0, order)
-    return index.index_select(0, order), w, offsets
+def backward_streams(g, inv, seg, weights, working_rows):
+    """The working-row gradient's index streams, as the backward's call of
+    the extension builds them on the card before its kernels run, without
+    the kernels: ``(seg_sorted, w_sorted, offsets, keys_sorted, row_lists)``.
+    The entries are grouped by ``inv`` in ascending original position (a
+    stable order); an ``inv`` outside [0, working_rows) reads
+    ``working_rows`` and sorts last.  ``offsets`` (int64) bounds each row's
+    entries; ``row_lists`` (int32) is ``[n_very, n_long, LONG_ROW,
+    n_short]``, then room for ``nnz // (LONG_ROW + 1)`` rows of more than
+    ``LONG_ROW`` entries (the ``n_very`` of more than ``VERY_LONG`` from the
+    front, the other ``n_long`` from the back), then room for ``nnz`` rows
+    of 1 to ``LONG_ROW`` (the ``n_short`` from the front), each part in no
+    fixed order.  CUDA tensors only."""
+    _check_cuda([g, inv, seg, weights], "backward_streams")
+    return tuple(extension().embedding_bag_backward(
+        g, inv, seg, weights, int(working_rows), True))
 
 
 def launch(working, inv, weights, order, offsets, num_bags):
@@ -96,16 +115,6 @@ def embedding_bag_cuda(working, inv, seg, weights, num_bags):
     _check_cuda([working, inv, seg, weights], "embedding_bag_cuda")
     order, offsets = csr_from_segments(seg, int(num_bags))
     return launch(working, inv, weights, order, offsets, int(num_bags))
-
-
-def launch_backward(g, seg_sorted, w_sorted, offsets, working_rows):
-    """One launch of the working-row gradient kernel on streams sorted by
-    working row."""
-    g_work = torch.empty((working_rows, g.shape[1]), dtype=g.dtype,
-                         device=g.device)
-    extension().embedding_bag_backward(g, seg_sorted, w_sorted, offsets,
-                                       g_work)
-    return g_work
 
 
 def launch_weight_grad(g, seg, working, inv):
@@ -130,9 +139,9 @@ def embedding_bag_backward_cuda(g, working, inv, seg, weights,
                 "embedding_bag_backward_cuda")
     g_work = g_w = None
     if need_working:
-        g_work = launch_backward(
-            g, *sorted_streams(inv, working.shape[0], seg, weights),
-            working.shape[0])
+        # the index streams and the kernels in one call of the extension
+        g_work, = extension().embedding_bag_backward(g, inv, seg, weights,
+                                                     working.shape[0])
     if need_weights:
         g_w = launch_weight_grad(g, seg, working, inv)
     return g_work, g_w

@@ -90,26 +90,162 @@ def _grad_case(seed, C, D, nnz, num_bags):
     return g, working, inv, seg, w
 
 
+def _rows_case(seed, D, counts, num_bags, weighted, bad_seg):
+    """Backward inputs on the CPU whose working row r holds ``counts[r]``
+    entries (in shuffled positions); with ``bad_seg``, some segments lie
+    outside [0, num_bags)."""
+    rng = np.random.default_rng(seed)
+    inv = np.repeat(np.arange(len(counts)), counts).astype(np.int32)
+    inv = inv[rng.permutation(len(inv))]
+    seg = rng.integers(0, num_bags, len(inv)).astype(np.int32)
+    if bad_seg:
+        seg[rng.random(len(inv)) < 0.05] = -1
+        seg[rng.random(len(inv)) < 0.05] = num_bags + 3
+    w = (rng.standard_normal(len(inv)).astype(np.float32) if weighted
+         else None)
+    g = rng.standard_normal((num_bags, D)).astype(np.float32)
+    working = rng.standard_normal((len(counts), D)).astype(np.float32)
+    return [None if x is None else torch.from_numpy(x)
+            for x in (g, working, inv, seg, w)]
+
+
+T, V = tbag.LONG_ROW, tbag.VERY_LONG
+# the long-row thresholds' edges (T - 1, T, T + 1 entries; V, V + 1), one
+# row that holds every entry, phase 1's hot row of 4130 entries beside
+# Zipf-like others, and 300 long rows (more than the long rows' kernel has
+# blocks) beside two very long ones; each at every width class
+ROW_LAYOUTS = {"edges": [T - 1, T, T + 1, 3, 0, 1, 40, V, V + 1],
+               "one_row": [0, 3000, 0, 0],
+               "hot": [4130, 2017, 1310, 700, 300, 130, 128, 33, 5, 1, 0],
+               "many_long": ([T + 1 + (i * 7) % 272 for i in range(300)]
+                             + [V + 1, 2 * V] + [5, 1, 0] * 20)}
+
+
+def _grid_layout(extra):
+    """(dim, counts) whose very long rows' (row, 8 columns) items number
+    the long rows' kernel's grid (one block an SM) plus ``extra``, beside
+    long rows of 129 to 1024 entries and short ones: at extra 0 the first
+    items hand every block a very long one."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    slices = max(d for d in range(1, 13) if sms % d == 0)
+    very = sms // slices + extra
+    return 8 * slices, ([V + 1 + i for i in range(very)]
+                        + [T + 1, 500, V, 700, 200, 129] + [3, 0, 60] * 5)
+
+
+def _backward_case(spec, weighted):
+    """Random shapes (``SHAPES``, with mask weights) or a row layout
+    (``(dim, layout)``, or ``("grid", extra)`` for ``_grid_layout``; normal
+    weights, some segments out of range)."""
+    if len(spec) == 4:
+        g, working, inv, seg, w = _grad_case(12, *spec)
+        return g, working, inv, seg, w if weighted else None
+    if spec[0] == "grid":
+        D, counts = _grid_layout(spec[1])
+    else:
+        D, counts = spec[0], ROW_LAYOUTS[spec[1]]
+    return _rows_case(D, D, counts, 2000, weighted, True)
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("shape", SHAPES)
-def test_cuda_bag_backward_matches_plain_vjp(shape):
+@pytest.mark.parametrize("weighted", [True, False])
+@pytest.mark.parametrize("spec", SHAPES + [
+    (D, layout) for D in (16, 24, 64, 100, 200)
+    for layout in ("edges", "one_row", "hot", "many_long")] + [
+    ("grid", extra) for extra in (-1, 0, 1)])
+def test_cuda_bag_backward_matches_plain_vjp(spec, weighted):
     """Working-row grads bit-equal to the CPU plain vjp (the kernel adds in
-    its order without fused multiply-adds); weight grads within
-    rtol = atol = 1e-5 (the plain version sums each dot product in another
-    order); two runs bit-equal."""
+    its order without fused multiply-adds), on short rows, long rows and
+    both sides of the long-row threshold, hundreds of long rows, and very
+    long rows that fill the long rows' grid, at every width class; weight
+    grads within rtol = atol = 1e-5 (the plain version sums each dot
+    product in another order); two runs bit-equal."""
     _cuda_or_skip()
-    cpu = _grad_case(12, *shape)
-    dev = [x.cuda() for x in cpu]
+    cpu = _backward_case(spec, weighted)
+    dev = [None if x is None else x.cuda() for x in cpu]
+    need_w = weighted
     got = tbag.embedding_bag_backward_cuda(*dev, need_working=True,
-                                           need_weights=True)
+                                           need_weights=need_w)
     again = tbag.embedding_bag_backward_cuda(*dev, need_working=True,
-                                             need_weights=True)
+                                             need_weights=need_w)
     torch.cuda.synchronize()
     want = tref.embedding_bag_backward_ref(*cpu, need_working=True,
-                                           need_weights=True)
+                                           need_weights=need_w)
     assert torch.equal(got[0].cpu(), want[0])
-    torch.testing.assert_close(got[1].cpu(), want[1], rtol=1e-5, atol=1e-5)
-    assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
+    assert torch.equal(got[0], again[0])
+    if need_w:
+        torch.testing.assert_close(got[1].cpu(), want[1], rtol=1e-5,
+                                   atol=1e-5)
+        assert torch.equal(got[1], again[1])
+
+
+def plain_streams(keys, num_rows, index, weights, long_row=T):
+    """The backward's index streams on CPU tensors by a stable sort, what
+    ``tbag.backward_streams`` builds on the card: ``(index_sorted,
+    weights_sorted, offsets, keys_sorted, row_lists)``, a key outside [0,
+    num_rows) read as ``num_rows`` (last), with the row lists of rows of
+    more than ``long_row`` entries (the card's is ``T``), each list
+    ascending and zeros in the rest of its room."""
+    keys = torch.where((keys >= 0) & (keys < num_rows), keys,
+                       torch.full_like(keys, num_rows))
+    keys_sorted, order = torch.sort(keys, stable=True)
+    bounds = torch.arange(num_rows + 1, dtype=keys.dtype)
+    offsets = torch.searchsorted(keys_sorted, bounds)
+    counts = offsets[1:] - offsets[:-1]
+    very = torch.nonzero(counts > V).flatten()
+    other = torch.nonzero((counts > long_row) & (counts <= V)).flatten()
+    short = torch.nonzero((counts > 0) & (counts <= long_row)).flatten()
+    nnz = keys.numel()
+    room = nnz // (long_row + 1)
+    rows = torch.zeros(4 + room + nnz, dtype=torch.int32)
+    rows[:4] = torch.tensor([very.numel(), other.numel(), long_row,
+                             short.numel()])
+    rows[4:4 + very.numel()] = very
+    rows[4 + room - other.numel():4 + room] = other.flip(0)
+    rows[4 + room:4 + room + short.numel()] = short
+    w = None if weights is None else weights.index_select(0, order)
+    return (index.index_select(0, order), w, offsets, keys_sorted, rows)
+
+
+def _list_parts(row_lists, nnz):
+    """The row lists' counts and threshold, and their three parts as sorted
+    lists (the card fills each part in no fixed order)."""
+    lst = row_lists.cpu().tolist()
+    n_very, n_long, n_short = lst[0], lst[1], lst[3]
+    room = len(lst) - 4 - nnz
+    return (lst[:4], sorted(lst[4:4 + n_very]),
+            sorted(lst[4 + room - n_long:4 + room]),
+            sorted(lst[4 + room:4 + room + n_short]))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("weighted", [True, False])
+@pytest.mark.parametrize("layout", sorted(ROW_LAYOUTS))
+def test_cuda_bag_backward_streams(layout, weighted):
+    """The CUDA index streams equal their plain version on the CPU (a
+    stable order, out-of-range rows last, a few or more than ``T`` of
+    them, the same row lists)."""
+    _cuda_or_skip()
+    g, working, inv, seg, w = _rows_case(3, 64, ROW_LAYOUTS[layout], 500,
+                                         weighted, True)
+    rows = working.shape[0]
+    bad = inv.clone()
+    bad[:5] = -2                                   # rows outside the set
+    bad[5:9] = rows
+    many_bad = inv.clone()
+    many_bad[::7] = -1                             # a long sentinel group
+    for keys in (inv, bad, many_bad):
+        got = tbag.backward_streams(
+            g.cuda(), keys.cuda(), seg.cuda(),
+            None if w is None else w.cuda(), rows)
+        want = plain_streams(keys, rows, seg, w)
+        for a, b in zip(got[:4], want[:4]):
+            assert (a is None) == (b is None)
+            if a is not None:
+                assert a.dtype == b.dtype and torch.equal(a.cpu(), b)
+        assert got[4].shape == want[4].shape
+        assert _list_parts(got[4], len(keys)) == _list_parts(want[4],
+                                                             len(keys))
 
 
 def _push_case(seed, rows, D, n_ids, capacity):
@@ -589,6 +725,15 @@ DOT_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
     (33, 13, 17, torch.float32), (512, 27, 128, torch.bfloat16),
     (100, 2, 128, torch.float32), (7, 1, 128, torch.float32),
     (3, 300, 50, torch.float32), (5, 27, 3001, torch.bfloat16),
+    # F around the tiles' edges of four rows, B = 1, B not a multiple of
+    # the instances a block takes (3 at F = 13 and 10 at F = 5 when B is
+    # large), D = 17 and 3001 (chunked) in f32, F = 300 in opt-in shared
+    # memory, and bf16 at the path's shape
+    (1, 27, 128, torch.float32), (1, 29, 128, torch.bfloat16),
+    (16383, 28, 128, torch.float32), (1027, 29, 64, torch.float32),
+    (2049, 26, 17, torch.float32), (2050, 13, 17, torch.float32),
+    (4097, 5, 64, torch.float32), (9, 27, 3001, torch.float32),
+    (6, 300, 128, torch.float32), (16383, 27, 128, torch.bfloat16),
 ])
 def test_cuda_dot_interaction_matches_plain_version(B, F, D, dtype):
     _cuda_or_skip()

@@ -26,6 +26,7 @@ from repro_torch.kernels import embedding_bag as tbag
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels import sparse_adagrad as tsa
+from tests.test_torch_gpu import _rows_case, plain_streams
 
 torch.set_num_threads(1)
 
@@ -207,18 +208,70 @@ def test_csr_order_gives_the_plain_sums_bit_for_bit(shape, weighted):
     np.testing.assert_array_equal(got, want)
 
 
+# columns a long-row block of the backward kernel adds (kSlice in
+# csrc/embedding_bag.cu); a slice's columns add independently of the rest
+SLICE = 8
+
+
+def _rows_in_kernel_order(g, seg_sorted, w_sorted, offsets, keys_sorted,
+                          row_lists):
+    """The working-row gradient kernel's split and arithmetic on CPU
+    tensors: ``(g_work, writes)``.  g_work starts as zeros (the memset
+    writes every row once); the rows on the long-row list are added SLICE
+    columns at a time, the very long ones first, and those on the short-row
+    list all columns at once.  Both add the row's entries in stream order,
+    each term rounded after its multiply (no fused multiply-add), an entry
+    whose segment lies outside g adding a zero.  ``writes[r]`` counts the
+    times row r was written: the memset for a row without entries, its
+    adds for the others."""
+    gn, seg, off = g.numpy(), seg_sorted.numpy(), offsets.numpy()
+    w = None if w_sorted is None else w_sorted.numpy()
+    lst = row_lists.numpy()
+    n_very, n_long, long_row, n_short = lst[:4]
+    room = (len(lst) - 4) - len(seg)
+    rows, D = len(off) - 1, gn.shape[1]
+    out = np.zeros((rows, D), np.float32)
+    writes = (off[1:] == off[:-1]).astype(np.int64)
+
+    def walk(r, cols):
+        acc = np.zeros(len(cols), np.float32)
+        for i in range(off[r], off[r + 1]):
+            b = seg[i]
+            x = (gn[b, cols] if 0 <= b < gn.shape[0]
+                 else np.zeros(len(cols), np.float32))
+            if w is not None:
+                x = (x * w[i]).astype(np.float32)
+            acc = (acc + x).astype(np.float32)
+        out[r, cols] = acc
+
+    for q in range(n_very + n_long):
+        r = lst[4 + (q if q < n_very else room - 1 - (q - n_very))]
+        assert off[r + 1] - off[r] > long_row
+        for c0 in range(0, D, SLICE):
+            walk(r, np.arange(c0, min(c0 + SLICE, D)))
+        writes[r] += 1
+    for q in range(n_short):
+        r = lst[4 + room + q]
+        assert 0 < off[r + 1] - off[r] <= long_row
+        walk(r, np.arange(D))
+        writes[r] += 1
+    return torch.from_numpy(out), writes
+
+
 def _backward_in_csr_order(g, working, inv, seg, w, need_working,
-                           need_weights):
+                           need_weights, long_row=tbag.LONG_ROW):
     """The backward kernels' arithmetic on CPU tensors: the working-row
-    gradient is the forward's walk with the roles of inv and seg swapped,
-    over the CSR by inv that the CUDA wrapper builds; the weight gradient
-    sums each dot product per lane (columns l, l + 32, ...) and then over a
+    gradient on the streams the CUDA wrapper launches it with (their plain
+    version, ``plain_streams``), split into long and short rows as the
+    kernels split them, each row written once; the weight gradient sums
+    each dot product per lane (columns l, l + 32, ...) and then over a
     fixed shuffle tree, as the kernel does."""
     gn = g.numpy()
     g_work = g_w = None
     if need_working:
-        g_work = torch.from_numpy(_sum_in_csr_order(
-            g, *tbag.sorted_streams(inv, working.shape[0], seg, w)))
+        g_work, writes = _rows_in_kernel_order(
+            g, *plain_streams(inv, working.shape[0], seg, w, long_row))
+        assert (writes == 1).all()
     if need_weights:
         wk, iv, sg = working.numpy(), inv.numpy(), seg.numpy()
         D = wk.shape[1]
@@ -238,24 +291,93 @@ def _backward_in_csr_order(g, working, inv, seg, w, need_working,
     return g_work, g_w
 
 
+@pytest.mark.parametrize("long_row", [tbag.LONG_ROW, 2])
 @pytest.mark.parametrize("weighted", [True, False])
 @pytest.mark.parametrize("shape", SHAPES)
-def test_csr_by_inv_order_gives_the_plain_vjp_bit_for_bit(shape, weighted):
+def test_csr_by_inv_order_gives_the_plain_vjp_bit_for_bit(shape, weighted,
+                                                         long_row):
     """The backward's index preparation (a stable sort of inv, every working
-    row written, the drop row and untouched rows as zeros): summed in that
-    order, the working-row gradient equals the plain vjp's bits."""
+    row written, the drop row and untouched rows as zeros) and the kernel's
+    split into long and short rows (``long_row`` 2 makes most touched rows
+    long here): summed in that order, the working-row gradient equals the
+    plain vjp's bits, and each row is written once."""
     working, inv, seg, w = _case(9, *shape, weighted=weighted)
     num_bags = shape[3]
     g = torch.from_numpy(np.random.default_rng(10).standard_normal(
         (num_bags, shape[1])).astype(np.float32))
     got, _ = _backward_in_csr_order(g, _t(working), _t(inv), _t(seg), _t(w),
-                                    True, False)
+                                    True, False, long_row)
     want, _ = tref.embedding_bag_backward_ref(g, _t(working), _t(inv),
                                               _t(seg), _t(w))
     assert got.shape == (shape[0] + 1, shape[1])
     np.testing.assert_array_equal(got.numpy(), want.numpy())
     untouched = np.setdiff1d(np.arange(shape[0] + 1), inv)
     assert not got.numpy()[untouched].any()
+
+
+# (dim, rows' entry counts, long_row): rows of exactly T - 1, T and T + 1
+# entries around a small threshold and the kernel's (LONG_ROW and
+# VERY_LONG), one row holding every entry, a hot row of phase 1's 4130
+# entries beside Zipf-like others
+ROW_LAYOUTS = {
+    "edges_t8": (24, [7, 8, 9, 0, 1, 17, 3], 8),
+    "edges": (16, [tbag.LONG_ROW - 1, tbag.LONG_ROW, tbag.LONG_ROW + 1, 2,
+                   0, 5, tbag.VERY_LONG, tbag.VERY_LONG + 1], tbag.LONG_ROW),
+    "one_row": (40, [0, 0, 300, 0], 8),
+    "one_row_long": (16, [0, 1600, 0], tbag.LONG_ROW),
+    "hot": (20, [4130, 700, 300, 129, 33, 32, 3, 1, 0], tbag.LONG_ROW),
+}
+
+
+@pytest.mark.parametrize("bad_seg", [False, True])
+@pytest.mark.parametrize("weighted", [True, False])
+@pytest.mark.parametrize("layout", sorted(ROW_LAYOUTS))
+def test_long_and_short_rows_give_the_plain_vjp_bit_for_bit(layout,
+                                                            weighted,
+                                                            bad_seg):
+    """The kernel's split at the edges of the long-row threshold and with a
+    single or a hot long row: exactly the rows of more than ``long_row``
+    entries are long, each row is written once, and the working-row
+    gradient equals the plain vjp's bits, out-of-range segments adding
+    zeros."""
+    D, counts, long_row = ROW_LAYOUTS[layout]
+    g, working, inv, seg, w = _rows_case(13, D, counts, 50, weighted,
+                                         bad_seg)
+    lst = plain_streams(inv, working.shape[0], seg, w, long_row)[4].numpy()
+    n_very, n_long, _, n_short = lst[:4]
+    room = len(lst) - 4 - len(inv)
+    assert lst[2] == long_row and room == len(inv) // (long_row + 1)
+    very = list(lst[4:4 + n_very])
+    other = list(lst[4 + room - n_long:4 + room][::-1])
+    short = list(lst[4 + room:4 + room + n_short])
+    assert very == [r for r, n in enumerate(counts) if n > tbag.VERY_LONG]
+    assert other == [r for r, n in enumerate(counts)
+                     if long_row < n <= tbag.VERY_LONG]
+    assert short == [r for r, n in enumerate(counts) if 0 < n <= long_row]
+    got, _ = _backward_in_csr_order(g, working, inv, seg, w, True, False,
+                                    long_row)
+    want, _ = tref.embedding_bag_backward_ref(g, working, inv, seg, w)
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+
+
+def test_sorted_streams_plain_version():
+    """The backward's index streams on CPU tensors: a stable order by key,
+    keys outside [0, num_rows) read num_rows and sort last, the offsets
+    bound each row's entries, seg and the weights follow the order, and the
+    row lists name the long and the short rows."""
+    keys = torch.tensor([3, -1, 0, 3, 7, 0, 2, 9, 3], dtype=torch.int32)
+    seg = torch.arange(9, dtype=torch.int32) * 10
+    w = torch.arange(9, dtype=torch.float32) / 4
+    seg_s, w_s, off, keys_s, lst = plain_streams(keys, 4, seg, w, 1)
+    order = [2, 5, 6, 0, 3, 8, 1, 4, 7]
+    assert keys_s.tolist() == [0, 0, 2, 3, 3, 3, 4, 4, 4]
+    assert seg_s.tolist() == [10 * j for j in order]
+    assert w_s.tolist() == [j / 4 for j in order]
+    assert off.dtype == torch.int64 and off.tolist() == [0, 2, 2, 3, 6]
+    # rows 0 and 3 hold more than 1 entry (room for 9 // 2 = 4), row 2 one
+    assert lst.dtype == torch.int32
+    assert lst.tolist() == [0, 2, 1, 1, 0, 0, 3, 0, 2] + [0] * 8
+    assert plain_streams(keys, 4, seg, None)[1] is None
 
 
 def test_autograd_backward_is_the_plain_vjp(monkeypatch):
