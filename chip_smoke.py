@@ -12,7 +12,16 @@ Phases (any failure raises and the script exits non-zero):
      - The bag: at the serving path's shapes (working set 65537 x 64,
        102400 ids, 40960 bags), at small odd shapes with empty bags, with
        the sum/mean/sqrtn combiners and their gradients.  Forward within
-       rtol = atol = 1e-5; two runs bit-equal.
+       rtol = atol = 1e-5 and bit-equal to the CPU plain version; two runs
+       bit-equal; its index streams (``forward_streams``) equal to
+       ``csr_from_segments``'s stable sort and the walk alone on them equal
+       to the wrapper.  Timed: the wrapper, the streams alone, the walk
+       alone, the device alone (CUDA graph replays) and the host per call,
+       beside ``F.embedding_bag`` on the same CSR and ``index_add_``, at
+       the slice's batch and at four times it; no sync and no host-to-device
+       copy in the wrapper; registers, stack and local-memory stores and
+       loads of the walk's, the index streams' and the probe's
+       instantiations (``cuobjdump``).
      - The bag's backward: at the training path's per-pod shapes (51200
        ids, 20480 bags, a hot working row of 4130 entries) and the small
        odd shapes.  Working-row gradients bit-equal to the CPU plain vjp,
@@ -37,7 +46,10 @@ Phases (any failure raises and the script exits non-zero):
        batch (65536 uids, C = 262144, H = 2^20, D 64), a 64-bucket map
        with long chains, ids near 2^31 - 1, D 16 and 100, an overflowed
        batch.  Bit-equal to the plain versions, two runs bit-equal,
-       untouched cache slots unchanged.
+       untouched cache slots unchanged.  The probe is also timed on the
+       device alone and on the host per call, beside its latency floor
+       (four dependent trips to HBM, each timed by a pointer chase,
+       ``tools/pointer_chase.cu``), and at four times the batch.
      - The k-step local Adam step (kernel 6) at the slice's leaves
        (baidu-ctr's dense tower, 2 pods, 2,910,210 elements): warm-up on
        before and after the first merge and off, bias correction on and
@@ -213,10 +225,12 @@ def _time_ms(fn, iters=100, warmup=10, cold_l2=True):
     return start.elapsed_time(end) / iters
 
 
-def _graph_ms(fn, iters=40):
+def _graph_ms(fn, iters=40, cold_l2=True):
     """Device time of one ``fn`` call with no host in it: ``fn`` captured in
-    a CUDA graph, each replay after the 256 MB write that evicts the L2,
-    an event pair around the replay alone."""
+    a CUDA graph, each replay after the 256 MB write that evicts the L2
+    (``cold_l2``; else after a spin of the device that reads nothing, so
+    the replay finds the L2 as the one before left it), an event pair
+    around the replay alone."""
     import torch
 
     side = torch.cuda.Stream()
@@ -232,7 +246,10 @@ def _graph_ms(fn, iters=40):
     pairs = [(torch.cuda.Event(enable_timing=True),
               torch.cuda.Event(enable_timing=True)) for _ in range(iters)]
     for start, end in pairs:
-        scrub.zero_()
+        if cold_l2:
+            scrub.zero_()
+        else:
+            torch.cuda._sleep(100_000)   # ~50 us: the host enqueues meanwhile
         start.record()
         graph.replay()
         end.record()
@@ -275,11 +292,41 @@ def _bag_case(gen, C, D, nnz, num_bags, weighted, device):
     return working, inv, seg, w
 
 
-def _slice_case(device):
+def _kernel_times(fn, calls=20):
+    """{kernel name: device ms per ``fn`` call} from the profiler over
+    ``calls`` calls, each after the 256 MB write that evicts the L2 (whose
+    own kernel is left out)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    scrub = torch.empty(64 << 20, dtype=torch.int32, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            scrub.zero_()
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        us = e.self_device_time_total
+        if us > 0 and "FillFunctor" not in e.key:
+            out[e.key] = out.get(e.key, 0.0) + us / calls / 1e3
+    return out
+
+
+def _print_kernel_times(what, times):
+    print(f"  {what}, device time by kernel (profiler, L2 cold, ms per call):"
+          f" " + "; ".join(f"{k[:60]} {v:.4f}" for k, v in sorted(
+              times.items(), key=lambda kv: -kv[1])))
+
+
+def _slice_case(device, scale=1):
     """The serving path's bag inputs for the first request batch: ids
     deduplicated at capacity 65536, seg as recsys builds it
     (instance * n_fields + field), mask weights, and 1 % of the ids moved
-    to the drop row."""
+    to the drop row.  ``scale`` multiplies the batch and the capacity (the
+    same stream's first batch of ``scale`` times the instances)."""
     import torch
 
     from repro_torch.configs import baidu_ctr
@@ -287,25 +334,106 @@ def _slice_case(device):
     from repro_torch.data.synthetic import ctr_batches
 
     cfg = baidu_ctr.MODEL
-    b = next(ctr_batches(seed=2, batch=BATCH, rows=ROWS))
+    batch, capacity = BATCH * scale, CAPACITY * scale
+    b = next(ctr_batches(seed=2, batch=batch, rows=ROWS))
     ids = torch.from_numpy(b["ids"]).to(device).reshape(-1)
-    _, inv, _ = _dedup(ids, CAPACITY)
+    _, inv, _ = _dedup(ids, capacity)
     gen = torch.Generator(device).manual_seed(11)
-    inv[torch.rand(inv.numel(), generator=gen, device=device) < 0.01] = CAPACITY
-    inst = torch.arange(BATCH, dtype=torch.int32, device=device)[:, None]
+    inv[torch.rand(inv.numel(), generator=gen, device=device) < 0.01] = capacity
+    inst = torch.arange(batch, dtype=torch.int32, device=device)[:, None]
     seg = (inst * cfg.n_fields
            + torch.from_numpy(b["field_ids"]).to(device)).reshape(-1)
     w = torch.from_numpy(b["mask"]).to(device).reshape(-1)
-    working = torch.randn((CAPACITY + 1, cfg.embed_dim), generator=gen,
+    working = torch.randn((capacity + 1, cfg.embed_dim), generator=gen,
                           device=device)
-    working[CAPACITY] = 0
-    return working, inv, seg.contiguous(), w, BATCH * cfg.n_fields
+    working[capacity] = 0
+    return working, inv, seg.contiguous(), w, batch * cfg.n_fields
+
+
+def _pointer_chase_lib():
+    """``tools/pointer_chase.cu`` built by ``nvcc`` into
+    ``build/pointer_chase.so`` (a plain C interface, seconds to build; not
+    rebuilt while the source is older) and loaded with ctypes."""
+    import ctypes
+
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    src = ROOT / "tools" / "pointer_chase.cu"
+    lib = ROOT / "build" / "pointer_chase.so"
+    if not lib.exists() or lib.stat().st_mtime < src.stat().st_mtime:
+        lib.parent.mkdir(parents=True, exist_ok=True)
+        subprocess.run([str(pathlib.Path(CUDA_HOME) / "bin" / "nvcc"), "-O3",
+                        "-shared", "-Xcompiler", "-fPIC",
+                        "-gencode=arch=compute_90a,code=sm_90a", "-o",
+                        str(lib), str(src)], check=True, capture_output=True,
+                       text=True, timeout=300)
+    handle = ctypes.CDLL(str(lib))
+    handle.pointer_chase.argtypes = [ctypes.c_void_p, ctypes.c_int64,
+                                     ctypes.c_int, ctypes.c_void_p,
+                                     ctypes.c_void_p]
+    handle.random_reads.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                    ctypes.c_int64, ctypes.c_int32,
+                                    ctypes.c_void_p, ctypes.c_void_p]
+    handle.pointer_chase.restype = handle.random_reads.restype = ctypes.c_int
+    return handle
+
+
+def _random_reads_ms(words, idx):
+    """Device time (CUDA graph replays, L2 cold) of reading ``idx``'s words
+    of a fresh table of ``words`` int32, each load independent of the
+    others (``tools/pointer_chase.cu``'s random_reads)."""
+    import torch
+
+    lib = _pointer_chase_lib()
+    table = torch.zeros(words, dtype=torch.int32, device="cuda")
+    sink = torch.zeros(1, dtype=torch.int32, device="cuda")
+    idx = idx.to(torch.int64).contiguous()
+
+    def run():
+        rc = lib.random_reads(table.data_ptr(), idx.data_ptr(), idx.numel(),
+                              1, sink.data_ptr(),
+                              torch.cuda.current_stream().cuda_stream)
+        if rc:
+            raise RuntimeError(f"random_reads: CUDA error {rc}")
+
+    return _graph_ms(run)
+
+
+def _hbm_trip(steps=2048, lines=1 << 19):
+    """(us of one dependent trip to HBM, ms of an empty launch on the device
+    alone): one thread follows ``steps`` dependent loads through a random
+    cycle over ``lines`` 128-byte lines (64 MB, more than the 50 MB L2,
+    which is also scrubbed before each call); a trip is the difference to
+    a call of no loads over ``steps``.  The empty launch is that call of no
+    loads as a CUDA graph replay (``_graph_ms``)."""
+    import torch
+
+    lib = _pointer_chase_lib()
+    gen = torch.Generator("cuda").manual_seed(7)
+    perm = torch.randperm(lines, generator=gen, device="cuda") * 16
+    nxt = torch.zeros(lines * 16, dtype=torch.int64, device="cuda")
+    nxt[perm] = torch.roll(perm, -1)
+    sink = torch.zeros(1, dtype=torch.int64, device="cuda")
+    start = int(perm[0])
+
+    def run(n):
+        rc = lib.pointer_chase(nxt.data_ptr(), start, n, sink.data_ptr(),
+                               torch.cuda.current_stream().cuda_stream)
+        if rc:
+            raise RuntimeError(f"pointer_chase: CUDA error {rc}")
+
+    chase_ms = _time_ms(lambda: run(steps), iters=10, warmup=2)
+    if int(sink) != int(perm[steps % lines]):
+        raise AssertionError("pointer_chase ended on the wrong line")
+    empty_ms = _time_ms(lambda: run(0), iters=10, warmup=2)
+    return (chase_ms - empty_ms) / steps * 1e3, _graph_ms(lambda: run(0))
 
 
 def phase_kernels(device):
     """Each kernel against its plain version; returns the kernels-line entry
     (without ``launches``, which the slice phase fills)."""
     import torch
+    import torch.nn.functional as F
 
     from repro_torch.kernels import build
     from repro_torch.kernels import embedding_bag as kb
@@ -375,28 +503,78 @@ def phase_kernels(device):
             check(f"{combiner} {what}", a, b)
         print(f"  combiner {combiner}: forward and gradients agree")
 
-    # ---- times at the slice's shapes
+    # ---- the index streams against their plain version (a stable sort)
+    streams = kb.forward_streams(working, inv, seg, w, num_bags)
     order, offsets = kb.csr_from_segments(seg, num_bags)
+    lo, hi = int(offsets[0]), int(offsets[-1])
+    if not (torch.equal(streams[2], offsets - lo)
+            and torch.equal(streams[0][:hi - lo], inv[order[lo:hi]])
+            and torch.equal(streams[1][:hi - lo], w[order[lo:hi]])):
+        raise AssertionError("forward_streams differ from csr_from_segments")
+    walk_out = kb.walk(working, *streams[:3])
+    if not torch.equal(walk_out, kb.embedding_bag_cuda(working, inv, seg, w,
+                                                       num_bags)):
+        raise AssertionError("the walk alone differs from the wrapper")
+    print("  forward_streams equal csr_from_segments (a stable sort); the "
+          "walk alone on them equals the wrapper")
 
+    # ---- times at the slice's shapes
     def kernel():
         return kb.embedding_bag_cuda(working, inv, seg, w, num_bags)
 
+    def bag_times(working, inv, seg, w, num_bags):
+        """Wrapper, its parts and two library calls on one input (ms)."""
+        streams = kb.forward_streams(working, inv, seg, w, num_bags)
+        order, offsets = kb.csr_from_segments(seg, num_bags)
+        lo, hi = int(offsets[0]), int(offsets[-1])
+        inv_s = inv[order[lo:hi]].long()
+        w_s = w[order[lo:hi]].contiguous()
+        off_s = (offsets - lo).contiguous()
+        seg64 = seg.long()
+
+        def embedding_bag():
+            return F.embedding_bag(inv_s, working, off_s, mode="sum",
+                                   per_sample_weights=w_s,
+                                   include_last_offset=True)
+
+        def index_add():
+            return torch.zeros((num_bags, working.shape[1]),
+                               device=device).index_add_(
+                0, seg64, working[inv.long()] * w[:, None])
+
+        for name, fn in (("F.embedding_bag", embedding_bag),
+                         ("index_add_", index_add)):
+            check(f"library call {name}", fn(), ref.embedding_bag_ref(
+                working, inv, seg, w, num_bags))
+
+        def wrapper():
+            return kb.embedding_bag_cuda(working, inv, seg, w, num_bags)
+
+        def streams_alone():
+            return kb.forward_streams(working, inv, seg, w, num_bags)
+
+        def walk_alone():
+            return kb.walk(working, *streams[:3])
+
+        return {
+            "ms": _time_ms(wrapper),
+            "prep_ms": _time_ms(streams_alone),
+            "walk_ms": _time_ms(walk_alone),
+            "graph_ms": _graph_ms(wrapper),
+            "prep_graph_ms": _graph_ms(streams_alone),
+            "walk_graph_ms": _graph_ms(walk_alone),
+            "embedding_bag_ms": _time_ms(embedding_bag),
+            "embedding_bag_graph_ms": _graph_ms(embedding_bag),
+            "library_ms": _time_ms(index_add),
+        }
+
     ms, warm_ms = _time_ms(kernel), _time_ms(kernel, cold_l2=False)
-    launch_ms = _time_ms(lambda: kb.launch(working, inv, w, order, offsets,
-                                           num_bags))
-    prep_ms = _time_ms(lambda: kb.csr_from_segments(seg, num_bags))
+    parts = bag_times(working, inv, seg, w, num_bags)
+    prep_ms, walk_ms = parts["prep_ms"], parts["walk_ms"]
+    library_ms, emb_ms = parts["library_ms"], parts["embedding_bag_ms"]
     plain_ms = _time_ms(lambda: ref.embedding_bag_ref(working, inv, seg, w,
                                                       num_bags))
-    seg64 = seg.long()
-
-    def library():
-        return torch.zeros((num_bags, working.shape[1]),
-                           device=device).index_add_(
-            0, seg64, working[inv.long()] * w[:, None])
-
-    library_ms = _time_ms(library)
-    check("library call", library(), ref.embedding_bag_ref(
-        working, inv, seg, w, num_bags))
+    graph_ms, host_us = parts["graph_ms"], _host_us(kernel)
 
     D = working.shape[1]
     rows_read = torch.unique(inv).numel()
@@ -406,12 +584,48 @@ def phase_kernels(device):
     bound_ms = max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S) * 1e3
     bound_by = ("bytes" if nbytes / HBM_BYTES_PER_S
                 >= flops / F32_FLOP_PER_S else "operations")
-    print(f"  times (ms, L2 cold): wrapper {ms:.4f} (L2 warm "
-          f"{warm_ms:.4f}; kernel launch alone "
-          f"{launch_ms:.4f}, index preparation alone {prep_ms:.4f}), plain "
-          f"{plain_ms:.4f}, index_add_ library call {library_ms:.4f}; bound "
+    print(f"  times (ms, L2 cold): wrapper {ms:.4f} (L2 warm {warm_ms:.4f}; "
+          f"index streams alone {prep_ms:.4f}, the walk alone {walk_ms:.4f})"
+          f", plain {plain_ms:.4f}, library calls: F.embedding_bag on the "
+          f"same CSR {emb_ms:.4f}, index_add_ {library_ms:.4f}; bound "
           f"{bound_ms:.4f} ({nbytes / 1e6:.2f} MB: {rows_read} distinct rows "
           f"read, {flops / 1e6:.1f} MFLOP)")
+    print(f"  the device's time alone (CUDA graph replays, L2 cold): wrapper "
+          f"{graph_ms:.4f} ms, index streams {parts['prep_graph_ms']:.4f}, "
+          f"the walk {parts['walk_graph_ms']:.4f}, F.embedding_bag "
+          f"{parts['embedding_bag_graph_ms']:.4f}; the host's time per "
+          f"call: {host_us:.1f} us")
+    # a programmatic dependent launch's time includes its wait for the
+    # kernel before it
+    _print_kernel_times("the wrapper", _kernel_times(kernel))
+    # the same stream's first batch at four times the instances (and
+    # capacity)
+    big = _slice_case(device, scale=4)
+    scaled = {"nnz": big[1].numel(), "bags": big[4], **bag_times(*big)}
+    print(f"  at four times the batch (nnz {scaled['nnz']}, {big[4]} bags): "
+          f"wrapper {scaled['ms']:.4f} ms, index streams alone "
+          f"{scaled['prep_ms']:.4f}, the walk alone {scaled['walk_ms']:.4f}, "
+          f"F.embedding_bag {scaled['embedding_bag_ms']:.4f}, index_add_ "
+          f"{scaled['library_ms']:.4f}; on the device alone: wrapper "
+          f"{scaled['graph_ms']:.4f}, streams {scaled['prep_graph_ms']:.4f}, "
+          f"walk {scaled['walk_graph_ms']:.4f}, F.embedding_bag "
+          f"{scaled['embedding_bag_graph_ms']:.4f}")
+    del big
+    # no sync, no host-to-device copy: the index streams are built on the
+    # card
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        kernel()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    h2d, syncs, launched = _transfers(kernel)
+    if h2d or syncs:
+        raise AssertionError(f"bag wrapper: {h2d} host-to-device copies, "
+                             f"{syncs} syncs")
+    print(f"  the wrapper under the sync debug mode \"error\" and the "
+          f"profiler: {h2d} host-to-device copies, {syncs} syncs, "
+          f"{launched} kernel launches")
+    sass = _bag_probe_sass_report()
     return {
         "name": "embedding_bag",
         "route": "cuda",
@@ -425,6 +639,13 @@ def phase_kernels(device):
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": library_ms,
+        "embedding_bag_ms": emb_ms,
+        "graph_ms": graph_ms,
+        "host_us": host_us,
+        "prep_ms": prep_ms,
+        "walk_ms": walk_ms,
+        "at_four_times_the_batch": scaled,
+        "sass": sass,
     }
 
 
@@ -1628,7 +1849,7 @@ def phase_cache_kernels(tr, batch):
 
     from repro_torch.core.embedding_backend import _dedup, pull_working_set
     from repro_torch.kernels import ref
-    from repro_torch.kernels.hash_map import hash_lookup_cuda
+    from repro_torch.kernels.hash_map import hash_bucket, hash_lookup_cuda
     from repro_torch.kernels.sparse_adagrad import (
         adagrad_row_updates,
         gather_rows_cached_cuda,
@@ -1670,15 +1891,54 @@ def phase_cache_kernels(tr, batch):
     reads, found = _probe_reads(st.key_tab, uids)
     n = uids.numel()
     nbytes = n * 4 + reads * 4 + found * 8 + n * 4
-    p_ms = _time_ms(lambda: hash_lookup_cuda(*pargs))
-    p_warm = _time_ms(lambda: hash_lookup_cuda(*pargs), cold_l2=False)
+
+    def probe():
+        return hash_lookup_cuda(*pargs)
+
+    p_ms, p_warm = _time_ms(probe), _time_ms(probe, cold_l2=False)
+    p_graph, p_host = _graph_ms(probe), _host_us(probe)
+    p_graph_warm = _graph_ms(probe, cold_l2=False)
     p_plain = _time_ms(lambda: ref.hash_lookup_ref(*pargs), iters=5,
                        warmup=1)
     p_bound, p_by = _bound(nbytes)
+    # the dependent-load floor: the plain chain id -> key_tab -> slot_tab
+    # -> slot_uid -> the store is four trips to HBM from a cold L2
+    trip_us, empty_ms = _hbm_trip()
+    floor_ms = 4 * trip_us / 1e3
+    # the loads without their chain: each id's home group of keys and of
+    # slots and each hit's slot_uid word, read at once from a fresh table
+    # of the map's size
+    H, C = st.key_tab.numel(), st.slot_uid.numel()
+    home = hash_bucket(uids, H).long() & ~3
+    hits = ref.hash_lookup_ref(*pargs)
+    idx = torch.cat([home, H + home, 2 * H + hits[hits >= 0].long()])
+    reads_ms = _random_reads_ms(2 * H + C, idx)
     print(f"  times (ms, L2 cold): kernel {p_ms:.4f} (L2 warm "
           f"{p_warm:.4f}), plain version {p_plain:.4f}, "
           f"no library call; bound {p_bound:.4f} ({nbytes / 1e6:.2f} MB: "
           f"{reads} bucket reads, {found} found, {reads / n:.2f} per id)")
+    print(f"  the device's time alone (CUDA graph replays, L2 cold): "
+          f"{p_graph:.4f} ms (L2 warm {p_graph_warm:.4f}); the host's time "
+          f"per call: {p_host:.1f} us; latency floor (4 dependent trips to "
+          f"HBM at {trip_us:.3f} us, tools/pointer_chase.cu) "
+          f"{floor_ms:.4f} ms; an empty kernel's launch on the device alone "
+          f"{empty_ms:.4f} ms; the same loads without their chain "
+          f"({idx.numel()} words: each id's home group of keys and of "
+          f"slots, each hit's slot_uid) {reads_ms:.4f} ms")
+    # four times the batch: a first batch of 4096 instances (another seed),
+    # deduplicated at four times the capacity
+    big_ids = tr.engine.ids_from_batch(tr._stage(
+        _train_batches(1, seed=3, batch=4 * BATCH)[0]))["sparse"]
+    big_uids, _, _ = _dedup(big_ids, 4 * CAPACITY)
+    probe_checks("four times the batch on the trained cache", st.key_tab,
+                 st.slot_tab, st.slot_uid, big_uids)
+    bargs = (st.key_tab, st.slot_tab, st.slot_uid, big_uids)
+    p_scaled = {"ids": big_uids.numel(),
+                "ms": _time_ms(lambda: hash_lookup_cuda(*bargs)),
+                "graph_ms": _graph_ms(lambda: hash_lookup_cuda(*bargs))}
+    print(f"  at four times the batch ({p_scaled['ids']} uids): kernel "
+          f"{p_scaled['ms']:.4f} ms, the device alone "
+          f"{p_scaled['graph_ms']:.4f}")
 
     # ---- the pull admits the misses; its slots feed the gather and push
     ws, table, accum, st = cb.pull(table, accum, st, ids, CAPACITY)
@@ -1815,10 +2075,16 @@ def phase_cache_kernels(tr, batch):
                 "bound_by": by, "library_ms": lib}
 
     src = "src/repro_torch/kernels/csrc/"
+    probe_entry = entry("hash_lookup", src + "hash_map.cu",
+                        "src/repro/kernels/hash_map.py:197", p_ms, p_warm,
+                        p_plain, p_bound, p_by, None)
+    probe_entry.update(graph_ms=p_graph, graph_ms_l2_warm=p_graph_warm,
+                       host_us=p_host, latency_floor_ms=floor_ms,
+                       hbm_trip_us=trip_us, empty_launch_graph_ms=empty_ms,
+                       unchained_reads_graph_ms=reads_ms,
+                       at_four_times_the_batch=p_scaled)
     return [
-        entry("hash_lookup", src + "hash_map.cu",
-              "src/repro/kernels/hash_map.py:197", p_ms, p_warm, p_plain,
-              p_bound, p_by, None),
+        probe_entry,
         entry("gather_rows_cached", src + "sparse_adagrad.cu",
               "src/repro/kernels/sparse_adagrad.py:194", g_ms, g_warm,
               g_plain, g_bound, g_by, g_lib),
@@ -2837,6 +3103,39 @@ def _bag_dot_sass_report():
         raise AssertionError(f"bag backward and kernel 8 instantiations: "
                              f"{sorted(report)}; cuobjdump -res-usage "
                              f"began:\n{usage[:3000]}")
+    _print_sass(report)
+    return report
+
+
+def _bag_probe_sass_report():
+    """Phase 1: the bag forward's walk, the index streams' kernels (shared
+    with the backward) and the probe's instantiations in the extension
+    that ran (``_sass_report``).  Keys: "bag_walk<L,V,W>" (L lanes a bag, V
+    loads a lane of W floats), "streams_<count|scan|place|rank>" and
+    "hash_lookup<G>" (G buckets a load)."""
+    import re
+
+    def short(mangled):
+        m = re.search(r"embedding_bag_walk_kernelILi(\d+)ELi(\d+)ELi(\d+)E",
+                      mangled)
+        if m:
+            return f"bag_walk<{m.group(1)},{m.group(2)},{m.group(3)}>"
+        m = re.search(r"stream_(count|scan|place|rank)_kernel", mangled)
+        if m:
+            return f"streams_{m.group(1)}"
+        m = re.search(r"hash_lookup_kernelILi(\d+)E", mangled)
+        return m and f"hash_lookup<{m.group(1)}>"
+
+    report, usage = _sass_report(short)
+    want = ({f"bag_walk<{l},1,4>" for l in (4, 8, 16, 32)}
+            | {"bag_walk<32,2,4>"}
+            | {f"bag_walk<32,{v},1>" for v in (1, 2, 4, 8)}
+            | {f"streams_{k}" for k in ("count", "scan", "place", "rank")}
+            | {"hash_lookup<4>", "hash_lookup<1>"})
+    if set(report) != want:
+        raise AssertionError(f"bag forward, streams and probe "
+                             f"instantiations: {sorted(report)}; cuobjdump "
+                             f"-res-usage began:\n{usage[:3000]}")
     _print_sass(report)
     return report
 

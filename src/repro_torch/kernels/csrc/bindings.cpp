@@ -12,13 +12,19 @@
 
 #include "fused_adam.h"
 
-void launch_embedding_bag(const float* working, int dim, const int32_t* inv,
-                          const float* weights, const int64_t* order,
-                          const int64_t* offsets, int num_bags, float* out,
-                          cudaStream_t stream);
+size_t streams_scratch_bytes(int64_t nnz, int groups, bool weighted,
+                             size_t streams_at[5]);
+cudaError_t launch_embedding_bag(const float* working, int dim,
+                                 const int32_t* inv, const int32_t* seg,
+                                 const float* w, int64_t nnz, int num_bags,
+                                 void* scratch, float* out,
+                                 cudaStream_t stream);
+cudaError_t launch_embedding_bag_walk(const float* working, int dim,
+                                      const int32_t* inv_sorted,
+                                      const float* w_sorted,
+                                      const int64_t* offsets, int num_bags,
+                                      float* out, cudaStream_t stream);
 int64_t backward_list_ints(int64_t nnz);
-size_t backward_scratch_bytes(int64_t nnz, int working_rows, bool weighted,
-                              size_t streams_at[5]);
 cudaError_t launch_embedding_bag_backward(
     const float* g, int64_t num_bags, int dim, const int32_t* inv,
     const int32_t* seg, const float* w, int64_t nnz, int working_rows,
@@ -48,10 +54,11 @@ cudaError_t launch_flash_attention(const void* q, const void* k,
                                    int H, int Kv, int hd, bool causal,
                                    bool bf16, cudaStream_t stream);
 int flash_attention_max_head_dim();
-void launch_hash_lookup(const int32_t* key_tab, const int32_t* slot_tab,
-                        int64_t n_buckets, const int32_t* slot_uid,
-                        int64_t n_slots, const int32_t* uids, int64_t n,
-                        int32_t* out, cudaStream_t stream);
+cudaError_t launch_hash_lookup(const int32_t* key_tab,
+                               const int32_t* slot_tab, int64_t n_buckets,
+                               const int32_t* slot_uid, int64_t n_slots,
+                               const int32_t* uids, int64_t n, int32_t* out,
+                               cudaStream_t stream);
 
 namespace {
 
@@ -93,15 +100,73 @@ void check_offsets(const torch::Tensor& offsets, int64_t num_out,
               num_out + 1, " entries");
 }
 
-// out[b] = sum over order[offsets[b]:offsets[b+1]] of w[j] * working[inv[j]].
-void embedding_bag_forward(const torch::Tensor& working,
-                           const torch::Tensor& inv,
-                           const c10::optional<torch::Tensor>& weights,
-                           const torch::Tensor& order,
-                           const torch::Tensor& offsets,
-                           const torch::Tensor& out) {
+// Views of the index streams that build_streams left in `scratch` (the
+// byte offsets `at` of streams_scratch_bytes): [vals_sorted, w_sorted
+// (undefined without weights), offsets (int64, groups + 1), keys_sorted
+// (the entries outside [0, groups) as groups, last)].
+std::vector<torch::Tensor> stream_views(const torch::Tensor& scratch,
+                                        const size_t at[5], int64_t nnz,
+                                        int64_t groups, bool weighted) {
+  auto view = [&](int part, int64_t n, torch::ScalarType dtype) {
+    const int64_t size = n * static_cast<int64_t>(c10::elementSize(dtype));
+    return scratch.narrow(0, static_cast<int64_t>(at[part]), size)
+        .view(dtype);
+  };
+  torch::Tensor w_sorted;
+  if (weighted) w_sorted = view(2, nnz, torch::kFloat32);
+  return {view(0, nnz, torch::kInt32), w_sorted,
+          view(3, groups + 1, torch::kInt64), view(1, nnz, torch::kInt32)};
+}
+
+// out[b] = sum over j with seg[j] == b of w[j] * working[inv[j]], every
+// bag written, in one call: the index streams by bag built on the card (a
+// stable order, no sort, no host sync), then the walk, with every
+// intermediate in one scratch allocation; returns [out] (num_bags x dim).
+// With streams_only it builds only the streams and returns them, views of
+// the scratch: [inv_sorted, w_sorted, offsets, keys_sorted] (stream_views;
+// keys_sorted is seg, the entries outside [0, num_bags) as num_bags).
+std::vector<torch::Tensor> embedding_bag_forward(
+    const torch::Tensor& working, const torch::Tensor& inv,
+    const torch::Tensor& seg, const c10::optional<torch::Tensor>& weights,
+    int64_t num_bags, bool streams_only) {
   check_cuda(working, "working", torch::kFloat32, 2, working);
   check_cuda(inv, "inv", torch::kInt32, 1, working);
+  check_cuda(seg, "seg", torch::kInt32, 1, working);
+  const int64_t dim = working.size(1);
+  const int64_t nnz = inv.size(0);
+  check_dim(dim);
+  check_rows(working.size(0), "working rows");
+  check_rows(num_bags, "num_bags");
+  TORCH_CHECK(seg.size(0) == nnz, "seg and inv differ in length");
+  TORCH_CHECK(nnz < kMaxRows, "nnz must lie below 2^31");
+  const float* w = optional_weights(weights, working, nnz);
+  const c10::cuda::CUDAGuard guard(working.device());
+  size_t at[5];
+  const size_t bytes = streams_scratch_bytes(
+      nnz, static_cast<int>(num_bags), w != nullptr, at);
+  auto scratch = torch::empty({static_cast<int64_t>(bytes)},
+                              working.options().dtype(torch::kUInt8));
+  torch::Tensor out;
+  if (!streams_only) out = torch::empty({num_bags, dim}, working.options());
+  C10_CUDA_CHECK(launch_embedding_bag(
+      working.data_ptr<float>(), static_cast<int>(dim),
+      inv.data_ptr<int32_t>(), seg.data_ptr<int32_t>(), w, nnz,
+      static_cast<int>(num_bags), scratch.data_ptr(),
+      streams_only ? nullptr : out.data_ptr<float>(),
+      c10::cuda::getCurrentCUDAStream().stream()));
+  if (!streams_only) return {out};
+  return stream_views(scratch, at, nnz, num_bags, w != nullptr);
+}
+
+// The forward's walk alone on given streams: out[b] = sum over
+// [offsets[b], offsets[b+1]) of w_sorted[i] * working[inv_sorted[i]].
+void embedding_bag_walk(const torch::Tensor& working,
+                        const torch::Tensor& inv_sorted,
+                        const c10::optional<torch::Tensor>& w_sorted,
+                        const torch::Tensor& offsets,
+                        const torch::Tensor& out) {
+  check_cuda(working, "working", torch::kFloat32, 2, working);
+  check_cuda(inv_sorted, "inv_sorted", torch::kInt32, 1, working);
   check_cuda(out, "out", torch::kFloat32, 2, working);
   const int64_t dim = working.size(1);
   const int64_t num_bags = out.size(0);
@@ -110,16 +175,13 @@ void embedding_bag_forward(const torch::Tensor& working,
   check_rows(num_bags, "num_bags");
   TORCH_CHECK(out.size(1) == dim, "out must have ", dim, " columns");
   check_offsets(offsets, num_bags, working);
-  check_cuda(order, "order", torch::kInt64, 1, working);
-  TORCH_CHECK(order.size(0) == inv.size(0), "order and inv differ in length");
-  const float* w = optional_weights(weights, working, inv.size(0));
+  const float* w = optional_weights(w_sorted, working, inv_sorted.size(0));
   const c10::cuda::CUDAGuard guard(working.device());
-  launch_embedding_bag(working.data_ptr<float>(), static_cast<int>(dim),
-                       inv.data_ptr<int32_t>(), w, order.data_ptr<int64_t>(),
-                       offsets.data_ptr<int64_t>(),
-                       static_cast<int>(num_bags), out.data_ptr<float>(),
-                       c10::cuda::getCurrentCUDAStream().stream());
-  C10_CUDA_KERNEL_LAUNCH_CHECK();
+  C10_CUDA_CHECK(launch_embedding_bag_walk(
+      working.data_ptr<float>(), static_cast<int>(dim),
+      inv_sorted.data_ptr<int32_t>(), w, offsets.data_ptr<int64_t>(),
+      static_cast<int>(num_bags), out.data_ptr<float>(),
+      c10::cuda::getCurrentCUDAStream().stream()));
 }
 
 // g_work[r] = sum over j with inv[j] == r of w[j] * g[seg[j]], every row
@@ -148,7 +210,7 @@ std::vector<torch::Tensor> embedding_bag_backward(
   const float* w = optional_weights(weights, g, nnz);
   const c10::cuda::CUDAGuard guard(g.device());
   size_t at[5];
-  const size_t bytes = backward_scratch_bytes(
+  const size_t bytes = streams_scratch_bytes(
       nnz, static_cast<int>(working_rows), w != nullptr, at);
   auto scratch = torch::empty({static_cast<int64_t>(bytes)},
                               g.options().dtype(torch::kUInt8));
@@ -163,17 +225,11 @@ std::vector<torch::Tensor> embedding_bag_backward(
   TORCH_CHECK(err == cudaSuccess, "embedding_bag_backward: ",
               cudaGetErrorString(err));
   if (!streams_only) return {g_work};
-  auto view = [&](int part, int64_t n, torch::ScalarType dtype) {
-    const int64_t size = n * static_cast<int64_t>(c10::elementSize(dtype));
-    return scratch.narrow(0, static_cast<int64_t>(at[part]), size)
-        .view(dtype);
-  };
-  torch::Tensor w_sorted;
-  if (w != nullptr) w_sorted = view(2, nnz, torch::kFloat32);
-  return {view(0, nnz, torch::kInt32), w_sorted,
-          view(3, working_rows + 1, torch::kInt64),
-          view(1, nnz, torch::kInt32),
-          view(4, backward_list_ints(nnz), torch::kInt32)};
+  auto views = stream_views(scratch, at, nnz, working_rows, w != nullptr);
+  views.push_back(scratch.narrow(0, static_cast<int64_t>(at[4]),
+                                 backward_list_ints(nnz) * 4)
+                      .view(torch::kInt32));
+  return views;
 }
 
 // g_w[j] = sum_d g[seg[j], d] * working[inv[j], d].
@@ -286,31 +342,42 @@ void gather_rows_cached(const torch::Tensor& cache_rows,
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
-// slots[i] = live cache slot of uids[i] or -1 (csrc/hash_map.cu).
-void hash_lookup(const torch::Tensor& key_tab, const torch::Tensor& slot_tab,
-                 const torch::Tensor& slot_uid, const torch::Tensor& uids,
-                 const torch::Tensor& out) {
-  check_cuda(key_tab, "key_tab", torch::kInt32, 1, key_tab);
-  check_cuda(slot_tab, "slot_tab", torch::kInt32, 1, key_tab);
-  check_cuda(slot_uid, "slot_uid", torch::kInt32, 1, key_tab);
-  check_cuda(uids, "uids", torch::kInt32, 1, key_tab);
-  check_cuda(out, "out", torch::kInt32, 1, key_tab);
+// slots[i] = live cache slot of uids[i] or -1 (csrc/hash_map.cu); every
+// check of hash_lookup_cuda is made here, once, and raises ValueError.
+torch::Tensor hash_lookup(const torch::Tensor& key_tab,
+                          const torch::Tensor& slot_tab,
+                          const torch::Tensor& slot_uid,
+                          const torch::Tensor& uids) {
+  const std::pair<const torch::Tensor*, const char*> args[] = {
+      {&key_tab, "key_tab"}, {&slot_tab, "slot_tab"},
+      {&slot_uid, "slot_uid"}, {&uids, "uids"}};
+  for (const auto& [t, name] : args) {
+    TORCH_CHECK_VALUE(t->dim() == 1 && t->scalar_type() == torch::kInt32,
+                      name, " must be 1-D int32, got ", t->sizes(), " ",
+                      t->scalar_type());
+    TORCH_CHECK_VALUE(t->device() == key_tab.device(), "key_tab, slot_tab, "
+                      "slot_uid and uids must share a device");
+    TORCH_CHECK_VALUE(t->is_contiguous(), "hash_lookup_cuda takes "
+                      "contiguous tensors; ", name, " is not");
+  }
+  TORCH_CHECK_VALUE(key_tab.is_cuda(), "hash_lookup_cuda takes CUDA "
+                    "tensors, got ", key_tab.device());
   const int64_t n_buckets = key_tab.size(0);
-  TORCH_CHECK(n_buckets >= 1 && n_buckets <= kMaxRows &&
-              (n_buckets & (n_buckets - 1)) == 0,
-              "key_tab must have a power-of-2 length <= 2^31, got ",
-              n_buckets);
-  TORCH_CHECK(slot_tab.size(0) == n_buckets, "slot_tab must have ", n_buckets,
-              " entries");
-  TORCH_CHECK(out.size(0) == uids.size(0), "out and uids differ in length");
-  if (uids.size(0) == 0) return;
+  TORCH_CHECK_VALUE(n_buckets >= 1 && n_buckets <= kMaxRows &&
+                    (n_buckets & (n_buckets - 1)) == 0 &&
+                    slot_tab.size(0) == n_buckets,
+                    "key_tab and slot_tab must have the same power-of-2 "
+                    "length <= 2^31, got ", n_buckets, " and ",
+                    slot_tab.size(0));
+  auto out = torch::empty_like(uids);
+  if (uids.size(0) == 0) return out;
   const c10::cuda::CUDAGuard guard(key_tab.device());
-  launch_hash_lookup(key_tab.data_ptr<int32_t>(), slot_tab.data_ptr<int32_t>(),
-                     n_buckets, slot_uid.data_ptr<int32_t>(), slot_uid.size(0),
-                     uids.data_ptr<int32_t>(), uids.size(0),
-                     out.data_ptr<int32_t>(),
-                     c10::cuda::getCurrentCUDAStream().stream());
-  C10_CUDA_KERNEL_LAUNCH_CHECK();
+  C10_CUDA_CHECK(launch_hash_lookup(
+      key_tab.data_ptr<int32_t>(), slot_tab.data_ptr<int32_t>(), n_buckets,
+      slot_uid.data_ptr<int32_t>(), slot_uid.size(0),
+      uids.data_ptr<int32_t>(), uids.size(0), out.data_ptr<int32_t>(),
+      c10::cuda::getCurrentCUDAStream().stream()));
+  return out;
 }
 
 // out[b, p] = dot of rows (i, j) of feats[b], the p-th pair of the strict
@@ -469,9 +536,14 @@ void fused_adam(const torch::Tensor& table,
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("embedding_bag_forward", &embedding_bag_forward,
-        "Embedding bag over a CSR-ordered index stream (CUDA)",
-        py::arg("working"), py::arg("inv"), py::arg("weights"),
-        py::arg("order"), py::arg("offsets"), py::arg("out"));
+        "Embedding bag from inv and seg in one call, or its index streams "
+        "alone (CUDA)", py::arg("working"), py::arg("inv"), py::arg("seg"),
+        py::arg("weights"), py::arg("num_bags"),
+        py::arg("streams_only") = false);
+  m.def("embedding_bag_walk", &embedding_bag_walk,
+        "The embedding bag's walk alone, on index streams in bag order "
+        "(CUDA)", py::arg("working"), py::arg("inv_sorted"),
+        py::arg("w_sorted"), py::arg("offsets"), py::arg("out"));
   m.def("embedding_bag_backward", &embedding_bag_backward,
         "Working-row gradient of the bag from inv and seg in one call, or "
         "its index streams alone (CUDA)", py::arg("g"), py::arg("inv"),
@@ -511,5 +583,5 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("hash_lookup", &hash_lookup,
         "Batch linear probe of the cache's id -> slot hash map (CUDA)",
         py::arg("key_tab"), py::arg("slot_tab"), py::arg("slot_uid"),
-        py::arg("uids"), py::arg("out"));
+        py::arg("uids"));
 }

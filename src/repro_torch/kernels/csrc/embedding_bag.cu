@@ -7,9 +7,9 @@
 // (embedding_bag_pallas; exact form at :102, one-hot MXU form at :129).
 // The TPU version multiplies a one-hot (bags x nnz) block by the gathered
 // rows on the matrix unit.  On the GPU that product would read every nnz
-// entry once per bag block; instead the wrapper sorts the entries by bag
-// once (a stable sort of seg gives `order` and the CSR `offsets`), and this
-// kernel walks each bag's own entries.
+// entry once per bag block; instead the entries are grouped by bag once
+// (the index streams, built on the card without a sort: build_streams
+// below, shared with the backward) and a walk adds each bag's own entries.
 //
 // Backward (the gradient of the forward's sum; no TPU kernel is replaced:
 // the reference's backward is the XLA vjp of its plain version,
@@ -33,18 +33,36 @@
 // index and weight streams, and the output rows; the arithmetic is one
 // multiply and one add per gathered element.
 //
-// Design of the forward:
-//   - one warp per bag, eight bags per 256-thread block;
-//   - lanes span dim: lane l owns columns l, l + 32, ... (two f32 per lane
-//     at dim 64), so every gathered row is read as coalesced 128-byte
-//     segments;
-//   - the lanes first load up to 32 of the bag's (row, weight) pairs in
-//     parallel and then broadcast them with __shfl_sync, so the dependent
-//     order -> inv -> row chain is paid once per 32 entries;
-//   - each bag adds its entries in ascending original position (the stable
-//     sort keeps it), with __fmul_rn/__fadd_rn so that no multiply-add is
-//     contracted: the sum is bit-equal to the sequential CPU segment sum,
-//     and two runs give equal bits (no atomics);
+// Design of the forward.  What holds it back is the latency of dependent
+// loads more than the bytes: a baidu-ctr bag holds ~2.5 entries (100 ids
+// over 40 fields), so each bag is a short chain (offsets -> its (row,
+// weight) pairs -> the rows -> the store) and 40,960 such chains make a
+// batch.  One extension call does it all, with no sort and no host sync:
+//   - the index streams by bag: build_streams keyed by seg (the backward
+//     keys it by inv): counts, the scanned offsets, the long bags (more
+//     than kLongRow entries) placed by the ordered compaction, the others
+//     by an atomic slot and a rank pass.  inv and the weights land in bag
+//     order as int32 and float32, so the walk reads a bag's pairs
+//     contiguously.  Entries whose seg lies outside [0, num_bags) form the
+//     sentinel group, after the last bag, and fall in no bag;
+//   - the walk (embedding_bag_walk_kernel): a group of kLanes lanes a bag,
+//     several bags a warp (at dim 64, a half-warp a bag, a float4 a lane:
+//     one 256-byte row in one load); the group loads up to kLanes of its
+//     bag's (row, weight) pairs at once, then the rows of up to kPre
+//     entries before it adds any of them, so their loads overlap; the
+//     groups are persistent (as many blocks as the card holds) and load
+//     the next bag's pairs and the bounds of the bag after it while this
+//     bag's rows load, so each bag waits on one trip to memory, not three;
+//     the warp's loops run to the longest bag of the warp, so every shuffle
+//     finds its whole warp;
+//   - the builder's kernels after the first, and the walk, are
+//     programmatic dependent launches: each starts while the one before
+//     finishes and waits for it on the card (griddepcontrol), which takes
+//     a launch's latency off each of the four steps;
+//   - each bag adds its entries in ascending original position (the
+//     streams' stable order), with __fmul_rn/__fadd_rn so that no
+//     multiply-add is contracted: the sum is bit-equal to the sequential
+//     CPU segment sum, and two runs give equal bits (no atomics);
 //   - every bag row is written, an empty bag as zeros.
 //
 // Design of g_work.  Every working row adds its entries in ascending
@@ -113,6 +131,7 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <utility>
 
 
 #include "device.h"
@@ -121,101 +140,239 @@ namespace {
 
 size_t aligned(size_t bytes) { return (bytes + 255) / 256 * 256; }
 
+// Launches kernel, with `dependent` as a programmatic dependent launch: its
+// blocks may start before the kernel before it on the stream has finished,
+// and wait for it (griddepcontrol.wait, which every such kernel runs before
+// it reads what the one before wrote, and before it exits) instead of the
+// launch waiting.
+template <typename... Params, typename... Args>
+void launch_dependent(bool dependent, void (*kernel)(Params...),
+                      unsigned blocks, unsigned threads, cudaStream_t stream,
+                      Args&&... args) {
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(blocks);
+  config.blockDim = dim3(threads);
+  config.dynamicSmemBytes = 0;
+  config.stream = stream;
+  config.attrs = attr;
+  config.numAttrs = dependent ? 1 : 0;
+  cudaLaunchKernelEx(&config, kernel, std::forward<Args>(args)...);
+}
+
+// Lets the next kernel on the stream, if it is a programmatic dependent
+// launch, start its blocks now (they wait for this grid to finish).
+__device__ __forceinline__ void start_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
+}
+
+// Waits for the grid before this one (a no-op unless this kernel is a
+// programmatic dependent launch).
+__device__ __forceinline__ void wait_for_prior() {
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+}
+
 constexpr int kWarp = 32;
 constexpr int kRowsPerBlock = 8;
 
-template <int kColsPerLane>
-__global__ void embedding_bag_kernel(
-    const float* __restrict__ working, int dim,
-    const int32_t* __restrict__ inv, const float* __restrict__ weights,
-    const int64_t* __restrict__ order, const int64_t* __restrict__ offsets,
-    int num_bags, float* __restrict__ out) {
+// The forward's walk: a group of kLanes lanes (a power of two) adds one
+// bag, lane l of the group the columns (v * kLanes + l) * kW + [0, kW) for
+// v < kVecs, kW floats a load (4: float4, where dim and the pointers allow
+// it; else 1).  Bag b's entries are inv_sorted / w_sorted [offsets[b],
+// offsets[b + 1]).  The groups are persistent: group g walks the bags g,
+// g + stride, ..., and while one bag's rows load, the next bag's first
+// kLanes (row, weight) pairs and the bounds of the bag after it load too,
+// so only the rows' trip is on each bag's path.  A warp's loops run to the
+// longest of its groups' bags, so every shuffle finds the whole warp.
+template <int kLanes, int kVecs, int kW>
+__global__ void __launch_bounds__(kRowsPerBlock * kWarp)
+embedding_bag_walk_kernel(const float* __restrict__ working, int dim,
+                          const int32_t* __restrict__ inv_sorted,
+                          const float* __restrict__ w_sorted,
+                          const int64_t* __restrict__ offsets, int num_bags,
+                          float* __restrict__ out) {
+  constexpr int kBags = kWarp / kLanes;           // bags a warp walks at once
+  // entries whose rows load before any of them adds: 4 loads a lane (a
+  // bag holds ~2.5 entries; 8 measured no faster and took more registers)
+  constexpr int kPre = kVecs >= 4 ? 1 : 4 / kVecs;
   const int lane = threadIdx.x % kWarp;
-  const int bag = blockIdx.x * kRowsPerBlock + threadIdx.x / kWarp;
-  if (bag >= num_bags) return;  // whole warps leave together
-  const int64_t begin = offsets[bag];
-  const int64_t end = offsets[bag + 1];
+  const int sub = lane % kLanes;
+  const int64_t warp_first =
+      (static_cast<int64_t>(blockIdx.x) * kRowsPerBlock + threadIdx.x / kWarp)
+      * kBags;
+  const int64_t stride =
+      static_cast<int64_t>(gridDim.x) * kRowsPerBlock * kBags;
+  // the streams are the kernel before this one's output
+  wait_for_prior();
 
-  float acc[kColsPerLane];
-#pragma unroll
-  for (int v = 0; v < kColsPerLane; ++v) acc[v] = 0.0f;
-
-  for (int64_t base = begin; base < end; base += kWarp) {
-    const int n = static_cast<int>(end - base < kWarp ? end - base : kWarp);
-    int64_t my_row = 0;
-    float my_w = 1.0f;
-    if (lane < n) {
-      const int64_t j = order[base + lane];
-      my_row = inv[j];
-      if (weights != nullptr) my_w = weights[j];
+  // a bag's bounds (an empty range past the last bag), and its entry i's
+  // (row, weight) pair (row 0 and 1 past its end)
+  auto bounds = [&](int64_t bag, int64_t& begin, int64_t& end) {
+    begin = end = 0;
+    if (bag < num_bags) {
+      begin = offsets[bag];
+      end = offsets[bag + 1];
     }
-    for (int t = 0; t < n; ++t) {
-      const int64_t row = __shfl_sync(0xffffffffu, my_row, t);
-      const float w = __shfl_sync(0xffffffffu, my_w, t);
-      const float* src = working + row * dim;
+  };
+  auto pair = [&](int64_t begin, int64_t end, int64_t i, int32_t& row,
+                  float& w) {
+    row = 0;
+    w = 1.0f;
+    if (begin + i < end) {
+      row = inv_sorted[begin + i];
+      if (w_sorted != nullptr) w = w_sorted[begin + i];
+    }
+  };
+
+  int64_t bag = warp_first + lane / kLanes;
+  int64_t begin, end, next_begin, next_end;
+  int32_t row0;
+  float w0;
+  bounds(bag, begin, end);
+  pair(begin, end, sub, row0, w0);
+  bounds(bag + stride, next_begin, next_end);
+  for (int64_t b0 = warp_first; b0 < num_bags; b0 += stride) {  // warp-wide
+    // in flight while this bag adds: the next bag's first pairs and the
+    // bounds of the bag after it
+    int32_t next_row0;
+    float next_w0;
+    int64_t after_begin, after_end;
+    pair(next_begin, next_end, sub, next_row0, next_w0);
+    bounds(bag + 2 * stride, after_begin, after_end);
+
+    const int n = static_cast<int>(end - begin);
+    const int n_warp = __reduce_max_sync(0xffffffffu, n);
+    float acc[kVecs][kW];
 #pragma unroll
-      for (int v = 0; v < kColsPerLane; ++v) {
-        const int c = lane + v * kWarp;
-        if (c < dim) {
-          float x = src[c];
-          if (weights != nullptr) x = __fmul_rn(x, w);
-          acc[v] = __fadd_rn(acc[v], x);
+    for (int v = 0; v < kVecs; ++v) {
+#pragma unroll
+      for (int e = 0; e < kW; ++e) acc[v][e] = 0.0f;
+    }
+    for (int base = 0; base < n_warp; base += kLanes) {
+      // the group's kLanes (row, weight) pairs from entry base on, one a
+      // lane (the first kLanes came with the bag)
+      int32_t my_row = row0;
+      float my_w = w0;
+      if (base > 0) pair(begin, end, base + sub, my_row, my_w);
+      const int m = n_warp - base < kLanes ? n_warp - base : kLanes;
+      for (int t0 = 0; t0 < m; t0 += kPre) {  // warp-uniform
+        // all the loads first, so they overlap; the adds below keep the
+        // entries' order.  A lane past its bag's end loads nothing.
+        float x[kPre][kVecs][kW];
+        unsigned ok_mask = 0;
+#pragma unroll
+        for (int t = 0; t < kPre; ++t) {
+          const int64_t row =
+              __shfl_sync(0xffffffffu, my_row, (t0 + t) % kLanes, kLanes);
+          const bool ok = t0 + t < m && base + t0 + t < n;
+          ok_mask |= static_cast<unsigned>(ok) << t;
+          const float* src = working + row * dim;
+#pragma unroll
+          for (int v = 0; v < kVecs; ++v) {
+            const int c = (v * kLanes + sub) * kW;
+            if constexpr (kW == 4) {
+              float4 y = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+              if (ok && c < dim) y = *reinterpret_cast<const float4*>(src + c);
+              x[t][v][0] = y.x;
+              x[t][v][1] = y.y;
+              x[t][v][2] = y.z;
+              x[t][v][3] = y.w;
+            } else {
+              x[t][v][0] = ok && c < dim ? src[c] : 0.0f;
+            }
+          }
+        }
+#pragma unroll
+        for (int t = 0; t < kPre; ++t) {
+          const float w =
+              __shfl_sync(0xffffffffu, my_w, (t0 + t) % kLanes, kLanes);
+          if ((ok_mask >> t) & 1u) {
+#pragma unroll
+            for (int v = 0; v < kVecs; ++v) {
+#pragma unroll
+              for (int e = 0; e < kW; ++e) {
+                float y = x[t][v][e];
+                if (w_sorted != nullptr) y = __fmul_rn(y, w);
+                acc[v][e] = __fadd_rn(acc[v][e], y);
+              }
+            }
+          }
         }
       }
     }
-  }
-
-  float* dst = out + static_cast<int64_t>(bag) * dim;
+    if (bag < num_bags) {
+      float* dst = out + bag * dim;
 #pragma unroll
-  for (int v = 0; v < kColsPerLane; ++v) {
-    const int c = lane + v * kWarp;
-    if (c < dim) dst[c] = acc[v];
+      for (int v = 0; v < kVecs; ++v) {
+        const int c = (v * kLanes + sub) * kW;
+        if (c >= dim) continue;
+        if constexpr (kW == 4) {
+          *reinterpret_cast<float4*>(dst + c) =
+              make_float4(acc[v][0], acc[v][1], acc[v][2], acc[v][3]);
+        } else {
+          dst[c] = acc[v][0];
+        }
+      }
+    }
+    bag += stride;
+    begin = next_begin;
+    end = next_end;
+    row0 = next_row0;
+    w0 = next_w0;
+    next_begin = after_begin;
+    next_end = after_end;
   }
 }
 
-// ---- the backward's index streams: a stable order by working row, without
-// a sort (build_streams)
+// ---- the index streams: a stable order of the entries by a key, without a
+// sort (build_streams).  The backward keys them by inv (a group a working
+// row) and carries seg; the forward keys them by seg (a group a bag) and
+// carries inv.  Both carry the weights.
 
-// Rows of more than kLongRow entries are long: the long rows' kernel adds
-// them, and the placement compacts their entries in order.  Those of more
-// than kVeryLong are very long and handed out first.
+// Groups of more than kLongRow entries are long: the placement compacts
+// their entries in order, and the backward's long rows' kernel adds them.
+// Those of more than kVeryLong are very long and handed out first.
 constexpr int kLongRow = 128;
 constexpr int kVeryLong = 1024;
 
 // The row lists that build_streams writes and the kernels read: [the count
-// of rows of more than kVeryLong entries, the count of the other rows of
-// more than kLongRow entries, kLongRow, the count of the rows of 1 to
-// kLongRow entries; then room for max_long long rows, the very long ones
+// of groups of more than kVeryLong entries, the count of the other groups
+// of more than kLongRow entries, kLongRow, the count of the groups of 1 to
+// kLongRow entries; then room for max_long long groups, the very long ones
 // from the front and the others from the back; then room for nnz short
-// rows].  Each part is in no fixed order: the lists decide only which block
-// or warp adds a row, never how.
+// groups (listed only where the caller asks: the forward walks every bag
+// and needs no short list)].  Each part is in no fixed order: the lists
+// decide only which block or warp adds a group, never how.
 constexpr int kListHead = 4;
 constexpr int kScanThreads = 1024;
 constexpr int kScanItems = 8;        // counts a scan thread takes per round
 constexpr int kPlaceThreads = 1024;
 constexpr int kPlaceBallots = 16;    // a compacting warp's ballots a round
 
-// The group of entry j: its working row, or rows (the sentinel group, last)
-// when inv[j] lies outside [0, rows).
-__device__ __forceinline__ int group_of(const int32_t* inv, int64_t j,
-                                        int rows) {
-  const int32_t r = inv[j];
-  return r >= 0 && r < rows ? r : rows;
+// The group of entry j: its key, or groups (the sentinel group, last) when
+// keys[j] lies outside [0, groups).
+__device__ __forceinline__ int group_of(const int32_t* keys, int64_t j,
+                                        int groups) {
+  const int32_t r = keys[j];
+  return r >= 0 && r < groups ? r : groups;
 }
 
-// counts[k] = the entries of group k, k in [0, rows] (zeroed before).
+// counts[k] = the entries of group k, k in [0, groups] (zeroed before).
 // Thread 0 also clears the row lists' counts.
-__global__ void backward_count_kernel(const int32_t* __restrict__ inv,
-                                      int64_t nnz, int rows,
-                                      int32_t* __restrict__ counts,
-                                      int32_t* __restrict__ long_rows) {
+__global__ void stream_count_kernel(const int32_t* __restrict__ keys,
+                                    int64_t nnz, int groups,
+                                    int32_t* __restrict__ counts,
+                                    int32_t* __restrict__ long_rows) {
+  start_dependents();
   const int64_t j = static_cast<int64_t>(blockIdx.x) * blockDim.x +
                     threadIdx.x;
   if (j == 0) long_rows[0] = long_rows[1] = long_rows[3] = 0;
   const bool ok = j < nnz;
   const unsigned active = __ballot_sync(0xffffffffu, ok);
   if (!ok) return;
-  const int k = group_of(inv, j, rows);
+  const int k = group_of(keys, j, groups);
   const unsigned peers = __match_any_sync(active, k);  // one atomic a group
   if (static_cast<int>(threadIdx.x % kWarp) == __ffs(peers) - 1) {
     atomicAdd(counts + k, __popc(peers));
@@ -257,24 +414,27 @@ __device__ __forceinline__ int block_scan(int v, int* sh, int* total) {
 // conflicts; loads and stores go through it coalesced.
 __device__ __forceinline__ int pad32(int i) { return i + i / kWarp; }
 
-// offsets[k] = the entries of groups before k, for k in [0, rows], a tile
-// of counts a block (taken in launch order from *next_tile), its prefix
-// found by a decoupled look-back over the tiles before it (status: 0 not
-// out yet, 1 << 32 | the tile's sum, 2 << 32 | the sum up to and with it);
-// each row with entries goes on its row list by an atomic append.
-__global__ void __launch_bounds__(kScanThreads) backward_scan_kernel(
-    const int32_t* __restrict__ counts, int rows, int max_long,
-    int* __restrict__ next_tile,
+// offsets[k] = the entries of groups before k, for k in [0, groups], a
+// tile of counts a block (taken in launch order from *next_tile), its
+// prefix found by a decoupled look-back over the tiles before it (status:
+// 0 not out yet, 1 << 32 | the tile's sum, 2 << 32 | the sum up to and
+// with it); each long group, and with list_short each short one with
+// entries, goes on its row list by an atomic append.
+__global__ void __launch_bounds__(kScanThreads) stream_scan_kernel(
+    const int32_t* __restrict__ counts, int groups, int max_long,
+    bool list_short, int* __restrict__ next_tile,
     unsigned long long* __restrict__ status, int64_t* __restrict__ offsets,
     int32_t* __restrict__ long_rows) {
   constexpr int kTile = kScanThreads * kScanItems;
   __shared__ int tile[kTile + kTile / kWarp];
   __shared__ int sh[kWarp];
   __shared__ int tile_id, tile_prefix;
+  wait_for_prior();       // the counts
+  start_dependents();
   if (threadIdx.x == 0) tile_id = atomicAdd(next_tile, 1);
   __syncthreads();
   const int t = tile_id;
-  const int64_t n = static_cast<int64_t>(rows) + 1;
+  const int64_t n = static_cast<int64_t>(groups) + 1;
   const int64_t base = static_cast<int64_t>(t) * kTile;
 #pragma unroll
   for (int u = 0; u < kScanItems; ++u) {
@@ -290,12 +450,12 @@ __global__ void __launch_bounds__(kScanThreads) backward_scan_kernel(
     c[u] = tile[pad32(i0 + u)];
     sum += c[u];
     const int64_t k = base + i0 + u;
-    if (k < rows && c[u] > kVeryLong) {
+    if (k < groups && c[u] > kVeryLong) {
       long_rows[kListHead + atomicAdd(long_rows, 1)] = static_cast<int>(k);
-    } else if (k < rows && c[u] > kLongRow) {
+    } else if (k < groups && c[u] > kLongRow) {
       long_rows[kListHead + max_long - 1 - atomicAdd(long_rows + 1, 1)] =
           static_cast<int>(k);
-    } else if (k < rows && c[u] > 0) {
+    } else if (list_short && k < groups && c[u] > 0) {
       long_rows[kListHead + max_long + atomicAdd(long_rows + 3, 1)] =
           static_cast<int>(k);
     }
@@ -356,17 +516,17 @@ __global__ void __launch_bounds__(kScanThreads) backward_scan_kernel(
 
 // Group k's entries (k long, or the sentinel group) written in ascending
 // original position from sorted position `at` on.  The whole block walks
-// inv in rounds of kPlaceThreads * kPlaceBallots entries: warp w's lanes
+// the keys in rounds of kPlaceThreads * kPlaceBallots entries: warp w's lanes
 // read entries u * kPlaceThreads + w * 32 + lane (coalesced) for u <
 // kPlaceBallots and ballot their matches; one prefix sum over the (u, w) counts, in that
 // order, is the order of the entries, and each match goes to its prefix
 // plus its rank in its ballot.
-__device__ void compact_group(const int32_t* __restrict__ inv,
-                              const int32_t* __restrict__ seg,
+__device__ void compact_group(const int32_t* __restrict__ keys,
+                              const int32_t* __restrict__ vals,
                               const float* __restrict__ w, int64_t nnz,
-                              int rows, int k, int at, int* counts_uw,
+                              int groups, int k, int at, int* counts_uw,
                               int* sh, int32_t* __restrict__ keys_sorted,
-                              int32_t* __restrict__ seg_sorted,
+                              int32_t* __restrict__ vals_sorted,
                               float* __restrict__ w_sorted) {
   constexpr int kRound = kPlaceThreads * kPlaceBallots;
   const int lane = threadIdx.x % kWarp;
@@ -378,7 +538,7 @@ __device__ void compact_group(const int32_t* __restrict__ inv,
     for (int u = 0; u < kPlaceBallots; ++u) {
       const int64_t j = base + u * kPlaceThreads + warp * kWarp + lane;
       hits[u] = __ballot_sync(0xffffffffu,
-                              j < nnz && group_of(inv, j, rows) == k);
+                              j < nnz && group_of(keys, j, groups) == k);
     }
     if (lane < kPlaceBallots) {
       // lane u of warp w holds the count of (u, w): in (u, w) order the
@@ -405,7 +565,7 @@ __device__ void compact_group(const int32_t* __restrict__ inv,
         const int pos = at + counts_uw[u * (kPlaceThreads / kWarp) + warp] +
                         __popc(hits[u] & below);
         keys_sorted[pos] = k;
-        seg_sorted[pos] = seg[j];
+        vals_sorted[pos] = vals[j];
         if (w != nullptr) w_sorted[pos] = w[j];
       }
     }
@@ -418,27 +578,30 @@ __device__ void compact_group(const int32_t* __restrict__ inv,
 // then the sentinel group if it is long), a block a group at a time; the
 // others give each entry of a short group a slot of its group (in no
 // order yet: tmp holds its position j) and its key.
-__global__ void __launch_bounds__(kPlaceThreads) backward_place_kernel(
-    const int32_t* __restrict__ inv, const int32_t* __restrict__ seg,
-    const float* __restrict__ w, int64_t nnz, int rows,
+__global__ void __launch_bounds__(kPlaceThreads) stream_place_kernel(
+    const int32_t* __restrict__ keys, const int32_t* __restrict__ vals,
+    const float* __restrict__ w, int64_t nnz, int groups,
     const int32_t* __restrict__ counts, const int64_t* __restrict__ offsets,
     const int32_t* __restrict__ long_rows, int max_long, int place_blocks,
     int32_t* __restrict__ fill, int32_t* __restrict__ tmp,
-    int32_t* __restrict__ keys_sorted, int32_t* __restrict__ seg_sorted,
+    int32_t* __restrict__ keys_sorted, int32_t* __restrict__ vals_sorted,
     float* __restrict__ w_sorted) {
   __shared__ int counts_uw[kPlaceThreads];
   __shared__ int sh[kWarp];
+  wait_for_prior();       // the offsets and the row lists
+  start_dependents();
   if (static_cast<int>(blockIdx.x) < place_blocks) {
     const int n_very = long_rows[0];
     const int n_long = n_very + long_rows[1];
-    const int groups = n_long + (counts[rows] > kLongRow ? 1 : 0);
-    for (int q = blockIdx.x; q < groups; q += place_blocks) {
+    const int n_groups = n_long + (counts[groups] > kLongRow ? 1 : 0);
+    for (int q = blockIdx.x; q < n_groups; q += place_blocks) {
       const int k = q < n_very ? long_rows[kListHead + q]
                     : q < n_long
                         ? long_rows[kListHead + max_long - 1 - (q - n_very)]
-                        : rows;
-      compact_group(inv, seg, w, nnz, rows, k, static_cast<int>(offsets[k]),
-                    counts_uw, sh, keys_sorted, seg_sorted, w_sorted);
+                        : groups;
+      compact_group(keys, vals, w, nnz, groups, k,
+                    static_cast<int>(offsets[k]), counts_uw, sh,
+                    keys_sorted, vals_sorted, w_sorted);
     }
     return;
   }
@@ -446,7 +609,7 @@ __global__ void __launch_bounds__(kPlaceThreads) backward_place_kernel(
       static_cast<int64_t>(blockIdx.x - place_blocks) * kPlaceThreads +
       threadIdx.x;
   if (j >= nnz) return;
-  const int k = group_of(inv, j, rows);
+  const int k = group_of(keys, j, groups);
   if (counts[k] > kLongRow) return;
   const int pos = static_cast<int>(offsets[k]) + atomicAdd(fill + k, 1);
   tmp[pos] = static_cast<int32_t>(j);
@@ -455,15 +618,16 @@ __global__ void __launch_bounds__(kPlaceThreads) backward_place_kernel(
 
 // Each entry of a short group moves to its rank in ascending original
 // position among its group's (at most kLongRow) entries.
-__global__ void backward_rank_kernel(const int32_t* __restrict__ seg,
-                                     const float* __restrict__ w,
-                                     int64_t nnz,
-                                     const int32_t* __restrict__ counts,
-                                     const int64_t* __restrict__ offsets,
-                                     const int32_t* __restrict__ tmp,
-                                     const int32_t* __restrict__ keys_sorted,
-                                     int32_t* __restrict__ seg_sorted,
-                                     float* __restrict__ w_sorted) {
+__global__ void stream_rank_kernel(const int32_t* __restrict__ vals,
+                                   const float* __restrict__ w, int64_t nnz,
+                                   const int32_t* __restrict__ counts,
+                                   const int64_t* __restrict__ offsets,
+                                   const int32_t* __restrict__ tmp,
+                                   const int32_t* __restrict__ keys_sorted,
+                                   int32_t* __restrict__ vals_sorted,
+                                   float* __restrict__ w_sorted) {
+  wait_for_prior();       // the placed entries
+  start_dependents();
   const int64_t q = static_cast<int64_t>(blockIdx.x) * blockDim.x +
                     threadIdx.x;
   if (q >= nnz) return;
@@ -474,7 +638,7 @@ __global__ void backward_rank_kernel(const int32_t* __restrict__ seg,
   const int j = tmp[q];
   int p = start;
   for (int i = start; i < start + c; ++i) p += tmp[i] < j;
-  seg_sorted[p] = seg[j];
+  vals_sorted[p] = vals[j];
   if (w != nullptr) w_sorted[p] = w[j];
 }
 
@@ -789,15 +953,47 @@ embedding_bag_backward_kernel(
   asm volatile("griddepcontrol.wait;" ::: "memory");
 }
 
-template <int kColsPerLane>
-void launch_forward(const float* working, int dim, const int32_t* inv,
-                    const float* weights, const int64_t* order,
-                    const int64_t* offsets, int num_bags, float* out,
-                    cudaStream_t stream) {
-  const int blocks = (num_bags + kRowsPerBlock - 1) / kRowsPerBlock;
-  embedding_bag_kernel<kColsPerLane>
-      <<<blocks, kRowsPerBlock * kWarp, 0, stream>>>(
-          working, dim, inv, weights, order, offsets, num_bags, out);
+// The walk: as many blocks as the card holds at once (persistent groups),
+// or fewer where the bags are fewer; a programmatic dependent launch.
+template <int kLanes, int kVecs, int kW>
+void launch_walk(const float* working, int dim, const int32_t* inv_sorted,
+                 const float* w_sorted, const int64_t* offsets, int num_bags,
+                 float* out, cudaStream_t stream) {
+  constexpr int kBagsPerBlock = kRowsPerBlock * (kWarp / kLanes);
+  auto* kernel = embedding_bag_walk_kernel<kLanes, kVecs, kW>;
+  static int per_sm = 0;   // an instantiation's blocks an SM holds
+  if (per_sm == 0) {
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                  kRowsPerBlock * kWarp, 0);
+    if (per_sm <= 0) per_sm = 1;
+  }
+  const int needed = (num_bags + kBagsPerBlock - 1) / kBagsPerBlock;
+  const int blocks = needed < per_sm * sm_count() ? needed
+                                                  : per_sm * sm_count();
+  launch_dependent(true, kernel, blocks, kRowsPerBlock * kWarp, stream,
+                   working, dim, inv_sorted, w_sorted, offsets, num_bags,
+                   out);
+}
+
+// The walk's instantiation for dim: float4 loads where dim is a multiple of
+// 4 and both rows' bases are 16-byte aligned (kLanes lanes cover dim, at
+// most 32, then two float4 a lane), else a float a load, a warp a bag.
+void walk(const float* working, int dim, const int32_t* inv_sorted,
+          const float* w_sorted, const int64_t* offsets, int num_bags,
+          float* out, cudaStream_t stream) {
+  const bool vec = dim % 4 == 0 &&
+                   reinterpret_cast<uintptr_t>(working) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  auto* run = vec ? (dim <= 16    ? &launch_walk<4, 1, 4>
+                     : dim <= 32  ? &launch_walk<8, 1, 4>
+                     : dim <= 64  ? &launch_walk<16, 1, 4>
+                     : dim <= 128 ? &launch_walk<32, 1, 4>
+                                  : &launch_walk<32, 2, 4>)
+                  : (dim <= 32    ? &launch_walk<32, 1, 1>
+                     : dim <= 64  ? &launch_walk<32, 2, 1>
+                     : dim <= 128 ? &launch_walk<32, 4, 1>
+                                  : &launch_walk<32, 8, 1>);
+  run(working, dim, inv_sorted, w_sorted, offsets, num_bags, out, stream);
 }
 
 template <int kColsPerLane>
@@ -819,19 +1015,10 @@ void launch_backward(const float* g, int64_t num_bags, int dim,
   }
   // a programmatic dependent launch: the short rows' kernel starts while
   // the long rows' runs (its blocks wait for it only before they exit)
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
-  attr[0].val.programmaticStreamSerializationAllowed = 1;
-  cudaLaunchConfig_t config = {};
-  config.gridDim = dim3(kShortBlocksPerSm * sms);
-  config.blockDim = dim3(kRowsPerBlock * kWarp);
-  config.dynamicSmemBytes = 0;
-  config.stream = stream;
-  config.attrs = attr;
-  config.numAttrs = max_long > 0 ? 1 : 0;
-  cudaLaunchKernelEx(&config, embedding_bag_backward_kernel<kColsPerLane>, g,
-                     num_bags, dim, seg_sorted, w_sorted, offsets, long_rows,
-                     max_long, g_work);
+  launch_dependent(max_long > 0, embedding_bag_backward_kernel<kColsPerLane>,
+                   kShortBlocksPerSm * sms, kRowsPerBlock * kWarp, stream, g,
+                   num_bags, dim, seg_sorted, w_sorted, offsets, long_rows,
+                   max_long, g_work);
 }
 
 // g_w[j] = <g[seg[j]], working[inv[j]]>: one warp per entry.  Lane l adds
@@ -867,49 +1054,50 @@ __global__ void bag_weight_grad_kernel(
 }
 
 // Tiles of counts the scan takes.
-size_t scan_tiles(int working_rows) {
-  const size_t groups = static_cast<size_t>(working_rows) + 1;
+size_t scan_tiles(int groups) {
+  const size_t n = static_cast<size_t>(groups) + 1;
   constexpr size_t kTile = static_cast<size_t>(kScanThreads) * kScanItems;
-  return (groups + kTile - 1) / kTile;
+  return (n + kTile - 1) / kTile;
 }
 
-// The most rows of more than kLongRow entries that nnz entries can make.
+// The most groups of more than kLongRow entries that nnz entries can make.
 int64_t max_long_rows(int64_t nnz) { return nnz / (kLongRow + 1); }
 
-// The byte offsets of the backward's scratch parts, each 256-byte aligned,
-// in this order: seg_sorted, keys_sorted, w_sorted (weighted only),
+// The byte offsets of the streams' scratch parts, each 256-byte aligned,
+// in this order: vals_sorted, keys_sorted, w_sorted (weighted only),
 // offsets, the row lists (what build_streams hands the kernels and the
-// binding hands back), then the groups' counts and fills, the counters
+// bindings hand back), then the groups' counts and fills, the counters
 // (the scan's next tile, the long rows' next item) and the scan's
 // look-back words (these four cleared by one memset), the short groups'
 // unordered positions, and the end.
-enum Part { kSeg, kKeys, kW, kOffsets, kLists, kCounts, kFill, kCounters,
+enum Part { kVals, kKeys, kW, kOffsets, kLists, kCounts, kFill, kCounters,
             kStatus, kTmp, kEnd, kParts };
 
-void scratch_layout(int64_t nnz, int working_rows, bool weighted,
+void scratch_layout(int64_t nnz, int groups, bool weighted,
                     size_t at[kParts]) {
   const size_t n4 = aligned(static_cast<size_t>(nnz) * 4);
-  const size_t groups = static_cast<size_t>(working_rows) + 1;
-  const size_t groups4 = aligned(groups * 4);
+  const size_t groups1 = static_cast<size_t>(groups) + 1;
+  const size_t groups4 = aligned(groups1 * 4);
   const size_t sizes[kParts - 1] = {
-      n4, n4, weighted ? n4 : 0, aligned(groups * 8),
+      n4, n4, weighted ? n4 : 0, aligned(groups1 * 8),
       aligned(static_cast<size_t>(kListHead + max_long_rows(nnz) + nnz) * 4),
-      groups4, groups4, 256, aligned(scan_tiles(working_rows) * 8), n4};
+      groups4, groups4, 256, aligned(scan_tiles(groups) * 8), n4};
   at[0] = 0;
   for (int i = 0; i + 1 < kParts; ++i) at[i + 1] = at[i] + sizes[i];
 }
 
-// The backward's streams sorted by working row, in a memset and four
-// launches, with no host sync: count the groups, scan the counts (the
-// offsets and the row lists), place the long groups by an ordered
-// compaction and scatter the short groups' entries, then order each short
-// group by rank.
-void build_streams(const int32_t* inv, const int32_t* seg, const float* w,
-                   int64_t nnz, int working_rows, char* scratch,
+// The streams sorted by key, in a memset and four launches, with no host
+// sync: count the groups, scan the counts (the offsets and the row lists;
+// the short groups listed only with list_short), place the long groups by
+// an ordered compaction and scatter the short groups' entries, then order
+// each short group by rank.  vals and w land in that order.  The last
+// three are programmatic dependent launches.
+void build_streams(const int32_t* keys, const int32_t* vals, const float* w,
+                   int64_t nnz, int groups, bool list_short, char* scratch,
                    const size_t at[kParts], cudaStream_t stream) {
   auto part = [&](Part k) { return scratch + at[k]; };
   auto* keys_sorted = reinterpret_cast<int32_t*>(part(kKeys));
-  auto* seg_sorted = reinterpret_cast<int32_t*>(part(kSeg));
+  auto* vals_sorted = reinterpret_cast<int32_t*>(part(kVals));
   auto* w_sorted = w != nullptr ? reinterpret_cast<float*>(part(kW))
                                 : nullptr;
   auto* offsets = reinterpret_cast<int64_t*>(part(kOffsets));
@@ -924,22 +1112,23 @@ void build_streams(const int32_t* inv, const int32_t* seg, const float* w,
   constexpr int kThreads = 256;
   const unsigned entry_blocks =
       static_cast<unsigned>((nnz + kThreads - 1) / kThreads);
-  backward_count_kernel<<<entry_blocks > 0 ? entry_blocks : 1, kThreads, 0,
-                          stream>>>(inv, nnz, working_rows, counts, lists);
-  backward_scan_kernel<<<static_cast<unsigned>(scan_tiles(working_rows)),
-                         kScanThreads, 0, stream>>>(
-      counts, working_rows, max_long, next_tile, status, offsets, lists);
+  stream_count_kernel<<<entry_blocks > 0 ? entry_blocks : 1, kThreads, 0,
+                        stream>>>(keys, nnz, groups, counts, lists);
+  launch_dependent(true, stream_scan_kernel,
+                   static_cast<unsigned>(scan_tiles(groups)), kScanThreads,
+                   stream, counts, groups, max_long, list_short, next_tile,
+                   status, offsets, lists);
   if (nnz > 0) {
     const int place_blocks = sm_count();
     const unsigned scatter_blocks = static_cast<unsigned>(
         (nnz + kPlaceThreads - 1) / kPlaceThreads);
-    backward_place_kernel<<<place_blocks + scatter_blocks, kPlaceThreads, 0,
-                            stream>>>(
-        inv, seg, w, nnz, working_rows, counts, offsets, lists, max_long,
-        place_blocks, fill, tmp, keys_sorted, seg_sorted, w_sorted);
-    backward_rank_kernel<<<entry_blocks, kThreads, 0, stream>>>(
-        seg, w, nnz, counts, offsets, tmp, keys_sorted, seg_sorted,
-        w_sorted);
+    launch_dependent(true, stream_place_kernel, place_blocks + scatter_blocks,
+                     kPlaceThreads, stream, keys, vals, w, nnz, groups,
+                     counts, offsets, lists, max_long, place_blocks, fill,
+                     tmp, keys_sorted, vals_sorted, w_sorted);
+    launch_dependent(true, stream_rank_kernel, entry_blocks, kThreads, stream,
+                     vals, w, nnz, counts, offsets, tmp, keys_sorted,
+                     vals_sorted, w_sorted);
   }
 }
 
@@ -949,24 +1138,51 @@ void build_streams(const int32_t* inv, const int32_t* seg, const float* w,
 // [1, 256], the row counts are positive and below 2^31.  `weights` may be
 // null (unweighted bag).
 
-// out[b] = sum over order[offsets[b]:offsets[b+1]] of w[j] * working[inv[j]].
-void launch_embedding_bag(const float* working, int dim, const int32_t* inv,
-                          const float* weights, const int64_t* order,
-                          const int64_t* offsets, int num_bags, float* out,
-                          cudaStream_t stream) {
-  if (dim <= 32) {
-    launch_forward<1>(working, dim, inv, weights, order, offsets, num_bags,
-                      out, stream);
-  } else if (dim <= 64) {
-    launch_forward<2>(working, dim, inv, weights, order, offsets, num_bags,
-                      out, stream);
-  } else if (dim <= 128) {
-    launch_forward<4>(working, dim, inv, weights, order, offsets, num_bags,
-                      out, stream);
-  } else {
-    launch_forward<8>(working, dim, inv, weights, order, offsets, num_bags,
-                      out, stream);
+// The scratch bytes of the index streams of nnz entries over `groups`
+// keys; at[0..4] get the byte offsets of the streams left there:
+// vals_sorted, keys_sorted, w_sorted (weighted only), offsets, the row
+// lists.
+size_t streams_scratch_bytes(int64_t nnz, int groups, bool weighted,
+                             size_t streams_at[5]) {
+  size_t at[kParts];
+  scratch_layout(nnz, groups, weighted, at);
+  for (int i = 0; i < 5; ++i) streams_at[i] = at[i];
+  return at[kEnd];
+}
+
+// out[b] = sum over j with seg[j] == b of w[j] * working[inv[j]], every
+// bag written: the streams by bag in `scratch` (streams_scratch_bytes with
+// num_bags groups: inv and w gathered into bag order, offsets[b] for b in
+// [0, num_bags], the entries outside [0, num_bags) last), then the walk.
+// With out null only the streams are built.
+cudaError_t launch_embedding_bag(const float* working, int dim,
+                                 const int32_t* inv, const int32_t* seg,
+                                 const float* w, int64_t nnz, int num_bags,
+                                 void* scratch, float* out,
+                                 cudaStream_t stream) {
+  size_t at[kParts];
+  scratch_layout(nnz, num_bags, w != nullptr, at);
+  char* base = static_cast<char*>(scratch);
+  build_streams(seg, inv, w, nnz, num_bags, false, base, at, stream);
+  if (out != nullptr) {
+    walk(working, dim, reinterpret_cast<const int32_t*>(base + at[kVals]),
+         w != nullptr ? reinterpret_cast<const float*>(base + at[kW])
+                      : nullptr,
+         reinterpret_cast<const int64_t*>(base + at[kOffsets]), num_bags,
+         out, stream);
   }
+  return cudaGetLastError();
+}
+
+// The walk alone on given streams (inv_sorted, w_sorted or null, offsets
+// of num_bags + 1 entries).
+cudaError_t launch_embedding_bag_walk(const float* working, int dim,
+                                      const int32_t* inv_sorted,
+                                      const float* w_sorted,
+                                      const int64_t* offsets, int num_bags,
+                                      float* out, cudaStream_t stream) {
+  walk(working, dim, inv_sorted, w_sorted, offsets, num_bags, out, stream);
+  return cudaGetLastError();
 }
 
 // The row lists' length in ints, for nnz entries.
@@ -974,19 +1190,9 @@ int64_t backward_list_ints(int64_t nnz) {
   return kListHead + max_long_rows(nnz) + nnz;
 }
 
-// The scratch bytes of launch_embedding_bag_backward; at[0..4] get the
-// byte offsets of the streams it leaves there: seg_sorted, keys_sorted,
-// w_sorted (weighted only), offsets, the row lists.
-size_t backward_scratch_bytes(int64_t nnz, int working_rows, bool weighted,
-                              size_t streams_at[5]) {
-  size_t at[kParts];
-  scratch_layout(nnz, working_rows, weighted, at);
-  for (int i = 0; i < 5; ++i) streams_at[i] = at[i];
-  return at[kEnd];
-}
-
 // g_work[r] = sum over j with inv[j] == r of w[j] * g[seg[j]], every row
-// written: the streams by working row in `scratch` (keys_sorted: inv, the
+// written: the streams by working row in `scratch`
+// (streams_scratch_bytes with working_rows groups; keys_sorted: inv, the
 // entries outside [0, working_rows) as working_rows, last; seg and w
 // gathered into that order; offsets[r] for r in [0, working_rows]; the row
 // lists), then g_work zeroed by a memset and the long rows' kernel with
@@ -998,9 +1204,10 @@ cudaError_t launch_embedding_bag_backward(
   size_t at[kParts];
   scratch_layout(nnz, working_rows, w != nullptr, at);
   char* base = static_cast<char*>(scratch);
-  build_streams(inv, seg, w, nnz, working_rows, base, at, stream);
+  build_streams(inv, seg, w, nnz, working_rows, true, base, at, stream);
   if (g_work != nullptr) {
-    const auto* seg_sorted = reinterpret_cast<const int32_t*>(base + at[kSeg]);
+    const auto* seg_sorted =
+        reinterpret_cast<const int32_t*>(base + at[kVals]);
     const auto* w_sorted =
         w != nullptr ? reinterpret_cast<const float*>(base + at[kW]) : nullptr;
     const auto* offsets = reinterpret_cast<const int64_t*>(base + at[kOffsets]);

@@ -14,16 +14,18 @@ run to run.
 The kernels are ``csrc/embedding_bag.cu`` (its header says how they are laid
 out and what bounds them), bound by ``csrc/bindings.cpp`` and built by
 ``kernels.build``.  Both walks need each output row's entries in ascending
-original position.  The forward's wrapper gets them with PyTorch ops (a
-stable sort of ``seg`` gives ``order`` and the CSR ``offsets``).  The
-backward makes one call of the extension, which builds them on the card
-without a sort (the stable order by ``inv``, the offsets, ``seg`` and the
-weights gathered into that order, so its kernels read them contiguously,
-and the lists of the rows of more and of at most ``LONG_ROW`` entries)
-and then runs the kernels; ``backward_streams`` returns those streams
-alone.  Entries
-whose ``seg`` lies outside [0, num_bags) fall in no bag: the forward drops
-them and their gradients are zero, as in the reference's segment sum.
+original position, and each direction makes one call of the extension,
+which builds those index streams on the card without a sort (a stable
+order by key, the offsets, the carried index and the weights gathered into
+that order, so the kernels read them contiguously) and then runs its
+kernels.  The forward keys the entries by ``seg`` and carries ``inv``
+(``forward_streams`` returns those streams alone, and ``walk`` runs the walk
+alone on given streams); the backward keys them by ``inv`` and carries
+``seg``, and also lists the rows of more and of at most ``LONG_ROW``
+entries (``backward_streams``).  ``csr_from_segments`` is the forward
+streams' plain version, by a stable sort.  Entries whose ``seg`` lies
+outside [0, num_bags) fall in no bag: the forward drops them and their
+gradients are zero, as in the reference's segment sum.
 ``inv`` must index rows of ``working``; on the working-set path it does by
 construction (the drop row is the last row).
 """
@@ -75,10 +77,39 @@ VERY_LONG = 1024
 
 def csr_from_segments(seg, num_bags):
     """(order, offsets): entries of bag b are ``order[offsets[b]:offsets[b+1]]``
-    in ascending original position."""
+    in ascending original position.  The plain version of the forward's
+    index streams (``forward_streams``), by a stable sort; entries whose
+    ``seg`` lies below 0 sort before bag 0, those at ``num_bags`` or above
+    after the last bag."""
     sorted_seg, order = torch.sort(seg, stable=True)
     bounds = torch.arange(num_bags + 1, dtype=seg.dtype, device=seg.device)
     return order, torch.searchsorted(sorted_seg, bounds)
+
+
+def forward_streams(working, inv, seg, weights, num_bags):
+    """The forward's index streams, as its call of the extension builds them
+    on the card before the walk, without the walk: ``(inv_sorted, w_sorted,
+    offsets, seg_sorted)``.  The entries are grouped by ``seg`` in ascending
+    original position (a stable order); a ``seg`` outside [0, num_bags)
+    reads ``num_bags`` and sorts last.  ``offsets`` (int64, num_bags + 1)
+    bounds each bag's entries; ``w_sorted`` is None without weights.  CUDA
+    tensors only."""
+    _check_inputs(working, inv, seg, weights, num_bags)
+    _check_cuda([working, inv, seg, weights], "forward_streams")
+    return tuple(extension().embedding_bag_forward(
+        working, inv, seg, weights, int(num_bags), True))
+
+
+def walk(working, inv_sorted, w_sorted, offsets):
+    """The forward's walk alone on given streams (``forward_streams``'s
+    first three): ``out[b]`` sums bag b's entries in stream order.  CUDA
+    tensors only."""
+    _check_cuda([working, inv_sorted, w_sorted, offsets], "walk")
+    out = torch.empty((offsets.numel() - 1, working.shape[1]),
+                      dtype=working.dtype, device=working.device)
+    extension().embedding_bag_walk(working, inv_sorted, w_sorted, offsets,
+                                   out)
+    return out
 
 
 def backward_streams(g, inv, seg, weights, working_rows):
@@ -99,22 +130,15 @@ def backward_streams(g, inv, seg, weights, working_rows):
         g, inv, seg, weights, int(working_rows), True))
 
 
-def launch(working, inv, weights, order, offsets, num_bags):
-    """One launch of the forward kernel on prepared CSR indices."""
-    out = torch.empty((num_bags, working.shape[1]), dtype=working.dtype,
-                      device=working.device)
-    extension().embedding_bag_forward(working, inv, weights, order, offsets,
-                                      out)
-    return out
-
-
 def embedding_bag_cuda(working, inv, seg, weights, num_bags):
-    """The bag on CUDA tensors: index preparation, then one kernel launch.
-    Raises for tensors that are not on a CUDA device, or not contiguous."""
+    """The bag on CUDA tensors: one call of the extension (the index streams,
+    then the walk).  Raises for tensors that are not on a CUDA device, or
+    not contiguous."""
     _check_inputs(working, inv, seg, weights, num_bags)
     _check_cuda([working, inv, seg, weights], "embedding_bag_cuda")
-    order, offsets = csr_from_segments(seg, int(num_bags))
-    return launch(working, inv, weights, order, offsets, int(num_bags))
+    out, = extension().embedding_bag_forward(working, inv, seg, weights,
+                                             int(num_bags))
+    return out
 
 
 def launch_weight_grad(g, seg, working, inv):

@@ -115,31 +115,12 @@ def hash_rebuild(slot_uid: torch.Tensor, n_buckets: int):
                        slot_uid, slots, slot_uid >= 0)
 
 
-def _check_lookup(key_tab, slot_tab, slot_uid, uids):
-    for name, t in (("key_tab", key_tab), ("slot_tab", slot_tab),
-                    ("slot_uid", slot_uid), ("uids", uids)):
-        if t.dim() != 1 or t.dtype != torch.int32:
-            raise ValueError(f"{name} must be 1-D int32, got "
-                             f"{tuple(t.shape)} {t.dtype}")
-        if t.device != key_tab.device:
-            raise ValueError("key_tab, slot_tab, slot_uid and uids must "
-                             "share a device")
-        if not t.is_contiguous():
-            raise ValueError(f"hash_lookup_cuda takes contiguous tensors; "
-                             f"{name} is not")
-    H = key_tab.shape[0]
-    if H < 1 or H & (H - 1) or slot_tab.shape[0] != H:
-        raise ValueError(f"key_tab and slot_tab must have the same power-of-"
-                         f"2 length, got {H} and {slot_tab.shape[0]}")
+def hash_lookup_cuda(key_tab, slot_tab, slot_uid, uids):
+    """``slots[i]`` = the live cache slot of ``uids[i]``, or -1: one kernel
+    launch on the current stream (``csrc/hash_map.cu``).  The binding makes
+    every check of the four tensors and raises ``ValueError``; here only
+    the device is tested, so that CPU tensors never reach the extension."""
     if not key_tab.is_cuda:
         raise ValueError(
             f"hash_lookup_cuda takes CUDA tensors, got {key_tab.device}")
-
-
-def hash_lookup_cuda(key_tab, slot_tab, slot_uid, uids):
-    """``slots[i]`` = the live cache slot of ``uids[i]``, or -1: one kernel
-    launch on the current stream (``csrc/hash_map.cu``)."""
-    _check_lookup(key_tab, slot_tab, slot_uid, uids)
-    out = torch.empty_like(uids)
-    extension().hash_lookup(key_tab, slot_tab, slot_uid, uids, out)
-    return out
+    return extension().hash_lookup(key_tab, slot_tab, slot_uid, uids)

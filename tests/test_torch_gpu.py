@@ -248,6 +248,88 @@ def test_cuda_bag_backward_streams(layout, weighted):
                                                              len(keys))
 
 
+# bags of 0, 1, 31, 32, 33 and 129 entries (both sides of a half-warp and a
+# warp of pairs, and of the long-group threshold T) beside short ones
+BAG_SIZES = [0, 1, 31, 32, 33, 129, 2, 0, 3, 5, 1]
+
+
+def _bags_case(seed, D, sizes, weighted, bad_seg, C=300):
+    """Forward inputs on the CPU whose bag b holds ``sizes[b]`` entries (in
+    shuffled positions); with ``bad_seg``, entries with ``seg`` negative
+    and at or above the bag count, which fall in no bag."""
+    rng = np.random.default_rng(seed)
+    seg = np.repeat(np.arange(len(sizes)), sizes).astype(np.int32)
+    if bad_seg:
+        seg = np.concatenate([seg, [-1, -7, len(sizes), len(sizes) + 40]
+                              * 3]).astype(np.int32)
+    seg = seg[rng.permutation(len(seg))]
+    inv = rng.integers(0, C + 1, len(seg)).astype(np.int32)
+    working = rng.standard_normal((C + 1, D)).astype(np.float32)
+    working[C] = 0.0
+    w = rng.standard_normal(len(seg)).astype(np.float32) if weighted else None
+    return [None if x is None else torch.from_numpy(x)
+            for x in (working, inv, seg, w)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bad_seg", [False, True])
+@pytest.mark.parametrize("weighted", [True, False])
+def test_cuda_bag_forward_streams(weighted, bad_seg):
+    """The forward's CUDA index streams equal their plain versions exactly:
+    a stable sort by seg (``plain_streams``, out-of-range bags last) and,
+    for the bags, ``csr_from_segments``."""
+    _cuda_or_skip()
+    working, inv, seg, w = _bags_case(4, 64, BAG_SIZES, weighted, bad_seg)
+    nb = len(BAG_SIZES)
+    got = tbag.forward_streams(working.cuda(), inv.cuda(), seg.cuda(),
+                               None if w is None else w.cuda(), nb)
+    want = plain_streams(seg, nb, inv, w)
+    for a, b in zip(got, want[:4]):
+        assert (a is None) == (b is None)
+        if a is not None:
+            assert a.dtype == b.dtype and torch.equal(a.cpu(), b)
+    order, offsets = tbag.csr_from_segments(seg, nb)
+    lo, hi = int(offsets[0]), int(offsets[-1])
+    assert torch.equal(got[2].cpu(), offsets - lo)
+    assert torch.equal(got[0][:hi - lo].cpu(), inv[order[lo:hi]])
+    if w is not None:
+        assert torch.equal(got[1][:hi - lo].cpu(), w[order[lo:hi]])
+    assert int(offsets[1:].sub(offsets[:-1]).max()) == 129
+
+
+def _unaligned(x):
+    """A contiguous copy of ``x`` whose data lies 4 bytes off a 16-byte
+    edge (the kernels then read a float or a bucket a load)."""
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    out = buf[1:].view(x.shape)
+    out.copy_(x)
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("weighted", [True, False])
+@pytest.mark.parametrize("D", [3, 16, 24, 37, 64, 100, 128, 130, 200, 256])
+def test_cuda_bag_sizes_match_plain_version(D, weighted):
+    """Bags of 0 to 129 entries and out-of-range segments at every width
+    class of the walk (float4 loads at D a multiple of 4, else a float a
+    load; also a working set 4 bytes off a 16-byte edge): bit-equal to the
+    CPU plain version, two runs bit-equal, and the walk alone on the
+    streams equal to the wrapper."""
+    _cuda_or_skip()
+    cpu = _bags_case(5, D, BAG_SIZES * 3, weighted, True)
+    nb = len(BAG_SIZES) * 3
+    dev = [None if x is None else x.cuda() for x in cpu]
+    want = tref.embedding_bag_ref(*cpu, nb)
+    got = tbag.embedding_bag_cuda(*dev, nb)
+    again = tbag.embedding_bag_cuda(*dev, nb)
+    off = tbag.embedding_bag_cuda(_unaligned(dev[0]), *dev[1:], nb)
+    walked = tbag.walk(dev[0], *tbag.forward_streams(*dev, nb)[:3])
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
+    assert torch.equal(got, again) and torch.equal(off, got)
+    assert torch.equal(walked, got)
+
+
 def _push_case(seed, rows, D, n_ids, capacity):
     """A table, its accumulator, and one working set's (uids, grads) laid
     out by pull_working_set (pads at the end, or none on overflow)."""
@@ -374,6 +456,104 @@ def test_cuda_hash_probe_matches_plain_version(C, n_ids, id_hi, H):
     torch.cuda.synchronize()
     assert torch.equal(got.cpu(), want) and torch.equal(got, again)
     assert (want >= 0).any() and (want < 0).any()
+
+
+def edge_chain_stream(H, seed, fill, id_hi=2**31 - 1):
+    """An insert stream for a map of H buckets whose chains cross aligned
+    4-bucket edges and wrap from H - 1 to 0: runs of five ids with one home
+    bucket at H - 2, H - 1, and at 4k + 2 and 4k + 3 for a few k, then
+    random ids, ``fill * H`` in all, drawn just below ``id_hi``.  Returns
+    ``(C, [(keys, slots), (keys, slots)], probe)`` (numpy int32): the first
+    admission fills C slots, the second evicts a third of them (their
+    entries go stale); ``probe`` holds every id once, each run's ids
+    twice, and ids never admitted whose home is a run's."""
+    from repro_torch.kernels import hash_map as hm
+
+    rng = np.random.default_rng(seed)
+    cand = (id_hi - 1 - rng.choice(8_000_000, 2_000_000, replace=False)
+            ).astype(np.int32)
+    home = hm.hash_bucket(torch.from_numpy(cand), H).numpy()
+    homes = [H - 2, H - 1] + [4 * int(k) + r
+                              for k in rng.choice(H // 4 - 1, 3, replace=False)
+                              for r in (2, 3)]
+    runs = np.concatenate([cand[home == h][:5] for h in homes])
+    strangers = np.concatenate([cand[home == h][5:7] for h in homes])
+    rest = np.setdiff1d(cand, np.concatenate([runs, strangers]))
+    keys = np.concatenate([runs, rng.choice(rest, int(fill * H) - len(runs),
+                                            replace=False)])
+    keys = keys[rng.permutation(len(keys))].astype(np.int32)
+    C = len(keys) * 3 // 4
+    first, second = keys[:C], keys[C:]
+    evict = rng.choice(C, len(second), replace=False).astype(np.int32)
+    probe = np.concatenate([keys, runs, strangers]).astype(np.int32)
+    return C, [(first, np.arange(C, dtype=np.int32)), (second, evict)], \
+        probe[rng.permutation(len(probe))]
+
+
+def _edge_map(H, seed, fill):
+    """``edge_chain_stream``'s map, built by the port's plain map
+    maintenance on the CPU: ``(key_tab, slot_tab, slot_uid, probe)``."""
+    from repro_torch.kernels import hash_map as hm
+
+    C, admissions, probe = edge_chain_stream(H, seed, fill)
+    key_tab = torch.full((H,), hm.EMPTY, dtype=torch.int32)
+    slot_tab = torch.zeros((H,), dtype=torch.int32)
+    n_occ = torch.zeros((), dtype=torch.int32)
+    slot_uid = torch.full((C,), -1, dtype=torch.int32)
+    for keys, slots in admissions:
+        keys, slots = torch.from_numpy(keys), torch.from_numpy(slots)
+        slot_uid[slots.long()] = keys
+        key_tab, slot_tab, n_occ = hm.hash_insert(
+            key_tab, slot_tab, n_occ, keys, slots,
+            torch.ones(keys.shape, dtype=torch.bool))
+    assert int(n_occ) == int(fill * H)
+    return key_tab, slot_tab, slot_uid, torch.from_numpy(probe)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("unaligned", [False, True])
+@pytest.mark.parametrize("H,fill", [(64, 0.75), (4096, 0.25), (4096, 0.75),
+                                    (1 << 16, 0.75)])
+def test_cuda_hash_probe_crosses_edges_and_wraps(H, fill, unaligned):
+    """Chains that cross aligned 4-bucket edges and wrap from H - 1 to 0,
+    on maps 1/4 and 3/4 full, ids just below 2^31 - 1, stale entries and
+    ids never admitted: bit-equal to the plain version, two runs
+    bit-equal; tables 4 bytes off a 16-byte edge take the bucket-a-load
+    path and give the same bits."""
+    _cuda_or_skip()
+    from repro_torch.kernels.hash_map import hash_lookup_cuda
+
+    key_tab, slot_tab, slot_uid, probe = _edge_map(H, 23, fill)
+    want = tref.hash_lookup_ref(key_tab, slot_tab, slot_uid, probe)
+    dev = [t.cuda() for t in (key_tab, slot_tab, slot_uid, probe)]
+    if unaligned:
+        dev[:2] = [_unaligned(t) for t in dev[:2]]
+    got = hash_lookup_cuda(*dev)
+    again = hash_lookup_cuda(*dev)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want) and torch.equal(got, again)
+    assert (want >= 0).any() and (want < 0).any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("H", [1, 2, 4])
+def test_cuda_hash_probe_on_tiny_and_full_maps(H):
+    """Maps of 1, 2 and 4 buckets, full (no EMPTY bucket: every chain stops
+    after H buckets) and empty."""
+    _cuda_or_skip()
+    from repro_torch.kernels import hash_map as hm
+    from repro_torch.kernels.hash_map import hash_lookup_cuda
+
+    ids = torch.arange(5, 5 + H, dtype=torch.int32)
+    key_tab, slot_tab, n_occ = hm.hash_rebuild(ids, H)
+    assert int(n_occ) == H
+    probe = torch.arange(0, 5 + 2 * H, dtype=torch.int32)
+    for kt in (key_tab, torch.full((H,), hm.EMPTY, dtype=torch.int32)):
+        want = tref.hash_lookup_ref(kt, slot_tab, ids, probe)
+        got = hash_lookup_cuda(kt.cuda(), slot_tab.cuda(), ids.cuda(),
+                               probe.cuda())
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), want)
 
 
 @pytest.mark.gpu

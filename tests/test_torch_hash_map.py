@@ -12,7 +12,9 @@ Everything here is integer, so every check is exact equality:
     probe (``hash_lookup_pallas(interpret=True)``) and jnp oracle on the
     same maps.
 The CUDA probe is held against the plain probe on the card
-(``tests/test_torch_gpu.py``).
+(``tests/test_torch_gpu.py``), also on the chains that cross its 4-bucket
+loads' edges and wrap (``edge_chain_stream``), which the plain probe here
+walks as the reference does.
 """
 
 import jax.numpy as jnp
@@ -25,6 +27,7 @@ from repro.kernels import ref as jref
 from repro_torch.kernels import hash_map as hm
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as tref
+from tests.test_torch_gpu import edge_chain_stream
 
 torch.set_num_threads(1)
 
@@ -174,6 +177,26 @@ def test_long_chains_and_ids_near_int32_max():
     slot_uid[::5] = -1                                   # some stale
     got = m.probe(slot_uid, np.concatenate([ids, ids[:8] - 1]))
     assert (got >= 0).sum() == (slot_uid >= 0).sum()
+
+
+@pytest.mark.parametrize("H,fill", [(64, 0.75), (256, 0.25), (256, 0.75)])
+def test_chains_across_group_edges_and_the_wrap(H, fill):
+    """Chains that cross aligned 4-bucket edges (the CUDA probe reads a
+    group of four buckets a load) and wrap from H - 1 to 0, on maps 1/4 and
+    3/4 full, with stale entries and ids never admitted, ids just below
+    2^31 - 1: the port's plain probe equals the reference's Pallas probe
+    and jnp oracle."""
+    C, admissions, probe = edge_chain_stream(H, 29, fill)
+    m = Maps(H)
+    slot_uid = np.full(C, -1, np.int32)
+    for keys, slots in admissions:
+        slot_uid[slots] = keys
+        m.insert(keys, slots)
+    assert int(m.t[2]) == int(fill * H)
+    got = m.probe(slot_uid, probe)
+    assert (got >= 0).any() and (got < 0).any()
+    last = int(hm.hash_bucket(m.t[0][m.t[0] != hm.EMPTY], H).max())
+    assert last == H - 1 and int(m.t[0][0]) != hm.EMPTY     # a wrapped chain
 
 
 def test_cpu_dispatch_runs_the_plain_probe_and_counts_it():

@@ -26,7 +26,12 @@ from repro_torch.kernels import embedding_bag as tbag
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels import sparse_adagrad as tsa
-from tests.test_torch_gpu import _rows_case, plain_streams
+from tests.test_torch_gpu import (
+    BAG_SIZES,
+    _bags_case,
+    _rows_case,
+    plain_streams,
+)
 
 torch.set_num_threads(1)
 
@@ -205,6 +210,27 @@ def test_csr_order_gives_the_plain_sums_bit_for_bit(shape, weighted):
                             torch.from_numpy(offsets))
     want = tref.embedding_bag_ref(_t(working), _t(inv), _t(seg), _t(w),
                                   num_bags).numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("bad_seg", [False, True])
+@pytest.mark.parametrize("weighted", [True, False])
+def test_forward_streams_plain_version(weighted, bad_seg):
+    """The forward's index streams by their plain version (a stable sort by
+    seg, out-of-range bags last: what the CUDA streams are held to) agree
+    with ``csr_from_segments`` on every bag (0 to 129 entries), and the
+    walk's arithmetic over them gives the plain version's bits."""
+    working, inv, seg, w = _bags_case(7, 24, BAG_SIZES, weighted, bad_seg)
+    nb = len(BAG_SIZES)
+    inv_s, w_s, offsets, seg_s = plain_streams(seg, nb, inv, w)[:4]
+    order, csr = tbag.csr_from_segments(seg, nb)
+    lo, hi = int(csr[0]), int(csr[-1])
+    assert torch.equal(offsets, csr - lo)
+    assert torch.equal(inv_s[:hi - lo], inv[order[lo:hi]])
+    assert torch.equal(seg_s[hi - lo:], torch.full((len(seg) - hi + lo,), nb,
+                                                   dtype=torch.int32))
+    got = _sum_in_csr_order(working, inv_s, w_s, offsets)
+    want = tref.embedding_bag_ref(working, inv, seg, w, nb).numpy()
     np.testing.assert_array_equal(got, want)
 
 

@@ -1,0 +1,163 @@
+#!/usr/bin/env python3
+"""Time the bag forward's and the hash probe's wrappers of one checkout on
+the card, so that two checkouts can be compared on one card in one run.
+
+    python3 tools/kernel_ab.py ROOT [--label NAME] [--out FILE]
+
+``ROOT`` is the root of a checkout: this one, or another one unpacked
+beside it (``git archive <commit> | tar -x -C build/parent``).  Its package
+gives the wrappers, so each checkout is timed with its own kernels (built
+into that checkout's ``build/``); this checkout's ``chip_smoke.py`` gives
+the inputs and the timers, the same for every checkout.  Run two checkouts
+in turns in one call (A, B, B, A), each in its own process.
+
+Inputs:
+  - the bag: phase 1's serving shape (``chip_smoke._slice_case``: working
+    set 65537 x 64, 102,400 ids, 40,960 bags, mask weights) and four times
+    its batch;
+  - the probe: a map of the cache tier's slice size (C = 262,144 slots,
+    H = 2^20 buckets) after two rounds of admissions (the second evicts
+    131,072 of the first round's ids, whose entries go stale), probed with
+    65,536 sorted distinct ids (80 % live, 10 % stale, 10 % never
+    admitted) and with four times as many.
+Times (ms, or us where said): the wrapper with a cold L2 and a warm one,
+the device alone (CUDA graph replays, cold L2 and warm), the host per
+call.  Also,
+the same in every checkout: ``F.embedding_bag`` on the bag's CSR and
+``index_add_`` (library calls), and the latency of one dependent trip to
+HBM (``tools/pointer_chase.cu``).  Appends one JSON line per run to
+``FILE`` (default ``build/kernel_ab.jsonl``) and prints it.
+"""
+
+from __future__ import annotations
+
+import argparse
+import importlib.util
+import json
+import pathlib
+import subprocess
+import sys
+
+HERE = pathlib.Path(__file__).resolve().parents[1]
+
+
+def _probe_case(device, scale=1, seed=3):
+    """(key_tab, slot_tab, slot_uid, uids) of a slice-size map."""
+    import torch
+
+    from repro_torch.kernels import hash_map as hm
+
+    C, rows = 262144, 50_000_000
+    H = hm.hash_table_size(C)
+    gen = torch.Generator(device).manual_seed(seed)
+    ids = torch.randperm(rows, generator=gen, device=device)[:C + C // 2 + C]
+    ids = ids.to(torch.int32)
+    first, second, fresh = ids[:C], ids[C:C + C // 2], ids[C + C // 2:]
+    key_tab = torch.full((H,), hm.EMPTY, dtype=torch.int32, device=device)
+    slot_tab = torch.zeros((H,), dtype=torch.int32, device=device)
+    n_occ = torch.zeros((), dtype=torch.int32, device=device)
+    slot_uid = torch.full((C,), -1, dtype=torch.int32, device=device)
+    evict = torch.randperm(C, generator=gen, device=device)[:C // 2]
+    for batch, slots in ((first, torch.arange(C, device=device)),
+                         (second, evict)):
+        slots = slots.to(torch.int32)
+        slot_uid[slots.long()] = batch
+        key_tab, slot_tab, n_occ = hm.hash_insert(
+            key_tab, slot_tab, n_occ, batch, slots,
+            torch.ones(batch.shape, dtype=torch.bool, device=device))
+    live = slot_uid
+    stale = first[evict.long()]
+    n = 65536 * scale
+    pick = [live[torch.randperm(C, generator=gen, device=device)[:n * 8 // 10]],
+            stale[torch.randperm(stale.numel(), generator=gen,
+                                 device=device)[:n // 10]],
+            fresh[:n - n * 8 // 10 - n // 10]]
+    uids = torch.sort(torch.cat(pick)).values.contiguous()
+    return key_tab, slot_tab, slot_uid, uids
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("root", type=pathlib.Path)
+    ap.add_argument("--label", default=None)
+    ap.add_argument("--out", type=pathlib.Path,
+                    default=HERE / "build" / "kernel_ab.jsonl")
+    args = ap.parse_args()
+    root = args.root.resolve()
+    sys.path.insert(0, str(root / "src"))
+    import torch
+    import torch.nn.functional as F
+
+    # ROOT's package first: what chip_smoke then imports of the package
+    # comes from it
+    from repro_torch.kernels import embedding_bag as kb
+    from repro_torch.kernels.hash_map import hash_lookup_cuda
+
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  HERE / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    if not torch.cuda.is_available():
+        print("kernel_ab: no CUDA device", file=sys.stderr)
+        return 2
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], check=True, capture_output=True,
+        text=True, timeout=60).stdout.strip().splitlines()[0]
+    dev = torch.device("cuda")
+    rec = {"label": args.label or str(root), "card": smi}
+
+    def times(fn):
+        return {"ms": cs._time_ms(fn), "ms_l2_warm": cs._time_ms(
+                    fn, cold_l2=False),
+                "graph_ms": cs._graph_ms(fn),
+                "graph_ms_l2_warm": cs._graph_ms(fn, cold_l2=False),
+                "host_us": cs._host_us(fn)}
+
+    for scale in (1, 4):
+        working, inv, seg, w, nb = cs._slice_case(dev, scale=scale)
+        order, offsets = kb.csr_from_segments(seg, nb)
+        lo, hi = int(offsets[0]), int(offsets[-1])
+        inv_s = inv[order[lo:hi]].contiguous()
+        w_s = w[order[lo:hi]].contiguous()
+        off_s = (offsets - lo).to(torch.int32).contiguous()
+        want = kb.embedding_bag_cuda(working, inv, seg, w, nb)
+        lib = F.embedding_bag(inv_s, working, off_s, mode="sum",
+                              per_sample_weights=w_s,
+                              include_last_offset=True)
+        torch.cuda.synchronize()
+        if not torch.allclose(lib, want, rtol=1e-5, atol=1e-5):
+            raise AssertionError("F.embedding_bag and the wrapper differ")
+        seg64 = seg.long()
+        key = "bag" if scale == 1 else "bag_4x"
+        rec[key] = times(lambda: kb.embedding_bag_cuda(working, inv, seg, w,
+                                                       nb))
+        rec[key]["F.embedding_bag_ms"] = cs._time_ms(lambda: F.embedding_bag(
+            inv_s, working, off_s, mode="sum", per_sample_weights=w_s,
+            include_last_offset=True))
+        rec[key]["index_add_ms"] = cs._time_ms(
+            lambda: torch.zeros((nb, working.shape[1]), device=dev)
+            .index_add_(0, seg64, working[inv.long()] * w[:, None]))
+        rec[key]["nnz"], rec[key]["bags"] = inv.numel(), nb
+        del working, inv, seg, w, order, offsets, inv_s, w_s, off_s
+
+        pargs = _probe_case(dev, scale=scale)
+        key = "probe" if scale == 1 else "probe_4x"
+        rec[key] = times(lambda: hash_lookup_cuda(*pargs))
+        rec[key]["ids"] = pargs[3].numel()
+        rec[key]["hits"] = int((hash_lookup_cuda(*pargs) >= 0).sum())
+        del pargs
+    trip_us, launch_ms = cs._hbm_trip()
+    rec["hbm_trip_us"], rec["empty_launch_graph_ms"] = trip_us, launch_ms
+    line = json.dumps(rec)
+    print(line)
+    args.out.parent.mkdir(parents=True, exist_ok=True)
+    with open(args.out, "a") as f:
+        f.write(line + "\n")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
