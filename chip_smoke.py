@@ -36,20 +36,29 @@ Phases (any failure raises and the script exits non-zero):
        placement reads all of inv once per long row); registers, stack and
        local-memory stores and loads of its and kernel 8's
        instantiations (``cuobjdump`` of the built extension).
-     - The push: the slice's uid layout (one batch deduplicated at
-       capacity 65536, with its pads), odd widths, an overflowed batch (no
-       pads), and the slice batch on a 50 M-row table (uids above
-       2^31 / 64).  Bit-equal to the plain version, two runs bit-equal,
-       untouched rows unchanged.
+     - The push (the row math in the kernel): the slice's uid layout (one
+       batch deduplicated at capacity 65536, with its pads), D 3, 16 and
+       100, an overflowed batch (no pads), and the slice batch on a 50
+       M-row table (uids above 2^31 / 64).  Bit-equal to the plain version
+       (``adagrad_row_updates``, then ``index_add_``), the wrapper and
+       ``ops`` bit-equal, untouched rows unchanged; ``ops`` launches one
+       kernel and nothing else (the profiler).  Timed on the 4 M-row table
+       and on the 50 M-row table: the kernel and the ops-level push, each
+       cold and warm, on the device alone (graph) and on the host per
+       call, beside the plain version, the scatter alone (two
+       ``index_add_``) and the bound (5 x 4 x D bytes a real row).
      - The cache tier's probe, cached gather and cached push (after phase
        7, on its trained cache): at the inputs of a real pull of the next
        batch (65536 uids, C = 262144, H = 2^20, D 64), a 64-bucket map
-       with long chains, ids near 2^31 - 1, D 16 and 100, an overflowed
+       with long chains, ids near 2^31 - 1, D 3, 16 and 100, an overflowed
        batch.  Bit-equal to the plain versions, two runs bit-equal,
-       untouched cache slots unchanged.  The probe is also timed on the
-       device alone and on the host per call, beside its latency floor
+       untouched cache slots unchanged; the gather with its drop row
+       bit-equal to ``index_select`` + ``cat``.  The probe is also timed on
+       the device alone and on the host per call, beside its latency floor
        (four dependent trips to HBM, each timed by a pointer chase,
-       ``tools/pointer_chase.cu``), and at four times the batch.
+       ``tools/pointer_chase.cu``), and at four times the batch; the
+       gather with and without its drop row, beside ``index_select`` +
+       ``cat`` and an empty kernel's launch; the cached push as the push.
      - The k-step local Adam step (kernel 6) at the slice's leaves
        (baidu-ctr's dense tower, 2 pods, 2,910,210 elements): warm-up on
        before and after the first merge and off, bias correction on and
@@ -89,7 +98,7 @@ Phases (any failure raises and the script exits non-zero):
      (cache_rows 262144; the 25.6 GB table and accumulator in host memory,
      the cache on the card) with a server scoring 256 requests between
      steps.  Losses bit-equal to phase 3's; evictions, spills and launch
-     counts per step (probe 4, cached gather 4, cached push 1, bag
+     counts per step (probe 4, cached gather 3, cached push 1, bag
      2 + n_pod, backward n_pod, plain versions 0); serving changes neither
      the cache state nor the host table; hit rates, byte meters, the
      step's device time by part and a host profile of the pull.
@@ -187,29 +196,36 @@ TOL = dict(rtol=1e-5, atol=1e-5)
 # cores.  They assume the 700 W limit; the printed power limit says more.
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
+F64_FLOP_PER_S = 34e12     # float64 without tensor cores
 BF16_FLOP_PER_S = 989e12   # dense, on the tensor cores
 
 
-def _time_ms(fn, iters=100, warmup=10, cold_l2=True):
+def _time_ms(fn, iters=100, warmup=10, cold_l2=True, scrub_read=False):
     """Mean device time of one ``fn`` call (CUDA events).
 
     ``cold_l2``: a 256 MB write before each call evicts the L2 and an event
     pair brackets the call alone, so a kernel repeated on the same rows
     reads them from HBM each time, as its bound assumes.  Otherwise the
     calls run back to back between two events and find the rows the last
-    call left in L2.  The 256 MB is freed on return, so it adds nothing to
-    a later phase's peak memory."""
+    call left in L2.  ``scrub_read``: the 256 MB are read instead of
+    written, so the L2 the call finds holds clean lines, not the write's
+    dirty ones that its misses must write back.  The 256 MB is freed on
+    return, so it adds nothing to a later phase's peak memory."""
     import torch
 
     for _ in range(warmup):
         fn()
     if cold_l2:
         scrub = torch.empty(64 << 20, dtype=torch.int32, device="cuda")
+        scrub.zero_()
         pairs = [(torch.cuda.Event(enable_timing=True),
                   torch.cuda.Event(enable_timing=True))
                  for _ in range(iters)]
         for start, end in pairs:
-            scrub.zero_()
+            if scrub_read:
+                scrub.amax()
+            else:
+                scrub.zero_()
             start.record()
             fn()
             end.record()
@@ -1078,6 +1094,8 @@ def _slice_uids(device, capacity=CAPACITY, fit_rows=None):
 
 
 def _push_inputs(gen, uids, n_real, table_rows, D, device):
+    """A table, its accumulator, gradient rows whose pads are zero, and the
+    plain version's ``(delta, g2)`` for them."""
     import torch
 
     from repro_torch.kernels.sparse_adagrad import adagrad_row_updates
@@ -1088,33 +1106,83 @@ def _push_inputs(gen, uids, n_real, table_rows, D, device):
     grads[n_real:] = 0.0               # no id slot maps to a pad
     delta, g2 = adagrad_row_updates(accum[uids.long()], grads, table.dtype,
                                     lr=0.5, eps=1e-10)
-    return table, accum, delta, g2
+    return table, accum, grads, delta, g2
+
+
+PUSH_ROWS = 4_000_000       # phase 1's smaller push table
+
+
+def _push_bound(n_real, n_pos, D, streams=1):
+    """(ms, what bounds it, bytes) of a push of ``n_real`` real rows of
+    ``D`` at ``n_pos`` positions: each real row's table, accumulator and
+    gradient rows read and the two rows written (5 x 4 x D bytes) plus
+    ``streams`` int32 index streams; per element the row math's float32
+    operations (g*g, -lr*g, + eps, the division, two adds) at the float32
+    peak and its float64 ones (a multiply, an add, the root) at the
+    float64 peak."""
+    nbytes = n_real * D * 4 * 5 + n_pos * 4 * streams
+    t_b = nbytes / HBM_BYTES_PER_S
+    t_f = n_real * D * (6 / F32_FLOP_PER_S + 3 / F64_FLOP_PER_S)
+    return (max(t_b, t_f) * 1e3, "bytes" if t_b >= t_f else "operations",
+            nbytes)
+
+
+def _call_times(fn, plain=None):
+    """Times of one ``fn`` call (ms unless said): cold and warm L2, the
+    device alone (graph) and the host per call; ``plain`` cold."""
+    out = {"ms": _time_ms(fn), "ms_l2_warm": _time_ms(fn, cold_l2=False),
+           "graph_ms": _graph_ms(fn), "host_us": _host_us(fn)}
+    if plain is not None:
+        out["plain_ms"] = _time_ms(plain)
+    return out
+
+
+def _one_launch(fn, what):
+    """``fn()`` under the profiler launches one kernel, with no
+    host-to-device copy and no sync: one extension call."""
+    h2d, syncs, kernels = _transfers(fn)
+    if (h2d, syncs, kernels) != (0, 0, 1):
+        raise AssertionError(f"{what}: {kernels} kernel launches, {h2d} "
+                             f"host-to-device copies, {syncs} syncs; "
+                             f"expected one launch and nothing else")
+    print(f"  {what} (profiler): 1 kernel launch, 0 host-to-device copies, "
+          f"0 synchronizing calls")
 
 
 def phase_push(device):
-    """The push kernel against its plain version; returns its kernels-line
+    """The push kernel (the row math in it) against its plain version
+    (``adagrad_row_updates``, then ``index_add_``); returns its kernels-line
     entry (without ``launches``)."""
     import torch
 
-    from repro_torch.kernels import ref
-    from repro_torch.kernels.sparse_adagrad import sparse_adagrad_apply_cuda
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.sparse_adagrad import (
+        adagrad_row_updates,
+        sparse_adagrad_apply_cuda,
+    )
 
     gen = torch.Generator(device).manual_seed(31)
     max_err = 0.0
+    lr, eps = 0.5, 1e-10
 
     def err(a, b):
         return (a - b).abs().max().item() if a.numel() else 0.0
 
     def checks(name, uids, n_real, table_rows, D):
         nonlocal max_err
-        table, accum, delta, g2 = _push_inputs(gen, uids, n_real, table_rows,
-                                               D, device)
+        table, accum, grads, delta, g2 = _push_inputs(
+            gen, uids, n_real, table_rows, D, device)
         want = ref.sparse_adagrad_apply_ref(table.clone(), accum.clone(),
                                             uids, delta, g2)
         runs = []
-        for _ in range(2):
+        for via_ops in (False, True):
             t, a = table.clone(), accum.clone()
-            out = sparse_adagrad_apply_cuda(t, a, uids, delta, g2)
+            if via_ops:
+                out = ops.sparse_adagrad_apply(t, a, uids, grads, lr=lr,
+                                               eps=eps)
+            else:
+                out = sparse_adagrad_apply_cuda(t, a, uids, grads, lr=lr,
+                                                eps=eps)
             torch.cuda.synchronize()
             if out[0] is not t or out[1] is not a:
                 raise AssertionError(f"push {name}: not in place")
@@ -1129,48 +1197,88 @@ def phase_push(device):
         if not torch.equal(runs[0][0][~touched], table[~touched]):
             raise AssertionError(f"push {name}: an untouched row changed")
         n_pads = int((uids[1:] <= uids[:-1]).sum())
-        print(f"  {name}: bit-equal to the plain version, two runs "
-              f"bit-equal, untouched rows unchanged ({n_real} real rows, "
-              f"{n_pads} pads)")
-        return table, accum, delta, g2
+        print(f"  {name}: bit-equal to the plain version (row math, then "
+              f"index_add_), two runs (the wrapper, ops) bit-equal, "
+              f"untouched rows unchanged ({n_real} real rows, {n_pads} "
+              f"pads)")
+        return table, accum, grads, delta, g2
 
-    small_rows = 4_000_000
+    small_rows = PUSH_ROWS
     uids, n_real = _slice_uids(device, fit_rows=small_rows)
-    print(f"phase 1: sparse_adagrad_apply against its plain version (uids "
-          f"{uids.numel()}, table {small_rows} x 64)")
-    table, accum, delta, g2 = checks("slice layout, D=64", uids, n_real,
-                                     small_rows, 64)
+    print(f"phase 1: sparse_adagrad_apply (the row math in the kernel) "
+          f"against its plain version (uids {uids.numel()}, table "
+          f"{small_rows} x 64)")
+    table, accum, grads, delta, g2 = checks("slice layout, D=64", uids,
+                                            n_real, small_rows, 64)
     over, n_over = _slice_uids(device, capacity=16384, fit_rows=small_rows)
     checks("overflowed batch (capacity 16384), D=64", over, 16384,
            small_rows, 64)
     from repro_torch.core.embedding_backend import pull_working_set
 
-    for D in (16, 100):
+    for D in (3, 16, 100):
         ids = torch.randint(0, 30000, (5000,), generator=gen, device=device,
                             dtype=torch.int32)
         u, _ = pull_working_set(ids, 8192)
         checks(f"random batch, D={D}", u, int(torch.unique(ids).numel()),
                30000, D)
+    _one_launch(lambda: ops.sparse_adagrad_apply(table, accum, uids, grads,
+                                                 lr=lr, eps=eps),
+                "ops.sparse_adagrad_apply on CUDA tensors")
 
-    # the slice batch on the 50 M-row table: offsets beyond int32
+    # ---- times at the slice's layout, in place on the 4 M-row table
+    idx = uids.long()
+
+    def ref_push(t, a, u, g):
+        """The plain version on the card: the row math, then index_add_."""
+        d, s2 = adagrad_row_updates(a.index_select(0, u.long()), g, t.dtype,
+                                    lr=lr, eps=eps)
+        return ref.sparse_adagrad_apply_ref(t, a, u, d, s2)
+
+    small = _call_times(
+        lambda: sparse_adagrad_apply_cuda(table, accum, uids, grads, lr=lr,
+                                          eps=eps),
+        lambda: ref_push(table, accum, uids, grads))
+    small["ops"] = _call_times(
+        lambda: ops.sparse_adagrad_apply(table, accum, uids, grads, lr=lr,
+                                         eps=eps))
+
+    def library():
+        table.index_add_(0, idx, delta)
+        accum.index_add_(0, idx, g2)
+
+    small["index_add_ms"] = _time_ms(library)
+    D = table.shape[1]
+    bound_ms, bound_by, nbytes = _push_bound(n_real, uids.numel(), D)
+    print(f"  times at the slice layout on the {small_rows}-row table (ms, "
+          f"L2 cold): kernel {small['ms']:.4f} (L2 warm "
+          f"{small['ms_l2_warm']:.4f}; the device alone, graph, "
+          f"{small['graph_ms']:.4f}; the host {small['host_us']:.1f} us a "
+          f"call); ops-level push {small['ops']['ms']:.4f} (graph "
+          f"{small['ops']['graph_ms']:.4f}, host "
+          f"{small['ops']['host_us']:.1f} us); plain version (row math + "
+          f"two index_add_) {small['plain_ms']:.4f}; the scatter alone (two "
+          f"index_add_ of precomputed rows) {small['index_add_ms']:.4f}; no "
+          f"single library call; bound {bound_ms:.4f} ({nbytes / 1e6:.2f} "
+          f"MB: {n_real} real rows x 5 x {D * 4} B + the uid stream)")
+    del table, accum, grads, delta, g2
+
+    # ---- the slice batch on the 50 M-row table: its real uids, offsets
+    # beyond int32
     big_uids, big_real = _slice_uids(device)
     n_high = int((big_uids.long() * 64 >= (1 << 31)).sum())
-    big_t = torch.zeros((ROWS, 64), device=device)
+    big_t = torch.randn((ROWS, 64), generator=gen, device=device).mul_(0.05)
     big_a = torch.full((ROWS, 64), 0.01, device=device)
     grads = torch.randn((CAPACITY, 64), generator=gen, device=device)
     grads[big_real:] = 0.0
-    from repro_torch.kernels.sparse_adagrad import adagrad_row_updates
-
-    bd, bg2 = adagrad_row_updates(big_a[big_uids.long()], grads,
-                                  torch.float32, lr=0.5, eps=1e-10)
     uniq, pos = torch.unique(big_uids, return_inverse=True)
-    want_t, want_a = ref.sparse_adagrad_apply_ref(
+    want_t, want_a = ref.sparse_adagrad_ref(
         big_t[uniq.long()].clone(), big_a[uniq.long()].clone(),
-        pos.to(torch.int32), bd, bg2)
+        grads[torch.cat([torch.ones(1, dtype=torch.bool, device=device),
+                         big_uids[1:] > big_uids[:-1]])], lr, eps)
     sample = torch.randint(0, ROWS, (1 << 16,), generator=gen, device=device)
     sample = sample[~torch.isin(sample, uniq)]
     before = big_t[sample].clone(), big_a[sample].clone()
-    sparse_adagrad_apply_cuda(big_t, big_a, big_uids, bd, bg2)
+    sparse_adagrad_apply_cuda(big_t, big_a, big_uids, grads, lr=lr, eps=eps)
     torch.cuda.synchronize()
     max_err = max(max_err, err(big_t[uniq.long()], want_t),
                   err(big_a[uniq.long()], want_a))
@@ -1185,35 +1293,23 @@ def phase_push(device):
     print(f"  slice batch on the {ROWS}-row table: touched rows bit-equal "
           f"to the plain version ({n_high} uids with uid * 64 >= 2^31), "
           f"{sample.numel()} sampled untouched rows unchanged")
-    del big_t, big_a
+    big = _call_times(
+        lambda: sparse_adagrad_apply_cuda(big_t, big_a, big_uids, grads,
+                                          lr=lr, eps=eps),
+        lambda: ref_push(big_t, big_a, big_uids, grads))
+    big["ops"] = _call_times(
+        lambda: ops.sparse_adagrad_apply(big_t, big_a, big_uids, grads,
+                                         lr=lr, eps=eps))
+    big["bound_ms"], _, big_bytes = _push_bound(big_real, CAPACITY, 64)
+    print(f"  times on the {ROWS}-row table (ms, L2 cold): kernel "
+          f"{big['ms']:.4f} (L2 warm {big['ms_l2_warm']:.4f}; graph "
+          f"{big['graph_ms']:.4f}; host {big['host_us']:.1f} us); ops-level "
+          f"push {big['ops']['ms']:.4f} (graph {big['ops']['graph_ms']:.4f}, "
+          f"host {big['ops']['host_us']:.1f} us); plain version "
+          f"{big['plain_ms']:.4f}; bound {big['bound_ms']:.4f} "
+          f"({big_bytes / 1e6:.2f} MB, {big_real} real rows)")
+    del big_t, big_a, grads
     torch.cuda.empty_cache()
-
-    # ---- times at the slice's layout, in place on the 4 M-row table
-
-    def kernel():
-        return sparse_adagrad_apply_cuda(table, accum, uids, delta, g2)
-
-    ms, warm_ms = _time_ms(kernel), _time_ms(kernel, cold_l2=False)
-    plain_ms = _time_ms(lambda: ref.sparse_adagrad_apply_ref(
-        table, accum, uids, delta, g2))
-    idx = uids.long()
-
-    def library():
-        table.index_add_(0, idx, delta)
-        accum.index_add_(0, idx, g2)
-
-    library_ms = _time_ms(library)
-    D = table.shape[1]
-    nbytes = n_real * D * 4 * 6 + uids.numel() * 4
-    flops = 2 * n_real * D
-    bound_ms = max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S) * 1e3
-    bound_by = ("bytes" if nbytes / HBM_BYTES_PER_S
-                >= flops / F32_FLOP_PER_S else "operations")
-    print(f"  times (ms, L2 cold): kernel {ms:.4f} (L2 warm {warm_ms:.4f}), "
-          f"plain version (two index_add_) {plain_ms:.4f}, index_add_ "
-          f"library calls {library_ms:.4f}; "
-          f"bound {bound_ms:.4f} ({nbytes / 1e6:.2f} MB: {n_real} real rows "
-          f"x 6 x {D * 4} B + the uid stream)")
     return {
         "name": "sparse_adagrad_apply",
         "route": "cuda",
@@ -1221,12 +1317,17 @@ def phase_push(device):
         "replaces": "src/repro/kernels/sparse_adagrad.py:127",
         "launches": None,
         "max_abs_err": max_err,
-        "ms": ms,
-        "ms_l2_warm": warm_ms,
-        "plain_ms": plain_ms,
+        "ms": small["ms"],
+        "ms_l2_warm": small["ms_l2_warm"],
+        "plain_ms": small["plain_ms"],
         "bound_ms": bound_ms,
         "bound_by": bound_by,
-        "library_ms": library_ms,
+        "library_ms": None,
+        "graph_ms": small["graph_ms"],
+        "host_us": small["host_us"],
+        "ops": small["ops"],
+        "index_add_ms": small["index_add_ms"],
+        "on_the_50m_row_table": big,
     }
 
 
@@ -1709,9 +1810,9 @@ def phase_cached(device, gather_losses):
     n = TRAIN_STEPS
     # per step: the predict and the server's predict (a lookup each: probe
     # + cached gather, one bag), the pull (probe + cached gather) and the
-    # push (probe + the accumulator rows' cached gather + cached push)
+    # push (probe + cached push, which reads the accumulator rows itself)
     want = dict.fromkeys(launches, 0)
-    want.update({"hash_lookup": 4 * n, "gather_rows_cached": 4 * n,
+    want.update({"hash_lookup": 4 * n, "gather_rows_cached": 3 * n,
                  "sparse_adagrad_cached_apply": n,
                  "embedding_bag": n * (2 + tr.n_pod),
                  "embedding_bag_backward": n * tr.n_pod,
@@ -1847,8 +1948,12 @@ def phase_cache_kernels(tr, batch):
     kernels-line entries."""
     import torch
 
-    from repro_torch.core.embedding_backend import _dedup, pull_working_set
-    from repro_torch.kernels import ref
+    from repro_torch.core.embedding_backend import (
+        _dedup,
+        _with_drop_row,
+        pull_working_set,
+    )
+    from repro_torch.kernels import ops, ref
     from repro_torch.kernels.hash_map import hash_bucket, hash_lookup_cuda
     from repro_torch.kernels.sparse_adagrad import (
         adagrad_row_updates,
@@ -1951,41 +2056,70 @@ def phase_cache_kernels(tr, batch):
     def gather_checks(name, rows, sl):
         got, again = gather_rows_cached_cuda(rows, sl), \
             gather_rows_cached_cuda(rows, sl)
+        drop = gather_rows_cached_cuda(rows, sl, drop_row=True)
+        via_ops = ops.gather_rows_cached(rows, sl, drop_row=True)
         torch.cuda.synchronize()
-        if not (torch.equal(got, again) and torch.equal(
-                got, ref.gather_rows_cached_ref(rows, sl)) and torch.equal(
-                got.cpu(), ref.gather_rows_cached_ref(rows.cpu(), sl.cpu()))):
+        want = ref.gather_rows_cached_ref(rows, sl)
+        if not (torch.equal(got, again) and torch.equal(got, want)
+                and torch.equal(got.cpu(), ref.gather_rows_cached_ref(
+                    rows.cpu(), sl.cpu()))):
             raise AssertionError(f"cached gather {name}: kernel and plain "
                                  "version differ")
+        if not (torch.equal(drop, _with_drop_row(want))
+                and torch.equal(drop, via_ops) and torch.equal(
+                    drop.cpu(), ref.gather_rows_cached_ref(
+                        rows.cpu(), sl.cpu(), drop_row=True))):
+            raise AssertionError(f"cached gather {name}: the drop-row "
+                                 "gather differs from index_select + cat")
         print(f"  cached gather, {name}: bit-equal to the plain version "
-              f"(card and CPU), two runs bit-equal")
+              f"(card and CPU), two runs bit-equal; with its drop row "
+              f"bit-equal to index_select + cat")
 
     print(f"phase 1 (on phase 7's cache): gather_rows_cached against its "
           f"plain version (slots {slots.numel()} of a real pull, {n_real} "
           f"real ids, cache {tuple(st.rows.shape)})")
     gather_checks("slice pull, D=64", st.rows, slots)
-    for C, D, cap in ((777, 16, 3001), (513, 100, 1200)):
+    for C, D, cap in ((777, 16, 3001), (513, 100, 1200), (50, 3, 77)):
         gather_checks(f"C={C} D={D} cap={cap}",
                       torch.randn((C, D), generator=gen, device=device),
                       torch.randint(0, C, (cap,), generator=gen,
                                     device=device, dtype=torch.int32))
+    _one_launch(lambda: ops.gather_rows_cached(st.rows, slots, drop_row=True),
+                "ops.gather_rows_cached(drop_row=True) on CUDA tensors")
     D = st.rows.shape[1]
-    g_ms = _time_ms(lambda: gather_rows_cached_cuda(st.rows, slots))
-    g_warm = _time_ms(lambda: gather_rows_cached_cuda(st.rows, slots),
-                      cold_l2=False)
-    g_plain = _time_ms(lambda: ref.gather_rows_cached_ref(st.rows, slots))
-    sl64 = slots.long()
-    g_lib = _time_ms(lambda: torch.index_select(st.rows, 0, sl64))
-    distinct = torch.unique(slots).numel()
-    nbytes = distinct * D * 4 + slots.numel() * 4 + slots.numel() * D * 4
-    g_bound, g_by = _bound(nbytes)
-    print(f"  times (ms, L2 cold): kernel {g_ms:.4f} (L2 warm "
-          f"{g_warm:.4f}), plain version {g_plain:.4f}, "
-          f"index_select library call {g_lib:.4f}; bound {g_bound:.4f} "
-          f"({nbytes / 1e6:.2f} MB: {distinct} distinct rows read, "
-          f"{slots.numel()} written)")
 
-    # ---- the cached push, on copies of the cache
+    def gather_drop():
+        return gather_rows_cached_cuda(st.rows, slots, drop_row=True)
+
+    sl64 = slots.long()
+    g = _call_times(gather_drop,
+                    lambda: ref.gather_rows_cached_ref(st.rows, slots, True))
+    g["without_drop_row"] = _call_times(
+        lambda: gather_rows_cached_cuda(st.rows, slots))
+    g["index_select_ms"] = _time_ms(
+        lambda: torch.index_select(st.rows, 0, sl64))
+    g["index_select_cat_ms"] = _time_ms(
+        lambda: _with_drop_row(torch.index_select(st.rows, 0, sl64)))
+    g["index_select_cat_graph_ms"] = _graph_ms(
+        lambda: _with_drop_row(torch.index_select(st.rows, 0, sl64)))
+    g["empty_launch_graph_ms"] = empty_ms
+    distinct = torch.unique(slots).numel()
+    nbytes = distinct * D * 4 + slots.numel() * 4 + (slots.numel() + 1) * D * 4
+    g_bound, g_by = _bound(nbytes)
+    print(f"  times with the drop row (ms, L2 cold): kernel {g['ms']:.4f} "
+          f"(L2 warm {g['ms_l2_warm']:.4f}; the device alone, graph, "
+          f"{g['graph_ms']:.4f}; the host {g['host_us']:.1f} us a call), "
+          f"plain version (index_select + cat) {g['plain_ms']:.4f}; "
+          f"without the drop row {g['without_drop_row']['ms']:.4f} (graph "
+          f"{g['without_drop_row']['graph_ms']:.4f}); index_select "
+          f"{g['index_select_ms']:.4f}, index_select + cat "
+          f"{g['index_select_cat_ms']:.4f} (graph "
+          f"{g['index_select_cat_graph_ms']:.4f}); an empty kernel's launch "
+          f"on the device alone {empty_ms:.4f}; bound {g_bound:.4f} "
+          f"({nbytes / 1e6:.2f} MB: {distinct} distinct rows read, "
+          f"{slots.numel() + 1} written)")
+
+    # ---- the cached push (the row math in it), on copies of the cache
     def push_inputs(rows_like, u, sl, real):
         grads = torch.randn((u.numel(), rows_like.shape[1]), generator=gen,
                             device=device)
@@ -1993,15 +2127,20 @@ def phase_cache_kernels(tr, batch):
         acc = torch.rand(rows_like.shape, generator=gen, device=device) + 0.01
         delta, g2 = adagrad_row_updates(acc[sl.long()], grads, torch.float32,
                                         lr=0.5, eps=1e-10)
-        return acc, delta, g2
+        return acc, grads, delta, g2
 
-    def push_checks(name, rows, acc, sl, u, delta, g2):
+    def push_checks(name, rows, acc, sl, u, grads, delta, g2):
         want = ref.sparse_adagrad_apply_ref(rows.clone(), acc.clone(), sl,
                                             delta, g2)
         runs = []
-        for _ in range(2):
+        for via_ops in (False, True):
             r, a = rows.clone(), acc.clone()
-            out = sparse_adagrad_cached_apply_cuda(r, a, sl, u, delta, g2)
+            if via_ops:
+                out = ops.sparse_adagrad_cached_apply(
+                    r, a, sl, grads, lr=0.5, eps=1e-10, uids=u)
+            else:
+                out = sparse_adagrad_cached_apply_cuda(r, a, sl, u, grads,
+                                                       lr=0.5, eps=1e-10)
             torch.cuda.synchronize()
             if out[0] is not r or out[1] is not a:
                 raise AssertionError(f"cached push {name}: not in place")
@@ -2018,19 +2157,22 @@ def phase_cache_kernels(tr, batch):
             raise AssertionError(f"cached push {name}: an untouched slot "
                                  "changed")
         pads = int((u[1:] <= u[:-1]).sum())
-        print(f"  cached push, {name}: bit-equal to the plain version, two "
-              f"runs bit-equal, untouched slots unchanged ({pads} pads)")
+        print(f"  cached push, {name}: bit-equal to the plain version (row "
+              f"math, then index_add_), two runs (the wrapper, ops) "
+              f"bit-equal, untouched slots unchanged ({pads} pads)")
 
-    print("phase 1 (on phase 7's cache): sparse_adagrad_cached_apply against "
-          "its plain version")
-    acc, delta, g2 = push_inputs(st.rows, ws.uids, slots, n_real)
-    push_checks("slice pull, D=64", st.rows, acc, slots, ws.uids, delta, g2)
+    print("phase 1 (on phase 7's cache): sparse_adagrad_cached_apply (the "
+          "row math in the kernel) against its plain version")
+    acc, grads, delta, g2 = push_inputs(st.rows, ws.uids, slots, n_real)
+    push_checks("slice pull, D=64", st.rows, acc, slots, ws.uids, grads,
+                delta, g2)
     over, _ = pull_working_set(ids, 16384)
     over_sl = hash_lookup_cuda(st.key_tab, st.slot_tab, st.slot_uid, over)
-    oa, od, og = push_inputs(st.rows, over, over_sl, over.numel())
+    oa, og, od, og2 = push_inputs(st.rows, over, over_sl, over.numel())
     push_checks("overflowed batch (capacity 16384, no pads), D=64", st.rows,
-                oa, over_sl, over, od, og)
-    for C, Dx, n_ids, cap in ((3000, 16, 2500, 2048), (1500, 100, 2000, 1024)):
+                oa, over_sl, over, og, od, og2)
+    for C, Dx, n_ids, cap in ((3000, 16, 2500, 2048), (1500, 100, 2000, 1024),
+                              (900, 3, 700, 512)):
         rid = torch.randint(0, 40_000, (n_ids,), generator=gen,
                             device=device, dtype=torch.int32)
         u, _ = pull_working_set(rid, cap)
@@ -2038,32 +2180,39 @@ def phase_cache_kernels(tr, batch):
         perm = torch.randperm(C, generator=gen, device=device)[:real]
         sl = torch.cat([perm, perm[:1].expand(cap - real)]).to(torch.int32)
         rows = torch.randn((C, Dx), generator=gen, device=device)
-        a2, d2, s2 = push_inputs(rows, u, sl, real)
-        push_checks(f"C={C} D={Dx} ({real} real ids)", rows, a2, sl, u, d2,
-                    s2)
+        a2, g2s, d2, s2 = push_inputs(rows, u, sl, real)
+        push_checks(f"C={C} D={Dx} ({real} real ids)", rows, a2, sl, u, g2s,
+                    d2, s2)
     r, a = st.rows.clone(), acc.clone()
+    _one_launch(lambda: ops.sparse_adagrad_cached_apply(
+        r, a, slots, grads, lr=0.5, eps=1e-10, uids=ws.uids),
+        "ops.sparse_adagrad_cached_apply on CUDA tensors")
 
-    def cached_push():
-        return sparse_adagrad_cached_apply_cuda(r, a, slots, ws.uids, delta,
-                                                g2)
+    def ref_cached_push():
+        d, s2 = adagrad_row_updates(a.index_select(0, sl64), grads,
+                                    torch.float32, lr=0.5, eps=1e-10)
+        return ref.sparse_adagrad_apply_ref(r, a, slots, d, s2)
 
-    c_ms, c_warm = _time_ms(cached_push), _time_ms(cached_push,
-                                                   cold_l2=False)
-    c_plain = _time_ms(lambda: ref.sparse_adagrad_apply_ref(r, a, slots,
-                                                            delta, g2))
+    c = _call_times(lambda: sparse_adagrad_cached_apply_cuda(
+        r, a, slots, ws.uids, grads, lr=0.5, eps=1e-10), ref_cached_push)
+    c["ops"] = _call_times(lambda: ops.sparse_adagrad_cached_apply(
+        r, a, slots, grads, lr=0.5, eps=1e-10, uids=ws.uids))
 
     def library():
         r.index_add_(0, sl64, delta)
         a.index_add_(0, sl64, g2)
 
-    c_lib = _time_ms(library)
-    nbytes = n_real * D * 4 * 6 + slots.numel() * 4 * 2
-    c_bound, c_by = _bound(nbytes, 2 * n_real * D)
-    print(f"  times (ms, L2 cold): kernel {c_ms:.4f} (L2 warm {c_warm:.4f}), "
-          f"plain version (two index_add_) {c_plain:.4f}, index_add_ "
-          f"library calls {c_lib:.4f}; bound "
-          f"{c_bound:.4f} ({nbytes / 1e6:.2f} MB: {n_real} real rows x 6 x "
-          f"{D * 4} B + the uid and slot streams)")
+    c["index_add_ms"] = _time_ms(library)
+    c_bound, c_by, nbytes = _push_bound(n_real, slots.numel(), D, streams=2)
+    print(f"  times (ms, L2 cold): kernel {c['ms']:.4f} (L2 warm "
+          f"{c['ms_l2_warm']:.4f}; graph {c['graph_ms']:.4f}; host "
+          f"{c['host_us']:.1f} us), ops-level cached push "
+          f"{c['ops']['ms']:.4f} (graph {c['ops']['graph_ms']:.4f}, host "
+          f"{c['ops']['host_us']:.1f} us), plain version (row math + two "
+          f"index_add_) {c['plain_ms']:.4f}, the scatter alone (two "
+          f"index_add_) {c['index_add_ms']:.4f}, no single library call; "
+          f"bound {c_bound:.4f} ({nbytes / 1e6:.2f} MB: {n_real} real rows "
+          f"x 5 x {D * 4} B + the uid and slot streams)")
     del r, a, acc
 
     def entry(name, source, replaces, ms, warm, plain, bound, by, lib,
@@ -2083,15 +2232,18 @@ def phase_cache_kernels(tr, batch):
                        hbm_trip_us=trip_us, empty_launch_graph_ms=empty_ms,
                        unchained_reads_graph_ms=reads_ms,
                        at_four_times_the_batch=p_scaled)
-    return [
-        probe_entry,
-        entry("gather_rows_cached", src + "sparse_adagrad.cu",
-              "src/repro/kernels/sparse_adagrad.py:194", g_ms, g_warm,
-              g_plain, g_bound, g_by, g_lib),
-        entry("sparse_adagrad_cached_apply", src + "sparse_adagrad.cu",
-              "src/repro/kernels/sparse_adagrad.py:166", c_ms, c_warm,
-              c_plain, c_bound, c_by, c_lib, errs["push"]),
-    ]
+    gather_entry = entry("gather_rows_cached", src + "sparse_adagrad.cu",
+                         "src/repro/kernels/sparse_adagrad.py:194", g["ms"],
+                         g["ms_l2_warm"], g["plain_ms"], g_bound, g_by,
+                         g["index_select_ms"])
+    gather_entry.update({k: v for k, v in g.items() if k not in gather_entry})
+    push_entry = entry("sparse_adagrad_cached_apply",
+                       src + "sparse_adagrad.cu",
+                       "src/repro/kernels/sparse_adagrad.py:166", c["ms"],
+                       c["ms_l2_warm"], c["plain_ms"], c_bound, c_by, None,
+                       errs["push"])
+    push_entry.update({k: v for k, v in c.items() if k not in push_entry})
+    return [probe_entry, gather_entry, push_entry]
 
 
 def phase_cached_smoke(device):
@@ -2602,7 +2754,7 @@ def phase_disk(device):
                 want["sparse_adagrad"] = n
             else:
                 want.update({"hash_lookup": 3 * n,
-                             "gather_rows_cached": 3 * n,
+                             "gather_rows_cached": 2 * n,
                              "sparse_adagrad_cached_apply": n})
             if launches != want:
                 raise AssertionError(f"({tag}) launches {launches}, "

@@ -22,11 +22,13 @@ Per pull, as in the reference:
      victims' slots, and the hash map takes the new (id, slot) pairs; it is
      rebuilt from ``slot_uid`` first when stale entries would push its
      occupancy past 3H/4;
-  4. the working rows are gathered from the cache by slot (the CUDA cached
+  4. the working rows are gathered from the cache by slot, the working
+     set's zero drop row after them (one launch of the CUDA cached
      gather).
 
 ``push`` writes the AdaGrad update through to the cache only (the CUDA
-cached push) and marks the slots dirty; ``flush`` writes every dirty row
+cached push, which reads the accumulator rows and does the row math
+itself) and marks the slots dirty; ``flush`` writes every dirty row
 back.
 
 Staged (the DiskStore, ``staged=True``): the pull's ``table``/``accum`` are
@@ -60,11 +62,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.core.embedding_backend import (
-    WorkingSet,
-    _dedup,
-    _with_drop_row,
-)
+from repro_torch.core.embedding_backend import WorkingSet, _dedup
 from repro_torch.kernels import ops
 from repro_torch.kernels.hash_map import (
     hash_insert,
@@ -317,7 +315,7 @@ class CachedBackend:
                                slot0).contiguous()
         freq.index_add_(0, slot_now.long(), counts)
 
-        wrows = ops.gather_rows_cached(state.rows, slot_now)
+        wrows = ops.gather_rows_cached(state.rows, slot_now, drop_row=True)
         rb = self._row_bytes(table)
         n_miss_f = n_miss.to(torch.float32)
         state.lookups.add_(counts.sum())
@@ -326,7 +324,7 @@ class CachedBackend:
         state.rebuilds.add_(float(need_rebuild))
         state.bytes_h2d.add_(n_miss_f * rb)
         state.bytes_d2h.add_(spill.sum(dtype=torch.float32) * rb)
-        ws = WorkingSet(uids, inverse, _with_drop_row(wrows), n_dropped)
+        ws = WorkingSet(uids, inverse, wrows, n_dropped)
         return ws, out_table, out_accum, state
 
     def _check_staged(self, table, capacity: int, what: str) -> None:
@@ -362,7 +360,7 @@ class CachedBackend:
                                state.slot_uid, uids)
         hit = slot >= 0
         safe = torch.where(hit, slot, 0).contiguous()
-        wrows = ops.gather_rows_cached(state.rows, safe)
+        wrows = ops.gather_rows_cached(state.rows, safe, drop_row=True)
         mp = torch.nonzero(~hit).reshape(-1)
         if mp.numel():
             if self.staged:
@@ -370,7 +368,7 @@ class CachedBackend:
             else:
                 (cold,) = self._fetch((table,), uids[mp], capacity)
             wrows[mp] = cold.to(wrows.dtype)
-        ws = WorkingSet(uids, inverse, _with_drop_row(wrows), n_dropped)
+        ws = WorkingSet(uids, inverse, wrows, n_dropped)
         counts = _multiplicity(inverse, capacity)
         aux = {
             "serve_lookups": counts.sum(),

@@ -38,11 +38,12 @@ void launch_embedding_bag_weight_grad(const float* g, int64_t num_bags,
 void launch_sparse_adagrad_apply(float* table, float* accum, int64_t rows,
                                  int dim, const int32_t* uids,
                                  const int32_t* slots, int64_t cap,
-                                 const float* delta, const float* g2,
+                                 const float* grads, float neg_lr, float eps,
                                  cudaStream_t stream);
 void launch_gather_rows_cached(const float* cache_rows, int64_t n_slots,
                                int dim, const int32_t* slots, int64_t cap,
-                               float* out, cudaStream_t stream);
+                               int64_t n_out, float* out,
+                               cudaStream_t stream);
 void launch_sparse_adagrad_staged(float* rows, float* accum,
                                   const float* grads, int64_t n, float neg_lr,
                                   float eps, cudaStream_t stream);
@@ -259,87 +260,116 @@ void embedding_bag_weight_grad(const torch::Tensor& g,
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
-// Shape checks shared by both pushes; returns (dim, cap).
+// Every check of the pushes and the cached gather is made here, once, and
+// raises ValueError.
+void check_value(const torch::Tensor& t, const char* name,
+                 torch::ScalarType dtype, int64_t ndim,
+                 const torch::Tensor& like, const char* what) {
+  TORCH_CHECK_VALUE(t.dim() == ndim && t.scalar_type() == dtype, name,
+                    " must be ", ndim, "-D ", dtype, ", got ", t.sizes(),
+                    " ", t.scalar_type());
+  TORCH_CHECK_VALUE(t.device() == like.device(), name, " is on ",
+                    t.device(), ", expected ", like.device());
+  TORCH_CHECK_VALUE(t.is_cuda(), what, " takes CUDA tensors, got ",
+                    t.device());
+  TORCH_CHECK_VALUE(t.is_contiguous(), what, " takes contiguous tensors; ",
+                    name, " is not");
+}
+
+// Checks shared by both pushes; returns (dim, cap).
 std::pair<int64_t, int64_t> check_push(const torch::Tensor& table,
                                        const torch::Tensor& accum,
                                        const torch::Tensor& uids,
-                                       const torch::Tensor& delta,
-                                       const torch::Tensor& g2) {
-  check_cuda(table, "table", torch::kFloat32, 2, table);
-  check_cuda(accum, "accum", torch::kFloat32, 2, table);
-  check_cuda(uids, "uids", torch::kInt32, 1, table);
-  check_cuda(delta, "delta", torch::kFloat32, 2, table);
-  check_cuda(g2, "g2", torch::kFloat32, 2, table);
+                                       const torch::Tensor& grads,
+                                       const char* what) {
+  check_value(table, "table", torch::kFloat32, 2, table, what);
+  check_value(accum, "accum", torch::kFloat32, 2, table, what);
+  check_value(uids, "uids", torch::kInt32, 1, table, what);
+  check_value(grads, "grads", torch::kFloat32, 2, table, what);
   const int64_t dim = table.size(1);
   const int64_t cap = uids.size(0);
-  TORCH_CHECK(dim >= 1 && dim < kMaxRows, "dim must be positive, got ", dim);
-  TORCH_CHECK(accum.sizes() == table.sizes(), "accum must be shaped like the "
-              "table");
-  TORCH_CHECK(delta.size(0) == cap && delta.size(1) == dim && g2.sizes() ==
-              delta.sizes(), "delta and g2 must be (", cap, ", ", dim, ")");
+  TORCH_CHECK_VALUE(dim >= 1 && dim < kMaxRows, "dim must be positive, got ",
+                    dim);
+  TORCH_CHECK_VALUE(accum.sizes() == table.sizes(), "accum must be shaped "
+                    "like the table ", table.sizes(), ", got ",
+                    accum.sizes());
+  TORCH_CHECK_VALUE(grads.size(0) == cap && grads.size(1) == dim,
+                    "grads must be (", cap, ", ", dim, "), got ",
+                    grads.sizes());
   return {dim, cap};
 }
 
-// table[uids[i]] += delta[i]; accum[uids[i]] += g2[i], in place, skipping
+// table[uids[i]], accum[uids[i]] <- AdaGrad(grads[i]) in place, skipping
 // the pads of pull_working_set's layout (csrc/sparse_adagrad.cu).
 void sparse_adagrad_apply(const torch::Tensor& table,
                           const torch::Tensor& accum,
                           const torch::Tensor& uids,
-                          const torch::Tensor& delta,
-                          const torch::Tensor& g2) {
-  const auto [dim, cap] = check_push(table, accum, uids, delta, g2);
+                          const torch::Tensor& grads, double lr, double eps) {
+  const auto [dim, cap] = check_push(table, accum, uids, grads,
+                                     "sparse_adagrad_apply_cuda");
   if (cap == 0) return;
   const c10::cuda::CUDAGuard guard(table.device());
   launch_sparse_adagrad_apply(
       table.data_ptr<float>(), accum.data_ptr<float>(), table.size(0),
       static_cast<int>(dim), uids.data_ptr<int32_t>(), nullptr, cap,
-      delta.data_ptr<float>(), g2.data_ptr<float>(),
-      c10::cuda::getCurrentCUDAStream().stream());
+      grads.data_ptr<float>(), static_cast<float>(-lr),
+      static_cast<float>(eps), c10::cuda::getCurrentCUDAStream().stream());
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
-// cache_rows[slots[i]] += delta[i]; cache_accum[slots[i]] += g2[i], in
+// cache_rows[slots[i]], cache_accum[slots[i]] <- AdaGrad(grads[i]) in
 // place, skipping the pads found by uids (csrc/sparse_adagrad.cu).
 void sparse_adagrad_cached_apply(const torch::Tensor& cache_rows,
                                  const torch::Tensor& cache_accum,
                                  const torch::Tensor& slots,
                                  const torch::Tensor& uids,
-                                 const torch::Tensor& delta,
-                                 const torch::Tensor& g2) {
-  const auto [dim, cap] = check_push(cache_rows, cache_accum, uids, delta,
-                                     g2);
-  check_cuda(slots, "slots", torch::kInt32, 1, cache_rows);
-  TORCH_CHECK(slots.size(0) == cap, "slots and uids differ in length");
-  check_rows(cache_rows.size(0), "cache rows");
+                                 const torch::Tensor& grads, double lr,
+                                 double eps) {
+  const char* what = "sparse_adagrad_cached_apply_cuda";
+  const auto [dim, cap] = check_push(cache_rows, cache_accum, uids, grads,
+                                     what);
+  check_value(slots, "slots", torch::kInt32, 1, cache_rows, what);
+  TORCH_CHECK_VALUE(slots.size(0) == cap, "slots must be (", cap,
+                    ",) like uids, got ", slots.sizes());
+  TORCH_CHECK_VALUE(cache_rows.size(0) >= 1 && cache_rows.size(0) < kMaxRows,
+                    "cache rows must lie in [1, 2^31), got ",
+                    cache_rows.size(0));
   if (cap == 0) return;
   const c10::cuda::CUDAGuard guard(cache_rows.device());
   launch_sparse_adagrad_apply(
       cache_rows.data_ptr<float>(), cache_accum.data_ptr<float>(),
       cache_rows.size(0), static_cast<int>(dim), uids.data_ptr<int32_t>(),
-      slots.data_ptr<int32_t>(), cap, delta.data_ptr<float>(),
-      g2.data_ptr<float>(), c10::cuda::getCurrentCUDAStream().stream());
+      slots.data_ptr<int32_t>(), cap, grads.data_ptr<float>(),
+      static_cast<float>(-lr), static_cast<float>(eps),
+      c10::cuda::getCurrentCUDAStream().stream());
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
-// out[i] = cache_rows[slots[i]] (csrc/sparse_adagrad.cu).
-void gather_rows_cached(const torch::Tensor& cache_rows,
-                        const torch::Tensor& slots, const torch::Tensor& out) {
-  check_cuda(cache_rows, "cache_rows", torch::kFloat32, 2, cache_rows);
-  check_cuda(slots, "slots", torch::kInt32, 1, cache_rows);
-  check_cuda(out, "out", torch::kFloat32, 2, cache_rows);
+// out[i] = cache_rows[slots[i]], (cap, dim); with drop_row (cap + 1, dim),
+// its last row zero (csrc/sparse_adagrad.cu).
+torch::Tensor gather_rows_cached(const torch::Tensor& cache_rows,
+                                 const torch::Tensor& slots, bool drop_row) {
+  const char* what = "gather_rows_cached_cuda";
+  check_value(cache_rows, "cache_rows", torch::kFloat32, 2, cache_rows,
+              what);
+  check_value(slots, "slots", torch::kInt32, 1, cache_rows, what);
   const int64_t dim = cache_rows.size(1);
   const int64_t cap = slots.size(0);
-  TORCH_CHECK(dim >= 1 && dim < kMaxRows, "dim must be positive, got ", dim);
-  check_rows(cache_rows.size(0), "cache rows");
-  TORCH_CHECK(out.size(0) == cap && out.size(1) == dim, "out must be (", cap,
-              ", ", dim, ")");
-  if (cap == 0) return;
+  TORCH_CHECK_VALUE(dim >= 1 && dim < kMaxRows, "dim must be positive, got ",
+                    dim);
+  TORCH_CHECK_VALUE(cache_rows.size(0) >= 1 && cache_rows.size(0) < kMaxRows,
+                    "cache rows must lie in [1, 2^31), got ",
+                    cache_rows.size(0));
+  const int64_t n_out = cap + (drop_row ? 1 : 0);
+  auto out = torch::empty({n_out, dim}, cache_rows.options());
+  if (n_out == 0) return out;
   const c10::cuda::CUDAGuard guard(cache_rows.device());
   launch_gather_rows_cached(cache_rows.data_ptr<float>(), cache_rows.size(0),
                             static_cast<int>(dim), slots.data_ptr<int32_t>(),
-                            cap, out.data_ptr<float>(),
+                            cap, n_out, out.data_ptr<float>(),
                             c10::cuda::getCurrentCUDAStream().stream());
   C10_CUDA_KERNEL_LAUNCH_CHECK();
+  return out;
 }
 
 // slots[i] = live cache slot of uids[i] or -1 (csrc/hash_map.cu); every
@@ -553,16 +583,18 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
         "Per-entry weight gradient of the bag (CUDA)", py::arg("g"),
         py::arg("seg"), py::arg("working"), py::arg("inv"), py::arg("g_w"));
   m.def("sparse_adagrad_apply", &sparse_adagrad_apply,
-        "In-place AdaGrad push of precomputed (delta, g2) rows (CUDA)",
-        py::arg("table"), py::arg("accum"), py::arg("uids"), py::arg("delta"),
-        py::arg("g2"));
+        "In-place AdaGrad push, the row math in the kernel (CUDA)",
+        py::arg("table"), py::arg("accum"), py::arg("uids"), py::arg("grads"),
+        py::arg("lr"), py::arg("eps"));
   m.def("sparse_adagrad_cached_apply", &sparse_adagrad_cached_apply,
-        "In-place AdaGrad push into the device cache by slot (CUDA)",
-        py::arg("cache_rows"), py::arg("cache_accum"), py::arg("slots"),
-        py::arg("uids"), py::arg("delta"), py::arg("g2"));
+        "In-place AdaGrad push into the device cache by slot, the row math "
+        "in the kernel (CUDA)", py::arg("cache_rows"), py::arg("cache_accum"),
+        py::arg("slots"), py::arg("uids"), py::arg("grads"), py::arg("lr"),
+        py::arg("eps"));
   m.def("gather_rows_cached", &gather_rows_cached,
-        "Row gather from the device cache by slot (CUDA)",
-        py::arg("cache_rows"), py::arg("slots"), py::arg("out"));
+        "Row gather from the device cache by slot, with an optional zero "
+        "drop row after the rows (CUDA)", py::arg("cache_rows"),
+        py::arg("slots"), py::arg("drop_row") = false);
   m.def("sparse_adagrad_staged", &sparse_adagrad_staged,
         "In-place dense-block AdaGrad over staged working-set rows (CUDA)",
         py::arg("rows"), py::arg("accum"), py::arg("grads"), py::arg("lr"),

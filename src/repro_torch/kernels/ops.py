@@ -156,17 +156,17 @@ def sparse_adagrad_apply(table, accum, uids, grads, *, lr, eps):
     """The push: AdaGrad row updates applied straight into the table and
     the accumulator, in place; returns the same ``(table, accum)``.
 
-    The row math runs once, outside, via ``adagrad_row_updates`` (the same
-    helper the unfused ``SparseAdagrad.apply_rows`` uses), so the CUDA
-    kernel and the plain ``index_add_`` receive identical ``(delta, g2)``
-    bits and give identical tables.
+    CUDA: one extension call, the kernel doing the row math itself.  CPU:
+    ``adagrad_row_updates`` on the gathered accumulator rows (the same
+    helper the unfused ``SparseAdagrad.apply_rows`` uses), then the plain
+    ``index_add_``; the two give the same bits.
     """
-    delta, g2 = adagrad_row_updates(accum.index_select(0, uids.long()), grads,
-                                    table.dtype, lr=lr, eps=eps)
     if kernel_mode(table) == "ref":
+        delta, g2 = adagrad_row_updates(accum.index_select(0, uids.long()),
+                                        grads, table.dtype, lr=lr, eps=eps)
         launches["sparse_adagrad_apply_ref"] += 1
         return ref.sparse_adagrad_apply_ref(table, accum, uids, delta, g2)
-    out = sparse_adagrad_apply_cuda(table, accum, uids, delta, g2)
+    out = sparse_adagrad_apply_cuda(table, accum, uids, grads, lr=lr, eps=eps)
     launches["sparse_adagrad_apply"] += 1
     return out
 
@@ -183,13 +183,15 @@ def hash_lookup(key_tab, slot_tab, slot_uid, uids):
     return out
 
 
-def gather_rows_cached(cache_rows, slots):
+def gather_rows_cached(cache_rows, slots, drop_row=False):
     """The cached pull's gather: ``out[i] = cache_rows[slots[i]]``, with the
-    probe's output as the index stream (``0 <= slots < C``)."""
+    probe's output as the index stream (``0 <= slots < C``); with
+    ``drop_row`` one more row, zero (the working set's drop row), written
+    by the same launch on CUDA."""
     if kernel_mode(cache_rows) == "ref":
         launches["gather_rows_cached_ref"] += 1
-        return ref.gather_rows_cached_ref(cache_rows, slots)
-    out = gather_rows_cached_cuda(cache_rows, slots)
+        return ref.gather_rows_cached_ref(cache_rows, slots, drop_row)
+    out = gather_rows_cached_cuda(cache_rows, slots, drop_row=drop_row)
     launches["gather_rows_cached"] += 1
     return out
 
@@ -199,28 +201,28 @@ def sparse_adagrad_cached_apply(cache_rows, cache_accum, slots, grads, *,
     """The cached push: AdaGrad row updates applied into the device cache
     by slot, in place; returns the same ``(cache_rows, cache_accum)``.
 
-    The accumulator rows come through ``gather_rows_cached`` and the row
-    math through ``adagrad_row_updates``, as in the reference, so the
-    kernel and the plain ``index_add_`` receive the same bits.  The kernel
-    finds the pads by the working set's ``uids`` (a slot order is not
-    ascending), so on CUDA tensors ``uids`` is required.
+    CUDA: one extension call, the kernel reading the accumulator rows and
+    doing the row math itself; it finds the pads by the working set's
+    ``uids`` (a slot order is not ascending), so there ``uids`` is
+    required.  CPU: as the reference, the accumulator rows through
+    ``gather_rows_cached``, the row math through ``adagrad_row_updates``,
+    then the plain ``index_add_``; the two give the same bits.
     """
-    on_cuda = kernel_mode(cache_rows) == "cuda"
-    if on_cuda and uids is None:
-        raise ValueError("sparse_adagrad_cached_apply on CUDA tensors needs "
-                         "the working set's uids (the kernel skips the pads "
-                         "by them)")
+    if kernel_mode(cache_rows) == "cuda":
+        if uids is None:
+            raise ValueError("sparse_adagrad_cached_apply on CUDA tensors "
+                             "needs the working set's uids (the kernel "
+                             "skips the pads by them)")
+        out = sparse_adagrad_cached_apply_cuda(cache_rows, cache_accum, slots,
+                                               uids, grads, lr=lr, eps=eps)
+        launches["sparse_adagrad_cached_apply"] += 1
+        return out
     accum_rows = gather_rows_cached(cache_accum, slots)
     delta, g2 = adagrad_row_updates(accum_rows, grads, cache_rows.dtype,
                                     lr=lr, eps=eps)
-    if not on_cuda:
-        launches["sparse_adagrad_cached_apply_ref"] += 1
-        return ref.sparse_adagrad_apply_ref(cache_rows, cache_accum, slots,
-                                            delta, g2)
-    out = sparse_adagrad_cached_apply_cuda(cache_rows, cache_accum, slots,
-                                           uids, delta, g2)
-    launches["sparse_adagrad_cached_apply"] += 1
-    return out
+    launches["sparse_adagrad_cached_apply_ref"] += 1
+    return ref.sparse_adagrad_apply_ref(cache_rows, cache_accum, slots, delta,
+                                        g2)
 
 
 def sparse_adagrad(rows, accum, grads, *, lr, eps):

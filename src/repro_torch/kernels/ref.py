@@ -90,9 +90,13 @@ def sparse_adagrad_apply_ref(table, accum, uids, delta, g2):
     return table, accum
 
 
-def gather_rows_cached_ref(cache_rows, slots):
-    """``out[i] = cache_rows[slots[i]]``: the cached pull's row gather."""
-    return cache_rows.index_select(0, slots.long())
+def gather_rows_cached_ref(cache_rows, slots, drop_row=False):
+    """``out[i] = cache_rows[slots[i]]``: the cached pull's row gather; with
+    ``drop_row`` a zero row appended (the working set's drop row)."""
+    out = cache_rows.index_select(0, slots.long())
+    if drop_row:
+        out = torch.cat([out, out.new_zeros((1, out.shape[1]))])
+    return out
 
 
 def hash_lookup_ref(key_tab, slot_tab, slot_uid, uids):

@@ -161,6 +161,34 @@ def test_pulls_and_pushes_match_reference_bit_for_bit(seed):
     assert ops.launches["sparse_adagrad_cached_apply_ref"] == n
 
 
+@pytest.mark.parametrize("C,D,cap", [(40, 16, 32), (129, 100, 257),
+                                     (7, 3, 1)])
+def test_gather_with_drop_row_matches_pallas_gather_and_a_zero_row(C, D,
+                                                                   cap):
+    """``ref.gather_rows_cached_ref(..., drop_row=True)`` (the CPU path of
+    the cached pull and lookup) against the reference's
+    ``gather_rows_cached_pallas(interpret=True)`` with a zero row appended
+    (the reference's pull appends it outside the kernel): exact."""
+    from repro.kernels.sparse_adagrad import gather_rows_cached_pallas
+    from repro_torch.kernels import ref as tref
+
+    rng = np.random.default_rng(C)
+    rows = rng.standard_normal((C, D)).astype(np.float32)
+    slots = rng.integers(0, C, cap).astype(np.int32)
+    got = tref.gather_rows_cached_ref(torch.from_numpy(rows),
+                                      torch.from_numpy(slots), drop_row=True)
+    want = np.asarray(gather_rows_cached_pallas(
+        jnp.asarray(rows), jnp.asarray(slots), interpret=True))
+    want = np.concatenate([want, np.zeros((1, D), np.float32)])
+    assert got.shape == (cap + 1, D)
+    np.testing.assert_array_equal(got.numpy(), want)
+    ops.reset_launches()
+    again = ops.gather_rows_cached(torch.from_numpy(rows),
+                                   torch.from_numpy(slots), drop_row=True)
+    assert torch.equal(again, got)
+    assert ops.launches["gather_rows_cached_ref"] == 1
+
+
 def test_decay_one_ties_break_as_the_reference():
     """Plain LFU (decay 1.0): whole-number scores tie often; the victim
     order must still be the reference's."""

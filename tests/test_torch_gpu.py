@@ -355,9 +355,9 @@ def _push_case(seed, rows, D, n_ids, capacity):
     (4000, 100, 700, 256),       # overflow: no pads
 ])
 def test_cuda_push_matches_plain_version(rows, D, n_ids, capacity):
-    """The push kernel and the plain index_add_ receive the same
-    (delta, g2) and must give the same bits, with untouched rows unchanged
-    and two runs equal."""
+    """The push kernel, which does the row math itself, against the plain
+    version (adagrad_row_updates, then index_add_): the same bits, with
+    untouched rows unchanged and two runs equal."""
     _cuda_or_skip()
     from repro_torch.kernels.sparse_adagrad import (
         adagrad_row_updates,
@@ -372,8 +372,8 @@ def test_cuda_push_matches_plain_version(rows, D, n_ids, capacity):
     outs = []
     for _ in range(2):
         t, a = table.cuda(), accum.cuda()
-        got = sparse_adagrad_apply_cuda(t, a, uids.cuda(), delta.cuda(),
-                                        g2.cuda())
+        got = sparse_adagrad_apply_cuda(t, a, uids.cuda(), grads.cuda(),
+                                        lr=0.5, eps=1e-10)
         torch.cuda.synchronize()
         assert got[0] is t and got[1] is a          # in place
         outs.append((t.cpu(), a.cpu()))
@@ -386,7 +386,8 @@ def test_cuda_push_matches_plain_version(rows, D, n_ids, capacity):
 
 @pytest.mark.gpu
 def test_cuda_push_addresses_rows_beyond_int32_offsets():
-    """uid * dim above 2^31: the kernel's table offsets are 64-bit."""
+    """uid * dim above 2^31: the kernel's table offsets are 64-bit.  The
+    three rows are held against the plain version on copies of them."""
     _cuda_or_skip()
     from repro_torch.kernels.sparse_adagrad import sparse_adagrad_apply_cuda
 
@@ -396,15 +397,70 @@ def test_cuda_push_addresses_rows_beyond_int32_offsets():
     accum = torch.ones((rows, D), device="cuda")
     uids = torch.tensor([7, (1 << 31) // D + 3, rows - 1], dtype=torch.int32,
                         device="cuda")
-    delta = torch.arange(3 * D, dtype=torch.float32,
-                         device="cuda").reshape(3, D)
-    sparse_adagrad_apply_cuda(table, accum, uids, delta, delta * 2)
+    grads = torch.arange(3 * D, dtype=torch.float32,
+                         device="cuda").reshape(3, D) / 7
+    want = tref.sparse_adagrad_ref(table[uids.long()].clone(),
+                                   accum[uids.long()].clone(), grads, 0.5,
+                                   1e-10)
+    sparse_adagrad_apply_cuda(table, accum, uids, grads, lr=0.5, eps=1e-10)
     torch.cuda.synchronize()
     for i, u in enumerate(uids.tolist()):
-        assert torch.equal(table[u], delta[i])
-        assert torch.equal(accum[u], 1 + delta[i] * 2)
+        assert torch.equal(table[u], want[0][i])
+        assert torch.equal(accum[u], want[1][i])
     assert int(torch.count_nonzero(table)) == int(
-        torch.count_nonzero(delta))
+        torch.count_nonzero(want[0]))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("stream", ["uids", "slots"])
+@pytest.mark.parametrize("case", ["pads", "overflow", "unaligned"])
+@pytest.mark.parametrize("D", [3, 16, 64, 100])
+def test_cuda_fused_push_equals_row_math_and_index_add(D, case, stream):
+    """Both pushes (the table's by uids, the cache's by slots) do the row
+    math in the kernel: bit-equal to ``adagrad_row_updates`` on the
+    gathered accumulator rows followed by ``index_add_``, on a batch with
+    pads, an overflowed batch (no pads) and unaligned tensors (the scalar
+    path at every dim); the pads' gradient rows, which hold NaN here, are
+    never read; two runs equal."""
+    _cuda_or_skip()
+    from repro_torch.kernels.sparse_adagrad import (
+        adagrad_row_updates,
+        sparse_adagrad_apply_cuda,
+        sparse_adagrad_cached_apply_cuda,
+    )
+
+    capacity = 256 if case == "overflow" else 1024
+    table, accum, uids, grads = _push_case(29 + D, 3000, D, 700, capacity)
+    n_real = 1 + int((uids[1:] > uids[:-1]).sum())
+    assert (n_real < capacity) == (case != "overflow")
+    if stream == "uids":
+        idx = uids
+    else:                                   # a permutation, pads share [0]
+        perm = torch.from_numpy(np.random.default_rng(D).permutation(
+            table.shape[0])[:n_real].astype(np.int32))
+        idx = torch.cat([perm, perm[:1].expand(capacity - n_real)])
+    delta, g2 = adagrad_row_updates(accum[idx.long()], grads, table.dtype,
+                                    lr=0.5, eps=1e-10)
+    want = tref.sparse_adagrad_apply_ref(table.clone(), accum.clone(), idx,
+                                         delta, g2)
+    grads[n_real:] = float("nan")           # a pad's row is never read
+    runs = []
+    for _ in range(2):
+        t, a, g = table.cuda(), accum.cuda(), grads.cuda()
+        if case == "unaligned":
+            t, a, g = _unaligned(t), _unaligned(a), _unaligned(g)
+        if stream == "uids":
+            out = sparse_adagrad_apply_cuda(t, a, uids.cuda(), g, lr=0.5,
+                                            eps=1e-10)
+        else:
+            out = sparse_adagrad_cached_apply_cuda(t, a, idx.cuda(),
+                                                   uids.cuda(), g, lr=0.5,
+                                                   eps=1e-10)
+        torch.cuda.synchronize()
+        assert out[0] is t and out[1] is a
+        runs.append((t.cpu(), a.cpu()))
+    for t, a in runs:
+        assert torch.equal(t, want[0]) and torch.equal(a, want[1])
 
 
 # ------------------------------------------------- the cache tier's kernels
@@ -572,6 +628,44 @@ def test_cuda_cached_gather_matches_plain_version(C, D, cap):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("C,D,cap", [(300, 64, 1000), (77, 16, 50),
+                                     (129, 100, 257), (40, 3, 33),
+                                     (50, 64, 1), (50, 64, 0)])
+def test_cuda_cached_gather_with_its_drop_row(C, D, cap, aligned):
+    """``drop_row=True``: the rows, then one zero row, bit-equal to
+    ``_with_drop_row(index_select)`` (the parent's gather + cat) and to the
+    plain version, with 16-byte aligned and unaligned tensors; two runs
+    equal.  Slots outside [0, C) give zero rows."""
+    _cuda_or_skip()
+    from repro_torch.core.embedding_backend import _with_drop_row
+    from repro_torch.kernels.sparse_adagrad import gather_rows_cached_cuda
+
+    rng = np.random.default_rng(C + cap)
+    rows = torch.from_numpy(rng.standard_normal((C, D)).astype(np.float32))
+    slots = torch.from_numpy(rng.integers(0, C, cap).astype(np.int32))
+    want = _with_drop_row(rows.index_select(0, slots.long()))
+    assert torch.equal(want, tref.gather_rows_cached_ref(rows, slots,
+                                                         drop_row=True))
+    r, sl = rows.cuda(), slots.cuda()
+    if not aligned:
+        r, sl = _unaligned(r), _unaligned(sl)
+    got = gather_rows_cached_cuda(r, sl, drop_row=True)
+    again = ops.gather_rows_cached(r, sl, drop_row=True)
+    torch.cuda.synchronize()
+    assert got.shape == (cap + 1, D)
+    assert torch.equal(got.cpu(), want) and torch.equal(got, again)
+    bad = slots.clone()
+    bad[::7] = -1
+    bad[1::5] = C
+    out = gather_rows_cached_cuda(r, _unaligned(bad.cuda()) if not aligned
+                                  else bad.cuda(), drop_row=True).cpu()
+    ok = (bad >= 0) & (bad < C)
+    assert torch.equal(out[:cap][ok], want[:cap][ok])
+    assert not out[:cap][~ok].any() and not out[cap].any()
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("C,D,n_ids,capacity", [
     (2048, 64, 900, 1024),       # pads
     (700, 16, 600, 512),         # odd width, pads
@@ -607,8 +701,8 @@ def test_cuda_cached_push_matches_plain_version(C, D, n_ids, capacity):
     for _ in range(2):
         r, a = rows.cuda(), accum.cuda()
         got = sparse_adagrad_cached_apply_cuda(r, a, slots.cuda(),
-                                               uids.cuda(), delta.cuda(),
-                                               g2.cuda())
+                                               uids.cuda(), grads.cuda(),
+                                               lr=0.5, eps=1e-10)
         torch.cuda.synchronize()
         assert got[0] is r and got[1] is a
         outs.append((r.cpu(), a.cpu()))
@@ -643,7 +737,7 @@ def test_cuda_cached_dispatch_counts_the_kernels():
         uids=uniq.to(torch.int32))
     torch.cuda.synchronize()
     assert ops.launches["hash_lookup"] == 1
-    assert ops.launches["gather_rows_cached"] == 2   # + one inside the push
+    assert ops.launches["gather_rows_cached"] == 1   # none inside the push
     assert ops.launches["sparse_adagrad_cached_apply"] == 1
     assert all(v == 0 for k, v in ops.launches.items() if k.endswith("_ref"))
 

@@ -546,13 +546,18 @@ def test_cached_ops_on_the_cpu_run_the_plain_versions_and_count_them():
         "fused_adam": 0, "fused_adam_ref": 0,
         "dot_interaction": 0, "dot_interaction_ref": 0,
         "flash_attention": 0, "flash_attention_ref": 0}
-    for fn, args in (
-            (tsa.gather_rows_cached_cuda, (_t(rows), _t(slots))),
+    for fn, args, kw in (
+            (tsa.gather_rows_cached_cuda, (_t(rows), _t(slots)), {}),
+            (tsa.gather_rows_cached_cuda, (_t(rows), _t(slots)),
+             dict(drop_row=True)),
             (tsa.sparse_adagrad_cached_apply_cuda,
-             (_t(rows), _t(accum), _t(slots), _t(uids), _t(grads),
-              _t(grads)))):
+             (_t(rows), _t(accum), _t(slots), _t(uids), _t(grads)),
+             dict(lr=0.5, eps=1e-10)),
+            (tsa.sparse_adagrad_apply_cuda,
+             (_t(rows), _t(accum), _t(uids), _t(grads)),
+             dict(lr=0.5, eps=1e-10))):
         with pytest.raises(ValueError, match="CUDA"):
-            fn(*args)
+            fn(*args, **kw)
 
 
 def _jit_rows(accum_rows, grads):

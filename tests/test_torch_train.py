@@ -154,6 +154,67 @@ def _apply_with_pad_rule(table, accum, uids, delta, g2):
     return table, accum
 
 
+def _fused_push_mirror(table, accum, uids, grads, rows=None):
+    """The CUDA push kernel's walk (it does the row math itself), position
+    by position: skip a pad (i > 0 with uids[i] <= uids[i-1]) or a row
+    outside the table without reading its gradient row; else read the
+    row's accumulator row, apply the row math (``adagrad_row_updates``, of
+    which the kernel's ``adagrad_element`` is the per-element copy) and add
+    into both rows.  ``rows``: the cached push's slots (default: uids)."""
+    rows = uids if rows is None else rows
+    for i, u in enumerate(uids.tolist()):
+        r = int(rows[i])
+        if (i > 0 and u <= int(uids[i - 1])) or not 0 <= r < table.shape[0]:
+            continue
+        delta, g2 = adagrad_row_updates(accum[r][None], grads[i][None],
+                                        table.dtype, lr=LR, eps=EPS)
+        table[r] = table[r] + delta[0]
+        accum[r] = accum[r] + g2[0]
+    return table, accum
+
+
+@pytest.mark.parametrize("stream", ["uids", "slots"])
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_fused_push_mirror_matches_reference_bit_for_bit(case, stream):
+    """The fused kernel's walk, mirrored row by row on the CPU, against the
+    reference's fused push: its jitted ``adagrad_row_updates``, then
+    ``sparse_adagrad_apply_pallas`` (by uids) or
+    ``sparse_adagrad_cached_apply_pallas`` (by slots, a permutation whose
+    pads share the first slot) in interpret mode.  Bit-equal, with the
+    pads' gradient rows NaN in the mirror's input (never read)."""
+    from repro.kernels.sparse_adagrad import (
+        sparse_adagrad_cached_apply_pallas,
+    )
+
+    table, accum, uids, grads = _push_case(4, *CASES[case])
+    cap = uids.shape[0]
+    n_real = 1 + int((uids[1:] > uids[:-1]).sum())
+    if stream == "uids":
+        rows = uids
+    else:
+        perm = np.random.default_rng(5).permutation(table.shape[0])
+        rows = np.r_[perm[:n_real], np.full(cap - n_real, perm[0])].astype(
+            np.int32)
+    jdelta, jg2 = jax.jit(lambda r, g: jrows(r, g, jnp.float32, lr=LR,
+                                             eps=EPS))(accum[rows],
+                                                       grads[:cap])
+    args = (jnp.asarray(table), jnp.asarray(accum), jnp.asarray(rows),
+            jdelta, jg2)
+    if stream == "uids":
+        jt, ja = sparse_adagrad_apply_pallas(*args, interpret=True)
+    else:
+        jt, ja = sparse_adagrad_cached_apply_pallas(*args, interpret=True)
+    g = grads[:cap].copy()
+    g[n_real:] = np.nan
+    t, a = _fused_push_mirror(torch.from_numpy(table.copy()),
+                              torch.from_numpy(accum.copy()),
+                              torch.from_numpy(uids), torch.from_numpy(g),
+                              torch.from_numpy(rows))
+    np.testing.assert_array_equal(t.numpy(), np.asarray(jt))
+    np.testing.assert_array_equal(a.numpy(), np.asarray(ja))
+    assert (n_real < cap) == (case == "pads")
+
+
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_pad_rule_gives_the_plain_push_bit_for_bit(case):
     table, accum, uids, grads = _push_case(3, *CASES[case])

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Time the bag forward's and the hash probe's wrappers of one checkout on
-the card, so that two checkouts can be compared on one card in one run.
+"""Time the bag forward's, the hash probe's, the pushes' and the cached
+gather's wrappers of one checkout on the card, so that two checkouts can be
+compared on one card in one run.
 
     python3 tools/kernel_ab.py ROOT [--label NAME] [--out FILE]
 
@@ -19,14 +20,29 @@ Inputs:
     H = 2^20 buckets) after two rounds of admissions (the second evicts
     131,072 of the first round's ids, whose entries go stale), probed with
     65,536 sorted distinct ids (80 % live, 10 % stale, 10 % never
-    admitted) and with four times as many.
-Times (ms, or us where said): the wrapper with a cold L2 and a warm one,
-the device alone (CUDA graph replays, cold L2 and warm), the host per
-call.  Also,
+    admitted) and with four times as many;
+  - the push at the ops level (``ops.sparse_adagrad_apply``, the same
+    signature in every checkout), with the slice's first batch
+    deduplicated at capacity 65,536 (``chip_smoke._slice_uids``): on a
+    4 M-row table (the ids above the line renumbered into it) and on the
+    50 M-row table with the batch's own ids;
+  - the cached push at the ops level (``ops.sparse_adagrad_cached_apply``)
+    on a cache of 262,144 x 64 rows, the batch's real ids at a random
+    permutation of the slots, the pads sharing the first id's slot;
+  - the cached gather at those slots, with the working set's drop row:
+    ``ops.gather_rows_cached(..., drop_row=True)`` where the checkout has
+    it, else ``_with_drop_row(ops.gather_rows_cached(...))`` (the pull's
+    gather, then its ``cat``).
+Times (ms, or us where said): the wrapper with a cold L2 (after a 256 MB
+write, and after a 256 MB read, which leaves no dirty line in L2) and a
+warm one, the device alone (CUDA graph replays, cold L2 and warm), the
+host per call.  Also,
 the same in every checkout: ``F.embedding_bag`` on the bag's CSR and
 ``index_add_`` (library calls), and the latency of one dependent trip to
-HBM (``tools/pointer_chase.cu``).  Appends one JSON line per run to
-``FILE`` (default ``build/kernel_ab.jsonl``) and prints it.
+HBM (``tools/pointer_chase.cu``).  Each push's and gather's result is held
+against the plain version on the card (bit-equal) before it is timed.
+Appends one JSON line per run to ``FILE`` (default
+``build/kernel_ab.jsonl``) and prints it.
 """
 
 from __future__ import annotations
@@ -76,6 +92,80 @@ def _probe_case(device, scale=1, seed=3):
     return key_tab, slot_tab, slot_uid, uids
 
 
+def _push_gather_times(cs, dev, times):
+    """The pushes and the cached gather of the checkout whose package was
+    imported first, at the ops level (see the module's docstring)."""
+    import inspect
+
+    import torch
+
+    from repro_torch.core.embedding_backend import _with_drop_row
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.sparse_adagrad import adagrad_row_updates
+
+    lr, eps = 0.5, 1e-10
+    gen = torch.Generator(dev).manual_seed(5)
+    out = {}
+
+    def held(name, push, t, a, rows, g):
+        """``push(t, a)`` on copies, bit-equal to the plain version."""
+        d, g2 = adagrad_row_updates(a.index_select(0, rows.long()), g,
+                                    t.dtype, lr=lr, eps=eps)
+        want = ref.sparse_adagrad_apply_ref(t.clone(), a.clone(), rows, d, g2)
+        got = push(t.clone(), a.clone())
+        torch.cuda.synchronize()
+        if not (torch.equal(got[0], want[0])
+                and torch.equal(got[1], want[1])):
+            raise AssertionError(f"{name}: the push and its plain version "
+                                 "differ")
+
+    for key, rows in (("push_4m_rows", 4_000_000),
+                      ("push_50m_rows", cs.ROWS)):
+        uids, n_real = cs._slice_uids(
+            dev, fit_rows=rows if rows != cs.ROWS else None)
+        table = torch.randn((rows, 64), generator=gen,
+                            device=dev).mul_(0.05)
+        accum = torch.rand((rows, 64), generator=gen, device=dev).add_(0.01)
+        grads = torch.randn((uids.numel(), 64), generator=gen, device=dev)
+        grads[n_real:] = 0.0
+        if rows != cs.ROWS:       # the check copies the table
+            held(key, lambda t, a: ops.sparse_adagrad_apply(
+                t, a, uids, grads, lr=lr, eps=eps), table, accum, uids,
+                grads)
+        out[key] = times(lambda: ops.sparse_adagrad_apply(
+            table, accum, uids, grads, lr=lr, eps=eps))
+        out[key]["real_rows"], out[key]["table_rows"] = n_real, rows
+        del table, accum
+        torch.cuda.empty_cache()
+
+    C = 262_144
+    cache = torch.randn((C, 64), generator=gen, device=dev)
+    cache_acc = torch.rand((C, 64), generator=gen, device=dev).add_(0.01)
+    perm = torch.randperm(C, generator=gen, device=dev)[:n_real]
+    slots = torch.cat([perm, perm[:1].expand(uids.numel() - n_real)]).to(
+        torch.int32).contiguous()
+
+    held("cached push", lambda t, a: ops.sparse_adagrad_cached_apply(
+        t, a, slots, grads, lr=lr, eps=eps, uids=uids), cache, cache_acc,
+        slots, grads)
+    out["cached_push"] = times(lambda: ops.sparse_adagrad_cached_apply(
+        cache, cache_acc, slots, grads, lr=lr, eps=eps, uids=uids))
+
+    if "drop_row" in inspect.signature(ops.gather_rows_cached).parameters:
+        def gather():
+            return ops.gather_rows_cached(cache, slots, drop_row=True)
+    else:
+        def gather():
+            return _with_drop_row(ops.gather_rows_cached(cache, slots))
+    got = gather()
+    if not torch.equal(got, _with_drop_row(cache.index_select(
+            0, slots.long()))):
+        raise AssertionError("cached gather: rows differ from index_select "
+                             "+ cat")
+    out["cached_gather_drop_row"] = times(gather)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("root", type=pathlib.Path)
@@ -112,6 +202,7 @@ def main() -> int:
     def times(fn):
         return {"ms": cs._time_ms(fn), "ms_l2_warm": cs._time_ms(
                     fn, cold_l2=False),
+                "ms_scrub_read": cs._time_ms(fn, scrub_read=True),
                 "graph_ms": cs._graph_ms(fn),
                 "graph_ms_l2_warm": cs._graph_ms(fn, cold_l2=False),
                 "host_us": cs._host_us(fn)}
@@ -149,6 +240,7 @@ def main() -> int:
         rec[key]["ids"] = pargs[3].numel()
         rec[key]["hits"] = int((hash_lookup_cuda(*pargs) >= 0).sum())
         del pargs
+    rec.update(_push_gather_times(cs, dev, times))
     trip_us, launch_ms = cs._hbm_trip()
     rec["hbm_trip_us"], rec["empty_launch_graph_ms"] = trip_us, launch_ms
     line = json.dumps(rec)
