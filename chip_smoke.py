@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Run the PyTorch port's baidu-ctr serving and training paths, on the
 gather and the cached placements and on the SSD tier, its dlrm-mlperf
-serving path and its qwen3-14b prefill, on one NVIDIA GPU (H100).
+serving and training paths and its qwen3-14b prefill, on one NVIDIA GPU
+(H100).
 
     python3 chip_smoke.py        # from the root of a checkout
 
@@ -138,9 +139,36 @@ Phases (any failure raises and the script exits non-zero):
      rtol = atol = 1e-5;
      (e) the interaction's call under the sync debug mode "error" and the
      profiler: one kernel launch, no sync, no host-to-device copy.
+ 12. (run after phase 10, before phase 11) dlrm-mlperf training at full
+     width, phase 10's model and 8 M-row cap, batch 65536 (train_batch),
+     capacity 65536, the launcher's training settings (n_pod 2, k 20,
+     two_phase, lr 1e-3, initial accumulator 0.01) but sparse lr 0.1 (at
+     this batch the launcher's 0.5 turns the losses non-finite after the
+     first merge, in the reference too: ROADMAP.md §C), after phase 10's
+     memory is released:
+     (a) the interaction's backward (kernel 8b) against its plain version
+     at (32768, 27, 128), one pod's shape, and (512, 27, 128), f32 and
+     bf16, and at (33, 13, 17), F = 2 and F = 1; f32 within atol 1e-5 F
+     and rtol 4e-5, bf16 within atol 2e-2 F and rtol 8e-2 (the forward's,
+     with the sum's length F for D); two runs bit-equal; timed as in
+     phase 1, with ``bmm`` of the symmetrised (B, F, F) matrix as the
+     library call and the scatter that builds it beside; its
+     instantiations' registers and spills (``cuobjdump``);
+     (b) smoke size on the card, 6 steps: a second run and the cached full
+     mirror bit-equal to gather (losses, tables, accumulators, dense);
+     (c) smoke size, card vs CPU from one state: losses, tables,
+     accumulators and dense within rtol 1e-4, atol 1e-6 (phase 6's);
+     then 40 ``fit_online`` steps at full width: finite losses, no
+     dropped id, launch counts per step (kernel 8b n_pod, kernel 8
+     n_pod + 1 predict, the takes as bags of one id: kernel 1 26 (n_pod
+     + 1), kernel 1b 26 n_pod, the push 26, the local Adam step per local
+     step, plain versions 0), online AUC, peak device memory; one step's
+     forward and backward make no host-to-device copy (the profiler);
+     the step's stream time by part, the train_step wall and the device
+     busy share, as in phase 3.
  11. qwen3-14b prefill at full width (40 layers, d 5120, 40 heads over 8
      KV heads, hd 128, d_ff 17408, vocab 151936, bf16; 29.5 GB of random
-     weights drawn on the card from a seed), after phase 10's memory is
+     weights drawn on the card from a seed), after phase 12's memory is
      released:
      (a) flash attention (kernel 9: bf16 runs its mma kernel on the
      tensor cores, f32 its fma kernel; a CUDA graph captured around each
@@ -1445,14 +1473,14 @@ def phase_train(device):
     return launches, every
 
 
-def _train_breakdown(tr, batches):
-    """Device time of one training step by part (CUDA events between the
-    parts of ``train_step``), and the train step's wall time; outside the
-    counted run."""
+def _train_breakdown(tr, batches, names=(
+        "pull (stage + dedup + gather)", "forward (bags + tower)",
+        "backward (bag kernel + autograd)", "k-step Adam", "push")):
+    """Device time of one training step by its five parts, ``names``
+    (CUDA events between the parts of ``train_step``), and the train step's
+    wall time; outside the counted run."""
     import torch
 
-    names = ("pull (stage + dedup + gather)", "forward (bags + tower)",
-             "backward (bag kernel + autograd)", "k-step Adam", "push")
     sums = dict.fromkeys(names, 0.0)
     steps = batches[:6]
     for b in steps:
@@ -2956,7 +2984,7 @@ def _dlrm_breakdown(tr, batch):
             "stage batch": lambda: tr._stage(batch),
             "lookup (26 dedups + gathers)": lambda: eng.lookup_batch(
                 tr.tables, tr.sparse_state.accum, tr.backend_state, b),
-            "embed (26 takes)": lambda: tr._embed(workings, invs, b),
+            "embed (26 takes, kernel 1)": lambda: tr._embed(workings, invs, b),
             "bottom MLP": lambda: mlp_apply(dense0["bot"], b["dense"],
                                             act=torch.relu),
             "interaction (kernel 8)": lambda: R.dot_interaction(feats),
@@ -3126,6 +3154,362 @@ def phase_dlrm_agreement(device):
           f"state (capacity 32: some ids drop, a padded tail): "
           f"{got[0].size} scores, max |diff| "
           f"{np.abs(got[0] - got[1]).max():.3g} (rtol = atol = 1e-5)")
+
+
+# ------------------------------------------------------- DLRM training
+DLRM_TRAIN_BATCH = 65536   # recsys_shapes()["train_batch"]
+DLRM_TRAIN_STEPS = 40      # two merges at k 20
+DLRM_BWD_SHAPES = ((32768, 27, 128), (512, 27, 128))   # one pod's; serve_p99
+
+
+def _dot_backward_times(g, feats):
+    """Kernel 8b's times (cold and warm L2), its plain version's, the
+    library call's (``bmm`` of the symmetrised (B, F, F) matrix with
+    ``feats``) with the scatter that builds the matrix beside it, and its
+    bound at ``(g, feats)``."""
+    import torch
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.dot_interaction import (
+        dot_interaction_backward_cuda,
+    )
+
+    B, F, D = feats.shape
+    P = F * (F - 1) // 2
+    li, lj = torch.tril_indices(F, F, offset=-1, device=feats.device)
+    lower, upper = li * F + lj, lj * F + li
+
+    def scatter():
+        m = torch.zeros((B, F * F), dtype=feats.dtype, device=feats.device)
+        m.index_copy_(1, lower, g)
+        m.index_copy_(1, upper, g)
+        return m.reshape(B, F, F)
+
+    m = scatter()
+
+    def library():
+        return torch.bmm(m, feats)
+
+    def kernel():
+        return dot_interaction_backward_cuda(g, feats)
+
+    tol = 1e-5 if feats.dtype == torch.float32 else 2e-2
+    if not torch.allclose(library().float(), kernel().float(), atol=tol * F,
+                          rtol=4 * tol):
+        raise AssertionError(f"dot_interaction_backward {tuple(feats.shape)}"
+                             ": the library call and the kernel differ")
+    elem = feats.element_size()
+    nbytes = (2 * B * F * D + B * P) * elem
+    bound_ms, bound_by = _bound(nbytes, 2 * B * F * (F - 1) * D)
+    return {
+        "shape": [B, F, D], "dtype": str(feats.dtype).split(".")[-1],
+        "ms": _time_ms(kernel), "ms_l2_warm": _time_ms(kernel, cold_l2=False),
+        "plain_ms": _time_ms(
+            lambda: ref.dot_interaction_backward_ref(g, feats)),
+        "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": _time_ms(library), "library_scatter_ms":
+            _time_ms(scatter), "mb": nbytes / 1e6,
+    }
+
+
+def _dot_backward_sass_report():
+    """Phase 12 (a): kernel 8b's kernels in the extension that ran
+    (``_sass_report``): the four instantiations of the general one, keyed
+    "dot_interaction_backward<T, M>" (T the element type, M whether M =
+    G + G^T is staged in shared memory), and DLRM's persistent one,
+    "dot_interaction_backward_pipe"."""
+    import re
+
+    def short(mangled):
+        if "dot_interaction_backward_pipe_kernel" in mangled:
+            return "dot_interaction_backward_pipe"
+        m = re.search(r"dot_interaction_backward_kernelI(f|13__nv_bfloat16)"
+                      r"Lb([01])E", mangled)
+        return m and (f"dot_interaction_backward<"
+                      f"{'float' if m.group(1) == 'f' else 'bf16'}, "
+                      f"{'staged' if m.group(2) == '1' else 'global'}>")
+
+    report, usage = _sass_report(short)
+    if len(report) != 5:
+        raise AssertionError(f"kernel 8b instantiations: {sorted(report)}; "
+                             f"cuobjdump -res-usage began:\n{usage[:3000]}")
+    return report
+
+
+def phase_dot_backward(device):
+    """Phase 12 (a): kernel 8b against its plain version, and timed, at one
+    pod's training shape and the serving shape; returns its kernels-line
+    entry (without ``launches``): the training shape, with the serving
+    shape under ``small``."""
+    import torch
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.dot_interaction import (
+        dot_interaction_backward_cuda,
+    )
+
+    gen = torch.Generator(device).manual_seed(53)
+    cases = [(shape, dtype) for dtype in (torch.float32, torch.bfloat16)
+             for shape in DLRM_BWD_SHAPES]
+    cases += [((33, 13, 17), torch.float32), ((512, 2, 128), torch.float32),
+              ((512, 1, 128), torch.float32)]
+    print("phase 12 (a): dot_interaction_backward (kernel 8b) against its "
+          "plain version (tolerance: f32 atol 1e-5 F, rtol 4e-5; bf16 atol "
+          "2e-2 F, rtol 8e-2)")
+    max_err, max_err_bf16, times = 0.0, 0.0, []
+    for (B, F, D), dtype in cases:
+        feats = torch.randn((B, F, D), generator=gen, device=device).to(dtype)
+        g = torch.randn((B, F * (F - 1) // 2), generator=gen,
+                        device=device).to(dtype)
+        got = dot_interaction_backward_cuda(g, feats)
+        again = dot_interaction_backward_cuda(g, feats)
+        torch.cuda.synchronize()
+        want = ref.dot_interaction_backward_ref(g, feats)
+        tol = 1e-5 if dtype == torch.float32 else 2e-2
+        err = (got.float() - want.float()).abs().max().item()
+        if (got.shape != want.shape or got.dtype != dtype
+                or not torch.equal(got, again)
+                or not torch.allclose(got.float(), want.float(),
+                                      atol=tol * F, rtol=4 * tol)):
+            raise AssertionError(f"dot_interaction_backward {(B, F, D)} "
+                                 f"{dtype}: kernel and plain version differ "
+                                 f"(max |diff| {err}) or two runs differ")
+        if dtype == torch.float32:
+            max_err = max(max_err, err)
+        else:
+            max_err_bf16 = max(max_err_bf16, err)
+        print(f"  {(B, F, D)} {str(dtype).split('.')[-1]}: output "
+              f"{tuple(got.shape)}, max |kernel - plain| {err:.3g}, two runs "
+              f"bit-equal")
+        if (B, F, D) in DLRM_BWD_SHAPES:
+            times.append(_dot_backward_times(g, feats))
+    for t in times:
+        print(f"  times {tuple(t['shape'])} {t['dtype']} (ms): kernel "
+              f"{t['ms']:.4f} cold, {t['ms_l2_warm']:.4f} warm; plain "
+              f"{t['plain_ms']:.4f}; library (bmm) {t['library_ms']:.4f}, "
+              f"the scatter that builds its matrix "
+              f"{t['library_scatter_ms']:.4f}; bound {t['bound_ms']:.4f} "
+              f"({t['mb']:.2f} MB, {t['bound_by']})")
+    sass = _dot_backward_sass_report()
+    _print_sass(sass)
+    train, serve = times[0], times[1]
+    keys = ("shape", "dtype", "ms", "ms_l2_warm", "plain_ms", "bound_ms",
+            "bound_by", "library_ms", "library_scatter_ms")
+    return {
+        "name": "dot_interaction_backward",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/dot_interaction.cu",
+        "replaces": "src/repro/kernels/ops.py:128 (XLA vjp of "
+                    "src/repro/models/recsys.py:79, no Pallas kernel)",
+        "launches": None,
+        "max_abs_err": max_err,
+        "max_abs_err_bf16": max_err_bf16,
+        **{k: train[k] for k in keys},
+        "small": {k: serve[k] for k in keys},
+        "bf16": {k: times[2][k] for k in keys},
+        "sass": sass,
+    }
+
+
+def _dlrm_train_config(**kw):
+    """The launcher's training settings (n_pod 2, k 20, two_phase, lr 1e-3,
+    initial accumulator 0.01) with sparse lr 0.1, the value of the
+    reference's own DLRM training tests (``tests/test_smoke_archs.py``):
+    at batch 65536 the launcher's 0.5 makes the losses non-finite after
+    the first merge, in the reference as in the port (ROADMAP.md §C)."""
+    from repro_torch.core.kstep import KStepConfig
+    from repro_torch.core.sparse_optim import SparseAdagradConfig
+    from repro_torch.runtime.trainer import TrainerConfig
+
+    return TrainerConfig(
+        n_pod=2, kstep=KStepConfig(lr=1e-3, k=20, merge="two_phase"),
+        sparse=SparseAdagradConfig(lr=0.1, initial_accumulator=0.01),
+        log_every=10, **kw)
+
+
+DLRM_PARTS = ("pull (stage + 26 dedups + gathers)",
+              "forward (26 takes by kernel 1 + tower, kernel 8)",
+              "backward (kernels 8b, 1b + autograd)", "k-step Adam",
+              "push (26 pushes)")
+
+
+def phase_dlrm_train(device):
+    """Phase 12: dlrm-mlperf trained at full width, 40 ``fit_online`` steps
+    of 65536 on the gather placement; returns the launch counts of the
+    run."""
+    import torch
+
+    from repro_torch.configs import dlrm_mlperf
+    from repro_torch.data.synthetic import dlrm_batches
+    from repro_torch.kernels import ops
+    from repro_torch.runtime.factory import build_trainer
+    from repro_torch.runtime.online import fit_online
+
+    mcfg = dataclasses.replace(dlrm_mlperf.MODEL, rows=tuple(
+        min(r, DLRM_ROW_CAP) for r in dlrm_mlperf.MODEL.rows))
+    t0 = time.perf_counter()
+    tr = build_trainer("dlrm-mlperf", _dlrm_train_config(
+        placement="gather", capacity=DLRM_TRAIN_BATCH), smoke=False,
+        model_cfg=mcfg, seed=0, device=device)
+    torch.cuda.synchronize()
+    state_gb = sum(t.numel() * t.element_size() for t in
+                   list(tr.tables.values())
+                   + list(tr.sparse_state.accum.values())) / 1e9
+    print(f"phase 12: dlrm-mlperf training at full width (embed 128, bottom "
+          f"MLP 13-512-256-128, top MLP {mcfg.interact_dim}-1024-1024-512-"
+          f"256-1, f32), 26 tables of {sum(mcfg.rows)} rows (each capped at "
+          f"{DLRM_ROW_CAP}), batch {DLRM_TRAIN_BATCH}, capacity "
+          f"{tr.engine.capacity}, n_pod {tr.n_pod}, k {tr.cfg.kstep.k}, "
+          f"merge {tr.cfg.kstep.merge}, sparse lr {tr.cfg.sparse.lr}; "
+          f"trainer built in "
+          f"{time.perf_counter() - t0:.1f} s, table + accumulator "
+          f"{state_gb:.2f} GB on the card")
+    stream = dlrm_batches(seed=1, batch=DLRM_TRAIN_BATCH, rows=mcfg.rows)
+    batches = [next(stream) for _ in range(DLRM_TRAIN_STEPS + 12)]
+    run, extra = batches[:DLRM_TRAIN_STEPS], batches[DLRM_TRAIN_STEPS:]
+    step_losses = []
+    train_step = tr.train_step
+
+    def recorded(b):
+        loss = train_step(b)
+        step_losses.append(loss)
+        return loss
+
+    tr.train_step = recorded
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    hist, online_auc = fit_online(tr, iter(run), DLRM_TRAIN_STEPS, window=20)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(ops.launches)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    del tr.train_step
+    every = torch.stack(step_losses).cpu().numpy()
+    n = DLRM_TRAIN_STEPS
+    if every.shape != (n,) or not np.isfinite(every).all():
+        raise AssertionError(f"a loss is not finite: {every}")
+    if tr.overflow_dropped != 0:
+        raise AssertionError(f"overflow_dropped {tr.overflow_dropped}")
+    want = dict.fromkeys(ops.launches, 0)
+    want.update({"dot_interaction": n * (tr.n_pod + 1),   # + the predicts
+                 "dot_interaction_backward": n * tr.n_pod,
+                 "embedding_bag": n * (tr.n_pod + 1) * mcfg.n_sparse,
+                 "embedding_bag_backward": n * tr.n_pod * mcfg.n_sparse,
+                 "sparse_adagrad_apply": n * mcfg.n_sparse,
+                 "fused_adam": n - n // tr.cfg.kstep.k})   # local steps
+    if launches != want:
+        raise AssertionError(f"launches {launches}, expected {want}")
+    print(f"  losses at steps 1/2/10/20/30/40: "
+          f"{', '.join(f'{every[i]:.6f}' for i in (0, 1, 9, 19, 29, 39))} "
+          f"(all {n} finite, {every.min():.4f} to {every.max():.4f}); online "
+          f"AUC {online_auc:.4f}; overflow_dropped 0")
+    print(f"  predict + train per step (fit_online wall / {n}): "
+          f"{wall / n * 1e3:.2f} ms ({n * DLRM_TRAIN_BATCH / wall:.1f} "
+          f"instances/s trained); peak device memory {peak_gb:.2f} GB")
+    print(f"  launches during the run: dot_interaction_backward "
+          f"{launches['dot_interaction_backward']} (= n_pod x {n}), "
+          f"dot_interaction {launches['dot_interaction']} (+ {n} predicts), "
+          f"every _ref 0: {launches}")
+    # the PR 15 lesson: no host-to-device copy in the forward or backward
+    b = tr._stage(extra[0])
+    wss, _, _, _ = tr.engine.pull_batch(tr.tables, tr.sparse_state.accum,
+                                        tr.backend_state, b)
+
+    def fwd_bwd():
+        dense, workings, losses = tr._forward(wss, tr.pod_batch(b))
+        tr._backward(dense, workings, losses)
+
+    h2d, syncs, kernels = _transfers(fwd_bwd)
+    if h2d:
+        raise AssertionError(f"a step's forward and backward made {h2d} "
+                             "host-to-device copies")
+    print(f"  one step's forward and backward (profiler): {kernels} kernel "
+          f"launches, 0 host-to-device copies, {syncs} synchronizing calls")
+    del wss, b
+    _train_breakdown(tr, extra, names=DLRM_PARTS)
+    del tr, batches, run, extra
+    _release()
+    return launches
+
+
+def phase_dlrm_train_smoke(device):
+    """Phase 12 (b) and (c): DLRM training at smoke size on the card: two
+    runs and the cached full mirror bit-equal to gather; card against CPU
+    from one state."""
+    import torch
+
+    from repro_torch import tree_map
+    from repro_torch.configs import dlrm_mlperf
+    from repro_torch.core.kstep import KStepAdamState, KStepConfig, leaves
+    from repro_torch.data.synthetic import dlrm_batches
+    from repro_torch.interop import ReferenceState
+    from repro_torch.models import recsys as R
+    from repro_torch.runtime.factory import build_dlrm_engine, build_trainer
+    from repro_torch.runtime.online import fit_online
+    from repro_torch.runtime.trainer import HybridTrainer, TrainerConfig
+
+    smoke = dlrm_mlperf.SMOKE
+
+    def cfg(placement="gather", cache_rows=None):
+        return TrainerConfig(n_pod=2, kstep=KStepConfig(k=2), log_every=1,
+                             placement=placement, cache_rows=cache_rows)
+
+    def run(tr, steps=6):
+        losses = []
+        step = tr.train_step
+        tr.train_step = lambda b: losses.append(step(b)) or losses[-1]
+        fit_online(tr, dlrm_batches(seed=5, batch=64, rows=smoke.rows),
+                   steps, window=5)
+        del tr.train_step
+        tables, accum, _ = tr.engine.flush(tr.tables, tr.sparse_state.accum,
+                                           tr.backend_state)
+        return (torch.stack(losses).cpu(),
+                torch.cat([t.reshape(-1).cpu() for t in
+                           tr.engine.export(tables).values()]),
+                torch.cat([a.reshape(-1).cpu() for a in accum.values()]),
+                torch.cat([x.reshape(-1).cpu() for x in leaves(tr.dense)]))
+
+    # ---- (b) two runs, and the cached full mirror, bit-equal to gather
+    first = run(build_trainer("dlrm-mlperf", cfg(), seed=3, device=device))
+    second = run(build_trainer("dlrm-mlperf", cfg(), seed=3, device=device))
+    mirror = run(build_trainer("dlrm-mlperf", cfg("cached", 256), seed=3,
+                               device=device))
+    for what, other in (("a second run", second), ("cached", mirror)):
+        if not all(torch.equal(a, b) for a, b in zip(first, other)):
+            raise AssertionError(f"DLRM training: {what} differs from gather")
+    print(f"phase 12 (b): dlrm-mlperf at smoke size on the card, 6 steps: "
+          f"a second run and the cached full mirror (cache_rows 256) "
+          f"bit-equal to gather (losses, tables, accumulators, dense); "
+          f"losses {first[0][0]:.6f} ... {first[0][-1]:.6f}")
+
+    # ---- (c) card against CPU from one state
+    gpu = build_trainer("dlrm-mlperf", cfg(), seed=4, device=device)
+    cpu_of = lambda x: x.cpu().clone()    # the trainers update in place
+    s = gpu.opt_state
+    state = ReferenceState(
+        dense=tree_map(cpu_of, gpu.dense),
+        tables={n: cpu_of(t) for n, t in gpu.tables.items()},
+        accum={n: cpu_of(a) for n, a in gpu.sparse_state.accum.items()},
+        opt_state=KStepAdamState(cpu_of(s.step), tree_map(cpu_of, s.m),
+                                 tree_map(cpu_of, s.v_local),
+                                 tree_map(cpu_of, s.v_hat), None))
+    cpu = HybridTrainer(None, build_dlrm_engine(smoke, cfg(), device="cpu"),
+                        R.dlrm_embed_from_workings(smoke),
+                        R.dlrm_hybrid_loss(smoke), cfg(), state=state,
+                        device="cpu")
+    out = [run(tr) for tr in (gpu, cpu)]
+    tol = dict(rtol=1e-4, atol=1e-6)
+    for what, a, b in zip(("losses", "tables", "accumulators", "dense"),
+                          *out):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), err_msg=what,
+                                   **tol)
+    print("phase 12 (c): dlrm-mlperf at smoke size, 6 steps, card vs CPU "
+          "from one state: max |diff| " + ", ".join(
+              f"{w} {np.abs(a.numpy() - b.numpy()).max():.3g}" for w, a, b in
+              zip(("losses", "tables", "accumulators", "dense"), *out))
+          + " (rtol 1e-4, atol 1e-6)")
 
 
 # --------------------------------------------------------- the LM prefill
@@ -3679,13 +4063,19 @@ def main() -> int:
     dot["launches"] = phase_dlrm(device)["dot_interaction"]
     phase_dlrm_agreement(device)
     _release()
+    t12 = time.perf_counter()
+    dot_bwd = phase_dot_backward(device)
+    dot_bwd["launches"] = phase_dlrm_train(device)["dot_interaction_backward"]
+    phase_dlrm_train_smoke(device)
+    print(f"phase 12 took {time.perf_counter() - t12:.1f} s")
+    _release()
     t11 = time.perf_counter()
     flash = phase_flash_attention(device)
     flash["launches"] = phase_lm(device)["flash_attention"]
     phase_lm_agreement(device)
     print(f"phase 11 took {time.perf_counter() - t11:.1f} s")
     print(json.dumps({"kernels": [bag, backward, push] + cache_entries
-                      + [staged, adam, dot, flash]}))
+                      + [staged, adam, dot, dot_bwd, flash]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -50,6 +50,9 @@ void launch_sparse_adagrad_staged(float* rows, float* accum,
 void launch_dot_interaction(const void* feats, void* out, int64_t B, int F,
                             int D, bool bf16, cudaStream_t stream);
 int dot_interaction_max_features();
+void launch_dot_interaction_backward(const void* g, const void* feats,
+                                     void* out, int64_t B, int F, int D,
+                                     bool bf16, cudaStream_t stream);
 cudaError_t launch_flash_attention(const void* q, const void* k,
                                    const void* v, void* o, int64_t B, int S,
                                    int H, int Kv, int hd, bool causal,
@@ -435,6 +438,36 @@ void dot_interaction(const torch::Tensor& feats, const torch::Tensor& out) {
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
+// out (B, F, D) = (G + G^T) feats, G = g (B, F (F - 1) / 2) scattered into
+// the strict lower triangle: the interaction's backward
+// (csrc/dot_interaction.cu).
+void dot_interaction_backward(const torch::Tensor& g,
+                              const torch::Tensor& feats,
+                              const torch::Tensor& out) {
+  const auto dtype = feats.scalar_type();
+  TORCH_CHECK(dtype == torch::kFloat32 || dtype == torch::kBFloat16,
+              "feats must be float32 or bfloat16, got ", dtype);
+  check_cuda(feats, "feats", dtype, 3, feats);
+  check_cuda(g, "g", dtype, 2, feats);
+  check_cuda(out, "out", dtype, 3, feats);
+  const int64_t B = feats.size(0), F = feats.size(1), D = feats.size(2);
+  TORCH_CHECK(F >= 1 && F <= dot_interaction_max_features(),
+              "feats must have 1 to ", dot_interaction_max_features(),
+              " features, got ", F);
+  TORCH_CHECK(B < kMaxRows && D < kMaxRows, "B and D must lie below 2^31");
+  const int64_t P = F * (F - 1) / 2;
+  TORCH_CHECK(g.size(0) == B && g.size(1) == P, "g must be (", B, ", ", P,
+              "), got ", g.sizes());
+  TORCH_CHECK(out.sizes() == feats.sizes(), "out must have feats' shape");
+  if (B * D == 0) return;
+  const c10::cuda::CUDAGuard guard(feats.device());
+  launch_dot_interaction_backward(
+      g.data_ptr(), feats.data_ptr(), out.data_ptr(), B, static_cast<int>(F),
+      static_cast<int>(D), dtype == torch::kBFloat16,
+      c10::cuda::getCurrentCUDAStream().stream());
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
 // out (B, S, H, hd) = softmax(q k^T / sqrt(hd) + mask) v with KV head
 // h / (H / Kv) for q head h, causal or full (csrc/flash_attention.cu).
 void flash_attention(const torch::Tensor& q, const torch::Tensor& k,
@@ -608,6 +641,10 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("dot_interaction", &dot_interaction,
         "DLRM dot interaction: the strict lower triangle of each instance's "
         "self-Gram (CUDA)", py::arg("feats"), py::arg("out"));
+  m.def("dot_interaction_backward", &dot_interaction_backward,
+        "DLRM dot interaction's backward: (G + G^T) feats, G the gradient "
+        "in the strict lower triangle (CUDA)", py::arg("g"), py::arg("feats"),
+        py::arg("out"));
   m.def("flash_attention", &flash_attention,
         "Causal or full GQA softmax attention with the online-softmax "
         "recurrence, forward (CUDA)", py::arg("q"), py::arg("k"),

@@ -54,6 +54,7 @@
 
 #include <cmath>
 #include <cstdint>
+#include <type_traits>
 
 #include "device.h"
 
@@ -279,5 +280,398 @@ void launch_dot_interaction(const void* feats, void* out, int64_t B,
     k<<<static_cast<unsigned>(blocks), threads, smem, stream>>>(
         static_cast<const float*>(feats), static_cast<float*>(out), B, F, D,
         P, ipb, dc, async);
+  }
+}
+
+// ---------------------------------------------------------------- backward
+//
+// Kernel 8b, the interaction's backward (its vjp), for Hopper (sm_90a):
+//
+//   g_feats[b, i, :] = sum_{j != i} g[b, p(max(i, j), min(i, j))]
+//                                   * feats[b, j, :],
+//   p(i, j) = i (i - 1) / 2 + j     (the forward's pair index),
+//
+// that is g_feats = (G + G^T) feats with G = g scattered into the strict
+// lower triangle.  g (B, F (F - 1) / 2) and feats (B, F, D), float32 or
+// bfloat16, give (B, F, D) in that dtype; each output element adds its
+// products in float32, in ascending j (the diagonal's with weight zero, as
+// in (G + G^T) feats), so two runs give the same bits.
+//
+// Replaces no TPU kernel: the reference's gradient is XLA's vjp of its jnp
+// dot_interaction (src/repro/kernels/ops.py:128-132 has no custom_vjp).
+// It exists because the port's forward is the hand-written kernel above,
+// whose autograd function needs a backward on the card.
+//
+// What bounds it: bytes.  At the training shape of one pod, (32768, 27,
+// 128) float32, it reads feats (453.0 MB) and g (46.0 MB) and writes 453.0
+// MB: 0.284 ms at 3.35 TB/s, against 0.09 ms for its 5.9 GFLOP at the
+// float32 rate.  So a thread reuses each staged value: it owns four output
+// rows and a float4 of columns, and per j reads one float4 of feats' row j
+// and one float4 of M = G + G^T's row j (M is symmetric, so its row j
+// holds the four rows' weights), two shared-memory loads per 16 FMAs.
+//
+// Design (float32 FMAs on the CUDA cores; TF32 tensor cores would miss the
+// float32 tolerance, as for the forward):
+// - A block takes ipb instances and a chunk of dc columns; it stages the
+//   F rows' chunk in shared memory as float32 (by cp.async, 16 B a copy,
+//   when the input is float32, D % 4 == 0 and aligned; else by plain
+//   loads that widen bfloat16) and, while those copies fly, once for all
+//   its chunks, M as F rows of F rounded up to four floats: each g read
+//   once, coalesced, and written to M[i][j] and M[j][i]; the diagonal and
+//   the pad columns zero.  Staging and computing overlap across the
+//   blocks an SM holds, as in the forward.
+// - Threads walk (instance, row block, column quad), the quad fastest, so
+//   a warp reads 32 consecutive float4 of one feats row (no bank
+//   conflicts) and one broadcast float4 of M, and writes its rows
+//   coalesced.
+// - DLRM's case (float32, D % 4 == 0, aligned, F <= 88, the rows in 64
+//   KB) runs persistent blocks with two buffers instead: the next
+//   instance's rows and g are copied by cp.async while this one is
+//   computed, and M is built from the staged g, so the loop never waits
+//   on device memory (one instance a block left each block's copies
+//   exposed: its time barely moved from a cold L2 to a warm one).
+// - When M does not fit (F > 88: F x F floats over 32 KB) the weights are
+//   read from g in global memory instead (each a broadcast load in a
+//   warp, from L1 after the first).  Rows too wide for shared memory are
+//   staged in chunks, as in the forward; F is limited as there.
+namespace {
+
+constexpr int kBwdMaxThreads = 256;
+constexpr int kBwdGBudget = 32 * 1024;       // M staged up to this size
+
+// (i, j), i > j, of pair p = i (i - 1) / 2 + j.
+__device__ __forceinline__ void pair_of(int p, int& i, int& j) {
+  int r = static_cast<int>(
+      0.5f * (1.0f + sqrtf(8.0f * static_cast<float>(p) + 1.0f)));
+  while (static_cast<int64_t>(r) * (r - 1) / 2 > p) --r;
+  while (static_cast<int64_t>(r + 1) * r / 2 <= p) ++r;
+  i = r;
+  j = p - static_cast<int>(static_cast<int64_t>(r) * (r - 1) / 2);
+}
+
+template <typename T, bool kStagedM>
+__global__ void __launch_bounds__(kBwdMaxThreads)
+dot_interaction_backward_kernel(const T* __restrict__ g,
+                                const T* __restrict__ feats,
+                                T* __restrict__ out, int64_t B, int F, int D,
+                                int P, int ipb, int dc, int n_chunks,
+                                bool async, bool vec_store) {
+  extern __shared__ __align__(16) float s[];
+  const int Fp = (F + 3) & ~3;
+  const int nb = Fp / 4;                     // row blocks of four
+  const int S = (dc + 3) & ~3;               // staged row stride
+  const int m_sz = kStagedM ? F * Fp : 0;
+  const int inst_sz = F * S + m_sz;          // floats per staged instance
+  const int64_t inst0 = static_cast<int64_t>(blockIdx.x) * ipb;
+  const int n_inst = static_cast<int>(
+      B - inst0 < ipb ? B - inst0 : static_cast<int64_t>(ipb));
+  const T* src = feats + inst0 * F * D;
+  const T* gsrc = g + inst0 * P;
+  T* dst = out + inst0 * F * D;
+  const int tid = threadIdx.x;
+
+  for (int chunk = blockIdx.y; chunk < n_chunks; chunk += gridDim.y) {
+    const int d0 = chunk * dc;
+    const int dn = D - d0 < dc ? D - d0 : dc;
+    const int Q = (dn + 3) / 4;
+    if (chunk != static_cast<int>(blockIdx.y)) __syncthreads();
+    // columns [d0, d0 + dn) of the block's rows, zeros up to a multiple of 4
+    for (int e = tid; e < n_inst * F * Q; e += blockDim.x) {
+      const int r = e / Q;
+      const int c = (e - r * Q) * 4;
+      const int n = r / F;
+      float* o = s + n * inst_sz + (r - n * F) * S + c;
+      const T* gp = src + static_cast<int64_t>(r) * D + d0 + c;
+      if (async) {
+        cp_async16(o, reinterpret_cast<const float*>(gp));
+      } else {
+        float v[4];
+#pragma unroll
+        for (int k = 0; k < 4; ++k) v[k] = c + k < dn ? to_f32(gp[k]) : 0.f;
+        *reinterpret_cast<float4*>(o) = make_float4(v[0], v[1], v[2], v[3]);
+      }
+    }
+    if (kStagedM && chunk == static_cast<int>(blockIdx.y)) {
+      // M = G + G^T of each instance, once for all chunks, while the
+      // copies fly: the diagonal and the pad columns zero, then every g
+      // twice
+      for (int e = tid; e < n_inst * F * Fp; e += blockDim.x) {
+        const int n = e / (F * Fp);
+        const int r = e - n * F * Fp;
+        const int row = r / Fp;
+        const int col = r - row * Fp;
+        if (col == row || col >= F) s[n * inst_sz + F * S + r] = 0.f;
+      }
+      for (int e = tid; e < n_inst * P; e += blockDim.x) {
+        const int n = e / P;
+        const int p = e - n * P;
+        int i, j;
+        pair_of(p, i, j);
+        const float v = to_f32(gsrc[static_cast<int64_t>(n) * P + p]);
+        float* m = s + n * inst_sz + F * S;
+        m[i * Fp + j] = v;
+        m[j * Fp + i] = v;
+      }
+    }
+    if (async) {
+      asm volatile("cp.async.commit_group;\n" ::);
+      asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    }
+    __syncthreads();
+
+    const int per_inst = nb * Q;
+    for (int it = tid; it < n_inst * per_inst; it += blockDim.x) {
+      const int n = it / per_inst;
+      const int rem = it - n * per_inst;
+      const int I = rem / Q;
+      const int q = rem - I * Q;
+      const float* rows = s + n * inst_sz;
+      const float* m = rows + F * S;
+      const T* gi = gsrc + static_cast<int64_t>(n) * P;
+      float acc[4][4] = {};
+      for (int j = 0; j < F; ++j) {
+        const float4 x = *reinterpret_cast<const float4*>(rows + j * S + 4 * q);
+        float w[4];
+        if (kStagedM) {
+          const float4 mm =
+              *reinterpret_cast<const float4*>(m + j * Fp + 4 * I);
+          w[0] = mm.x; w[1] = mm.y; w[2] = mm.z; w[3] = mm.w;
+        } else {
+#pragma unroll
+          for (int a = 0; a < 4; ++a) {
+            const int i = 4 * I + a;
+            w[a] = 0.f;
+            if (i < F && i != j) {
+              const int hi = i > j ? i : j, lo = i > j ? j : i;
+              w[a] = to_f32(gi[hi * (hi - 1) / 2 + lo]);
+            }
+          }
+        }
+#pragma unroll
+        for (int a = 0; a < 4; ++a) {        // w[a] = 0 at i == j
+          acc[a][0] = fmaf(w[a], x.x, acc[a][0]);
+          acc[a][1] = fmaf(w[a], x.y, acc[a][1]);
+          acc[a][2] = fmaf(w[a], x.z, acc[a][2]);
+          acc[a][3] = fmaf(w[a], x.w, acc[a][3]);
+        }
+      }
+#pragma unroll
+      for (int a = 0; a < 4; ++a) {
+        const int i = 4 * I + a;
+        if (i >= F) continue;
+        T* o = dst + (static_cast<int64_t>(n) * F + i) * D + d0 + 4 * q;
+        if (std::is_same<T, float>::value && vec_store && 4 * q + 4 <= dn) {
+          *reinterpret_cast<float4*>(o) =
+              make_float4(acc[a][0], acc[a][1], acc[a][2], acc[a][3]);
+        } else {
+#pragma unroll
+          for (int k = 0; k < 4; ++k)
+            if (4 * q + k < dn) store(o + k, acc[a][k]);
+        }
+      }
+    }
+  }
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned d =
+      static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
+               "l"(src));
+}
+
+// The DLRM path's kernel (float32, D % 4 == 0, aligned, M staged, one
+// chunk): persistent blocks over instances b, b + gridDim.x, ..., each
+// with two buffers of an instance's rows, its g and its M.  The next
+// instance's rows (16-byte copies) and g (4-byte copies) fly while this
+// one is computed; M is then built from the staged g in shared memory,
+// so no load waits on device memory in the loop.  The arithmetic is the
+// kernel above's.
+__global__ void __launch_bounds__(kBwdMaxThreads)
+dot_interaction_backward_pipe_kernel(const float* __restrict__ g,
+                                     const float* __restrict__ feats,
+                                     float* __restrict__ out, int64_t B,
+                                     int F, int D, int P) {
+  extern __shared__ __align__(16) float s[];
+  const int Fp = (F + 3) & ~3;
+  const int nb = Fp / 4;
+  const int Q = D / 4;
+  // a buffer: rows (F x D), M (F x Fp), g (P rounded up to four)
+  const int buf_sz = F * D + F * Fp + ((P + 3) & ~3);
+  const int tid = threadIdx.x;
+  auto issue = [&](int64_t b, float* buf) {
+    const float* src = feats + b * F * D;
+    for (int e = tid; e < F * Q; e += blockDim.x) {
+      const int r = e / Q;
+      const int c = (e - r * Q) * 4;
+      cp_async16(buf + r * D + c, src + static_cast<int64_t>(r) * D + c);
+    }
+    const float* gs = g + b * P;
+    float* gl = buf + F * D + F * Fp;
+    for (int e = tid; e < P; e += blockDim.x) cp_async4(gl + e, gs + e);
+    asm volatile("cp.async.commit_group;\n" ::);
+  };
+  int64_t b = blockIdx.x;
+  if (b < B) issue(b, s);
+  for (int k = 0; b < B; ++k, b += gridDim.x) {
+    float* cur = s + (k & 1) * buf_sz;
+    if (b + gridDim.x < B) {
+      issue(b + gridDim.x, s + ((k & 1) ^ 1) * buf_sz);
+      asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+    } else {
+      asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    }
+    __syncthreads();
+    float* m = cur + F * D;
+    const float* gl = m + F * Fp;
+    for (int e = tid; e < F * Fp; e += blockDim.x) {
+      const int row = e / Fp;
+      const int col = e - row * Fp;
+      float v = 0.f;
+      if (col < F && col != row) {
+        const int hi = row > col ? row : col, lo = row > col ? col : row;
+        v = gl[hi * (hi - 1) / 2 + lo];
+      }
+      m[e] = v;
+    }
+    __syncthreads();
+    float* dst = out + b * F * D;
+    for (int it = tid; it < nb * Q; it += blockDim.x) {
+      const int I = it / Q;
+      const int q = it - I * Q;
+      float acc[4][4] = {};
+      for (int j = 0; j < F; ++j) {
+        const float4 x = *reinterpret_cast<const float4*>(cur + j * D + 4 * q);
+        const float4 w = *reinterpret_cast<const float4*>(m + j * Fp + 4 * I);
+        const float wa[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+        for (int a = 0; a < 4; ++a) {
+          acc[a][0] = fmaf(wa[a], x.x, acc[a][0]);
+          acc[a][1] = fmaf(wa[a], x.y, acc[a][1]);
+          acc[a][2] = fmaf(wa[a], x.z, acc[a][2]);
+          acc[a][3] = fmaf(wa[a], x.w, acc[a][3]);
+        }
+      }
+#pragma unroll
+      for (int a = 0; a < 4; ++a) {
+        if (4 * I + a < F) {
+          *reinterpret_cast<float4*>(dst + (4 * I + a) * D + 4 * q) =
+              make_float4(acc[a][0], acc[a][1], acc[a][2], acc[a][3]);
+        }
+      }
+    }
+    __syncthreads();                         // cur is refilled next-but-one
+  }
+}
+
+template <typename T, bool kStagedM>
+void launch_backward(const T* g, const T* feats, T* out, int64_t B, int F,
+                     int D, int P, int ipb, int dc, int n_chunks, bool async,
+                     bool vec_store, int threads, size_t smem,
+                     cudaStream_t stream) {
+  auto* k = dot_interaction_backward_kernel<T, kStagedM>;
+  if (smem > 48 * 1024) {
+    cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         static_cast<int>(smem));
+  }
+  const dim3 grid(static_cast<unsigned>((B + ipb - 1) / ipb),
+                  static_cast<unsigned>(n_chunks < 65535 ? n_chunks : 65535));
+  k<<<grid, threads, smem, stream>>>(g, feats, out, B, F, D, P, ipb, dc,
+                                     n_chunks, async, vec_store);
+}
+
+}  // namespace
+
+// g (B, F (F - 1) / 2) and feats (B, F, D) -> out (B, F, D), all
+// contiguous, of one dtype (bf16: bfloat16, else float32); B * D > 0,
+// 1 <= F <= dot_interaction_max_features().  Launches on ``stream``.
+void launch_dot_interaction_backward(const void* g, const void* feats,
+                                     void* out, int64_t B, int F, int D,
+                                     bool bf16, cudaStream_t stream) {
+  const int P = F * (F - 1) / 2;
+  const int Fp = (F + 3) & ~3;
+  const int nb = Fp / 4;
+  const bool staged_m = static_cast<int64_t>(F) * Fp * 4 <= kBwdGBudget;
+  auto bytes = [&](int ipb, int dc) {
+    return static_cast<int64_t>(ipb) *
+           (static_cast<int64_t>(F) * ((dc + 3) & ~3) +
+            (staged_m ? static_cast<int64_t>(F) * Fp : 0)) * 4;
+  };
+  int ipb = 1, dc = D;
+  if (bytes(1, D) <= kSmemBudget) {
+    // instances whose threads fill a block, as far as they fit and the
+    // grid still covers the SMs twice
+    const int64_t per_inst = static_cast<int64_t>(nb) * ((D + 3) / 4);
+    const int64_t cover = B / (2 * static_cast<int64_t>(sm_count()));
+    const int by_threads = static_cast<int>(
+        per_inst >= kBwdMaxThreads ? 1 : kBwdMaxThreads / per_inst);
+    const int by_smem = static_cast<int>(kSmemBudget / bytes(1, D));
+    ipb = by_threads < by_smem ? by_threads : by_smem;
+    if (cover < ipb) ipb = cover < 1 ? 1 : static_cast<int>(cover);
+  } else {
+    // one instance a block, the widest multiple of four that fits
+    dc = 4;
+    while (dc + 4 < D && bytes(1, dc + 4) <= kSmemMax) dc += 4;
+    if (D <= dc + 4 && bytes(1, D) <= kSmemMax) dc = D;
+  }
+  const int n_chunks = (D + dc - 1) / dc;
+  const bool aligned_io = D % 4 == 0 && dc % 4 == 0;
+  const bool async = !bf16 && aligned_io &&
+                     reinterpret_cast<uintptr_t>(feats) % 16 == 0;
+  const bool vec_store = !bf16 && aligned_io &&
+                         reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  const int64_t tiles =
+      static_cast<int64_t>(ipb) * nb * (((dc < D ? dc : D) + 3) / 4);
+  const int threads = static_cast<int>(
+      tiles >= kBwdMaxThreads ? kBwdMaxThreads
+                              : (tiles + kWarp - 1) / kWarp * kWarp);
+  const size_t smem = static_cast<size_t>(bytes(ipb, dc));
+  if (!bf16 && staged_m && dc == D && async && vec_store) {
+    // DLRM's path: persistent blocks, as many as the SMs hold
+    auto* k = dot_interaction_backward_pipe_kernel;
+    const int64_t per_inst = static_cast<int64_t>(nb) * (D / 4);
+    const int pthreads = static_cast<int>(
+        per_inst >= kBwdMaxThreads ? kBwdMaxThreads
+                                   : (per_inst + kWarp - 1) / kWarp * kWarp);
+    const size_t psmem = 2 * static_cast<size_t>(
+        static_cast<int64_t>(F) * D + static_cast<int64_t>(F) * Fp +
+        ((P + 3) & ~3)) * 4;
+    if (psmem > 48 * 1024) {
+      cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           static_cast<int>(psmem));
+    }
+    int per_sm = 0;
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, k, pthreads,
+                                                  psmem);
+    const int64_t grid = static_cast<int64_t>(per_sm < 1 ? 1 : per_sm) *
+                         sm_count();
+    k<<<static_cast<unsigned>(B < grid ? B : grid), pthreads, psmem,
+        stream>>>(static_cast<const float*>(g),
+                  static_cast<const float*>(feats), static_cast<float*>(out),
+                  B, F, D, P);
+    return;
+  }
+  if (bf16) {
+    using T = __nv_bfloat16;
+    auto* gg = static_cast<const T*>(g);
+    auto* ff = static_cast<const T*>(feats);
+    auto* oo = static_cast<T*>(out);
+    if (staged_m)
+      launch_backward<T, true>(gg, ff, oo, B, F, D, P, ipb, dc, n_chunks,
+                               false, false, threads, smem, stream);
+    else
+      launch_backward<T, false>(gg, ff, oo, B, F, D, P, ipb, dc, n_chunks,
+                                false, false, threads, smem, stream);
+  } else {
+    auto* gg = static_cast<const float*>(g);
+    auto* ff = static_cast<const float*>(feats);
+    auto* oo = static_cast<float*>(out);
+    if (staged_m)
+      launch_backward<float, true>(gg, ff, oo, B, F, D, P, ipb, dc, n_chunks,
+                                   async, vec_store, threads, smem, stream);
+    else
+      launch_backward<float, false>(gg, ff, oo, B, F, D, P, ipb, dc,
+                                    n_chunks, async, vec_store, threads, smem,
+                                    stream);
   }
 }

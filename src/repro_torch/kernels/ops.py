@@ -9,8 +9,9 @@ kernels under their names (``embedding_bag``, ``embedding_bag_backward``,
 ``sparse_adagrad_apply``, the cache tier's ``hash_lookup``,
 ``gather_rows_cached``, ``sparse_adagrad_cached_apply``, the SSD tier's
 staged push ``sparse_adagrad``, the k-step local Adam step ``fused_adam``,
-DLRM's ``dot_interaction`` and the LM's ``flash_attention``), the plain
-versions under the same name with ``_ref``.  A run resets it with ``reset_launches()`` and reads it
+DLRM's ``dot_interaction`` and its backward ``dot_interaction_backward``,
+and the LM's ``flash_attention``), the plain versions under the same name
+with ``_ref``.  A run resets it with ``reset_launches()`` and reads it
 afterwards to show which path it took.
 """
 
@@ -19,7 +20,10 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import ref
-from repro_torch.kernels.dot_interaction import dot_interaction_cuda
+from repro_torch.kernels.dot_interaction import (
+    dot_interaction_backward_cuda,
+    dot_interaction_cuda,
+)
 from repro_torch.kernels.embedding_bag import (
     embedding_bag_backward_cuda,
     embedding_bag_cuda,
@@ -47,6 +51,7 @@ launches = {
     "sparse_adagrad": 0, "sparse_adagrad_ref": 0,
     "fused_adam": 0, "fused_adam_ref": 0,
     "dot_interaction": 0, "dot_interaction_ref": 0,
+    "dot_interaction_backward": 0, "dot_interaction_backward_ref": 0,
     "flash_attention": 0, "flash_attention_ref": 0,
 }
 
@@ -256,10 +261,11 @@ def fused_adam(params, grads, m, v_local, v_hat, *, t, lr, b1, b2, k,
 
 
 class _DotInteraction(torch.autograd.Function):
-    """Forward: the CUDA kernel.  Its backward comes with DLRM training."""
+    """Forward and backward: the CUDA kernels (8 and 8b)."""
 
     @staticmethod
     def forward(ctx, feats):
+        ctx.save_for_backward(feats)
         out = dot_interaction_cuda(feats)
         if out.numel():
             launches["dot_interaction"] += 1
@@ -267,18 +273,42 @@ class _DotInteraction(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        raise NotImplementedError(
-            "the dot interaction's backward on the card is not ported yet: "
-            "ROADMAP.md queue A9b (DLRM training)")
+        (feats,) = ctx.saved_tensors
+        # the gradient of a column slice of the top MLP's input
+        # (``torch.cat([x, inter])``) arrives as a strided view
+        out = dot_interaction_backward_cuda(g.contiguous(), feats)
+        if out.numel():
+            launches["dot_interaction_backward"] += 1
+        return out
+
+
+class _DotInteractionRef(torch.autograd.Function):
+    """The plain version and its vjp (PyTorch's autograd through
+    ``ref.dot_interaction_ref``), counted (CPU tensors)."""
+
+    @staticmethod
+    def forward(ctx, feats):
+        ctx.save_for_backward(feats)
+        launches["dot_interaction_ref"] += 1
+        return ref.dot_interaction_ref(feats)
+
+    @staticmethod
+    def backward(ctx, g):
+        (feats,) = ctx.saved_tensors
+        with torch.enable_grad():
+            f = feats.detach().requires_grad_(True)
+            (out,) = torch.autograd.grad(ref.dot_interaction_ref(f), f, g)
+        launches["dot_interaction_backward_ref"] += 1
+        return out
 
 
 def dot_interaction(feats):
     """DLRM's interaction ``(B, F, D) -> (B, F (F - 1) / 2)``, in the input
-    dtype (see ``ref.dot_interaction_ref``).  CUDA: the kernel, forward
-    only; CPU: the plain version under PyTorch's autograd."""
+    dtype (see ``ref.dot_interaction_ref``), differentiable.  CUDA: the
+    kernel, and kernel 8b for its backward; CPU: the plain version, its
+    backward autograd's vjp of it."""
     if kernel_mode(feats) == "ref":
-        launches["dot_interaction_ref"] += 1
-        return ref.dot_interaction_ref(feats)
+        return _DotInteractionRef.apply(feats)
     return _DotInteraction.apply(feats)
 
 

@@ -191,6 +191,21 @@ def dot_interaction_ref(feats):
     return z[:, li, lj].to(feats.dtype)
 
 
+
+def dot_interaction_backward_ref(g, feats):
+    """The interaction's gradient with respect to ``feats``: ``g``
+    (B, F (F - 1) / 2) scattered into the strict lower triangle of a
+    (B, F, F) float32 matrix G, then ``(G + G^T) feats`` by a float32
+    ``einsum``, cast back to ``feats``' dtype.  The plain version of
+    ``dot_interaction_backward_cuda``."""
+    B, F, _ = feats.shape
+    li, lj = torch.tril_indices(F, F, offset=-1, device=feats.device)
+    m = torch.zeros((B, F, F), dtype=torch.float32, device=feats.device)
+    m[:, li, lj] = g.to(torch.float32)
+    m = m + m.transpose(1, 2)
+    return torch.einsum("bij,bjd->bid", m,
+                        feats.to(torch.float32)).to(feats.dtype)
+
 def flash_attention_ref(q, k, v, causal=True):
     """Softmax attention in the model's layout, in one pass: q (B, S, H, hd),
     k and v (B, S, Kv, hd) -> (B, S, H, hd) in q's dtype, q head h reading

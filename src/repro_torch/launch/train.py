@@ -9,7 +9,8 @@
     PYTHONPATH=src python -m repro_torch.launch.train --arch baidu-ctr \\
         --store disk --spill-dir /tmp/pages --page-rows 64 --device cpu
 
-Counterpart of ``repro/launch/train.py``'s recsys branch for ``baidu-ctr``:
+Counterpart of ``repro/launch/train.py``'s recsys branch for ``baidu-ctr``
+and ``dlrm-mlperf``:
 the hybrid trainer (k-step Adam on the dense tower, AdaGrad pushes into the
 tables) through the online predict-then-train loop
 ``runtime.online.fit_online``, with the reference's defaults (n_pod 2, k 20,
@@ -36,12 +37,14 @@ is synced and closed at the end.
 ``--full`` selects the full model config (2e9 rows, which one card cannot
 hold: pass ``--rows`` to cut the table, e.g. ``--rows 50000000``).
 
+``--arch dlrm-mlperf`` trains MLPerf's DLRM the same way (26 single-hot
+tables, the dot interaction's CUDA kernels in both directions); with
+``--rows N`` each of its 26 tables keeps at most N rows.
+
 Flags of the reference that the port does not have yet raise, naming the
-ROADMAP.md item that brings them.  ``--arch dlrm-mlperf`` builds and serves
-(the first online step's predict), then raises ``NotImplementedError`` at
-its first training step: DLRM training is ROADMAP.md queue A9b.
-``--arch qwen3-14b`` raises ``NotImplementedError`` when the trainer is
-built: LM training is ROADMAP.md queue A10c.
+ROADMAP.md item that brings them.  ``--arch qwen3-14b`` raises
+``NotImplementedError`` when the trainer is built: LM training is
+ROADMAP.md queue A10c.
 """
 
 from __future__ import annotations
@@ -69,7 +72,8 @@ def build_argparser() -> argparse.ArgumentParser:
     ap.add_argument("--capacity", type=int, default=0,
                     help="working-set bound per batch (0: arch default)")
     ap.add_argument("--rows", type=int, default=0,
-                    help="cut the table to this many rows (0: the config's)")
+                    help="cut the table to this many rows, or each table "
+                         "to at most this many (DLRM) (0: the config's)")
     ap.add_argument("--cache-rows", type=int, default=0,
                     help="device cache rows for --placement cached "
                          "(0: the capacity)")
@@ -118,21 +122,32 @@ def _reject_unported(args) -> None:
             "torch.unique syncs the host every step (ROADMAP.md §C)")
 
 
+def model_config(args):
+    """The model config ``args`` select: the arch's smoke or full config,
+    its table cut to ``--rows`` rows (DLRM: each of its tables to at most
+    ``--rows``)."""
+    from repro_torch import configs
+
+    spec = configs.get(args.arch)
+    cfg = spec.smoke_cfg if args.smoke else spec.model_cfg
+    if args.rows:
+        rows = (tuple(min(r, args.rows) for r in cfg.rows)
+                if isinstance(cfg.rows, tuple) else args.rows)
+        cfg = dataclasses.replace(cfg, rows=rows)
+    return cfg
+
+
 def main(argv=None):
     args = build_argparser().parse_args(argv)
     _reject_unported(args)
 
-    from repro_torch import configs
     from repro_torch.core.kstep import KStepConfig
     from repro_torch.core.sparse_optim import SparseAdagradConfig
     from repro_torch.data import synthetic as S
     from repro_torch.runtime.factory import build_trainer
     from repro_torch.runtime.trainer import TrainerConfig
 
-    spec = configs.get(args.arch)
-    cfg = spec.smoke_cfg if args.smoke else spec.model_cfg
-    if args.rows:
-        cfg = dataclasses.replace(cfg, rows=args.rows)
+    cfg = model_config(args)
     tcfg = TrainerConfig(
         n_pod=args.n_pod,
         kstep=KStepConfig(lr=args.lr, k=args.k, merge=args.merge),

@@ -6,8 +6,8 @@ interaction, a top MLP.
 Counterpart of the CTR and DLRM parts of ``repro/models/recsys.py``.  The
 dense parameters are a plain dict of tensors in the reference's layout
 (``wq``/``wk``/``wv`` are (d, d), an MLP is a list of ``{"w", "b"}``).
-DLRM serves here; its training (the interaction's backward) is ROADMAP.md
-queue A9b, and its loss adapter raises for it.
+Both models train and serve; on the card DLRM's interaction runs as a CUDA
+kernel in each direction (``ops.dot_interaction``).
 """
 
 from __future__ import annotations
@@ -174,7 +174,8 @@ def dlrm_init_dense(generator: torch.Generator, cfg: DLRMConfig,
 
 def dot_interaction(feats: torch.Tensor) -> torch.Tensor:
     """feats (B, F, D) -> lower-triangle pairwise dots (B, F*(F-1)/2), in
-    ``np.tril_indices(F, k=-1)`` order; on the card the CUDA kernel."""
+    ``np.tril_indices(F, k=-1)`` order; on the card the CUDA kernels
+    (forward and backward)."""
     return ops.dot_interaction(feats)
 
 
@@ -197,30 +198,38 @@ def dlrm_forward_from_emb(dense, emb, batch, cfg: DLRMConfig) -> torch.Tensor:
 def dlrm_embed_from_workings(cfg: DLRMConfig, fused: bool = True):
     """The HybridTrainer embed adapter: the 26 single-hot takes from each
     table's working set (``invs["emb_XX"]`` has shape (B,), one row per
-    instance; ids the capacity dropped read the zero drop row).  ``fused``
-    is accepted for the adapters' common signature: a single-hot take has
-    no bag to fuse."""
-    del fused
+    instance; ids the capacity dropped read the zero drop row), so the
+    gradients land on the pulled rows only.
+
+    Each take is a bag of one id per instance (``seg = arange(B)``, no
+    weights) through ``EmbeddingEngine.bag_from_working``: on the card the
+    bag's kernels, whose backward adds a hot working row's entries in a
+    fixed order in one walk.  (Autograd's index backward, the plain take's,
+    runs a Zipf-hot id's thousands of entries one after another in a warp:
+    most of a training step at batch 65536, PERF.md.)  The reference's
+    ``jnp.take`` and its vjp are the same function."""
 
     def embed(workings, invs, batch):
+        B = batch["sparse_ids"].shape[0]
+        seg = torch.arange(B, dtype=torch.int32,
+                           device=batch["sparse_ids"].device)
         return torch.stack(
-            [workings[f"emb_{i:02d}"][invs[f"emb_{i:02d}"].long()]
+            [EmbeddingEngine.bag_from_working(
+                workings[f"emb_{i:02d}"], invs[f"emb_{i:02d}"], seg,
+                num_bags=B, fused=fused)
              for i in range(cfg.n_sparse)], dim=1)           # (B, 26, D)
 
     return embed
 
 
 def dlrm_hybrid_loss(cfg: DLRMConfig):
-    """The HybridTrainer loss adapter: ``predict=True`` returns the sigmoid
-    click scores of the dot-interaction tower.  Training raises: the
-    interaction's backward is not ported yet (ROADMAP.md queue A9b)."""
+    """The HybridTrainer loss adapter: BCE over the dot-interaction tower
+    (``predict=True`` returns sigmoid click scores)."""
 
     def loss(dense, emb, batch, predict=False):
-        if not predict:
-            raise NotImplementedError(
-                "DLRM training is not ported yet: the dot interaction's "
-                "backward comes with ROADMAP.md queue A9b (DLRM training); "
-                "DLRM serves (HybridTrainer.predict, CTRServer)")
-        return torch.sigmoid(dlrm_forward_from_emb(dense, emb, batch, cfg))
+        logits = dlrm_forward_from_emb(dense, emb, batch, cfg)
+        if predict:
+            return torch.sigmoid(logits)
+        return pointwise_loss(logits, batch["label"])
 
     return loss

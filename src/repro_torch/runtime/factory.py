@@ -1,8 +1,8 @@
 """Config-driven construction: ``build_trainer(arch, TrainerConfig)``.
 
 Counterpart of ``repro/runtime/factory.py`` for the archs the port has
-reached (``baidu-ctr``, and ``dlrm-mlperf`` for serving; the LM
-``qwen3-14b`` has no trainer yet and raises naming A10c):
+reached (``baidu-ctr`` and ``dlrm-mlperf``, each training and serving; the
+LM ``qwen3-14b`` has no trainer yet and raises naming A10c):
 
     tr = build_trainer("baidu-ctr", TrainerConfig(placement="gather"))
     tr = build_trainer("dlrm-mlperf", TrainerConfig(placement="gather"))

@@ -9,10 +9,11 @@ Algorithm 1's pull -> train -> push:
   2. ``EmbeddingEngine.pull``: dedup the batch's ids into the working set
      and gather its rows (plus the zero drop row); under the cached
      placement through the device cache (``core.cache_tier``);
-  3. per pod, the bags over the working set (the CUDA kernel) and the loss;
-     backward through the bag's CUDA backward and autograd for the tower;
-     the working-row gradients are summed over pods and divided by
-     ``n_pod``, the dense gradients stay per pod;
+  3. per pod, the model's inputs from the working set (the bags, the CUDA
+     kernel; DLRM's 26 single-hot takes are bags of one id) and the loss;
+     backward through the bag's CUDA backward (DLRM: and the interaction's)
+     and autograd for the rest; the working-row gradients are summed over
+     pods and divided by ``n_pod``, the dense gradients stay per pod;
   4. ``KStepAdam.step``: the local step, or the merge step every k steps;
   5. ``EmbeddingEngine.push``: the AdaGrad push (the CUDA kernel; under
      the cached placement the cached push into the device cache; under the

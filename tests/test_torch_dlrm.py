@@ -1,4 +1,5 @@
-"""The port's DLRM serving slice against the reference.
+"""The port's DLRM serving slice against the reference (its training:
+``tests/test_torch_dlrm_train.py``).
 
 Both sides start from one state: the reference trainer's parameters,
 exported as numpy and loaded through ``repro_torch.interop``; the requests
@@ -267,27 +268,6 @@ def test_full_width_serving_matches_the_reference():
     assert got.shape == (max_batch,) and np.isfinite(got).all()
     assert np.ptp(got) > 1e-3                       # the scores vary
     np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)
-
-
-def test_training_raises_naming_a9b():
-    tr = build_trainer("dlrm-mlperf", TrainerConfig(placement="gather"),
-                       device="cpu")
-    assert sorted(tr.tables) == [f"emb_{i:02d}" for i in range(26)]
-    batch = next(S.recsys_batches(SMOKE, batch=8))
-    assert tr.predict(batch).shape == (8,)
-    with pytest.raises(NotImplementedError, match="A9b"):
-        tr.train_step(batch)
-    t = {k: torch.from_numpy(v) for k, v in batch.items()}
-    emb = R.dlrm_embed_batch(tr.tables, t, SMOKE)
-    dense0 = {k: [{n: x[0] for n, x in lay.items()} for lay in v]
-              for k, v in tr.dense.items()}
-    with pytest.raises(NotImplementedError, match="A9b"):
-        R.dlrm_hybrid_loss(SMOKE)(dense0, emb, t)
-    out = io.StringIO()
-    with pytest.raises(NotImplementedError, match="A9b"):
-        with contextlib.redirect_stdout(out):
-            launch.main(["--arch", "dlrm-mlperf", "--steps", "1",
-                         "--device", "cpu"])
 
 
 def test_factory_defaults_to_cuda_and_names_unported_configs():

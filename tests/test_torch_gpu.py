@@ -993,8 +993,7 @@ def test_cuda_disk_store_trains_as_the_host_store(placement, tmp_path):
 DOT_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("B,F,D,dtype", [
+DOT_SHAPES = [
     (512, 27, 128, torch.float32), (16384, 27, 128, torch.float32),
     (33, 13, 17, torch.float32), (512, 27, 128, torch.bfloat16),
     (100, 2, 128, torch.float32), (7, 1, 128, torch.float32),
@@ -1008,7 +1007,11 @@ DOT_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
     (2049, 26, 17, torch.float32), (2050, 13, 17, torch.float32),
     (4097, 5, 64, torch.float32), (9, 27, 3001, torch.float32),
     (6, 300, 128, torch.float32), (16383, 27, 128, torch.bfloat16),
-])
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,F,D,dtype", DOT_SHAPES)
 def test_cuda_dot_interaction_matches_plain_version(B, F, D, dtype):
     _cuda_or_skip()
     from repro_torch.kernels.dot_interaction import dot_interaction_cuda
@@ -1026,8 +1029,64 @@ def test_cuda_dot_interaction_matches_plain_version(B, F, D, dtype):
                                rtol=tol * 4)
 
 
+# ---- kernel 8b, the interaction's backward, at the forward's shapes (the
+# training shape of one pod, 32768 x 27 x 128, among them).  Tolerance: the
+# forward's, with the sum's length F in place of D (each output element
+# adds F - 1 products, in another order than the plain einsum).
 @pytest.mark.gpu
-def test_cuda_dot_interaction_launches_the_kernel_forward_only():
+@pytest.mark.parametrize("B,F,D,dtype",
+                         DOT_SHAPES + [(32768, 27, 128, torch.float32)])
+def test_cuda_dot_interaction_backward_matches_plain_version(B, F, D, dtype):
+    _cuda_or_skip()
+    from repro_torch.kernels.dot_interaction import (
+        dot_interaction_backward_cuda,
+    )
+
+    gen = torch.Generator("cuda").manual_seed(B + F + D + 1)
+    feats = torch.randn((B, F, D), generator=gen, device="cuda").to(dtype)
+    g = torch.randn((B, F * (F - 1) // 2), generator=gen,
+                    device="cuda").to(dtype)
+    got = dot_interaction_backward_cuda(g, feats)
+    again = dot_interaction_backward_cuda(g, feats)
+    torch.cuda.synchronize()
+    want = tref.dot_interaction_backward_ref(g, feats)
+    assert got.dtype == dtype and got.shape == (B, F, D)
+    assert torch.equal(got, again)
+    if F == 1:
+        assert not got.any()
+    tol = DOT_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=tol * F,
+                               rtol=tol * 4)
+
+
+@pytest.mark.gpu
+def test_cuda_dot_interaction_backward_takes_a_contiguous_g():
+    """The wrapper refuses a strided g; the autograd function makes the
+    column slice DLRM's tower hands it contiguous, with the same bits."""
+    _cuda_or_skip()
+    from repro_torch.kernels.dot_interaction import (
+        dot_interaction_backward_cuda,
+    )
+
+    gen = torch.Generator("cuda").manual_seed(3)
+    feats = torch.randn((300, 27, 128), generator=gen, device="cuda")
+    wide = torch.randn((300, 128 + 351), generator=gen, device="cuda")
+    g = wide[:, 128:]
+    assert not g.is_contiguous()
+    with pytest.raises(ValueError, match="contiguous"):
+        dot_interaction_backward_cuda(g, feats)
+    with pytest.raises(ValueError, match="g must be"):
+        dot_interaction_backward_cuda(g.contiguous()[:, 1:], feats)
+    x = feats.clone().requires_grad_(True)
+    top_in = torch.cat([torch.zeros(300, 128, device="cuda"),
+                        ops.dot_interaction(x)], dim=1)
+    (got,) = torch.autograd.grad(top_in, x, wide)
+    assert torch.equal(got, dot_interaction_backward_cuda(g.contiguous(),
+                                                          feats))
+
+
+@pytest.mark.gpu
+def test_cuda_dot_interaction_launches_the_kernels_both_ways():
     _cuda_or_skip()
     feats = torch.randn((64, 27, 128), device="cuda")
     ops.reset_launches()
@@ -1037,12 +1096,76 @@ def test_cuda_dot_interaction_launches_the_kernel_forward_only():
     assert ops.launches["dot_interaction_ref"] == 0
     assert out.shape == (64, 351)
     x = feats.clone().requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="A9b"):
-        ops.dot_interaction(x).sum().backward()
+    ops.dot_interaction(x).sum().backward()
+    torch.cuda.synchronize()
+    assert ops.launches["dot_interaction"] == 2
+    assert ops.launches["dot_interaction_backward"] == 1
+    assert ops.launches["dot_interaction_backward_ref"] == 0
+    want = tref.dot_interaction_backward_ref(
+        torch.ones((64, 351), device="cuda"), feats)
+    torch.testing.assert_close(x.grad, want, atol=27 * 1e-5, rtol=4e-5)
     with pytest.raises(ValueError, match="contiguous"):
         ops.dot_interaction(feats.transpose(1, 2))
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         ops.dot_interaction(feats.double())
+
+
+# ---- DLRM training on the card (smoke size): the takes' backward (kernel
+# 1b, the takes being bags of one id) and kernel 8b give the same bits run
+# after run, and the cached full mirror trains as gather.
+def _dlrm_run(placement="gather", cache_rows=None, steps=4):
+    from repro_torch.core.kstep import KStepConfig, leaves
+    from repro_torch.data.synthetic import dlrm_batches
+    from repro_torch.runtime.factory import build_trainer
+    from repro_torch.runtime.trainer import TrainerConfig
+
+    tcfg = TrainerConfig(n_pod=2, kstep=KStepConfig(k=2), log_every=1,
+                         placement=placement, cache_rows=cache_rows)
+    tr = build_trainer("dlrm-mlperf", tcfg, seed=3, device="cuda")
+    rows = tr.engine.specs["emb_00"].rows
+    stream = dlrm_batches(seed=5, batch=64, rows=(rows,) * 26)
+    ops.reset_launches()
+    losses = torch.stack([tr.train_step(next(stream))
+                          for _ in range(steps)]).cpu()
+    launches = dict(ops.launches)
+    tables, accum, _ = tr.engine.flush(tr.tables, tr.sparse_state.accum,
+                                       tr.backend_state)
+    return (losses, {n: t.cpu() for n, t in tr.engine.export(tables).items()},
+            {n: a.cpu() for n, a in accum.items()},
+            [x.cpu() for x in leaves(tr.dense)], launches)
+
+
+def _assert_runs_equal(a, b):
+    assert torch.equal(a[0], b[0])
+    for n in a[1]:
+        assert torch.equal(a[1][n], b[1][n]), n
+        assert torch.equal(a[2][n], b[2][n]), n
+    assert all(torch.equal(x, y) for x, y in zip(a[3], b[3]))
+
+
+@pytest.mark.gpu
+def test_cuda_dlrm_training_gives_the_same_bits_twice():
+    _cuda_or_skip()
+    first, second = _dlrm_run(), _dlrm_run()
+    assert torch.isfinite(first[0]).all()
+    _assert_runs_equal(first, second)
+    launches = first[4]
+    assert launches["dot_interaction"] == 4 * 2
+    assert launches["dot_interaction_backward"] == 4 * 2
+    assert launches["embedding_bag"] == launches[
+        "embedding_bag_backward"] == 4 * 2 * 26
+    assert launches["sparse_adagrad_apply"] == 4 * 26
+    assert not any(v for k, v in launches.items() if k.endswith("_ref"))
+
+
+@pytest.mark.gpu
+def test_cuda_dlrm_cached_mirror_equals_gather():
+    _cuda_or_skip()
+    gather = _dlrm_run()
+    cached = _dlrm_run("cached", cache_rows=256)   # smoke: 200 rows a table
+    _assert_runs_equal(gather, cached)
+    assert cached[4]["sparse_adagrad_cached_apply"] == 4 * 26
+    assert cached[4]["dot_interaction_backward"] == 4 * 2
 
 
 # ---- kernel 9, flash attention (phase 11 (a)'s small shapes and the edges
