@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Run the PyTorch port's baidu-ctr serving and training paths, on the
 gather and the cached placements and on the SSD tier, its dlrm-mlperf
-serving and training paths and its qwen3-14b prefill, on one NVIDIA GPU
-(H100).
+serving and training paths and its qwen3-14b prefill and decode, on one
+NVIDIA GPU (H100).
 
     python3 chip_smoke.py        # from the root of a checkout
 
@@ -194,6 +194,28 @@ Phases (any failure raises and the script exits non-zero):
      absolute positions, so a row's sums do not depend on S);
      (d) smoke size (f32, 2 layers), card vs CPU from one state: logits
      within atol 5e-5, rtol 1e-5.
+ 13. qwen3-14b decode at full width (after phase 11, on its weights):
+     (a) a ``BatchedServer`` of 8 slots of 32768 positions (decode_32k,
+     its batch cut from 128 to 8; the cache 42.95 GB) serves 16 requests,
+     prompts of 8 to 32 tokens from a seeded generator, 32 new tokens
+     each: every request gets its tokens, every call's logits finite, peak
+     memory at most the weights + one cache + 2 GB; the tokens decoded,
+     the fill and decode steps, the wall, tokens/s and ``stats["wall"]``
+     per decode step; a second run decodes the same tokens;
+     (b) ``decode_step`` on a full cache (K and V random bf16 at every
+     position, ``pos`` 0..32767, ``t`` 32767): 10 steps' walls and
+     tokens/s beside the step's bound (its bytes at 3.35 TB/s); one step's
+     stream time by part (CUDA events; its logits bit-equal to
+     ``decode_step``'s from the same state); one step under the sync debug
+     mode "error" and one under the profiler: no sync, at most one
+     host-to-device copy (the token ids, pinned), no copy as large as a
+     layer's K, the launches and the device busy share;
+     (c) a first request alone in a 1-slot server equals a manual
+     ``decode_step`` loop bit for bit (full width); a 64-token prompt
+     decoded token by token against ``prefill`` (kernel 9) at its last
+     position: published widths, 4 layers, f32, full vocab, within atol
+     3e-4, and full depth in bf16, reported; smoke size (f32), card vs CPU
+     from one state, 20 decode steps within atol 5e-5, rtol 1e-5.
 
 TF32 is off for matmuls and convolutions.  Prints the card (``nvidia-smi``
 name and power limit), a ``kernels`` JSON line, and as its last line
@@ -3857,7 +3879,7 @@ def phase_lm(device, cfg=None):
     """Phase 11 (b) and (c): qwen3-14b prefill at full width through
     ``prefill`` (4 x 4096 tokens), then one 32768-token prefill held
     causally against a 4096-token run; returns the launch counts of the
-    timed prefills."""
+    timed prefills and the weights (phase 13 decodes with them)."""
     import torch
 
     from repro_torch import configs
@@ -3979,9 +4001,9 @@ def phase_lm(device, cfg=None):
         if not finite or not bit_equal:
             raise AssertionError("the long prefill is not finite or its "
                                  "prefix is not bit-equal to the short run")
-    del params, x_long, x_short, head
+    del x_long, x_short, head
     _release()
-    return launches
+    return launches, params
 
 
 def phase_lm_agreement(device):
@@ -4012,6 +4034,438 @@ def phase_lm_agreement(device):
           f"tokens, card vs CPU from one state: logits max |diff| "
           f"{(got.cpu() - want).abs().max().item():.3g} (atol 5e-5, rtol "
           f"1e-5); {cfg.n_layers} kernel launches on the card")
+
+
+# ------------------------------------------------------ the LM's decode
+DECODE_SLOTS = 8           # decode_32k's batch, 128 -> 8 (8 caches fit)
+DECODE_LEN = 32768         # lm_shapes()["decode_32k"]'s seq
+DECODE_REQUESTS = 16
+DECODE_PROMPT = (8, 32)    # prompt lengths, inclusive
+DECODE_NEW = 32            # max_new_tokens
+DECODE_STEPS = 10          # (b): timed steps on a full cache
+DECODE_AGREE = 64          # (c): the prompt decoded against prefill
+DECODE_SEED = 0
+
+
+def _stamp(clock):
+    print(f"    [{time.perf_counter() - clock:.1f} s into the phase]",
+          flush=True)
+
+
+def _param_bytes(params):
+    leaves = [params["embed"], params["final_norm"], params.get("head")]
+    leaves += list(params["layers"].values())
+    return sum(t.numel() * t.element_size() for t in leaves if t is not None)
+
+
+def _cache_bytes(cache):
+    return sum(t.numel() * t.element_size() for t in cache.values())
+
+
+def _decode_bound(params, cache, cfg, batch):
+    """(ms, bytes, FLOP): the least time of one ``decode_step`` of
+    ``batch`` tokens over the whole cache (its attention masks the empty
+    slots but reads them all): every weight it reads once (the embedding
+    only its ``batch`` rows), K and V once, the new K and V, ``pos`` and
+    the logits written once; its FLOP (2 per multiply-add of every matrix
+    it multiplies) at the bf16 peak."""
+    Skv, hd = cache["k"].shape[3], cfg.hd
+    d, H = cfg.d_model, cfg.n_heads
+    emb = params["embed"]
+    weights = _param_bytes(params) - emb.numel() * emb.element_size()
+    if cfg.tie_embeddings:
+        weights += emb.numel() * emb.element_size()
+    nbytes = (weights + batch * d * emb.element_size() + _cache_bytes(cache)
+              + batch * cfg.vocab * emb.element_size())
+    per_layer = (d * (cfg.n_heads + 2 * cfg.n_kv_heads) * hd
+                 + H * hd * d + 3 * d * cfg.d_ff)
+    flop = 2 * batch * (cfg.n_layers * per_layer + d * cfg.vocab)
+    flop += 4 * batch * cfg.n_layers * H * Skv * hd
+    ms = max(nbytes / HBM_BYTES_PER_S, flop / BF16_FLOP_PER_S) * 1e3
+    return ms, nbytes, flop
+
+
+def _counted_server(params, cfg, slots, max_len, record=None):
+    """A ``BatchedServer`` whose decode calls are counted (fill steps are
+    the calls less ``stats["steps"]``) and whose logits are checked finite
+    on the device (a flag, read once at the end); with ``record`` (a list)
+    each call's logits are kept."""
+    import torch
+
+    from repro_torch.runtime.serve import BatchedServer
+
+    srv = BatchedServer(params, cfg, slots=slots, max_len=max_len)
+    decode = srv._decode
+    srv.calls = 0
+    srv.finite = torch.ones((), dtype=torch.bool,
+                            device=params["embed"].device)
+
+    def counted(p, c, t):
+        srv.calls += 1
+        logits, c = decode(p, c, t)
+        srv.finite.logical_and_(torch.isfinite(logits).all())
+        if record is not None:
+            record.append(logits)
+        return logits, c
+
+    srv._decode = counted
+    return srv
+
+
+def _decode_requests(cfg, rng):
+    from repro_torch.runtime.serve import Request
+
+    lo, hi = DECODE_PROMPT
+    return [Request(prompt=rng.integers(0, cfg.vocab, int(rng.integers(
+        lo, hi + 1))).astype(np.int32), max_new_tokens=DECODE_NEW)
+        for _ in range(DECODE_REQUESTS)]
+
+
+def _decode_profile(fn):
+    """``fn()`` (one decode step) under the profiler, shapes recorded:
+    (host-to-device copies, synchronizing calls, kernel launches, beyond
+    what an empty trace records; the largest ``aten::copy_``, in elements
+    of its destination: every copy, one inside ``bmm`` or ``contiguous``
+    too, ends in one; the device busy share, device ms and wall ms, the
+    profiler on; the top kernels, ms each), or the share None when the
+    trace holds no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    def traced(fn):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     record_shapes=True) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        return prof.key_averages(group_by_input_shape=True), wall_us
+
+    def counts(ev):
+        count = lambda pred: sum(e.count for e in ev if pred(e.key))
+        return (count(lambda k: "HtoD" in k),
+                count(lambda k: "Synchronize" in k or k == "cudaMemcpy"),
+                count(lambda k: k in ("cudaLaunchKernel", "cuLaunchKernel",
+                                      "cudaLaunchKernelExC")))
+
+    base, _ = traced(lambda: None)
+    ev, wall_us = traced(fn)
+    h2d, syncs, launches = (a - b for a, b in zip(counts(ev), counts(base)))
+    largest = max([int(np.prod(e.input_shapes[0])) for e in ev
+                   if e.key == "aten::copy_" and e.input_shapes
+                   and e.input_shapes[0]] or [0])
+    kernels = [e for e in ev
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    by_name = {}
+    for e in kernels:
+        by_name[e.key] = by_name.get(e.key, 0.0) + e.self_device_time_total
+    busy_us = sum(by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    share = busy_us / wall_us if busy_us > 0 else None
+    return (h2d, syncs, launches, largest, share, busy_us / 1e3,
+            wall_us / 1e3, [(k[:48], v / 1e3) for k, v in top])
+
+
+def _decode_breakdown(params, cache, tokens, cfg):
+    """Phase 13 (b): one decode step's stream time by part (CUDA events
+    around each part of each layer, summed over the layers), the same
+    calls as ``decode_step``; returns (parts, logits)."""
+    import torch
+
+    from repro_torch.models import transformer as T
+    from repro_torch.models.common import rms_norm
+
+    events = []
+
+    def timed(part, fn):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn()
+        end.record()
+        events.append((part, start, end))
+        return out
+
+    embed = params["embed"]
+    tokens = tokens.to(embed.device, non_blocking=True)
+    B = tokens.shape[0]
+    ck_all, cv_all, pos, t = cache["k"], cache["v"], cache["pos"], cache["t"]
+    Skv = ck_all.shape[3]
+
+    def prep():
+        write_idx = torch.remainder(t, Skv).to(torch.int64)
+        pos.index_copy_(0, write_idx.reshape(1), t.reshape(1))
+        x = embed.index_select(0, tokens.reshape(-1)).reshape(B, 1, -1)
+        return write_idx, pos >= 0, x
+
+    write_idx, kv_valid, x = timed("embed + pos", prep)
+    q_pos = t.reshape(1)
+    for i in range(cfg.n_layers):
+        lp = {k: v[i] for k, v in params["layers"].items()}
+        q, kx, vx = timed("norms + QKV + qk-norm + rope",
+                          lambda: T._qkv(cfg, lp, x, q_pos))
+
+        def attend():
+            T._write_kv(ck_all[i], cv_all[i], kx, vx, write_idx)
+            return T._sdpa_dense(cfg, i, q, ck_all[i], cv_all[i], q_pos, pos,
+                                 kv_valid)
+
+        o = timed("KV write + attention", attend)
+        x = timed("o-proj", lambda: x + o.reshape(B, 1, -1) @ lp["wo"])
+        x = timed("FFN", lambda: T._ffn_block(cfg, lp, x))
+    logits = timed("final norm + head", lambda: (rms_norm(
+        x, params["final_norm"], cfg.norm_eps) @ T._head(params, cfg))[:, 0])
+    t.add_(1)
+    torch.cuda.synchronize()
+    parts = {}
+    for part, start, end in events:
+        parts[part] = parts.get(part, 0.0) + start.elapsed_time(end)
+    return parts, logits
+
+
+def phase_decode(device, params, cfg=None):
+    """Phase 13 (a) and (b): the ``BatchedServer`` at full width over
+    ``DECODE_SLOTS`` slots of ``DECODE_LEN`` positions, twice, then
+    ``decode_step`` on a full cache; ``params`` are phase 11's weights."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.models import transformer as T
+
+    cfg = cfg or configs.get("qwen3-14b").model_cfg
+    clock = time.perf_counter()
+    weights = _param_bytes(params)
+    print(f"phase 13: {cfg.name} decode at full width through the "
+          f"BatchedServer ({DECODE_SLOTS} slots of {DECODE_LEN} positions: "
+          f"decode_32k, its batch cut from 128 to {DECODE_SLOTS}), phase "
+          f"11's {weights / 1e9:.2f} GB of weights; "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated at the "
+          f"start")
+    runs = []
+    for run in range(2):
+        requests = _decode_requests(cfg, np.random.default_rng(DECODE_SEED))
+        srv = _counted_server(params, cfg, DECODE_SLOTS, DECODE_LEN)
+        cache_b = _cache_bytes(srv.cache)
+        for r in requests:
+            srv.submit(r)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        stats = srv.run_to_completion()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        runs.append([r.out for r in requests])
+        n_tok = stats["decoded_tokens"]
+        if (any(len(o) != DECODE_NEW for o in runs[-1])
+                or n_tok != DECODE_REQUESTS * DECODE_NEW):
+            raise AssertionError(f"decoded {[len(o) for o in runs[-1]]}")
+        if not srv.finite.item():
+            raise AssertionError("a decode step's logits are not finite")
+        if peak > weights + cache_b + 2e9:
+            raise AssertionError(f"peak memory {peak / 1e9:.2f} GB > the "
+                                 f"weights {weights / 1e9:.2f} + one cache "
+                                 f"{cache_b / 1e9:.2f} + 2 GB")
+        fill = srv.calls - stats["steps"]
+        lens = [len(r.prompt) for r in requests]
+        print(f"  phase 13 (a) run {run + 1}: {DECODE_REQUESTS} requests "
+              f"(prompts of {min(lens)}-{max(lens)} tokens, "
+              f"{DECODE_NEW} new each) over {DECODE_SLOTS} slots of "
+              f"{DECODE_LEN} positions: {n_tok} tokens decoded in "
+              f"{srv.calls} decode_step calls ({fill} fill steps, "
+              f"{stats['steps']} decode steps); wall {wall:.4f} s "
+              f"({n_tok / wall:.2f} tokens/s, {wall / srv.calls * 1e3:.3f} "
+              f"ms a call), stats['wall'] {stats['wall']:.4f} s "
+              f"({stats['wall'] / stats['steps'] * 1e3:.3f} ms a decode "
+              f"step); peak memory {peak / 1e9:.2f} GB (weights "
+              f"{weights / 1e9:.2f} + cache {cache_b / 1e9:.2f} GB); every "
+              f"logit finite")
+        _stamp(clock)
+        if run == 0:
+            del srv
+            _release()
+    if runs[0] != runs[1]:
+        raise AssertionError("two server runs decoded different tokens")
+    print(f"  the second run decoded the same {DECODE_REQUESTS} x "
+          f"{DECODE_NEW} tokens; first request's: {runs[0][0][:8]}...")
+
+    # ---- (b) decode_step over a full cache
+    cache = srv.cache
+    tokens = torch.from_numpy(np.random.default_rng(DECODE_SEED + 1).integers(
+        0, cfg.vocab, DECODE_SLOTS).astype(np.int32)).pin_memory()
+    gen = torch.Generator(device).manual_seed(DECODE_SEED + 2)
+    cache["k"].normal_(generator=gen)
+    cache["v"].normal_(generator=gen)
+    Skv = cache["k"].shape[3]
+    cache["pos"].copy_(torch.arange(Skv, dtype=torch.int32, device=device))
+    cache["t"].fill_(Skv - 1)
+    walls = []
+    for _ in range(DECODE_STEPS):
+        t0 = time.perf_counter()
+        logits, _ = T.decode_step(params, cache, tokens, cfg)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    if not torch.isfinite(logits).all().item():
+        raise AssertionError("logits over the full cache are not finite")
+    bound_ms, nbytes, flop = _decode_bound(params, cache, cfg, DECODE_SLOTS)
+    step_ms = float(np.mean(walls)) * 1e3
+    print(f"  phase 13 (b): {DECODE_STEPS} decode steps of {DECODE_SLOTS} "
+          f"tokens over a full cache ({Skv} positions a slot, random bf16 "
+          f"K and V, t from {Skv - 1}): wall per step "
+          + ", ".join(f"{w * 1e3:.3f}" for w in walls)
+          + f" ms (mean {step_ms:.3f} ms, {DECODE_SLOTS / step_ms * 1e3:.2f} "
+          f"tokens/s); bound {bound_ms:.3f} ms ({nbytes / 1e9:.2f} GB at "
+          f"3.35 TB/s; {flop / 1e9:.1f} GFLOP take "
+          f"{flop / BF16_FLOP_PER_S * 1e3:.3f} ms at the bf16 peak): "
+          f"{step_ms / bound_ms:.2f}x it")
+    _stamp(clock)
+    # the parts: the same step twice from one state (the overwritten slot,
+    # pos and t restored), through decode_step and through the timed parts
+    w = int(cache["t"].item()) % Skv
+    saved = [cache[n][:, :, :, w].clone() for n in ("k", "v")]
+    pos0, t0_ = cache["pos"].clone(), cache["t"].clone()
+    want, _ = T.decode_step(params, cache, tokens, cfg)
+    for n, keep in zip(("k", "v"), saved):
+        cache[n][:, :, :, w] = keep
+    cache["pos"].copy_(pos0)
+    cache["t"].copy_(t0_)
+    parts, got = _decode_breakdown(params, cache, tokens, cfg)
+    if not torch.equal(got, want):
+        raise AssertionError("the timed parts' logits differ from "
+                             "decode_step's")
+    total = sum(parts.values())
+    print(f"  one decode step, stream time by part (ms, CUDA events, summed "
+          f"over {cfg.n_layers} layers, host gaps included): " + ", ".join(
+              f"{k} {v:.3f}" for k, v in parts.items())
+          + f"; all parts {total:.3f}; logits bit-equal to decode_step's")
+    _stamp(clock)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        T.decode_step(params, cache, tokens, cfg)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    layer_numel = cache["k"][0].numel()
+    h2d, syncs, launches, largest, share, dev_ms, wall_ms, top = (
+        _decode_profile(lambda: T.decode_step(params, cache, tokens, cfg)))
+    if h2d > 1 or syncs:
+        raise AssertionError(f"a decode step made {h2d} host-to-device "
+                             f"copies (1: its token ids) and {syncs} syncs")
+    if largest >= layer_numel:
+        raise AssertionError(f"a decode step copied {largest} elements, a "
+                             f"layer's K holds {layer_numel}")
+    print(f"  a decode step ran under the sync debug mode 'error'; one "
+          f"under the profiler: {launches} kernel launches, {h2d} "
+          f"host-to-device copies (at most 1: its {DECODE_SLOTS} token ids, "
+          f"pinned), 0 synchronizing calls, largest copy {largest} "
+          f"elements (a layer's K: {layer_numel}); " + (
+              "device busy share not measured (the trace holds no device "
+              "time)" if share is None else
+              f"device busy share {share:.3f} ({dev_ms:.3f} ms of device "
+              f"time in {wall_ms:.3f} ms wall, profiler on); top kernels "
+              f"(ms): " + "; ".join(f"{k} {v:.3f}" for k, v in top)))
+    _stamp(clock)
+    del cache, srv, logits, want, got, saved
+    _release()
+
+
+def phase_decode_agreement(device, params, cfg=None):
+    """Phase 13 (c): the 1-slot server against a manual ``decode_step``
+    loop (full width, bit for bit); decode against ``prefill`` on one
+    prompt at the published widths in f32 (4 layers, gated) and at full
+    depth in bf16 (reported); card against CPU at smoke size."""
+    import dataclasses as dc
+
+    import torch
+
+    from repro_torch import configs, tree_map
+    from repro_torch.models import transformer as T
+    from repro_torch.runtime.serve import Request
+
+    cfg = cfg or configs.get("qwen3-14b").model_cfg
+    clock = time.perf_counter()
+    rng = np.random.default_rng(DECODE_SEED + 3)
+    prompt = rng.integers(0, cfg.vocab, 12).astype(np.int32)
+    served = []
+    srv = _counted_server(params, cfg, 1, 64, record=served)
+    req = Request(prompt=prompt, max_new_tokens=8)
+    srv.submit(req)
+    srv.run_to_completion()
+    cache = T.init_cache(cfg, 1, 64, device=device)
+    manual, outs = [], []
+    for tok in prompt:
+        logits, cache = T.decode_step(params, cache, torch.tensor([tok]), cfg)
+        manual.append(logits)
+    for _ in range(8):
+        nxt = int(torch.argmax(logits[0]))
+        outs.append(nxt)
+        logits, cache = T.decode_step(params, cache, torch.tensor([nxt]), cfg)
+        manual.append(logits)
+    manual = manual[:len(served)]
+    if req.out != outs or not all(torch.equal(a, b) for a, b in
+                                  zip(served, manual)):
+        raise AssertionError(f"the 1-slot server {req.out} differs from the "
+                             f"manual loop {outs}")
+    print(f"phase 13 (c): {cfg.name}, one request alone in a 1-slot server "
+          f"= a manual decode_step loop, bit for bit ({len(served)} calls' "
+          f"logits; tokens {outs})")
+    _stamp(clock)
+    del srv, cache, served, manual
+    _release()
+
+    def decode_vs_prefill(p, c):
+        toks = np.random.default_rng(DECODE_SEED + 4).integers(
+            0, c.vocab, DECODE_AGREE)
+        cache = T.init_cache(c, 1, DECODE_AGREE, device=device)
+        for tok in toks:
+            dec, cache = T.decode_step(p, cache, torch.tensor([tok]), c)
+        pre = T.prefill(p, torch.from_numpy(toks)[None].to(device), c)
+        torch.cuda.synchronize()
+        diff = (dec.float() - pre.float()).abs()
+        return diff.max().item(), diff.mean().item(), torch.isfinite(
+            dec).all().item()
+
+    full_max, full_mean, finite = decode_vs_prefill(params, cfg)
+    if not finite:
+        raise AssertionError("bf16 decode logits are not finite")
+    c4 = dc.replace(cfg, n_layers=4, dtype=torch.float32)
+    p4 = T.init_params(torch.Generator(device).manual_seed(DECODE_SEED + 5),
+                       c4, device=device)
+    f32_max, f32_mean, finite = decode_vs_prefill(p4, c4)
+    gb4 = _param_bytes(p4) / 1e9
+    del p4
+    _release()
+    if not finite or f32_max > 3e-4:
+        raise AssertionError(f"f32 decode vs prefill: max |diff| {f32_max}")
+    print(f"  decode of a {DECODE_AGREE}-token prompt token by token vs "
+          f"prefill (kernel 9) at its last position: published widths, 4 "
+          f"layers, f32, vocab {c4.vocab} ({gb4:.2f} GB): max |diff| "
+          f"{f32_max:.3g}, mean {f32_mean:.3g} (atol 3e-4); full depth, "
+          f"bf16 (phase 11's weights): max {full_max:.4g}, mean "
+          f"{full_mean:.4g} (no gate: decode rounds p to bf16, kernel 9 "
+          f"keeps it in float32)")
+    _stamp(clock)
+
+    smoke = configs.get("qwen3-14b").smoke_cfg
+    cpu = T.init_params(torch.Generator("cpu").manual_seed(7), smoke,
+                        device="cpu")
+    gpu = tree_map(lambda t: t.to(device), cpu)
+    ccache = T.init_cache(smoke, 3, 32, device="cpu")
+    gcache = T.init_cache(smoke, 3, 32, device=device)
+    worst = 0.0
+    for tok in torch.from_numpy(np.random.default_rng(9).integers(
+            0, smoke.vocab, (20, 3))):
+        want, ccache = T.decode_step(cpu, ccache, tok, smoke)
+        got, gcache = T.decode_step(gpu, gcache, tok, smoke)
+        np.testing.assert_allclose(got.cpu().numpy(), want.numpy(),
+                                   atol=5e-5, rtol=1e-5)
+        worst = max(worst, (got.cpu() - want).abs().max().item())
+    print(f"  {smoke.name} ({smoke.n_layers} layers, f32), 20 decode steps "
+          f"of 3 slots, card vs CPU from one state: logits max |diff| "
+          f"{worst:.3g} (atol 5e-5, rtol 1e-5)")
+    _stamp(clock)
 
 
 def main() -> int:
@@ -4071,9 +4525,16 @@ def main() -> int:
     _release()
     t11 = time.perf_counter()
     flash = phase_flash_attention(device)
-    flash["launches"] = phase_lm(device)["flash_attention"]
+    launches, params = phase_lm(device)
+    flash["launches"] = launches["flash_attention"]
     phase_lm_agreement(device)
     print(f"phase 11 took {time.perf_counter() - t11:.1f} s")
+    t13 = time.perf_counter()
+    phase_decode(device, params)
+    phase_decode_agreement(device, params)
+    del params
+    _release()
+    print(f"phase 13 took {time.perf_counter() - t13:.1f} s")
     print(json.dumps({"kernels": [bag, backward, push] + cache_entries
                       + [staged, adam, dot, dot_bwd, flash]}))
     print(json.dumps({"ok": True, "device": {

@@ -13,6 +13,8 @@ from typing import Any, Dict, Optional
 _MODULES = {
     "baidu-ctr": "repro_torch.configs.baidu_ctr",
     "qwen3-14b": "repro_torch.configs.qwen3_14b",
+    "qwen2-7b": "repro_torch.configs.qwen2_7b",
+    "granite-8b": "repro_torch.configs.granite_8b",
     "dlrm-mlperf": "repro_torch.configs.dlrm_mlperf",
 }
 

@@ -8,8 +8,9 @@ cached placement, ``tr.backend_state``), go through ``from_reference`` and
 into ``HybridTrainer(..., state=...)``.  Under the DiskStore,
 ``from_reference`` writes the full tables and accumulators into the
 store's pages, so both packages start from one state on disk.  The LM's
-parameter tree goes through ``lm_from_reference``.  This module reads
-numpy only.
+parameter tree goes through ``lm_from_reference`` and its KV cache through
+``lm_cache_from_reference`` (``lm_cache_to_reference`` is the inverse, for
+comparisons).  This module reads numpy only.
 """
 
 from __future__ import annotations
@@ -120,3 +121,29 @@ def lm_from_reference(params_np, device="cuda"):
     same keys and layouts, every leaf bit for bit."""
     device = resolve_device(device)
     return tree_map(lambda x: _leaf_from_numpy(x, device), params_np)
+
+
+def lm_cache_from_reference(cache_np, device="cuda"):
+    """The reference's KV cache (``init_cache`` / ``decode_step``'s dict,
+    numpy after ``jax.device_get``) as the port's on ``device``: ``k`` and
+    ``v`` from the reference's (L, B, Skv, Kv, hd) into the port's
+    (L, B, Kv, Skv, hd), contiguous, every element bit for bit; ``pos``
+    (Skv,) and ``t`` (0-dim) int32."""
+    device = resolve_device(device)
+    out = {n: _leaf_from_numpy(np.asarray(cache_np[n]), "cpu")
+           .transpose(2, 3).contiguous().to(device) for n in ("k", "v")}
+    for n in ("pos", "t"):
+        out[n] = torch.from_numpy(
+            np.array(cache_np[n], dtype=np.int32, copy=True)).to(device)
+    return out
+
+
+def lm_cache_to_reference(cache) -> Dict[str, np.ndarray]:
+    """The port's KV cache in the reference's layout, as numpy: ``k`` and
+    ``v`` (L, B, Skv, Kv, hd) in float32 (a bfloat16 cache widened, which
+    is exact), ``pos`` and ``t`` int32."""
+    out = {n: cache[n].detach().transpose(2, 3).to("cpu", torch.float32)
+           .contiguous().numpy() for n in ("k", "v")}
+    for n in ("pos", "t"):
+        out[n] = cache[n].detach().cpu().numpy().astype(np.int32)
+    return out

@@ -1,11 +1,17 @@
-"""Decoder-only LM family: the serving forward (``prefill``) of
-``repro/models/transformer.py``.
+"""Decoder-only LM family: the serving half of
+``repro/models/transformer.py``, the prefill and the decode.
 
 Ported: GQA, qk-norm, QKV bias, RoPE, tied or untied embeddings, dense
-FFNs; ``init_params``, ``trunk``, ``forward`` and ``prefill``.  The layers'
-attention (the no-cache branch of ``_attn_block``) is ``ops.flash_attention``:
-the hand-written CUDA kernel on the card (TPU kernel 9), its plain version
-on the CPU.
+FFNs; ``init_params``, ``trunk``, ``forward`` and ``prefill``; the causal
+``_mask``, the masked dense attention ``_sdpa_dense``, ``cache_len``,
+``init_cache`` and ``decode_step``.  The no-cache branch of ``_attn_block``
+(the prefill) is ``ops.flash_attention``: the hand-written CUDA kernel on
+the card (TPU kernel 9), its plain version on the CPU.  Attention over a
+KV cache (decode) is the reference's ``_sdpa_dense`` in plain PyTorch, as
+in the reference (jnp, no Pallas kernel), with its roundings: the scores
+leave the product in the model dtype and are widened to float32, scaled,
+masked to -1e30 and softmaxed in float32, and p is rounded to the model
+dtype before ``p @ v``.
 
 Parameters keep the reference's tree and layout, so its exports load as
 they are (``interop.lm_from_reference``): ``embed`` (vocab, d),
@@ -14,14 +20,21 @@ they are (``interop.lm_from_reference``): ``embed`` (vocab, d),
 over the stacked leaves (the reference's ``lax.scan``); the mesh hints
 (``shard_hint``, ``_whint``) have no counterpart on one card.
 
+The KV cache is laid out ``(L, B, Kv, Skv, hd)``, not the reference's
+``(L, B, Skv, Kv, hd)``: a layer's K and V are then ``B * Kv`` contiguous
+``(Skv, hd)`` matrices, and ``q @ k^T`` and ``p @ v`` are batched products
+over them with no copy (``interop.lm_cache_from_reference`` carries a
+reference cache across).  ``decode_step`` updates the cache in place, the
+port's counterpart of the reference jit's donation: one cache is live at a
+time.
+
 Not ported yet, and raising ``NotImplementedError`` on every device: MoE
 FFNs and the windowed and chunked masks (ROADMAP.md A10d), sequence-sharded
-activations (A8), decoding with a KV cache (A10b; the masked dense
-attention ``_mask`` / ``_sdpa_dense`` that decode runs comes with it), and
-training, the attention's backward and ``loss_fn`` (A10c).  The
-reference's attention-choice and loss knobs (``dense_attn_threshold``,
-``attn_block_kv``, ``attn_block_q``, ``ce_chunk_tokens``) have no field
-here: the port runs the flash kernel at every length and has no loss yet.
+activations (A8), and training, the attention's backward and ``loss_fn``
+(A10c).  The reference's attention-choice and loss knobs
+(``dense_attn_threshold``, ``attn_block_kv``, ``attn_block_q``,
+``ce_chunk_tokens``) have no field here: the port's prefill runs the flash
+kernel at every length and it has no loss yet.
 """
 
 from __future__ import annotations
@@ -191,18 +204,74 @@ def _qkv(cfg, lp, x, q_pos):
     return q, kx, vx
 
 
+# -------------------------------------------------------------- attention
+def _mask(cfg: TransformerConfig, layer_idx, q_pos, kv_pos):
+    """(Sq, Skv) boolean mask from absolute positions (int32): causal.  The
+    windowed and chunked masks are A10d (``_check_ported`` raises)."""
+    return kv_pos[None, :] <= q_pos[:, None]
+
+
+def _sdpa_dense(cfg, layer_idx, q, kk, vv, q_pos, kv_pos, kv_valid=None):
+    """Materialized-scores GQA attention, with the reference's roundings.
+    q: (B, Sq, H, hd); kk, vv: (B, Kv, Skv, hd), the cache's layout (the
+    reference's is (B, Skv, Kv, hd)) -> (B, Sq, H, hd).
+
+    The products run as ``bmm`` over the B * Kv heads of kk and vv as they
+    lie (``kk.transpose`` is a view), so no copy of K or V is made."""
+    B, Sq, H, hd = q.shape
+    Kv, Skv = kk.shape[1], kk.shape[2]
+    G = H // Kv
+    # (B, Sq, Kv, G, hd) -> (B * Kv, G * Sq, hd): a view when Sq is 1
+    qg = q.reshape(B, Sq, Kv, G, hd).permute(0, 2, 3, 1, 4).reshape(
+        B * Kv, G * Sq, hd)
+    k3 = kk.reshape(B * Kv, Skv, hd)
+    v3 = vv.reshape(B * Kv, Skv, hd)
+    s = torch.bmm(qg, k3.transpose(1, 2)).to(torch.float32)
+    s.mul_(1.0 / (hd ** 0.5))
+    m = _mask(cfg, layer_idx, q_pos, kv_pos)
+    if kv_valid is not None:
+        m = m & kv_valid[None, :]
+    # row (g, s) of s takes the mask's row s
+    s.masked_fill_(~(m if Sq == 1 else m.repeat(G, 1)), -1e30)
+    p = torch.softmax(s, dim=-1).to(q.dtype)
+    o = torch.bmm(p, v3)                                  # (B*Kv, G*Sq, hd)
+    return o.reshape(B, Kv, G, Sq, hd).permute(0, 3, 1, 2, 4).reshape(
+        B, Sq, H, hd)
+
+
+def _write_kv(ck, cv, kx, vx, write_idx):
+    """Write the S new positions' K and V (B, S, Kv, hd) into a layer's
+    cache (B, Kv, Skv, hd) in place, at slots ``write_idx + [0, S)``: the
+    reference's ``dynamic_update_slice``, whose start is clamped so that
+    the S slots fit.  ``write_idx`` is a 0-dim device tensor, so nothing
+    reads it on the host."""
+    S, Skv = kx.shape[1], ck.shape[2]
+    if S == 1:
+        idx = write_idx.reshape(1)
+    else:
+        idx = write_idx.clamp(0, Skv - S) + torch.arange(
+            S, device=ck.device, dtype=write_idx.dtype)
+    ck.index_copy_(2, idx, kx.transpose(1, 2))
+    cv.index_copy_(2, idx, vx.transpose(1, 2))
+
+
 def _attn_block(cfg, lp, layer_idx, x, q_pos, cache=None):
-    """Self-attention sublayer over x, causal, through the flash kernel;
-    returns ``(x + o @ wo, (k, v))``.  Attending over a cache (decode) is
-    A10b."""
-    if cache is not None:
-        raise NotImplementedError(
-            "attention over a KV cache (decode_step) is not ported yet: "
-            "ROADMAP.md queue A10b (decode and BatchedServer)")
+    """Self-attention sublayer; returns ``(x + o @ wo, (k, v))``.  With
+    ``cache=(ck, cv, kv_pos, kv_valid, write_idx)`` (ck, cv a layer's
+    (B, Kv, Skv, hd) cache), writes the new K and V into it in place and
+    attends over it (decode, ``_sdpa_dense``); otherwise self-attends over
+    x, causal, through the flash kernel."""
     B, S, _ = x.shape
     q, kx, vx = _qkv(cfg, lp, x, q_pos)
-    o = ops.flash_attention(q, kx, vx, causal=True)
-    return x + o.reshape(B, S, -1) @ lp["wo"], (kx, vx)
+    if cache is not None:
+        ck, cv, kv_pos, kv_valid, write_idx = cache
+        _write_kv(ck, cv, kx, vx, write_idx)
+        o = _sdpa_dense(cfg, layer_idx, q, ck, cv, q_pos, kv_pos, kv_valid)
+        new_cache = (ck, cv)
+    else:
+        o = ops.flash_attention(q, kx, vx, causal=True)
+        new_cache = (kx, vx)
+    return x + o.reshape(B, S, -1) @ lp["wo"], new_cache
 
 
 def _ffn_block(cfg, lp, x):
@@ -253,3 +322,65 @@ def prefill(params, tokens, cfg: TransformerConfig) -> torch.Tensor:
     be 5 GB of bfloat16)."""
     x, _ = trunk(params, tokens, cfg)
     return x[:, -1] @ _head(params, cfg)
+
+
+# ----------------------------------------------------------------- decode
+def cache_len(cfg: TransformerConfig, seq_len: int) -> int:
+    """Physical KV length: SWA models keep only a window-size ring buffer."""
+    if cfg.attn_window is not None:
+        return min(seq_len, cfg.attn_window)
+    return seq_len
+
+
+def init_cache(cfg: TransformerConfig, batch: int, seq_len: int,
+               device="cuda") -> Dict[str, torch.Tensor]:
+    """An empty KV cache for ``batch`` slots on ``device`` (CUDA unless the
+    caller asks for the CPU): ``k`` and ``v`` (L, B, Kv, Skv, hd) zeros in
+    the model dtype, ``pos`` the absolute position of each physical slot
+    (-1: empty) and ``t`` the next absolute position, int32 on the device.
+    All slots share ``pos`` and ``t``, as in the reference."""
+    _check_ported(cfg)
+    device = resolve_device(device)
+    Skv = cache_len(cfg, seq_len)
+    shp = (cfg.n_layers, batch, cfg.n_kv_heads, Skv, cfg.hd)
+    return {
+        "k": torch.zeros(shp, dtype=cfg.dtype, device=device),
+        "v": torch.zeros(shp, dtype=cfg.dtype, device=device),
+        "pos": torch.full((Skv,), -1, dtype=torch.int32, device=device),
+        "t": torch.zeros((), dtype=torch.int32, device=device),
+    }
+
+
+def decode_step(params, cache, tokens, cfg: TransformerConfig):
+    """One serving step: tokens (B,) -> (logits (B, V), cache).
+
+    The new token's K and V go to slot ``t % Skv`` (a ring buffer: for SWA
+    models old entries are evicted; a full-attention cache covers the whole
+    context, so nothing is overwritten), ``pos[t % Skv] = t`` and ``t``
+    advances.  The cache is updated in place and returned (the reference
+    returns a new one and its server donates the old).  Nothing is read on
+    the host: ``t`` and the write index stay on the device.  Tokens on the
+    host go to the parameters' device without waiting (from pinned memory,
+    the copy overlaps)."""
+    _check_ported(cfg)
+    embed = params["embed"]
+    tokens = torch.as_tensor(tokens)
+    if tokens.device != embed.device:
+        tokens = tokens.to(embed.device, non_blocking=True)
+    B = tokens.shape[0]
+    ck_all, cv_all, pos, t = cache["k"], cache["v"], cache["pos"], cache["t"]
+    Skv = ck_all.shape[3]
+    write_idx = torch.remainder(t, Skv).to(torch.int64)
+    q_pos = t.reshape(1)
+    pos.index_copy_(0, write_idx.reshape(1), q_pos)
+    kv_valid = pos >= 0
+
+    x = embed.index_select(0, tokens.reshape(-1)).reshape(B, 1, -1)
+    for i in range(cfg.n_layers):
+        lp = {k: v[i] for k, v in params["layers"].items()}
+        x, _ = _layer(cfg, lp, i, x, q_pos,
+                      cache=(ck_all[i], cv_all[i], pos, kv_valid, write_idx))
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    logits = (x @ _head(params, cfg))[:, 0]
+    t.add_(1)
+    return logits, cache

@@ -1,1 +1,2 @@
-"""Runtimes: the hybrid trainer, the CTR server, the factory, metrics."""
+"""Runtimes: the hybrid trainer, the CTR server, the LM's batched server,
+the factory, metrics."""

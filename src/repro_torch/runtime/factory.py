@@ -2,7 +2,8 @@
 
 Counterpart of ``repro/runtime/factory.py`` for the archs the port has
 reached (``baidu-ctr`` and ``dlrm-mlperf``, each training and serving; the
-LM ``qwen3-14b`` has no trainer yet and raises naming A10c):
+LMs ``qwen3-14b``, ``qwen2-7b`` and ``granite-8b`` have no trainer yet and
+raise naming A10c):
 
     tr = build_trainer("baidu-ctr", TrainerConfig(placement="gather"))
     tr = build_trainer("dlrm-mlperf", TrainerConfig(placement="gather"))
@@ -144,7 +145,8 @@ def build_trainer(arch: str, cfg: TrainerConfig, *, smoke: bool = True,
         raise NotImplementedError(
             f"build_trainer({arch!r}): LM training is not ported yet: "
             "ROADMAP.md queue A10c (LM training); the port serves the LM "
-            "through repro_torch.models.transformer.prefill")
+            "through repro_torch.models.transformer.prefill and "
+            "repro_torch.runtime.serve.BatchedServer")
     mcfg = model_cfg if model_cfg is not None else (
         spec.smoke_cfg if smoke else spec.model_cfg)
     init_dense, build_engine, embed_of, loss_of = _recsys_wiring(mcfg)

@@ -1285,3 +1285,69 @@ def test_cuda_flash_attention_rejects_what_it_does_not_take():
         flash_attention_cuda(q, k.to(torch.bfloat16), v)
     with pytest.raises(ValueError, match="k and v"):
         flash_attention_cuda(q, k[:, :16].contiguous(), v[:, :16].contiguous())
+
+
+def _smoke_lm():
+    """qwen3-14b's smoke config (float32) and a state drawn on the CPU."""
+    from repro_torch import configs
+    from repro_torch.models import transformer as T
+
+    cfg = configs.get("qwen3-14b").smoke_cfg
+    return cfg, T.init_params(torch.Generator("cpu").manual_seed(7), cfg,
+                              device="cpu")
+
+
+@pytest.mark.gpu
+def test_cuda_decode_matches_the_cpu():
+    """20 decode steps of 3 slots on the card and on the CPU from one state:
+    logits within atol 5e-5, rtol 1e-5 (float32 products summed in other
+    orders), the caches' positions equal."""
+    _cuda_or_skip()
+    from repro_torch import tree_map
+    from repro_torch.models import transformer as T
+
+    cfg, cpu = _smoke_lm()
+    gpu = tree_map(lambda t: t.cuda(), cpu)
+    ccache = T.init_cache(cfg, 3, 32, device="cpu")
+    gcache = T.init_cache(cfg, 3, 32, device="cuda")
+    tokens = np.random.default_rng(9).integers(0, cfg.vocab, (20, 3))
+    for tok in torch.from_numpy(tokens):
+        want, ccache = T.decode_step(cpu, ccache, tok, cfg)
+        got, gcache = T.decode_step(gpu, gcache, tok, cfg)
+        torch.testing.assert_close(got.cpu(), want, atol=5e-5, rtol=1e-5)
+    assert torch.equal(gcache["pos"].cpu(), ccache["pos"])
+    assert int(gcache["t"]) == int(ccache["t"]) == 20
+
+
+@pytest.mark.gpu
+def test_cuda_decode_step_makes_no_sync_and_keeps_the_cache_in_place():
+    """A decode step with its token ids in pinned host memory runs under the
+    sync debug mode "error"; the cache keeps its storage and the step
+    allocates less than one layer's K (no copy of K or V, no second
+    cache)."""
+    _cuda_or_skip()
+    from repro_torch import tree_map
+    from repro_torch.models import transformer as T
+
+    cfg, cpu = _smoke_lm()
+    params = tree_map(lambda t: t.cuda(), cpu)
+    cache = T.init_cache(cfg, 4, 4096, device="cuda")
+    ptrs = {n: t.data_ptr() for n, t in cache.items()}
+    layer_bytes = cache["k"][0].numel() * cache["k"].element_size()
+    tokens = torch.tensor([1, 2, 3, 4], dtype=torch.int32).pin_memory()
+    T.decode_step(params, cache, tokens, cfg)            # warm-up
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        logits, out = T.decode_step(params, cache, tokens, cfg)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert out is cache
+    assert {n: t.data_ptr() for n, t in cache.items()} == ptrs
+    assert torch.cuda.max_memory_allocated() - base < layer_bytes
+    assert logits.shape == (4, cfg.vocab)
+    assert torch.isfinite(logits).all()
+    assert int(cache["t"]) == 2 and cache["pos"][:3].tolist() == [0, 1, -1]

@@ -101,8 +101,21 @@ def _prefill_both(jcfg, tcfg, B, S, seed=0):
 
 
 # ------------------------------------------------------------------ configs
-def test_configs_match_the_reference():
-    spec, jspec = configs.get("qwen3-14b"), jconfigs.get("qwen3-14b")
+# each registered LM: its full config's parameters, the port's and the
+# reference's source tags (the reference's qwen3-14b names Qwen3-8B)
+LM_ARCHS = {
+    "qwen3-14b": (14_768_296_960, "hf:Qwen/Qwen3-14B; hf",
+                  "hf:Qwen/Qwen3-8B; hf"),
+    "qwen2-7b": (7_615_487_488, "arXiv:2407.10671; hf",
+                 "arXiv:2407.10671; hf"),
+    "granite-8b": (8_254_689_280, "arXiv:2405.04324; hf",
+                   "arXiv:2405.04324; hf"),
+}
+
+
+@pytest.mark.parametrize("arch", sorted(LM_ARCHS))
+def test_configs_match_the_reference(arch):
+    spec, jspec = configs.get(arch), jconfigs.get(arch)
     jfields = {f.name: f for f in dataclasses.fields(JT.TransformerConfig)}
     fields = [f.name for f in dataclasses.fields(T.TransformerConfig)]
     assert set(fields) <= set(jfields)
@@ -122,21 +135,24 @@ def test_configs_match_the_reference():
         assert got.hd == want.hd
         assert got.total_params() == want.total_params()
         assert got.active_params() == want.active_params()
-    # 29.5 GB of bfloat16 (the formula leaves out the qk-norm scales)
-    assert spec.model_cfg.total_params() == 14_768_296_960
+    # qwen3-14b: 29.5 GB of bfloat16 (the formula leaves out the qk-norm
+    # scales)
+    params, source, jsource = LM_ARCHS[arch]
+    assert spec.model_cfg.total_params() == params
     assert spec.family == jspec.family == "lm"
-    assert spec.source == "hf:Qwen/Qwen3-14B; hf"
-    assert jspec.source == "hf:Qwen/Qwen3-8B; hf"   # the reference's tag
+    assert spec.source == source
+    assert jspec.source == jsource
     got, want = spec.shapes, jspec.shapes
     assert got.keys() == want.keys()
     for k in got:
         assert (got[k].kind, got[k].dims, got[k].skip) == (
             want[k].kind, want[k].dims, want[k].skip)
     assert got["prefill_32k"].dims == {"seq": 32768, "batch": 32}
+    assert got["decode_32k"].dims == {"seq": 32768, "batch": 128}
 
 
-@pytest.mark.parametrize("arch", ["qwen2-7b", "granite-8b", "mixtral-8x7b",
-                                  "llama4-scout-17b-16e", "gin-tu"])
+@pytest.mark.parametrize("arch", ["mixtral-8x7b", "llama4-scout-17b-16e",
+                                  "gin-tu"])
 def test_unported_archs_stay_unregistered(arch):
     jconfigs.get(arch)
     with pytest.raises(KeyError, match="not in the port"):
@@ -520,17 +536,6 @@ def test_unported_fields_raise_naming_their_items(field, value, item):
     params = T.init_params(g, tcfg, device="cpu")
     with pytest.raises(NotImplementedError, match=item):
         T.prefill(params, torch.zeros((1, 4), dtype=torch.int32), bad)
-
-
-def test_cache_argument_raises_naming_a10b():
-    _, tcfg = _cfgs("float32")
-    params = T.init_params(torch.Generator("cpu").manual_seed(0), tcfg,
-                           device="cpu")
-    lp = {k: v[0] for k, v in params["layers"].items()}
-    x = torch.zeros((1, 4, tcfg.d_model))
-    pos = torch.arange(4, dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="A10b"):
-        T._attn_block(tcfg, lp, 0, x, pos, cache=(None,) * 5)
 
 
 def test_lm_training_raises_naming_a10c():
