@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Run the PyTorch port's baidu-ctr serving and training paths, on the
 gather and the cached placements and on the SSD tier, its dlrm-mlperf
-serving and training paths and its qwen3-14b prefill and decode, on one
-NVIDIA GPU (H100).
+serving and training paths and its qwen3-14b prefill, decode and
+training, on one NVIDIA GPU (H100).
 
     python3 chip_smoke.py        # from the root of a checkout
 
@@ -216,6 +216,41 @@ Phases (any failure raises and the script exits non-zero):
      position: published widths, 4 layers, f32, full vocab, within atol
      3e-4, and full depth in bf16, reported; smoke size (f32), card vs CPU
      from one state, 20 decode steps within atol 5e-5, rtol 1e-5.
+ 14. qwen3-14b training (after phase 13 has released its weights and
+     cache):
+     (a) kernel 9b, flash attention's backward, against the plain vjp
+     (autograd through ``ref.flash_attention_ref``) at (1, 4096, 40, 8,
+     128) bf16 and f32 causal (the cell's), (2, 64, 8, 2, 16) f32 causal
+     and full, (1, 1000, 40, 8, 128) bf16 causal, (1, 333, 8, 2, 64) bf16
+     full, (2, 97, 4, 2, 64) f32 causal and (1, 257, 4, 4, 128) f32 full:
+     every gradient within 1e-5 (f32) or 2e-2 (bf16) of its largest
+     magnitude, two runs bit-equal, the forward's log-sum-exp within 1e-5
+     of the plain one and its output bit-equal to the output without it,
+     a CUDA graph of a call holding the three kernels; timed cold and warm
+     at the cell's shape in both dtypes beside the plain vjp, the backward
+     of ``F.scaled_dot_product_attention(is_causal, enable_gqa)`` and the
+     bound; its instantiations' registers and spills (``cuobjdump``).
+     Kernel 6 on bf16 params and gradients (f32 moments) at one podded
+     layer of the cell (660.6 M elements): bit-equal to its plain version
+     before and after the first merge, timed beside it and its bound (26 B
+     an element);
+     (b) ``build_trainer("qwen3-14b", ...)`` at the published widths (d
+     5120, 40/8 heads, hd 128, d_ff 17408, vocab 151936, untied head,
+     bf16) under the launcher's k-step settings (n_pod 2, two_phase, lr
+     1e-3) with k 10, **cut from 40 layers to 2** (the trainer holds 16 B
+     a podded parameter: 2 layers are 70.9 GB) and **train_4k's batch 256
+     to 2** (one 4096-token sequence a pod, from ``lm_batches``): 20
+     ``train_step`` calls (merges at 10 and 20; steps 3-20 under the sync
+     debug mode "error"): finite losses, walls, tokens/s, peak memory,
+     launches (kernel 9 2 x layers x pods a step, 9b layers x pods, kernel
+     6 per local step, plain versions 0); one more step by part (CUDA
+     events) and under the profiler (kernels 9, 9b, 6, busy share); kernel
+     6 timed at the cell's 4.43e9 podded elements beside its bound;
+     (c) the first step's loss against the same weights widened to f32 on
+     the card (a CPU run at these widths would take minutes); smoke size
+     (f32), card vs CPU from one state, 4 steps with merge_delay 0 and 6
+     with merge_delay 1 (k 2, lr 1e-4): losses, parameters, m and v_hat
+     within rtol 1e-4, atol 1e-6.
 
 TF32 is off for matmuls and convolutions.  Prints the card (``nvidia-smi``
 name and power limit), a ``kernels`` JSON line, and as its last line
@@ -4468,6 +4503,571 @@ def phase_decode_agreement(device, params, cfg=None):
     _stamp(clock)
 
 
+# ------------------------------------------------ the LM's training (14)
+LM_TRAIN_LAYERS = 2        # qwen3-14b's 40 layers cut to 2 (PERF.md §4)
+LM_TRAIN_SEQ = 4096        # lm_shapes()["train_4k"]'s sequence
+LM_TRAIN_BATCH = 2         # train_4k's batch 256 cut to 2: 1 sequence a pod
+LM_TRAIN_STEPS = 20        # two merges at k 10
+LM_TRAIN_K = 10
+FLASH_BWD_KERNELS = ("flash_attention_bwd_delta_kernel",
+                     "flash_attention_bwd_kv_kernel",
+                     "flash_attention_bwd_q_kernel")
+# kernel 9b against the plain vjp: every gradient within this share of its
+# largest magnitude (f32: float32 sums in another order; bf16: one bf16
+# rounding of each gradient, and D from the bf16 output)
+FLASH_BWD_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+
+
+def _flash_bwd_times(q, k, v, dout, causal=True, iters=5):
+    """Kernel 9b's times (cold and warm L2), its plain vjp's, the backward
+    of ``F.scaled_dot_product_attention`` (timed only: the port never
+    calls it) and its bound at ``q, k, v``."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_backward_cuda, flash_attention_cuda)
+
+    B, S, H, hd = q.shape
+    dtype = str(q.dtype).split(".")[-1]
+    out, lse = flash_attention_cuda(q, k, v, causal, return_lse=True)
+    xs = [x.transpose(1, 2).detach().requires_grad_(True) for x in (q, k, v)]
+    lib_out = F.scaled_dot_product_attention(*xs, is_causal=causal,
+                                             enable_gqa=True)
+    g = dout.transpose(1, 2)
+
+    def library():
+        return torch.autograd.grad(lib_out, xs, g, retain_graph=True)
+
+    def kernel():
+        return flash_attention_backward_cuda(q, k, v, out, lse, dout, causal)
+
+    got, lib = kernel(), library()
+    for a, b in zip(got, lib):
+        b = b.transpose(1, 2)
+        if not torch.allclose(a.float(), b.float(), rtol=0.05,
+                              atol=0.05 * b.float().abs().max().item()):
+            raise AssertionError(f"flash_attention_backward {tuple(q.shape)} "
+                                 f"{dtype}: SDPA's backward and the kernel "
+                                 "differ")
+    del got, lib
+    elt = q.element_size()
+    nbytes = (4 * q.numel() + 4 * k.numel()) * elt + 4 * B * H * S
+    pairs = S * (S + 1) // 2 if causal else S * S
+    flops = 10 * B * H * hd * pairs           # five products of 2 hd a pair
+    bound_ms, bound_by = _bound(nbytes, flops, BF16_FLOP_PER_S
+                                if dtype == "bfloat16" else F32_FLOP_PER_S)
+    res = {
+        "shape": [B, S, H, k.shape[2], hd], "dtype": dtype,
+        "ms": _time_ms(kernel, iters=iters, warmup=1),
+        "ms_l2_warm": _time_ms(kernel, iters=iters, warmup=1, cold_l2=False),
+        "plain_ms": _time_ms(lambda: ref.flash_attention_backward_ref(
+            q, k, v, dout, causal), iters=2, warmup=1),
+        "library_ms": _time_ms(library, iters=iters, warmup=1),
+        "bound_ms": bound_ms, "bound_by": bound_by, "gflop": flops / 1e9,
+        "mb": nbytes / 1e6,
+    }
+    del lib_out, xs
+    return res
+
+
+def _flash_bwd_sass_report():
+    """Phase 14 (a): each instantiation of kernel 9b's dK/dV and dQ kernels
+    (``_sass_report``): "kv<T,HDP>", "q<T,HDP>"."""
+    import re
+
+    def short(mangled):
+        m = re.search(r"flash_attention_bwd_(kv|q)_kernelI(\w+?)Li(\d+)E",
+                      mangled)
+        if not m:
+            return None
+        t = "bf16" if "bfloat16" in m.group(2) else "f32"
+        return f"{m.group(1)}<{t},{m.group(3)}>"
+
+    report, usage = _sass_report(short)
+    want = sorted(f"{n}<{t},{w}>" for n in ("kv", "q") for t in ("bf16",
+                                                                 "f32")
+                  for w in (64, 128, 256))
+    if sorted(report) != want:
+        raise AssertionError(f"kernel 9b's instantiations: {sorted(report)}"
+                             f"; cuobjdump -res-usage began:\n"
+                             f"{usage[:3000]}")
+    _print_sass(report)
+    return report
+
+
+def phase_flash_backward(device):
+    """Phase 14 (a): kernel 9b against the plain vjp on the card, and
+    timed; returns its kernels-line entry (without ``launches``): the
+    cell's shape (1, 4096, 40, 8, 128) bf16, with the same in f32 under
+    ``float32``."""
+    import torch
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_backward_cuda, flash_attention_cuda)
+
+    gen = torch.Generator(device).manual_seed(59)
+    S = LM_TRAIN_SEQ
+    # (B, S, H, Kv, hd), dtype, causal, timed
+    cases = [((1, S, 40, 8, 128), torch.bfloat16, True, True),
+             ((1, S, 40, 8, 128), torch.float32, True, True),
+             ((2, 64, 8, 2, 16), torch.float32, True, False),
+             ((2, 64, 8, 2, 16), torch.float32, False, False),
+             ((1, 1000, 40, 8, 128), torch.bfloat16, True, False),
+             ((1, 333, 8, 2, 64), torch.bfloat16, False, False),
+             ((2, 97, 4, 2, 64), torch.float32, True, False),
+             ((1, 257, 4, 4, 128), torch.float32, False, False)]
+    print("phase 14 (a): flash_attention_backward (kernel 9b) against the "
+          "plain vjp (autograd through ref.flash_attention_ref); tolerance: "
+          "every gradient within 1e-5 (f32) or 2e-2 (bf16) of its largest "
+          "magnitude; the forward's log-sum-exp within atol = rtol = 1e-5 of "
+          "ref.flash_attention_lse_ref and its output bit-equal to the "
+          "output without it")
+    sass = _flash_bwd_sass_report()
+    max_err, max_err_bf16, times = 0.0, 0.0, []
+    for (B, Sq, H, Kv, hd), dtype, causal, timed in cases:
+        name = str(dtype).split(".")[-1]
+        q = torch.randn((B, Sq, H, hd), generator=gen, device=device).to(dtype)
+        k, v = [torch.randn((B, Sq, Kv, hd), generator=gen,
+                            device=device).to(dtype) for _ in range(2)]
+        dout = torch.randn(q.shape, generator=gen, device=device).to(dtype)
+        out, lse = flash_attention_cuda(q, k, v, causal, return_lse=True)
+        if not torch.equal(out, flash_attention_cuda(q, k, v, causal)):
+            raise AssertionError(f"flash_attention {(B, Sq, H, Kv, hd)} "
+                                 f"{name}: the output with the log-sum-exp "
+                                 "differs from the output without it")
+        lse_err = (lse - ref.flash_attention_lse_ref(q, k, causal)).abs()
+        if lse_err.max().item() > 1e-5 * (1 + lse.abs().max().item()):
+            raise AssertionError(f"flash_attention {(B, Sq, H, Kv, hd)} "
+                                 f"{name}: log-sum-exp off by "
+                                 f"{lse_err.max().item()}")
+        got = flash_attention_backward_cuda(q, k, v, out, lse, dout, causal)
+        again = flash_attention_backward_cuda(q, k, v, out, lse, dout,
+                                              causal)
+        torch.cuda.synchronize()
+        want = ref.flash_attention_backward_ref(q, k, v, dout, causal)
+        errs = []
+        for which, a, b, c in zip(("dq", "dk", "dv"), got, again, want):
+            scale = c.float().abs().max().item()
+            err = (a.float() - c.float()).abs().max().item()
+            errs.append(err / scale)
+            if (a.dtype != dtype or a.shape != c.shape
+                    or not torch.equal(a, b)
+                    or err > FLASH_BWD_TOL[name] * scale):
+                raise AssertionError(f"flash_attention_backward "
+                                     f"{(B, Sq, H, Kv, hd)} {name} causal "
+                                     f"{causal} {which}: max |kernel - "
+                                     f"plain| {err} of {scale}, or two runs "
+                                     "differ")
+            if dtype == torch.float32:
+                max_err = max(max_err, err)
+            else:
+                max_err_bf16 = max(max_err_bf16, err)
+        ran = _graph_kernels(lambda: flash_attention_backward_cuda(
+            q, k, v, out, lse, dout, causal), FLASH_BWD_KERNELS)
+        if ran != [1, 1, 1]:
+            raise AssertionError(f"kernel 9b's graph holds {ran} of "
+                                 f"{FLASH_BWD_KERNELS}")
+        print(f"  {(B, Sq, H, Kv, hd)} {name} causal {causal}: max |kernel "
+              f"- plain| / max |plain| dq {errs[0]:.3g}, dk {errs[1]:.3g}, "
+              f"dv {errs[2]:.3g}; log-sum-exp max |diff| "
+              f"{lse_err.max().item():.3g}; two runs bit-equal; its graph "
+              f"holds the three kernels")
+        del want, got, again, lse_err
+        if timed:
+            times.append(_flash_bwd_times(q, k, v, dout, causal))
+        del q, k, v, dout, out, lse
+        _release()
+    for t in times:
+        print(f"  times {tuple(t['shape'])} {t['dtype']} causal (ms): kernel "
+              f"{t['ms']:.4f} cold, {t['ms_l2_warm']:.4f} warm "
+              f"({t['gflop'] / t['ms']:.2f} TFLOP/s cold); plain vjp "
+              f"{t['plain_ms']:.4f}; library (SDPA's backward, is_causal, "
+              f"enable_gqa) {t['library_ms']:.4f}; bound {t['bound_ms']:.4f} "
+              f"({t['gflop']:.1f} GFLOP, {t['mb']:.1f} MB, {t['bound_by']})")
+    keys = ("shape", "dtype", "ms", "ms_l2_warm", "plain_ms", "bound_ms",
+            "bound_by", "library_ms")
+    return {
+        "name": "flash_attention_backward",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/models/transformer.py:183, :239 (XLA vjp "
+                    "of the training attention, no Pallas kernel)",
+        "launches": None,
+        "max_abs_err": max_err,
+        "max_abs_err_bf16": max_err_bf16,
+        "sass": sass,
+        **{k: times[0][k] for k in keys},
+        "float32": {k: times[1][k] for k in keys},
+    }
+
+
+def phase_adam_bf16(device):
+    """Phase 14 (a): kernel 6 on bfloat16 leaves (float32 moments) against
+    its plain version at one layer of the cell (the podded qwen3-14b layer
+    leaves, 2 x 330.3e6 elements), bit for bit, and timed; returns the
+    numbers."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.core.kstep import leaves, pod_replicate
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.fused_adam import AdamTable, fused_adam_cuda
+    from repro_torch.models import transformer as T
+
+    cfg = dataclasses.replace(configs.get("qwen3-14b").model_cfg, n_layers=1)
+    gen = torch.Generator(device).manual_seed(61)
+    P = leaves(pod_replicate(T.init_params(gen, cfg, device=device)[
+        "layers"], 2))
+    n = sum(x.numel() for x in P)
+
+    def like(scale, positive=False, dtype=torch.float32):
+        out = []
+        for x in P:
+            y = torch.randn(x.shape, generator=gen, device=device) * scale
+            out.append((y.abs_() + 1e-3 * scale if positive else y).to(dtype))
+        return out
+
+    leaves5 = (P, like(0.01, dtype=torch.bfloat16), like(0.01),
+               like(1e-4, True), like(1e-4, True))
+    print(f"phase 14 (a): fused_adam (kernel 6) on bfloat16 params and "
+          f"gradients with float32 moments, at one podded layer of the cell "
+          f"({len(P)} leaves, {n} elements): against its plain version")
+    for t in (3, 25):
+        kw = _adam_kwargs(t, device, True, False, 0.0, False, k=LM_TRAIN_K)
+        want = [[x.clone() for x in g] for g in leaves5[:1] + leaves5[2:4]]
+        ref.fused_adam_ref(want[0], leaves5[1], want[1], want[2],
+                           leaves5[4], **kw)
+        got = [[x.clone() for x in g] for g in leaves5[:1] + leaves5[2:4]]
+        fused_adam_cuda(got[0], leaves5[1], got[1], got[2], leaves5[4], **kw)
+        torch.cuda.synchronize()
+        for a_g, w_g in zip(got, want):
+            for a, b in zip(a_g, w_g):
+                if a.dtype != b.dtype or not torch.equal(a, b):
+                    raise AssertionError(f"fused_adam bf16 t={t}: kernel and "
+                                         "plain version differ")
+        del want, got
+    print("  before (t 3, v_local) and after the first merge (t 25, v_hat): "
+          "params (bf16), m and v_local bit-equal to the plain version")
+    kw = _adam_kwargs(25, device, True, False, 0.0, False, k=LM_TRAIN_K)
+    table = AdamTable()
+
+    def kernel():
+        return fused_adam_cuda(*leaves5, table=table, **kw)
+
+    ms = _time_ms(kernel, iters=10, warmup=2)
+    warm_ms = _time_ms(kernel, iters=10, warmup=2, cold_l2=False)
+    plain_ms = _time_ms(lambda: ref.fused_adam_ref(*leaves5, **kw), iters=3,
+                        warmup=1)
+    nbytes = 26 * n
+    bound_ms, bound_by = _bound(nbytes, 12 * n)
+    print(f"  times at one podded layer (ms): kernel {ms:.4f} cold, "
+          f"{warm_ms:.4f} warm; plain version {plain_ms:.4f}; bound "
+          f"{bound_ms:.4f} ({nbytes / 1e9:.2f} GB: 26 B an element, "
+          f"{bound_by})")
+    del leaves5, P
+    _release()
+    return {"layer_elements": n, "layer_ms": ms, "layer_ms_l2_warm": warm_ms,
+            "layer_plain_ms": plain_ms, "layer_bound_ms": bound_ms}
+
+
+def _lm_train_cfg():
+    import dataclasses
+
+    from repro_torch import configs
+
+    return dataclasses.replace(configs.get("qwen3-14b").model_cfg,
+                               n_layers=LM_TRAIN_LAYERS)
+
+
+def _f32_first_loss(device, cfg, batch):
+    """The mean over pods of ``loss_fn`` at the trainer's initial weights
+    (``build_trainer``'s seed 0), widened to float32, on the card (no
+    grad): the first step's loss as float32 computes it."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import tree_map
+    from repro_torch.models import transformer as T
+
+    params = T.init_params(torch.Generator(device).manual_seed(0), cfg,
+                           device=device)
+    params = tree_map(lambda t: t.float(), params)
+    c32 = dataclasses.replace(cfg, dtype=torch.float32)
+    toks = torch.from_numpy(batch["tokens"]).to(device)
+    labs = torch.from_numpy(batch["labels"]).to(device)
+    per = LM_TRAIN_BATCH // 2
+    with torch.no_grad():
+        losses = [T.loss_fn(params, {"tokens": toks[i * per:(i + 1) * per],
+                                     "labels": labs[i * per:(i + 1) * per]},
+                            c32).item() for i in range(2)]
+    del params
+    _release()
+    return float(np.mean(losses))
+
+
+def _lm_train_breakdown(tr, batch, cfg):
+    """Phase 14 (b): one more local step split into parts by CUDA events
+    (forward, backward, the local Adam step), a merge step's optimizer
+    part, and one pod's head + cross-entropy forward and backward alone;
+    then one step under the profiler: the device time of kernels 9, 9b and
+    6 and the busy share."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import transformer as T
+    from repro_torch.runtime.trainer import _stage_batch
+
+    def event():
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        return e
+
+    pb = tr.pod_batch(_stage_batch(batch, tr.params["embed"].device))
+    torch.cuda.synchronize()
+    e0 = event()
+    fwd = tr._forward(pb)
+    e1 = event()
+    tr._backward(*fwd)
+    e2 = event()
+    tr.opt.step(tr.params, tr.grads, tr.opt_state, merge=False)
+    e3 = event()
+    tr.opt.step(tr.params, tr.grads, tr.opt_state, merge=True)
+    e4 = event()
+    del fwd
+    # one pod's head + cross-entropy, forward and backward, alone
+    p0 = {k: v[0] for k, v in tr.params.items() if k != "layers"}
+    with torch.no_grad():
+        x, _ = T.trunk({**p0, "layers": {k: v[0] for k, v in
+                                         tr.params["layers"].items()}},
+                       pb["tokens"][0], cfg)
+    xc = x.detach().requires_grad_(True)
+    head = p0["head"].detach().requires_grad_(True)
+    torch.cuda.synchronize()
+    e5 = event()
+    T._chunk_ce(xc, head, pb["labels"][0]).backward()
+    e6 = event()
+    torch.cuda.synchronize()
+    parts = {"forward (2 pods)": e0.elapsed_time(e1),
+             "backward (2 pods, with the recompute)": e1.elapsed_time(e2),
+             "local Adam (kernel 6)": e2.elapsed_time(e3),
+             "merge step (optimizer part)": e3.elapsed_time(e4),
+             "head + cross-entropy fwd+bwd (1 pod, alone)":
+                 e5.elapsed_time(e6)}
+    del x, xc, head
+    _release()
+    groups = {"kernel 9 (flash_attention_mma_kernel)":
+                  ("flash_attention_mma_kernel",),
+              "kernel 9b (flash_attention_bwd_*)": FLASH_BWD_KERNELS,
+              "kernel 6 (fused_adam_kernel)": ("fused_adam_kernel",)}
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        tr.train_step(batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    by_group = {g: sum(e.self_device_time_total for e in kernels
+                       if any(n in e.key for n in names)) / 1e3
+                for g, names in groups.items()}
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
+    return parts, by_group, busy, wall_ms, top
+
+
+def phase_lm_train(device):
+    """Phase 14 (b) and (c) at full width: ``build_trainer`` of qwen3-14b
+    cut to 2 layers, 20 ``train_step`` calls (two merges), their launches,
+    walls, peak memory and parts; kernel 6 timed at the cell's leaves;
+    the first step's loss against float32 on the same weights.  Returns
+    the launch counts of the 20 steps and kernel 6's cell numbers."""
+    import torch
+
+    from repro_torch.core.kstep import KStepConfig, leaves
+    from repro_torch.data.synthetic import lm_batches
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.fused_adam import fused_adam_cuda
+    from repro_torch.runtime.factory import build_trainer
+    from repro_torch.runtime.trainer import TrainerConfig
+
+    cfg = _lm_train_cfg()
+    gen = lm_batches(seed=0, batch=LM_TRAIN_BATCH, seq_len=LM_TRAIN_SEQ,
+                     vocab=cfg.vocab)
+    t0 = time.perf_counter()
+    batches = [next(gen) for _ in range(LM_TRAIN_STEPS + 2)]
+    data_s = time.perf_counter() - t0
+    f32_loss = _f32_first_loss(device, cfg, batches[0])
+    t0 = time.perf_counter()
+    tr = build_trainer("qwen3-14b", TrainerConfig(
+        n_pod=2, kstep=KStepConfig(lr=1e-3, k=LM_TRAIN_K, merge="two_phase")),
+        model_cfg=cfg, device=device)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    n = sum(x.numel() for x in leaves(tr.params))
+    state_gb = torch.cuda.memory_allocated() / 1e9
+    print(f"phase 14 (b): qwen3-14b training at full width (d "
+          f"{cfg.d_model}, {cfg.n_heads} heads over {cfg.n_kv_heads} KV "
+          f"heads, hd {cfg.hd}, d_ff {cfg.d_ff}, vocab {cfg.vocab}, untied "
+          f"head, bf16), cut to {cfg.n_layers} of 40 layers and train_4k's "
+          f"batch 256 to {LM_TRAIN_BATCH} sequences of {LM_TRAIN_SEQ} "
+          f"tokens (one a pod); DenseTrainer, n_pod 2, two_phase, lr 1e-3, "
+          f"k {LM_TRAIN_K}: {n} podded parameters, {state_gb:.2f} GB "
+          f"allocated after the build ({build_s:.1f} s; batches from "
+          f"lm_batches in {data_s:.1f} s)")
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    losses, walls = [], []
+    for i, b in enumerate(batches[:LM_TRAIN_STEPS]):
+        t0 = time.perf_counter()
+        if i >= 2:          # the first two build and warm up, then no sync
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            loss = tr.train_step(b)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        losses.append(loss.item())
+    launches = dict(ops.launches)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    L, P_ = cfg.n_layers, 2
+    want = dict.fromkeys(launches, 0)
+    want["flash_attention"] = 2 * LM_TRAIN_STEPS * L * P_
+    want["flash_attention_backward"] = LM_TRAIN_STEPS * L * P_
+    want["fused_adam"] = LM_TRAIN_STEPS - LM_TRAIN_STEPS // LM_TRAIN_K
+    if launches != want:
+        raise AssertionError(f"launches {launches}, expected {want}")
+    if not all(np.isfinite(losses)) or int(tr.opt_state.step) != \
+            LM_TRAIN_STEPS:
+        raise AssertionError(f"losses {losses}, step "
+                             f"{int(tr.opt_state.step)}")
+    rel = abs(losses[0] - f32_loss) / abs(f32_loss)
+    steady = float(np.mean(walls[2:]))
+    merge_walls = [walls[i] for i in range(LM_TRAIN_K - 1, LM_TRAIN_STEPS,
+                                           LM_TRAIN_K)]
+    tokens = LM_TRAIN_BATCH * LM_TRAIN_SEQ
+    print(f"  {LM_TRAIN_STEPS} train_step calls, merges at steps "
+          f"{LM_TRAIN_K} and {2 * LM_TRAIN_K}: losses "
+          f"{', '.join(f'{x:.4f}' for x in losses)} (finite); walls (s) "
+          f"{', '.join(f'{w:.4f}' for w in walls)}; steps 3-{LM_TRAIN_STEPS} mean "
+          f"{steady:.4f} s, {tokens / steady:.1f} tokens/s; merge steps "
+          f"{', '.join(f'{w:.4f}' for w in merge_walls)} s; peak memory "
+          f"{peak_gb:.2f} GB; steps 3-{LM_TRAIN_STEPS} ran under the sync "
+          f"debug mode "
+          f"'error'")
+    print(f"  launches in the {LM_TRAIN_STEPS} steps: flash_attention "
+          f"{launches['flash_attention']} (= 2 x {L} layers x {P_} pods x "
+          f"{LM_TRAIN_STEPS}: the forward and the "
+          f"checkpoint's recompute), flash_attention_backward "
+          f"{launches['flash_attention_backward']} (= {L} x {P_} x "
+          f"{LM_TRAIN_STEPS}), "
+          f"fused_adam {launches['fused_adam']} (the local steps); every "
+          f"plain version 0")
+    print(f"  phase 14 (c): the first step's loss {losses[0]:.6f} against "
+          f"{f32_loss:.6f} from the same weights widened to float32 on the "
+          f"card (no grad): relative difference {rel:.3g} (bf16 against "
+          f"float32 through {L} layers; required below 1e-2).  A CPU run of "
+          f"the port at these widths (1 layer, f32) is not made: one step "
+          f"is ~4.6e13 float32 operations, minutes on 8 CPU cores")
+    if rel > 1e-2:
+        raise AssertionError("the first step's loss is off the float32 one")
+    parts, by_group, busy, wall_ms, top = _lm_train_breakdown(
+        tr, batches[LM_TRAIN_STEPS], cfg)
+    print("  one more step by part (stream ms, CUDA events): " + "; ".join(
+        f"{k} {v:.3f}" for k, v in parts.items()))
+    print(f"  one more step under the profiler: wall {wall_ms:.3f} ms, "
+          f"device busy {busy:.3f} ms (share {busy / wall_ms:.3f}, profiler "
+          f"on); " + "; ".join(f"{k} {v:.3f} ms" for k, v in
+                               by_group.items())
+          + "; top kernels (ms): " + "; ".join(
+              f"{e.key[:48]} {e.self_device_time_total / 1e3:.3f}"
+              for e in top))
+    # kernel 6 at the cell's leaves: the trainer's own (the run is over)
+    P, M = leaves(tr.params), leaves(tr.opt_state.m)
+    VL, VH = leaves(tr.opt_state.v_local), leaves(tr.opt_state.v_hat)
+    G = leaves(tr.grads)
+    kw = _adam_kwargs(25, device, True, False, 0.0, False, k=LM_TRAIN_K)
+
+    def kernel():
+        return fused_adam_cuda(P, G, M, VL, VH, table=tr.opt._adam_table,
+                               **kw)
+
+    ms = _time_ms(kernel, iters=5, warmup=1)
+    warm_ms = _time_ms(kernel, iters=5, warmup=1, cold_l2=False)
+    bound_ms, bound_by = _bound(26 * n, 12 * n)
+    print(f"  kernel 6 at the cell's {len(P)} podded leaves ({n} elements, "
+          f"bf16 params and gradients): {ms:.4f} ms cold, {warm_ms:.4f} "
+          f"warm; bound {bound_ms:.4f} ({26 * n / 1e9:.1f} GB, {bound_by})")
+    del tr, P, M, VL, VH, G
+    _release()
+    return launches, {"cell_elements": n, "cell_ms": ms,
+                      "cell_ms_l2_warm": warm_ms, "cell_bound_ms": bound_ms,
+                      "train_step_s": steady, "tokens_per_s": tokens / steady,
+                      "peak_gb": peak_gb}
+
+
+def phase_lm_train_smoke(device):
+    """Phase 14 (b) and (c) at smoke size (qwen3-14b's smoke config,
+    float32, from one state drawn on the CPU), card against CPU: 4 steps,
+    n_pod 2, k 2, lr 1e-4 (two merges), and 6 steps with merge_delay 1;
+    losses each step and the final parameters and moments within phase
+    6's tolerance (rtol 1e-4, atol 1e-6)."""
+    import torch
+
+    from repro_torch import configs, tree_map
+    from repro_torch.core.kstep import KStepConfig, leaves
+    from repro_torch.data.synthetic import lm_batches
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+    from repro_torch.runtime.trainer import DenseTrainer, TrainerConfig
+
+    cfg = configs.get("qwen3-14b").smoke_cfg
+    state = T.init_params(torch.Generator("cpu").manual_seed(5), cfg,
+                          device="cpu")
+    for delay, steps in ((0, 4), (1, 6)):
+        tcfg = TrainerConfig(n_pod=2, kstep=KStepConfig(lr=1e-4, k=2),
+                             merge_delay=delay)
+        trs = [DenseTrainer(lambda p, b: T.loss_fn(p, b, cfg),
+                            tree_map(lambda t: t.clone().to(d), state), tcfg,
+                            device=d) for d in (device, "cpu")]
+        gen = lm_batches(seed=1, batch=4, seq_len=128, vocab=cfg.vocab)
+        ops.reset_launches()
+        worst = 0.0
+        for _ in range(steps):
+            b = next(gen)
+            got, want = (tr.train_step(b).item() for tr in trs)
+            worst = max(worst, abs(got - want) / abs(want))
+            if not np.isfinite(got) or not np.isclose(got, want, rtol=1e-4,
+                                                      atol=1e-6):
+                raise AssertionError(f"merge_delay {delay}: card loss {got}"
+                                     f", CPU {want}")
+        n = steps * 2 * cfg.n_layers
+        if (ops.launches["flash_attention"] != 2 * n
+                or ops.launches["flash_attention_backward"] != n):
+            raise AssertionError(f"launches {ops.launches}")
+        for a, b in zip(leaves(trs[0].params) + leaves(trs[0].opt_state.m)
+                        + leaves(trs[0].opt_state.v_hat),
+                        leaves(trs[1].params) + leaves(trs[1].opt_state.m)
+                        + leaves(trs[1].opt_state.v_hat)):
+            np.testing.assert_allclose(a.cpu().numpy(), b.numpy(),
+                                       rtol=1e-4, atol=1e-6)
+        print(f"phase 14 (c): {cfg.name} smoke (f32), n_pod 2, k 2, lr 1e-4, "
+              f"merge_delay {delay}, {steps} steps on the card and on the CPU "
+              f"from one state: losses (largest relative difference "
+              f"{worst:.3g}), parameters, m and v_hat within rtol 1e-4, atol "
+              f"1e-6; on the card kernel 9 {ops.launches['flash_attention']}"
+              f" and 9b {ops.launches['flash_attention_backward']} launches")
+        del trs
+    _release()
+
+
 def main() -> int:
     import torch
 
@@ -4535,8 +5135,17 @@ def main() -> int:
     del params
     _release()
     print(f"phase 13 took {time.perf_counter() - t13:.1f} s")
+    t14 = time.perf_counter()
+    flash_bwd = phase_flash_backward(device)
+    adam["bf16"] = phase_adam_bf16(device)
+    launches, cell = phase_lm_train(device)
+    flash_bwd["launches"] = launches["flash_attention_backward"]
+    flash["launches_train"] = launches["flash_attention"]
+    adam["bf16"].update(cell, launches=launches["fused_adam"])
+    phase_lm_train_smoke(device)
+    print(f"phase 14 took {time.perf_counter() - t14:.1f} s")
     print(json.dumps({"kernels": [bag, backward, push] + cache_entries
-                      + [staged, adam, dot, dot_bwd, flash]}))
+                      + [staged, adam, dot, dot_bwd, flash, flash_bwd]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

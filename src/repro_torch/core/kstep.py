@@ -19,8 +19,10 @@ are that tensor dimension and a merge is a pod-dim mean
 same objects.  A local step is one pass over every leaf,
 ``kernels.ops.fused_adam`` (on the card one CUDA kernel launch, with no host
 sync and no host-to-device copy); a merge step stays PyTorch ops around the
-pod mean.  The delayed-merge methods come with ``DenseTrainer``
-(ROADMAP.md queue A10).
+pod mean, one leaf at a time (a leaf above ``MERGE_SLAB`` elements in
+slices of its non-pod dims under the element-wise schedules), each written
+back in place before the next.  ``delayed_merge_collective``, ``snapshot``
+and ``apply_delayed_merge`` are ``DenseTrainer``'s delayed merge.
 """
 
 from __future__ import annotations
@@ -180,48 +182,108 @@ class KStepAdam:
             state.step.copy_(t)
             return params, state
 
-        # moment updates (Algorithm 2 lines 5-6), always local
-        m_new = [cfg.b1 * mm + (1.0 - cfg.b1) * g.to(torch.float32)
-                 for mm, g in zip(M, G)]
-        vl_new = [cfg.b2 * vv + (1.0 - cfg.b2) * torch.square(
-            g.to(torch.float32)) for vv, g in zip(VL, G)]
-
-        def adam_delta(mm, vh, p):
-            if mhat_s is not None:
-                mm = mm * mhat_s
-            if vhat_s is not None:
-                vh = vh * vhat_s
-            d = lr * mm / torch.sqrt(vh)
-            if cfg.weight_decay > 0.0:
-                d = d + lr * cfg.weight_decay * p.to(torch.float32)
-            return d
-
-        # v_hat <- mean_i v_local (line 12); the v payload rides the merge
-        # schedule but is never lossy (positivity must hold)
-        new_vh = (self._mean(vl_new, allow_lossy=False) if cfg.merge_v
-                  else VH)
-        # x_i - lr * m_i / sqrt(v_hat_new), then the pod average (line 13)
-        local_x = [p.to(torch.float32) - adam_delta(mm, vh, p)
-                   for p, mm, vh in zip(P, m_new, new_vh)]
-        new_ef = None
-        if cfg.merge == "int8_ef":
-            merged, new_ef = merge_lib.int8_ef_mean(local_x,
-                                                    leaves(state.ef))
-        else:
-            merged = self._mean(local_x, allow_lossy=True)
-        new_p = [mx.to(p.dtype) for p, mx in zip(P, merged)]
-
-        for dst, src in zip(P, new_p):
-            dst.copy_(src)
-        for dst, src in zip(M, m_new):
-            dst.copy_(src)
-        for dst, src in zip(VL, vl_new):
-            dst.copy_(src)
-        if cfg.merge_v:
-            for dst, src in zip(VH, new_vh):
-                dst.copy_(src)
-        if new_ef is not None:
-            for dst, src in zip(leaves(state.ef), new_ef):
-                dst.copy_(src)
+        # the merge step (lines 5-6, 12-13), one leaf at a time, each
+        # written back in place before the next: the transient is one
+        # leaf's (one slab's) float32 state, not the whole tree's
+        ef = leaves(state.ef) if state.ef is not None else [None] * len(P)
+        for p, g, mm, vl, vh, e in zip(P, G, M, VL, VH, ef):
+            for sl in self._slabs(p):
+                self._merge_leaf(
+                    *(None if x is None else _slab(x, sl)
+                      for x in (p, g, mm, vl, vh, e)),
+                    lr=lr, mhat_s=mhat_s, vhat_s=vhat_s)
         state.step.copy_(t)
         return params, state
+
+    def _slabs(self, p: torch.Tensor) -> list:
+        """The column ranges of ``p``'s ``(n_pod, -1)`` view that one merge
+        pass takes: the whole leaf for ``int8_ef`` (its scale is a max over
+        the leaf) and for a leaf of at most ``MERGE_SLAB`` elements, else
+        slices of at most ``MERGE_SLAB`` elements.  The element-wise
+        schedules give every element the same bits either way."""
+        if self.cfg.merge == "int8_ef" or p.numel() <= MERGE_SLAB:
+            return [None]
+        width, step = p[0].numel(), MERGE_SLAB // self.n_pod
+        return [(c, min(c + step, width)) for c in range(0, width, step)]
+
+    def _merge_leaf(self, p, g, mm, vl, vh, ef, *, lr, mhat_s, vhat_s):
+        """The merge step on one leaf (or a slab of one), in place."""
+        cfg = self.cfg
+        g32 = g.to(torch.float32)
+        # moment updates (Algorithm 2 lines 5-6), always local
+        m_new = cfg.b1 * mm + (1.0 - cfg.b1) * g32
+        vl_new = cfg.b2 * vl + (1.0 - cfg.b2) * torch.square(g32)
+        del g32
+        # v_hat <- mean_i v_local (line 12); the v payload rides the merge
+        # schedule but is never lossy (positivity must hold)
+        new_vh = (self._mean([vl_new], allow_lossy=False)[0] if cfg.merge_v
+                  else vh)
+        # x_i - lr * m_i / sqrt(v_hat_new), then the pod average (line 13)
+        mu = m_new if mhat_s is None else m_new * mhat_s
+        vu = new_vh if vhat_s is None else new_vh * vhat_s
+        d = lr * mu / torch.sqrt(vu)
+        del mu, vu
+        if cfg.weight_decay > 0.0:
+            d = d + lr * cfg.weight_decay * p.to(torch.float32)
+        local_x = p.to(torch.float32) - d
+        del d
+        if cfg.merge == "int8_ef":
+            (merged,), (new_ef,) = merge_lib.int8_ef_mean([local_x], [ef])
+            ef.copy_(new_ef)
+        else:
+            merged = self._mean([local_x], allow_lossy=True)[0]
+        del local_x
+        p.copy_(merged.to(p.dtype))
+        mm.copy_(m_new)
+        vl.copy_(vl_new)
+        if cfg.merge_v:
+            vh.copy_(new_vh)
+
+    # ----------------------------------------------------- delayed merging
+    @torch.no_grad()
+    def delayed_merge_collective(self, params: Tree, state: KStepAdamState):
+        """The cross-pod collective of a DELAYED merge.  Returns
+        ``(merged, state)``: the pod average of the current params (applied
+        ``merge_delay`` boundaries later by ``apply_delayed_merge``) and the
+        state with the line-12 refresh ``v_hat <- mean_i v_local`` done in
+        place now, so the local denominators stay fresh while the average
+        is in flight."""
+        merged = tree_map(lambda p: self._mean([p], allow_lossy=True)[0],
+                          params)
+        if self.cfg.merge_v:
+            for vl, vh in zip(leaves(state.v_local), leaves(state.v_hat)):
+                vh.copy_(self._mean([vl], allow_lossy=False)[0])
+        return merged, state
+
+    @staticmethod
+    def snapshot(params: Tree) -> Tree:
+        """The params at a merge boundary, copied (the live ones go on
+        being updated in place)."""
+        return tree_map(lambda x: x.detach().clone(), params)
+
+    @staticmethod
+    @torch.no_grad()
+    def apply_delayed_merge(params_now: Tree, snapshot: Tree,
+                            merged: Tree) -> Tree:
+        """The late merge, in place: ``x <- merged + (x_now - x_snapshot)``
+        in float32, cast back, keeping the local drift since the snapshot;
+        returns ``params_now``."""
+        for p, s, m in zip(leaves(params_now), leaves(snapshot),
+                           leaves(merged)):
+            p.copy_((m.to(torch.float32) + (p.to(torch.float32)
+                                             - s.to(torch.float32)))
+                    .to(p.dtype))
+        return params_now
+
+
+# Elements of the podded slice one merge pass over an element-wise schedule
+# takes at a time: its float32 transient is a few of these (~1.3 GB).
+MERGE_SLAB = 1 << 26
+
+
+def _slab(x: torch.Tensor, cols) -> torch.Tensor:
+    """Columns ``cols = (c0, c1)`` of ``x``'s ``(n_pod, -1)`` view (a view
+    of ``x``), or ``x`` itself for ``None``."""
+    if cols is None:
+        return x
+    return x.reshape(x.shape[0], -1)[:, cols[0]:cols[1]]

@@ -10,9 +10,9 @@ All generators are numpy-side (host pipeline territory) and deterministic in
 their seed; different worker shards draw i.i.d. slices (paper §2.3: "the
 streamed data for different nodes are in an i.i.d. distribution").
 
-A copy of ``repro/data/synthetic.py``'s CTR and DLRM streams: the same seed
-gives byte-identical batches, so the port and the reference see the same
-inputs.  ``recsys_batches`` picks the stream for a model config; the other
+A copy of ``repro/data/synthetic.py``'s CTR, DLRM and LM streams: the
+same seed gives byte-identical batches, so the port and the reference see
+the same inputs.  ``recsys_batches`` picks the stream for a model config; the other
 recsys archs' streams come with their slice (ROADMAP.md queue A9).
 """
 
@@ -108,3 +108,25 @@ def recsys_batches(
     raise NotImplementedError(
         f"recsys_batches: {type(model_cfg).__name__} is not ported yet "
         "(ROADMAP.md queue A9, the other recsys archs)")
+
+
+# -------------------------------------------------------------------- LM
+def lm_batches(
+    seed: int, batch: int, seq_len: int, vocab: int, worker: int = 0,
+) -> Iterator[Dict[str, np.ndarray]]:
+    """Learnable token stream: affine-recurrence sequences (next token is a
+    deterministic function of the previous) with random starts + noise."""
+    rng = np.random.default_rng(seed + worker * 1_000_003)
+    a, c = 31, 17
+    while True:
+        start = rng.integers(0, vocab, (batch, 1))
+        toks = np.zeros((batch, seq_len + 1), np.int64)
+        toks[:, 0] = start[:, 0]
+        for t in range(seq_len):
+            nxt = (toks[:, t] * a + c) % vocab
+            noise = rng.random(batch) < 0.05
+            toks[:, t + 1] = np.where(noise, rng.integers(0, vocab, batch), nxt)
+        yield {
+            "tokens": toks[:, :-1].astype(np.int32),
+            "labels": toks[:, 1:].astype(np.int32),
+        }

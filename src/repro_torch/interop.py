@@ -10,7 +10,9 @@ into ``HybridTrainer(..., state=...)``.  Under the DiskStore,
 store's pages, so both packages start from one state on disk.  The LM's
 parameter tree goes through ``lm_from_reference`` and its KV cache through
 ``lm_cache_from_reference`` (``lm_cache_to_reference`` is the inverse, for
-comparisons).  This module reads numpy only.
+comparisons); a reference ``DenseTrainer``'s podded parameters and k-step
+Adam state through ``dense_trainer_from_reference``.  This module reads
+numpy only.
 """
 
 from __future__ import annotations
@@ -147,3 +149,29 @@ def lm_cache_to_reference(cache) -> Dict[str, np.ndarray]:
     for n in ("pos", "t"):
         out[n] = cache[n].detach().cpu().numpy().astype(np.int32)
     return out
+
+
+def dense_trainer_from_reference(params_np, opt_state_np, loss_fn, cfg,
+                                 device="cuda"):
+    """A port ``DenseTrainer`` in the state of a reference one: its podded
+    parameters (``jax.device_get(tr.params)``, every leaf with the leading
+    pod dimension; bfloat16 leaves bit for bit) and its ``KStepAdamState``
+    (``jax.device_get(tr.opt_state)``, or a dict of its fields ``step``,
+    ``m``, ``v_local``, ``v_hat``, ``ef``), on ``device``.  ``loss_fn`` and
+    ``cfg`` (a ``runtime.trainer.TrainerConfig``) as for ``DenseTrainer``;
+    the trainer's step count is the state's."""
+    from repro_torch.runtime.trainer import DenseTrainer
+
+    device = resolve_device(device)
+    conv = lambda x: _leaf_from_numpy(x, device)      # noqa: E731
+    fields = _fields(opt_state_np)
+    opt_state = KStepAdamState(
+        step=torch.tensor(int(np.asarray(fields["step"])), dtype=torch.int32,
+                          device=device),
+        m=tree_map(conv, fields["m"]),
+        v_local=tree_map(conv, fields["v_local"]),
+        v_hat=tree_map(conv, fields["v_hat"]),
+        ef=(None if fields.get("ef") is None
+            else tree_map(conv, fields["ef"])))
+    return DenseTrainer(loss_fn, tree_map(conv, params_np), cfg,
+                        opt_state=opt_state, podded=True, device=device)

@@ -54,9 +54,15 @@ void launch_dot_interaction_backward(const void* g, const void* feats,
                                      void* out, int64_t B, int F, int D,
                                      bool bf16, cudaStream_t stream);
 cudaError_t launch_flash_attention(const void* q, const void* k,
-                                   const void* v, void* o, int64_t B, int S,
-                                   int H, int Kv, int hd, bool causal,
-                                   bool bf16, cudaStream_t stream);
+                                   const void* v, void* o, float* lse,
+                                   int64_t B, int S, int H, int Kv, int hd,
+                                   bool causal, bool bf16,
+                                   cudaStream_t stream);
+cudaError_t launch_flash_attention_backward(
+    const void* q, const void* k, const void* v, const void* o,
+    const void* dout, const float* lse, float* delta, void* dq, void* dk,
+    void* dv, int64_t B, int S, int H, int Kv, int hd, bool causal, bool bf16,
+    cudaStream_t stream);
 int flash_attention_max_head_dim();
 cudaError_t launch_hash_lookup(const int32_t* key_tab,
                                const int32_t* slot_tab, int64_t n_buckets,
@@ -468,11 +474,12 @@ void dot_interaction_backward(const torch::Tensor& g,
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
-// out (B, S, H, hd) = softmax(q k^T / sqrt(hd) + mask) v with KV head
-// h / (H / Kv) for q head h, causal or full (csrc/flash_attention.cu).
-void flash_attention(const torch::Tensor& q, const torch::Tensor& k,
-                     const torch::Tensor& v, const torch::Tensor& out,
-                     bool causal) {
+// The shapes, dtype and alignment both directions of kernel 9 take: q and
+// out (B, S, H, hd), k and v (B, S, Kv, hd); returns (B, S, H, Kv, hd).
+std::vector<int64_t> check_attention(const torch::Tensor& q,
+                                     const torch::Tensor& k,
+                                     const torch::Tensor& v,
+                                     const torch::Tensor& out) {
   const auto dtype = q.scalar_type();
   TORCH_CHECK(dtype == torch::kFloat32 || dtype == torch::kBFloat16,
               "q must be float32 or bfloat16, got ", dtype);
@@ -496,12 +503,68 @@ void flash_attention(const torch::Tensor& q, const torch::Tensor& k,
   for (const torch::Tensor* t : {&q, &k, &v, &out})
     TORCH_CHECK(reinterpret_cast<uintptr_t>(t->data_ptr()) % 16 == 0,
                 "q, k, v and out must be 16-byte aligned");
-  if (B * S == 0) return;
+  return {B, S, H, Kv, hd};
+}
+
+// the (B, H, S) float32 row statistics of kernel 9 (lse, D)
+void check_rows(const torch::Tensor& t, const char* name,
+                const torch::Tensor& q) {
+  check_cuda(t, name, torch::kFloat32, 3, q);
+  TORCH_CHECK(t.size(0) == q.size(0) && t.size(1) == q.size(2) &&
+              t.size(2) == q.size(1), name, " must be (B, H, S)");
+}
+
+// out (B, S, H, hd) = softmax(q k^T / sqrt(hd) + mask) v with KV head
+// h / (H / Kv) for q head h, causal or full (csrc/flash_attention.cu);
+// with lse (B, H, S) float32 also each row's log-sum-exp.
+void flash_attention(const torch::Tensor& q, const torch::Tensor& k,
+                     const torch::Tensor& v, const torch::Tensor& out,
+                     bool causal, const c10::optional<torch::Tensor>& lse) {
+  const auto d = check_attention(q, k, v, out);
+  if (lse.has_value()) check_rows(*lse, "lse", q);
+  if (d[0] * d[1] == 0) return;
   const c10::cuda::CUDAGuard guard(q.device());
   C10_CUDA_CHECK(launch_flash_attention(
-      q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B,
-      static_cast<int>(S), static_cast<int>(H), static_cast<int>(Kv),
-      static_cast<int>(hd), causal, dtype == torch::kBFloat16,
+      q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+      lse.has_value() ? lse->data_ptr<float>() : nullptr, d[0],
+      static_cast<int>(d[1]), static_cast<int>(d[2]), static_cast<int>(d[3]),
+      static_cast<int>(d[4]), causal, q.scalar_type() == torch::kBFloat16,
+      c10::cuda::getCurrentCUDAStream().stream()));
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
+// kernel 9b: dq, dk, dv of the attention whose forward gave out and lse,
+// given dout; delta a (B, H, S) float32 scratch (csrc/flash_attention.cu).
+void flash_attention_backward(const torch::Tensor& q, const torch::Tensor& k,
+                              const torch::Tensor& v, const torch::Tensor& out,
+                              const torch::Tensor& dout,
+                              const torch::Tensor& lse,
+                              const torch::Tensor& delta,
+                              const torch::Tensor& dq,
+                              const torch::Tensor& dk,
+                              const torch::Tensor& dv, bool causal) {
+  const auto d = check_attention(q, k, v, out);
+  const auto dtype = q.scalar_type();
+  check_cuda(dout, "dout", dtype, 4, q);
+  check_cuda(dq, "dq", dtype, 4, q);
+  check_cuda(dk, "dk", dtype, 4, q);
+  check_cuda(dv, "dv", dtype, 4, q);
+  TORCH_CHECK(dout.sizes() == q.sizes() && dq.sizes() == q.sizes() &&
+              dk.sizes() == k.sizes() && dv.sizes() == k.sizes(),
+              "dout and dq must have q's shape, dk and dv k's");
+  for (const torch::Tensor* t : {&dout, &dq, &dk, &dv})
+    TORCH_CHECK(reinterpret_cast<uintptr_t>(t->data_ptr()) % 16 == 0,
+                "dout, dq, dk and dv must be 16-byte aligned");
+  check_rows(lse, "lse", q);
+  check_rows(delta, "delta", q);
+  if (d[0] * d[1] == 0) return;
+  const c10::cuda::CUDAGuard guard(q.device());
+  C10_CUDA_CHECK(launch_flash_attention_backward(
+      q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+      dout.data_ptr(), lse.data_ptr<float>(), delta.data_ptr<float>(),
+      dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), d[0],
+      static_cast<int>(d[1]), static_cast<int>(d[2]), static_cast<int>(d[3]),
+      static_cast<int>(d[4]), causal, dtype == torch::kBFloat16,
       c10::cuda::getCurrentCUDAStream().stream()));
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
@@ -534,9 +597,10 @@ const float* optional_scalar(const c10::optional<torch::Tensor>& t,
 }
 
 // The k-step local Adam step over every leaf, in place (csrc/fused_adam.cu).
-// `table` is the (L, 5) int64 CPU table of (p, m, v_local, v_hat, numel)
-// that kernels/fused_adam.py builds once per set of leaves (it checks
-// them); `grads` are this step's gradients, one per row of the table.
+// `table` is the (L, 6) int64 CPU table of (p, m, v_local, v_hat, numel,
+// p is bfloat16) that kernels/fused_adam.py builds once per set of leaves
+// (it checks them); `grads` are this step's gradients, one per row of the
+// table, each in its parameter's dtype.
 void fused_adam(const torch::Tensor& table,
                 const std::vector<torch::Tensor>& grads,
                 const torch::Tensor& t,
@@ -545,8 +609,8 @@ void fused_adam(const torch::Tensor& table,
                 const c10::optional<torch::Tensor>& vhat, double b1,
                 double b2, double weight_decay, int64_t k, bool warmup) {
   TORCH_CHECK(table.device().is_cpu() && table.scalar_type() == torch::kInt64
-              && table.dim() == 2 && table.size(1) == 5 &&
-              table.is_contiguous(), "table must be a contiguous (L, 5) int64 "
+              && table.dim() == 2 && table.size(1) == 6 &&
+              table.is_contiguous(), "table must be a contiguous (L, 6) int64 "
               "CPU tensor");
   const int64_t leaves = table.size(0);
   TORCH_CHECK(static_cast<int64_t>(grads.size()) == leaves, "got ",
@@ -576,17 +640,19 @@ void fused_adam(const torch::Tensor& table,
     a.count = static_cast<int>(std::min<int64_t>(kMaxLeaves, leaves - first));
     a.block_start[0] = 0;
     for (int j = 0; j < a.count; ++j) {
-      const int64_t* r = rows + (first + j) * 5;
+      const int64_t* r = rows + (first + j) * 6;
       const torch::Tensor& g = grads[first + j];
-      check_cuda(g, "grad", torch::kFloat32, g.dim(), t);
+      check_cuda(g, "grad", r[5] ? torch::kBFloat16 : torch::kFloat32,
+                 g.dim(), t);
       TORCH_CHECK(g.numel() == r[4], "gradient ", first + j, " has ",
                   g.numel(), " elements, its leaf ", r[4]);
-      a.p[j] = reinterpret_cast<float*>(r[0]);
+      a.p[j] = reinterpret_cast<void*>(r[0]);
       a.m[j] = reinterpret_cast<float*>(r[1]);
       a.v[j] = reinterpret_cast<float*>(r[2]);
       a.vh[j] = reinterpret_cast<const float*>(r[3]);
-      a.g[j] = g.data_ptr<float>();
+      a.g[j] = g.data_ptr();
       a.n[j] = r[4];
+      a.bf16[j] = r[5] != 0;
       a.block_start[j + 1] = a.block_start[j] + fused_adam_blocks(r[4]);
     }
     if (a.block_start[a.count] == 0) continue;
@@ -647,8 +713,15 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
         py::arg("out"));
   m.def("flash_attention", &flash_attention,
         "Causal or full GQA softmax attention with the online-softmax "
-        "recurrence, forward (CUDA)", py::arg("q"), py::arg("k"),
-        py::arg("v"), py::arg("out"), py::arg("causal"));
+        "recurrence, forward, optionally with the rows' log-sum-exp (CUDA)",
+        py::arg("q"), py::arg("k"), py::arg("v"), py::arg("out"),
+        py::arg("causal"), py::arg("lse") = py::none());
+  m.def("flash_attention_backward", &flash_attention_backward,
+        "Causal or full GQA softmax attention's backward: dq, dk, dv from "
+        "the forward's output and log-sum-exp (CUDA)", py::arg("q"),
+        py::arg("k"), py::arg("v"), py::arg("out"), py::arg("dout"),
+        py::arg("lse"), py::arg("delta"), py::arg("dq"), py::arg("dk"),
+        py::arg("dv"), py::arg("causal"));
   m.def("hash_lookup", &hash_lookup,
         "Batch linear probe of the cache's id -> slot hash map (CUDA)",
         py::arg("key_tab"), py::arg("slot_tab"), py::arg("slot_uid"),

@@ -140,8 +140,9 @@ constexpr size_t smem_bytes() {
 template <typename T, int HDP>
 __global__ void __launch_bounds__(kThreads, HDP <= 128 ? 2 : 1)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ o, int S,
-                       int H, int Kv, int hd, float scale, bool causal) {
+                       const T* __restrict__ v, T* __restrict__ o,
+                       float* __restrict__ lse, int S, int H, int Kv, int hd,
+                       float scale, bool causal) {
   constexpr int kStride = HDP + 4;   // floats a staged row takes
   constexpr int kVecs = HDP / 4;     // float4s a staged row holds
   constexpr int kOut = HDP / 16;     // output columns a thread owns
@@ -302,12 +303,16 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
   }
 
-  // ---- out = acc / max(l, 1e-30), cast once
+  // ---- out = acc / max(l, 1e-30), cast once; the row's log-sum-exp
+  // m + log(max(l, 1e-30)) when asked for (m and l are the row's, in each
+  // of its 16 threads)
 #pragma unroll
   for (int i = 0; i < kRows; ++i) {
     const int r = q0 + ty + 16 * i;
     if (r >= S) continue;
     const float den = fmaxf(l[i], 1e-30f);
+    if (lse != nullptr && tx == 0)
+      lse[(b * H + h) * static_cast<int64_t>(S) + r] = m[i] + logf(den);
 #pragma unroll
     for (int c = 0; c < kOut / 4; ++c) {
       const int col = tx * 4 + 64 * c;
@@ -321,8 +326,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T, int HDP>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   int64_t B, int S, int H, int Kv, int hd, bool causal,
-                   cudaStream_t stream) {
+                   float* lse, int64_t B, int S, int H, int Kv, int hd,
+                   bool causal, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<HDP>();
   const cudaError_t err = cudaFuncSetAttribute(
       flash_attention_kernel<T, HDP>,
@@ -332,20 +337,20 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   const float scale = static_cast<float>(1.0 / std::sqrt(static_cast<double>(hd)));
   flash_attention_kernel<T, HDP><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), S, H, Kv, hd, scale,
-      causal);
+      static_cast<const T*>(v), static_cast<T*>(o), lse, S, H, Kv, hd,
+      scale, causal);
   return cudaSuccess;
 }
 
 template <typename T>
 cudaError_t launch_dtype(const void* q, const void* k, const void* v,
-                         void* o, int64_t B, int S, int H, int Kv, int hd,
-                         bool causal, cudaStream_t stream) {
+                         void* o, float* lse, int64_t B, int S, int H, int Kv,
+                         int hd, bool causal, cudaStream_t stream) {
   if (hd <= 64)
-    return launch<T, 64>(q, k, v, o, B, S, H, Kv, hd, causal, stream);
+    return launch<T, 64>(q, k, v, o, lse, B, S, H, Kv, hd, causal, stream);
   if (hd <= 128)
-    return launch<T, 128>(q, k, v, o, B, S, H, Kv, hd, causal, stream);
-  return launch<T, 256>(q, k, v, o, B, S, H, Kv, hd, causal, stream);
+    return launch<T, 128>(q, k, v, o, lse, B, S, H, Kv, hd, causal, stream);
+  return launch<T, 256>(q, k, v, o, lse, B, S, H, Kv, hd, causal, stream);
 }
 
 // ------------------------------------- the bfloat16 kernel: tensor cores
@@ -427,8 +432,9 @@ __global__ void __launch_bounds__(kMmaThreads, 1)
 flash_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
                            const __nv_bfloat16* __restrict__ k,
                            const __nv_bfloat16* __restrict__ v,
-                           __nv_bfloat16* __restrict__ o, int S, int H,
-                           int Kv, int hd, float scale, bool causal) {
+                           __nv_bfloat16* __restrict__ o,
+                           float* __restrict__ lse, int S, int H, int Kv,
+                           int hd, float scale, bool causal) {
   constexpr int kStride = mma_stride<HDP>();
   constexpr int kChunks = HDP / 8;     // 16-byte chunks of a staged row
   constexpr int kKs = HDP / 16;        // k steps of q . k over hd
@@ -630,6 +636,12 @@ flash_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
   }
   const float den0 = fmaxf(l0, 1e-30f);
   const float den1 = fmaxf(l1, 1e-30f);
+  // the rows' log-sum-exp when asked for (m and l are the quad's rows')
+  if (lse != nullptr && t == 0) {
+    float* lrow = lse + (b * H + h) * static_cast<int64_t>(S);
+    if (row0 < S) lrow[row0] = m0 + logf(den0);
+    if (row0 + 8 < S) lrow[row0 + 8] = m1 + logf(den1);
+  }
   __nv_bfloat16* so = sq + wr0 * kStride;
   __syncwarp();
 #pragma unroll
@@ -652,8 +664,8 @@ flash_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
 
 template <int HDP>
 cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o,
-                       int64_t B, int S, int H, int Kv, int hd, bool causal,
-                       cudaStream_t stream) {
+                       float* lse, int64_t B, int S, int H, int Kv, int hd,
+                       bool causal, cudaStream_t stream) {
   constexpr size_t smem = mma_smem_bytes<HDP>();
   const cudaError_t err = cudaFuncSetAttribute(
       flash_attention_mma_kernel<HDP>,
@@ -665,19 +677,452 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o,
   using bf16 = __nv_bfloat16;
   flash_attention_mma_kernel<HDP><<<grid, kMmaThreads, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(o), S, H, Kv, hd,
-      scale, causal);
+      static_cast<const bf16*>(v), static_cast<bf16*>(o), lse, S, H, Kv,
+      hd, scale, causal);
   return cudaSuccess;
 }
 
 cudaError_t launch_mma_width(const void* q, const void* k, const void* v,
-                             void* o, int64_t B, int S, int H, int Kv, int hd,
-                             bool causal, cudaStream_t stream) {
+                             void* o, float* lse, int64_t B, int S, int H,
+                             int Kv, int hd, bool causal,
+                             cudaStream_t stream) {
   if (hd <= 64)
-    return launch_mma<64>(q, k, v, o, B, S, H, Kv, hd, causal, stream);
+    return launch_mma<64>(q, k, v, o, lse, B, S, H, Kv, hd, causal, stream);
   if (hd <= 128)
-    return launch_mma<128>(q, k, v, o, B, S, H, Kv, hd, causal, stream);
-  return launch_mma<256>(q, k, v, o, B, S, H, Kv, hd, causal, stream);
+    return launch_mma<128>(q, k, v, o, lse, B, S, H, Kv, hd, causal, stream);
+  return launch_mma<256>(q, k, v, o, lse, B, S, H, Kv, hd, causal, stream);
+}
+
+
+// ------------------------------------------- the backward (kernel 9b)
+
+constexpr int kBwdThreads = 256;     // 16 x 16
+
+// the q and kv tile of the backward: 64 rows up to HDP 128, 32 at 256
+template <int HDP>
+__host__ __device__ constexpr int bwd_tile() { return HDP <= 128 ? 64 : 32; }
+
+// K, V, Q and dO tiles (float32, rows padded by 4 floats), then P and dS
+// (the kv kernel; the q kernel uses dS only), then lse and D of the tile's
+// q rows
+template <int HDP>
+constexpr size_t bwd_smem_bytes() {
+  constexpr int T = bwd_tile<HDP>();
+  return (static_cast<size_t>(4 * T) * (HDP + 4) +
+          static_cast<size_t>(2 * T) * (T + 4) + 2 * T) * sizeof(float);
+}
+
+// four consecutive elements as float32 (16 bytes of float32, 8 of bf16)
+__device__ __forceinline__ float4 load4f(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 load4f(const __nv_bfloat16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const float2 a = __bfloat1622float2(
+      *reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 c = __bfloat1622float2(
+      *reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  return make_float4(a.x, a.y, c.x, c.y);
+}
+__device__ __forceinline__ void store4f(float* p, float4 x) {
+  *reinterpret_cast<float4*>(p) = x;
+}
+__device__ __forceinline__ void store4f(__nv_bfloat16* p, float4 x) {
+  uint2 u;
+  u.x = pack_bf16(x.x, x.y);
+  u.y = pack_bf16(x.z, x.w);
+  *reinterpret_cast<uint2*>(p) = u;
+}
+
+__device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
+  acc = fmaf(a.x, b.x, acc);
+  acc = fmaf(a.y, b.y, acc);
+  acc = fmaf(a.z, b.z, acc);
+  return fmaf(a.w, b.w, acc);
+}
+
+// D[b, h, t] = sum_d dO[b, t, h, d] O[b, t, h, d] in float32: one warp a
+// row of the (B, S, H, hd) layout, the lanes' partial sums added by shuffles
+template <typename T>
+__global__ void __launch_bounds__(kBwdThreads)
+flash_attention_bwd_delta_kernel(const T* __restrict__ o,
+                                 const T* __restrict__ dout,
+                                 float* __restrict__ delta, int64_t rows,
+                                 int S, int H, int hd) {
+  const int64_t r = static_cast<int64_t>(blockIdx.x) * (kBwdThreads / 32) +
+                    (threadIdx.x >> 5);
+  if (r >= rows) return;
+  const int lane = threadIdx.x & 31;
+  const T* po = o + r * hd;
+  const T* pd = dout + r * hd;
+  float acc = 0.f;
+  for (int c = lane * 4; c < hd; c += 128) acc = dot4(load4f(po + c),
+                                                      load4f(pd + c), acc);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (lane == 0) {
+    const int h = static_cast<int>(r % H);
+    const int64_t bt = r / H;                       // b * S + t
+    delta[(bt / S * H + h) * S + bt % S] = acc;
+  }
+}
+
+// What both backward kernels share: the block's geometry and staging, and
+// one (q tile, kv tile) pair's P and dS.  Scores are recomputed in the
+// forward's order: float32 (T = float) stages q times 1/sqrt(hd) and
+// takes s = q_scaled . k; bfloat16 stages q as it is and takes
+// s = (q . k) * scale, q . k of the widened values summed in float32.
+template <typename T, int HDP>
+struct BwdTile {
+  static constexpr int kT = bwd_tile<HDP>();
+  static constexpr int kR = kT / 16;          // q rows (kv rows) a thread owns
+  static constexpr int kC = kT / 16;          // score columns a thread owns
+  static constexpr int kOut = HDP / 16;       // output columns a thread owns
+  static constexpr int kStride = HDP + 4;     // floats a staged row takes
+  static constexpr int kPStride = kT + 4;
+  static constexpr bool kPreScale = sizeof(T) == 4;
+
+  // rows [r0, r0 + kT) of a (S, hd) slice with row stride `row` into dst as
+  // float32, times `mul`; zeros past S and past hd
+  __device__ static void stage(float* dst, const T* src, int64_t row, int r0,
+                               int S, int hd, float mul) {
+    for (int e = threadIdx.x; e < kT * (HDP / 4); e += kBwdThreads) {
+      const int r = e / (HDP / 4);
+      const int c = (e - r * (HDP / 4)) * 4;
+      float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (r0 + r < S && c < hd) {
+        x = load4f(src + static_cast<int64_t>(r0 + r) * row + c);
+        x.x *= mul;
+        x.y *= mul;
+        x.z *= mul;
+        x.w *= mul;
+      }
+      store4f(dst + r * kStride + c, x);
+    }
+  }
+
+  // lse and D of q rows [q0, q0 + kT) (zeros past S)
+  __device__ static void stage_rows(float* slse, float* sd, const float* lse,
+                                    const float* delta, int q0, int S) {
+    for (int e = threadIdx.x; e < kT; e += kBwdThreads) {
+      const bool in = q0 + e < S;
+      slse[e] = in ? lse[q0 + e] : 0.f;
+      sd[e] = in ? delta[q0 + e] : 0.f;
+    }
+  }
+
+  // thread (ty, tx)'s P and dS of the pair: q rows ty + 16 a, kv columns
+  // tx + 16 c; P = exp(s - lse) (0 where masked or past S), dS = P (dP - D)
+  // with dP = dO . V
+  __device__ static void p_ds(const float* sq, const float* sdo,
+                              const float* sk, const float* sv,
+                              const float* slse, const float* sd, int q0,
+                              int k0, int S, int hd, float scale, bool causal,
+                              float (&p)[kR][kC], float (&ds)[kR][kC]) {
+    const int tx = threadIdx.x & 15;
+    const int ty = threadIdx.x >> 4;
+    float s[kR][kC], dp[kR][kC];
+#pragma unroll
+    for (int a = 0; a < kR; ++a)
+#pragma unroll
+      for (int c = 0; c < kC; ++c) s[a][c] = dp[a][c] = 0.f;
+#pragma unroll 2
+    for (int d = 0; d < hd; d += 4) {
+      float4 qa[kR], da[kR];
+#pragma unroll
+      for (int a = 0; a < kR; ++a) {
+        qa[a] = load4f(sq + (ty + 16 * a) * kStride + d);
+        da[a] = load4f(sdo + (ty + 16 * a) * kStride + d);
+      }
+#pragma unroll
+      for (int c = 0; c < kC; ++c) {
+        const float4 kc = load4f(sk + (tx + 16 * c) * kStride + d);
+        const float4 vc = load4f(sv + (tx + 16 * c) * kStride + d);
+#pragma unroll
+        for (int a = 0; a < kR; ++a) {
+          s[a][c] = dot4(qa[a], kc, s[a][c]);
+          dp[a][c] = dot4(da[a], vc, dp[a][c]);
+        }
+      }
+    }
+#pragma unroll
+    for (int a = 0; a < kR; ++a) {
+      const int r = q0 + ty + 16 * a;
+#pragma unroll
+      for (int c = 0; c < kC; ++c) {
+        const int col = k0 + tx + 16 * c;
+        const bool live = r < S && col < S && !(causal && col > r);
+        const float x = kPreScale ? s[a][c] : s[a][c] * scale;
+        p[a][c] = live ? expf(x - slse[ty + 16 * a]) : 0.f;
+        ds[a][c] = p[a][c] * (dp[a][c] - sd[ty + 16 * a]);
+      }
+    }
+  }
+
+  // acc[a][n] += sum_j w[row ty + 16 a][j] x[j][column n] over the tile's
+  // kT rows j of x; w in shared memory with row stride kPStride (wt: read
+  // transposed, w[j][row])
+  __device__ static void accumulate(float (&acc)[kR][kOut], const float* w,
+                                    bool wt, const float* x) {
+    const int tx = threadIdx.x & 15;
+    const int ty = threadIdx.x >> 4;
+#pragma unroll 4
+    for (int j = 0; j < kT; ++j) {
+      float wj[kR];
+#pragma unroll
+      for (int a = 0; a < kR; ++a)
+        wj[a] = wt ? w[j * kPStride + ty + 16 * a]
+                   : w[(ty + 16 * a) * kPStride + j];
+#pragma unroll
+      for (int c = 0; c < kOut / 4; ++c) {
+        const float4 xv = load4f(x + j * kStride + tx * 4 + 64 * c);
+#pragma unroll
+        for (int a = 0; a < kR; ++a) {
+          acc[a][4 * c] = fmaf(wj[a], xv.x, acc[a][4 * c]);
+          acc[a][4 * c + 1] = fmaf(wj[a], xv.y, acc[a][4 * c + 1]);
+          acc[a][4 * c + 2] = fmaf(wj[a], xv.z, acc[a][4 * c + 2]);
+          acc[a][4 * c + 3] = fmaf(wj[a], xv.w, acc[a][4 * c + 3]);
+        }
+      }
+    }
+  }
+
+  // rows r0 + ty + 16 a of a (S, hd) output slice: acc times mul, in T
+  __device__ static void write(T* dst, int64_t row, int r0, int S, int hd,
+                               const float (&acc)[kR][kOut], float mul) {
+    const int tx = threadIdx.x & 15;
+    const int ty = threadIdx.x >> 4;
+#pragma unroll
+    for (int a = 0; a < kR; ++a) {
+      const int r = r0 + ty + 16 * a;
+      if (r >= S) continue;
+#pragma unroll
+      for (int c = 0; c < kOut / 4; ++c) {
+        const int col = tx * 4 + 64 * c;
+        if (col >= hd) continue;
+        store4f(dst + static_cast<int64_t>(r) * row + col,
+                make_float4(acc[a][4 * c] * mul, acc[a][4 * c + 1] * mul,
+                            acc[a][4 * c + 2] * mul,
+                            acc[a][4 * c + 3] * mul));
+      }
+    }
+  }
+};
+
+// dK and dV: one block per (kv tile, KV head, batch), looping over the G
+// query heads of its KV head and, for each, over the q tiles that reach
+// the kv tile (under causal from the diagonal tile on):
+//   dV += P^T dO,   dK += dS^T Q (times 1/sqrt(hd) once at the end in
+// bfloat16, where q is staged unscaled).  Nothing else writes the block's
+// rows, so no atomics: the sums run in one fixed order.
+template <typename T, int HDP>
+__global__ void __launch_bounds__(kBwdThreads, 1)
+flash_attention_bwd_kv_kernel(const T* __restrict__ q,
+                              const T* __restrict__ k,
+                              const T* __restrict__ v,
+                              const T* __restrict__ dout,
+                              const float* __restrict__ lse,
+                              const float* __restrict__ delta,
+                              T* __restrict__ dk, T* __restrict__ dv, int S,
+                              int H, int Kv, int hd, float scale,
+                              bool causal) {
+  using Tile = BwdTile<T, HDP>;
+  constexpr int kT = Tile::kT;
+  constexpr int kStride = Tile::kStride;
+  extern __shared__ float4 smem4[];
+  float* sk = reinterpret_cast<float*>(smem4);
+  float* sv = sk + kT * kStride;
+  float* sq = sv + kT * kStride;
+  float* sdo = sq + kT * kStride;
+  float* sp = sdo + kT * kStride;
+  float* sds = sp + kT * Tile::kPStride;
+  float* slse = sds + kT * Tile::kPStride;
+  float* sd = slse + kT;
+
+  const int kt = blockIdx.x;           // the heaviest (first) tiles first
+  const int k0 = kt * kT;
+  const int kvh = blockIdx.y;
+  const int64_t b = blockIdx.z;
+  const int G = H / Kv;
+  const int tx = threadIdx.x & 15;
+  const int ty = threadIdx.x >> 4;
+  const int64_t q_row = static_cast<int64_t>(H) * hd;
+  const int64_t kv_row = static_cast<int64_t>(Kv) * hd;
+  const float qmul = Tile::kPreScale ? scale : 1.f;
+
+  Tile::stage(sk, k + b * S * kv_row + static_cast<int64_t>(kvh) * hd,
+              kv_row, k0, S, hd, 1.f);
+  Tile::stage(sv, v + b * S * kv_row + static_cast<int64_t>(kvh) * hd,
+              kv_row, k0, S, hd, 1.f);
+  float acc_k[Tile::kR][Tile::kOut], acc_v[Tile::kR][Tile::kOut];
+#pragma unroll
+  for (int a = 0; a < Tile::kR; ++a)
+#pragma unroll
+    for (int n = 0; n < Tile::kOut; ++n) acc_k[a][n] = acc_v[a][n] = 0.f;
+
+  const int n_qt = (S + kT - 1) / kT;
+  for (int g = 0; g < G; ++g) {
+    const int h = kvh * G + g;
+    const T* qh = q + b * S * q_row + static_cast<int64_t>(h) * hd;
+    const T* doh = dout + b * S * q_row + static_cast<int64_t>(h) * hd;
+    const float* lh = lse + (b * H + h) * static_cast<int64_t>(S);
+    const float* dh = delta + (b * H + h) * static_cast<int64_t>(S);
+    for (int qt = causal ? kt : 0; qt < n_qt; ++qt) {
+      const int q0 = qt * kT;
+      __syncthreads();                 // the last pair's reads are done
+      Tile::stage(sq, qh, q_row, q0, S, hd, qmul);
+      Tile::stage(sdo, doh, q_row, q0, S, hd, 1.f);
+      Tile::stage_rows(slse, sd, lh, dh, q0, S);
+      __syncthreads();
+      float p[Tile::kR][Tile::kC], ds[Tile::kR][Tile::kC];
+      Tile::p_ds(sq, sdo, sk, sv, slse, sd, q0, k0, S, hd, scale, causal, p,
+                 ds);
+#pragma unroll
+      for (int a = 0; a < Tile::kR; ++a)
+#pragma unroll
+        for (int c = 0; c < Tile::kC; ++c) {
+          sp[(ty + 16 * a) * Tile::kPStride + tx + 16 * c] = p[a][c];
+          sds[(ty + 16 * a) * Tile::kPStride + tx + 16 * c] = ds[a][c];
+        }
+      __syncthreads();
+      // the block's kv rows are P's and dS's columns: read transposed
+      Tile::accumulate(acc_v, sp, true, sdo);
+      Tile::accumulate(acc_k, sds, true, sq);
+    }
+  }
+  Tile::write(dk + b * S * kv_row + static_cast<int64_t>(kvh) * hd, kv_row,
+              k0, S, hd, acc_k, Tile::kPreScale ? 1.f : scale);
+  Tile::write(dv + b * S * kv_row + static_cast<int64_t>(kvh) * hd, kv_row,
+              k0, S, hd, acc_v, 1.f);
+}
+
+// dQ: one block per (q tile, head, batch), the heaviest causal tiles
+// first, looping over the kv tiles up to the diagonal: dQ += dS K, times
+// 1/sqrt(hd) at the end.
+template <typename T, int HDP>
+__global__ void __launch_bounds__(kBwdThreads, 1)
+flash_attention_bwd_q_kernel(const T* __restrict__ q,
+                             const T* __restrict__ k,
+                             const T* __restrict__ v,
+                             const T* __restrict__ dout,
+                             const float* __restrict__ lse,
+                             const float* __restrict__ delta,
+                             T* __restrict__ dq, int S, int H, int Kv, int hd,
+                             float scale, bool causal) {
+  using Tile = BwdTile<T, HDP>;
+  constexpr int kT = Tile::kT;
+  constexpr int kStride = Tile::kStride;
+  extern __shared__ float4 smem4[];
+  float* sk = reinterpret_cast<float*>(smem4);
+  float* sv = sk + kT * kStride;
+  float* sq = sv + kT * kStride;
+  float* sdo = sq + kT * kStride;
+  float* sds = sdo + kT * kStride + kT * Tile::kPStride;
+  float* slse = sds + kT * Tile::kPStride;
+  float* sd = slse + kT;
+
+  const int n_qt = (S + kT - 1) / kT;
+  const int q0 = (n_qt - 1 - static_cast<int>(blockIdx.x)) * kT;
+  const int h = blockIdx.y;
+  const int64_t b = blockIdx.z;
+  const int kvh = h / (H / Kv);
+  const int tx = threadIdx.x & 15;
+  const int ty = threadIdx.x >> 4;
+  const int64_t q_row = static_cast<int64_t>(H) * hd;
+  const int64_t kv_row = static_cast<int64_t>(Kv) * hd;
+  const T* kb = k + b * S * kv_row + static_cast<int64_t>(kvh) * hd;
+  const T* vb = v + b * S * kv_row + static_cast<int64_t>(kvh) * hd;
+
+  Tile::stage(sq, q + b * S * q_row + static_cast<int64_t>(h) * hd, q_row,
+              q0, S, hd, Tile::kPreScale ? scale : 1.f);
+  Tile::stage(sdo, dout + b * S * q_row + static_cast<int64_t>(h) * hd,
+              q_row, q0, S, hd, 1.f);
+  Tile::stage_rows(slse, sd, lse + (b * H + h) * static_cast<int64_t>(S),
+                   delta + (b * H + h) * static_cast<int64_t>(S), q0, S);
+  float acc[Tile::kR][Tile::kOut];
+#pragma unroll
+  for (int a = 0; a < Tile::kR; ++a)
+#pragma unroll
+    for (int n = 0; n < Tile::kOut; ++n) acc[a][n] = 0.f;
+
+  const int last_row = min(q0 + kT, S) - 1;
+  const int n_kt = causal ? last_row / kT + 1 : n_qt;
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int k0 = kt * kT;
+    __syncthreads();                   // the last tile's reads are done
+    Tile::stage(sk, kb, kv_row, k0, S, hd, 1.f);
+    Tile::stage(sv, vb, kv_row, k0, S, hd, 1.f);
+    __syncthreads();
+    float p[Tile::kR][Tile::kC], ds[Tile::kR][Tile::kC];
+    Tile::p_ds(sq, sdo, sk, sv, slse, sd, q0, k0, S, hd, scale, causal, p,
+               ds);
+#pragma unroll
+    for (int a = 0; a < Tile::kR; ++a)
+#pragma unroll
+      for (int c = 0; c < Tile::kC; ++c)
+        sds[(ty + 16 * a) * Tile::kPStride + tx + 16 * c] = ds[a][c];
+    __syncthreads();
+    Tile::accumulate(acc, sds, false, sk);
+  }
+  Tile::write(dq + b * S * q_row + static_cast<int64_t>(h) * hd, q_row, q0,
+              S, hd, acc, scale);
+}
+
+template <typename T, int HDP>
+cudaError_t launch_bwd(const void* q, const void* k, const void* v,
+                       const void* o, const void* dout, const float* lse,
+                       float* delta, void* dq, void* dk, void* dv, int64_t B,
+                       int S, int H, int Kv, int hd, bool causal,
+                       cudaStream_t stream) {
+  constexpr size_t smem = bwd_smem_bytes<HDP>();
+  constexpr int kT = bwd_tile<HDP>();
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_attention_bwd_kv_kernel<T, HDP>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(
+      flash_attention_bwd_q_kernel<T, HDP>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const float scale =
+      static_cast<float>(1.0 / std::sqrt(static_cast<double>(hd)));
+  const T* tq = static_cast<const T*>(q);
+  const T* tk = static_cast<const T*>(k);
+  const T* tv = static_cast<const T*>(v);
+  const T* tdo = static_cast<const T*>(dout);
+  const int64_t rows = B * S * H;
+  constexpr int64_t kWarps = kBwdThreads / 32;
+  flash_attention_bwd_delta_kernel<T>
+      <<<static_cast<unsigned>((rows + kWarps - 1) / kWarps), kBwdThreads, 0,
+         stream>>>(static_cast<const T*>(o), tdo, delta, rows, S, H, hd);
+  const int n_t = (S + kT - 1) / kT;
+  flash_attention_bwd_kv_kernel<T, HDP>
+      <<<dim3(n_t, Kv, static_cast<unsigned>(B)), kBwdThreads, smem,
+         stream>>>(tq, tk, tv, tdo, lse, delta, static_cast<T*>(dk),
+                   static_cast<T*>(dv), S, H, Kv, hd, scale, causal);
+  flash_attention_bwd_q_kernel<T, HDP>
+      <<<dim3(n_t, H, static_cast<unsigned>(B)), kBwdThreads, smem,
+         stream>>>(tq, tk, tv, tdo, lse, delta, static_cast<T*>(dq), S, H,
+                   Kv, hd, scale, causal);
+  return cudaSuccess;
+}
+
+template <typename T>
+cudaError_t launch_bwd_width(const void* q, const void* k, const void* v,
+                             const void* o, const void* dout,
+                             const float* lse, float* delta, void* dq,
+                             void* dk, void* dv, int64_t B, int S, int H,
+                             int Kv, int hd, bool causal,
+                             cudaStream_t stream) {
+  if (hd <= 64)
+    return launch_bwd<T, 64>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, S,
+                             H, Kv, hd, causal, stream);
+  if (hd <= 128)
+    return launch_bwd<T, 128>(q, k, v, o, dout, lse, delta, dq, dk, dv, B,
+                              S, H, Kv, hd, causal, stream);
+  return launch_bwd<T, 256>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, S,
+                            H, Kv, hd, causal, stream);
 }
 
 }  // namespace
@@ -689,16 +1134,47 @@ int flash_attention_max_head_dim() { return 256; }
 // contiguous, 16-byte aligned and of one dtype (bf16: bfloat16, the mma
 // kernel; else float32, the fma kernel); B, S >= 1, H % Kv == 0,
 // hd % 8 == 0, hd <= 256, and B, H below 2^16; anything else returns
-// cudaErrorInvalidValue.  Launches on ``stream``; returns the error of the
-// shared-memory opt-in (the launch's own is left for cudaGetLastError).
+// cudaErrorInvalidValue.  With ``lse`` (B, H, S) float32 also each row's
+// log-sum-exp of its scaled, masked scores (the backward's input); with
+// nullptr the kernels write the same o as without it.  Launches on
+// ``stream``; returns the error of the shared-memory opt-in (the launch's
+// own is left for cudaGetLastError).
 cudaError_t launch_flash_attention(const void* q, const void* k,
-                                   const void* v, void* o, int64_t B, int S,
-                                   int H, int Kv, int hd, bool causal,
-                                   bool bf16, cudaStream_t stream) {
+                                   const void* v, void* o, float* lse,
+                                   int64_t B, int S, int H, int Kv, int hd,
+                                   bool causal, bool bf16,
+                                   cudaStream_t stream) {
   if (B < 1 || S < 1 || Kv < 1 || H % Kv || hd < 8 || hd % 8 ||
       hd > flash_attention_max_head_dim())
     return cudaErrorInvalidValue;
   if (bf16)
-    return launch_mma_width(q, k, v, o, B, S, H, Kv, hd, causal, stream);
-  return launch_dtype<float>(q, k, v, o, B, S, H, Kv, hd, causal, stream);
+    return launch_mma_width(q, k, v, o, lse, B, S, H, Kv, hd, causal,
+                            stream);
+  return launch_dtype<float>(q, k, v, o, lse, B, S, H, Kv, hd, causal,
+                             stream);
+}
+
+// The backward (kernel 9b): dq (B, S, H, hd), dk and dv (B, S, Kv, hd) of
+// the attention whose inputs were q, k, v, output o and row log-sum-exp
+// lse (B, H, S) float32 (the forward's, asked for), given dout; delta is a
+// (B, H, S) float32 scratch for D = rowsum(dO o).  Every tensor
+// contiguous and 16-byte aligned, q, k, v, o, dout, dq, dk, dv of one
+// dtype (bf16: bfloat16, else float32), as the forward takes them.
+// Three launches on ``stream``: D, then dK and dV, then dQ; returns the
+// first shared-memory opt-in's error (the launches' own are left for
+// cudaGetLastError).
+cudaError_t launch_flash_attention_backward(
+    const void* q, const void* k, const void* v, const void* o,
+    const void* dout, const float* lse, float* delta, void* dq, void* dk,
+    void* dv, int64_t B, int S, int H, int Kv, int hd, bool causal, bool bf16,
+    cudaStream_t stream) {
+  if (B < 1 || S < 1 || Kv < 1 || H % Kv || hd < 8 || hd % 8 ||
+      hd > flash_attention_max_head_dim())
+    return cudaErrorInvalidValue;
+  if (bf16)
+    return launch_bwd_width<__nv_bfloat16>(q, k, v, o, dout, lse, delta, dq,
+                                           dk, dv, B, S, H, Kv, hd, causal,
+                                           stream);
+  return launch_bwd_width<float>(q, k, v, o, dout, lse, delta, dq, dk, dv, B,
+                                 S, H, Kv, hd, causal, stream);
 }

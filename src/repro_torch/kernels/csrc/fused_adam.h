@@ -9,13 +9,14 @@
 constexpr int kMaxLeaves = 32;
 
 struct AdamLeaves {
-  float* p[kMaxLeaves];
-  const float* g[kMaxLeaves];
+  void* p[kMaxLeaves];           // float32 or bfloat16, as bf16[] says
+  const void* g[kMaxLeaves];     // the parameter's dtype
   float* m[kMaxLeaves];
   float* v[kMaxLeaves];          // v_local
   const float* vh[kMaxLeaves];   // v_hat
   int64_t n[kMaxLeaves];
   int64_t block_start[kMaxLeaves + 1];
+  bool bf16[kMaxLeaves];         // p and g are bfloat16 (else float32)
   int count;
 };
 

@@ -1,8 +1,13 @@
-"""Flash attention on the card: the CUDA kernels' wrapper.
+"""Flash attention on the card: the CUDA kernels' wrappers, forward
+(kernel 9) and backward (kernel 9b).
 
 Counterpart of ``repro/kernels/flash_attention.py::flash_attention_pallas``;
 the kernels are in ``csrc/flash_attention.cu`` (its header states the
-arithmetic, what bounds them and their design).  They work in the model's
+arithmetic, what bounds them and their design).  The backward has no TPU
+kernel: the reference takes XLA's vjp of its attention; 9b is
+FlashAttention-2's backward from the forward's output and row
+log-sum-exp, and its plain version is ``ref.flash_attention_backward_ref``
+(autograd's vjp of ``ref.flash_attention_ref``).  They work in the model's
 layout: q (B, S, H, hd), k and v (B, S, Kv, hd), contiguous, float32 or
 bfloat16, q head h reading KV head ``h // (H // Kv)``, any S, hd a multiple
 of 8 up to 256.  The dtype picks the kernel: bfloat16 runs on the tensor
@@ -64,12 +69,49 @@ def bf16_ulps(got: torch.Tensor, want: torch.Tensor) -> torch.Tensor:
     return (got.float() - w).abs() / torch.ldexp(torch.ones_like(w), exp - 7)
 
 
+def _rows(q: torch.Tensor) -> torch.Tensor:
+    """A (B, H, S) float32 buffer of per-row statistics on q's device."""
+    B, S, H, _ = q.shape
+    return torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+
+
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         causal: bool = True) -> torch.Tensor:
+                         causal: bool = True, return_lse: bool = False):
     """The attention of ``q`` over ``k`` and ``v`` by one kernel launch on
-    the current stream (none when the output is empty)."""
+    the current stream (none when the output is empty).  With
+    ``return_lse`` returns ``(out, lse)``, lse (B, H, S) float32 the rows'
+    log-sum-exp of their scaled, masked scores (what the backward takes);
+    ``out`` is the same either way."""
     _check(q, k, v)
     out = torch.empty_like(q)
+    lse = _rows(q) if return_lse else None
     if out.numel():
-        extension().flash_attention(q, k, v, out, bool(causal))
-    return out
+        extension().flash_attention(q, k, v, out, bool(causal), lse)
+    return (out, lse) if return_lse else out
+
+
+def flash_attention_backward_cuda(q, k, v, out, lse, dout, causal=True):
+    """Kernel 9b: ``(dq, dk, dv)`` of the attention whose forward gave
+    ``out`` and ``lse`` (``flash_attention_cuda(..., return_lse=True)``),
+    for the output gradient ``dout``, in the inputs' dtype, by three
+    launches on the current stream (D = rowsum(dO o), then dK and dV, then
+    dQ; none when the output is empty).  No atomics: two runs give the same
+    bits."""
+    _check(q, k, v)
+    B, S, H, _ = q.shape
+    for name, t in (("out", out), ("dout", dout)):
+        if t.shape != q.shape or t.dtype != q.dtype or not t.is_cuda:
+            raise ValueError(f"{name} must be q's shape and dtype on the "
+                             f"card, got {tuple(t.shape)} {t.dtype} on "
+                             f"{t.device}")
+    if lse.shape != (B, H, S) or lse.dtype != torch.float32:
+        raise ValueError(f"lse must be (B, H, S) = ({B}, {H}, {S}) float32, "
+                         f"got {tuple(lse.shape)} {lse.dtype}")
+    out, dout, lse = (t if t.is_contiguous() else t.contiguous()
+                      for t in (out, dout, lse))
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    if q.numel():
+        extension().flash_attention_backward(q, k, v, out, dout, lse,
+                                             _rows(q), dq, dk, dv,
+                                             bool(causal))
+    return dq, dk, dv

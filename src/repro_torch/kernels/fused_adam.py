@@ -21,14 +21,18 @@ import torch
 
 from repro_torch.kernels.build import extension
 
+# a parameter and its gradient: either; the moments are float32
+PARAM_DTYPES = (torch.float32, torch.bfloat16)
+
 
 def _leaf_key(leaves):
     return tuple((x.data_ptr(), x.numel()) for x in leaves)
 
 
 class AdamTable:
-    """The (L, 5) int64 host table of the persistent leaves' pointers and
-    sizes: ``(p, m, v_local, v_hat, numel)`` per leaf.  ``get`` checks the
+    """The (L, 6) int64 host table of the persistent leaves' pointers,
+    sizes and dtypes: ``(p, m, v_local, v_hat, numel, p is bfloat16)`` per
+    leaf.  ``get`` checks the
     leaves and builds it the first time, then returns the same table while
     the leaves' storage is unchanged (and builds a new one when it is not).
     The caller keeps the leaves alive while it uses the table."""
@@ -55,9 +59,11 @@ def _build_table(params, m, v_local, v_hat) -> torch.Tensor:
     for i, leaf in enumerate(zip(params, m, v_local, v_hat)):
         p = leaf[0]
         for name, x in zip(("param", "m", "v_local", "v_hat"), leaf):
-            if x.dtype != torch.float32 or not x.is_cuda:
-                raise ValueError(f"fused_adam_cuda takes float32 CUDA leaves;"
-                                 f" {name} {i} is {x.dtype} on {x.device}")
+            ok = PARAM_DTYPES if name == "param" else (torch.float32,)
+            if x.dtype not in ok or not x.is_cuda:
+                raise ValueError(f"fused_adam_cuda takes float32 or bfloat16"
+                                 f" CUDA params and float32 CUDA moments; "
+                                 f"{name} {i} is {x.dtype} on {x.device}")
             if x.device != p.device or x.shape != p.shape:
                 raise ValueError(f"{name} {i} is {tuple(x.shape)} on "
                                  f"{x.device}, its param {tuple(p.shape)} on "
@@ -68,16 +74,18 @@ def _build_table(params, m, v_local, v_hat) -> torch.Tensor:
         if len({x.data_ptr() for x in leaf}) != 4 and p.numel():
             raise ValueError(f"leaf {i}: param, m, v_local and v_hat must "
                              "not share storage")
-        rows.append([x.data_ptr() for x in leaf] + [p.numel()])
-    return torch.tensor(rows, dtype=torch.int64).reshape(n, 5)
+        rows.append([x.data_ptr() for x in leaf]
+                    + [p.numel(), int(p.dtype == torch.bfloat16)])
+    return torch.tensor(rows, dtype=torch.int64).reshape(n, 6)
 
 
 def fused_adam_cuda(params, grads, m, v_local, v_hat, *, t, lr, b1, b2, k,
                     local_v_warmup, mhat_s=None, vhat_s=None,
                     weight_decay=0.0, table=None):
-    """The local Adam step of ``ref.fused_adam_ref`` over lists of float32
-    CUDA leaves, in place, by one kernel launch per 32 leaves on the
-    current stream; returns ``(params, m, v_local)``.
+    """The local Adam step of ``ref.fused_adam_ref`` over lists of CUDA
+    leaves, in place, by one kernel launch per 32 leaves on the current
+    stream; returns ``(params, m, v_local)``.  A parameter and its gradient
+    are float32 or bfloat16 (one dtype for both), the moments float32.
 
     ``t`` is the step count after this step (0-dim int32 on the leaves'
     device), ``lr`` a Python float or a 0-dim float32 tensor on that
@@ -90,6 +98,10 @@ def fused_adam_cuda(params, grads, m, v_local, v_hat, *, t, lr, b1, b2, k,
         params, m, v_local, v_hat)
     if len(grads) != len(params):
         raise ValueError(f"{len(grads)} gradients for {len(params)} leaves")
+    for i, (p, g) in enumerate(zip(params, grads)):
+        if g.dtype != p.dtype:
+            raise ValueError(f"gradient {i} is {g.dtype}, its param "
+                             f"{p.dtype}")
     grads = [g if g.is_contiguous() else g.contiguous() for g in grads]
     lr_t = None
     if isinstance(lr, torch.Tensor):

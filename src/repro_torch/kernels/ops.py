@@ -10,8 +10,9 @@ kernels under their names (``embedding_bag``, ``embedding_bag_backward``,
 ``gather_rows_cached``, ``sparse_adagrad_cached_apply``, the SSD tier's
 staged push ``sparse_adagrad``, the k-step local Adam step ``fused_adam``,
 DLRM's ``dot_interaction`` and its backward ``dot_interaction_backward``,
-and the LM's ``flash_attention``), the plain versions under the same name
-with ``_ref``.  A run resets it with ``reset_launches()`` and reads it
+and the LM's ``flash_attention`` and its backward
+``flash_attention_backward``), the plain versions under the same name with
+``_ref``.  A run resets it with ``reset_launches()`` and reads it
 afterwards to show which path it took.
 """
 
@@ -28,7 +29,10 @@ from repro_torch.kernels.embedding_bag import (
     embedding_bag_backward_cuda,
     embedding_bag_cuda,
 )
-from repro_torch.kernels.flash_attention import flash_attention_cuda
+from repro_torch.kernels.flash_attention import (
+    flash_attention_backward_cuda,
+    flash_attention_cuda,
+)
 from repro_torch.kernels.fused_adam import fused_adam_cuda
 from repro_torch.kernels.hash_map import hash_lookup_cuda
 from repro_torch.kernels.sparse_adagrad import (
@@ -53,6 +57,7 @@ launches = {
     "dot_interaction": 0, "dot_interaction_ref": 0,
     "dot_interaction_backward": 0, "dot_interaction_backward_ref": 0,
     "flash_attention": 0, "flash_attention_ref": 0,
+    "flash_attention_backward": 0, "flash_attention_backward_ref": 0,
 }
 
 
@@ -313,28 +318,57 @@ def dot_interaction(feats):
 
 
 class _FlashAttention(torch.autograd.Function):
-    """Forward: the CUDA kernel.  Its backward comes with LM training."""
+    """Forward and backward: the CUDA kernels (9 and 9b).  Under autograd
+    the forward also writes the rows' log-sum-exp, which the backward
+    takes with q, k, v and the output; outside it (prefill) it writes the
+    output alone, the same bits."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal):
-        out = flash_attention_cuda(q, k, v, causal)
+        if any(ctx.needs_input_grad[:3]):
+            out, lse = flash_attention_cuda(q, k, v, causal, return_lse=True)
+            ctx.save_for_backward(q, k, v, out, lse)
+        else:
+            out = flash_attention_cuda(q, k, v, causal)
+        ctx.causal = causal
         if out.numel():
             launches["flash_attention"] += 1
         return out
 
     @staticmethod
     def backward(ctx, g):
-        raise NotImplementedError(
-            "flash attention's backward on the card is not ported yet: "
-            "ROADMAP.md queue A10c (LM training)")
+        q, k, v, out, lse = ctx.saved_tensors
+        grads = flash_attention_backward_cuda(q, k, v, out, lse, g,
+                                              ctx.causal)
+        if q.numel():
+            launches["flash_attention_backward"] += 1
+        return (*grads, None)
+
+
+class _FlashAttentionRef(torch.autograd.Function):
+    """The plain version and its vjp (``ref.flash_attention_backward_ref``,
+    autograd's vjp of it), counted (CPU tensors)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        ctx.save_for_backward(q, k, v)
+        ctx.causal = causal
+        launches["flash_attention_ref"] += 1
+        return ref.flash_attention_ref(q, k, v, causal)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v = ctx.saved_tensors
+        grads = ref.flash_attention_backward_ref(q, k, v, g, ctx.causal)
+        launches["flash_attention_backward_ref"] += 1
+        return (*grads, None)
 
 
 def flash_attention(q, k, v, causal=True):
     """Softmax attention in the model's layout, q (B, S, H, hd) over k and v
-    (B, S, Kv, hd), in q's dtype (see ``ref.flash_attention_ref``).  CUDA:
-    the kernel, forward only; CPU: the plain version under PyTorch's
-    autograd."""
+    (B, S, Kv, hd), in q's dtype (see ``ref.flash_attention_ref``),
+    differentiable.  CUDA: the kernel, and kernel 9b for its backward;
+    CPU: the plain version, its backward autograd's vjp of it."""
     if kernel_mode(q) == "ref":
-        launches["flash_attention_ref"] += 1
-        return ref.flash_attention_ref(q, k, v, causal)
+        return _FlashAttentionRef.apply(q, k, v, causal)
     return _FlashAttention.apply(q, k, v, causal)

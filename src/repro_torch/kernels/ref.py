@@ -134,7 +134,9 @@ def fused_adam_ref(params, grads, m, v_local, v_hat, *, t, lr, b1, b2, k,
                    local_v_warmup, mhat_s=None, vhat_s=None,
                    weight_decay=0.0):
     """The k-step local Adam step (Algorithm 2 lines 5-9) over lists of
-    float32 leaves, in place: the plain version of ``fused_adam_cuda``.
+    leaves, in place: the plain version of ``fused_adam_cuda``.  A param
+    and its gradient are float32 or bfloat16 (widened to float32, p
+    written back rounded to its dtype), the moments float32.
 
     ``m = b1*m + (1-b1)*g``; ``v_local = b2*v_local + (1-b2)*g^2``;
     ``p -= lr*(m*mhat_s) / sqrt(v_use*vhat_s) (+ lr*weight_decay*p)``, where
@@ -231,3 +233,29 @@ def flash_attention_ref(q, k, v, causal=True):
     o = torch.einsum("bkgst,btkd->bkgsd", p, v.to(torch.float32))
     o = o / p.sum(-1, keepdim=True).clamp_min(1e-30)
     return o.permute(0, 3, 1, 2, 4).reshape(B, S, H, hd).to(q.dtype)
+
+
+def flash_attention_lse_ref(q, k, causal=True):
+    """The rows' log-sum-exp of ``flash_attention_ref``'s scaled, masked
+    float32 scores, (B, H, S) float32: what ``flash_attention_cuda(...,
+    return_lse=True)`` returns beside the output."""
+    B, S, H, hd = q.shape
+    Kv = k.shape[2]
+    qg = (q.to(torch.float32) * (1.0 / hd ** 0.5)).reshape(B, S, Kv,
+                                                            H // Kv, hd)
+    s = torch.einsum("bskgd,btkd->bkgst", qg, k.to(torch.float32))
+    if causal:
+        pos = torch.arange(S, device=q.device)
+        s.masked_fill_(pos[None, :] > pos[:, None], -1e30)
+    return torch.logsumexp(s, -1).reshape(B, H, S)
+
+
+def flash_attention_backward_ref(q, k, v, dout, causal=True):
+    """``(dq, dk, dv)``, the plain vjp of ``flash_attention_ref`` for the
+    output gradient ``dout`` (autograd through it, in float32 inside, each
+    gradient in its input's dtype): the plain version of
+    ``flash_attention_backward_cuda``."""
+    with torch.enable_grad():
+        xs = [x.detach().requires_grad_(True) for x in (q, k, v)]
+        out = flash_attention_ref(*xs, causal)
+        return torch.autograd.grad(out, xs, dout)

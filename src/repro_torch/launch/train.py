@@ -41,10 +41,15 @@ hold: pass ``--rows`` to cut the table, e.g. ``--rows 50000000``).
 tables, the dot interaction's CUDA kernels in both directions); with
 ``--rows N`` each of its 26 tables keeps at most N rows.
 
+``--arch qwen3-14b`` (and the other registered LMs: ``qwen2-7b``,
+``granite-8b``) trains a ``DenseTrainer`` as the reference's launcher
+does: ``lm_batches`` of ``max(n_pod * 4, 8)`` sequences of 64 tokens,
+k-step Adam with ``--k``, ``--merge``, ``--lr`` and ``--merge-delay``,
+and the final line ``final loss ... (... steps/s)``; the sparse and table
+flags do not apply to it, and ``--rows`` raises.
+
 Flags of the reference that the port does not have yet raise, naming the
-ROADMAP.md item that brings them.  ``--arch qwen3-14b`` raises
-``NotImplementedError`` when the trainer is built: LM training is
-ROADMAP.md queue A10c.
+ROADMAP.md item that brings them.
 """
 
 from __future__ import annotations
@@ -141,12 +146,16 @@ def main(argv=None):
     args = build_argparser().parse_args(argv)
     _reject_unported(args)
 
+    from repro_torch import configs
     from repro_torch.core.kstep import KStepConfig
     from repro_torch.core.sparse_optim import SparseAdagradConfig
     from repro_torch.data import synthetic as S
     from repro_torch.runtime.factory import build_trainer
     from repro_torch.runtime.trainer import TrainerConfig
 
+    family = configs.get(args.arch).family
+    if family == "lm" and args.rows:
+        raise ValueError("--rows cuts embedding tables; an LM has none")
     cfg = model_config(args)
     tcfg = TrainerConfig(
         n_pod=args.n_pod,
@@ -161,6 +170,15 @@ def main(argv=None):
     )
     t0 = time.perf_counter()
     tr = build_trainer(args.arch, tcfg, model_cfg=cfg, device=args.device)
+    if family == "lm":
+        gen = S.lm_batches(seed=0, batch=max(args.n_pod * 4, 8), seq_len=64,
+                           vocab=cfg.vocab)
+        hist = tr.fit(gen, args.steps)
+        final = (f"{hist[-1]['loss']:.4f}" if hist
+                 else "n/a (steps < log_every)")
+        print(f"final loss {final} "
+              f"({tr.step_num / (time.perf_counter() - t0):.2f} steps/s)")
+        return
     gen = S.recsys_batches(cfg, batch=args.batch, seed=1)
 
     try:

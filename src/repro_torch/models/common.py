@@ -86,3 +86,70 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+class _EmbedLookup(torch.autograd.Function):
+    """``table[ids]`` whose backward scatter-adds the gradient into a zero
+    table in the table's dtype (the reference's ``_embed_lookup_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, table, ids):
+        ctx.save_for_backward(ids)
+        ctx.table_shape = table.shape
+        return table.index_select(0, ids.reshape(-1)).reshape(
+            tuple(ids.shape) + (table.shape[-1],))
+
+    @staticmethod
+    def backward(ctx, g):
+        (ids,) = ctx.saved_tensors
+        D = ctx.table_shape[-1]
+        dt = torch.zeros(ctx.table_shape, dtype=g.dtype, device=g.device)
+        dt.index_add_(0, ids.reshape(-1), g.reshape(-1, D))
+        return dt, None
+
+
+def embed_lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """``table[ids]`` -> ``ids.shape + (D,)``, differentiable in ``table``
+    (the reference's ``sharded_embed_lookup``; no mesh on one card)."""
+    return _EmbedLookup.apply(table, ids)
+
+
+class _SoftmaxCrossEntropy(torch.autograd.Function):
+    """The reference's ``softmax_cross_entropy`` with a hand-written vjp.
+
+    Forward, in float32: ``m = max(logits)`` (no gradient), ``logz =
+    log(sum exp(logits - m)) + m``, ``gold = (logits - m)[label] + m``,
+    ``loss = logz - gold``.  It keeps the logits as they came (their
+    dtype) and ``logz`` (float32); the backward forms ``g (softmax -
+    onehot)`` from them in one float32 ``(T, V)`` buffer, where autograd
+    of the plain ops would keep four, and casts it to the logits' dtype."""
+
+    @staticmethod
+    def forward(ctx, logits, labels):
+        x = logits.to(torch.float32)
+        m = x.amax(-1, keepdim=True)
+        shifted = x - m
+        del x
+        gold = shifted.gather(-1, labels[..., None]) + m
+        logz = torch.log(shifted.exp_().sum(-1, keepdim=True)) + m
+        del shifted
+        ctx.save_for_backward(logits, labels, logz)
+        return (logz - gold)[..., 0]
+
+    @staticmethod
+    def backward(ctx, g):
+        logits, labels, logz = ctx.saved_tensors
+        p = logits.to(torch.float32, copy=True)
+        p.sub_(logz).exp_()
+        p.scatter_add_(-1, labels[..., None],
+                       torch.full(labels.shape + (1,), -1.0,
+                                  dtype=torch.float32, device=p.device))
+        p.mul_(g.to(torch.float32)[..., None])
+        return p.to(logits.dtype), None
+
+
+def softmax_cross_entropy(logits: torch.Tensor,
+                          labels: torch.Tensor) -> torch.Tensor:
+    """Token-level cross-entropy, logits (..., V) any dtype -> (...)
+    float32 (the reference's ``softmax_cross_entropy``)."""
+    return _SoftmaxCrossEntropy.apply(logits, labels.to(torch.int64))

@@ -1,12 +1,22 @@
-"""Decoder-only LM family: the serving half of
-``repro/models/transformer.py``, the prefill and the decode.
+"""Decoder-only LM family: ``repro/models/transformer.py``'s prefill,
+decode and training loss.
 
 Ported: GQA, qk-norm, QKV bias, RoPE, tied or untied embeddings, dense
-FFNs; ``init_params``, ``trunk``, ``forward`` and ``prefill``; the causal
-``_mask``, the masked dense attention ``_sdpa_dense``, ``cache_len``,
-``init_cache`` and ``decode_step``.  The no-cache branch of ``_attn_block``
-(the prefill) is ``ops.flash_attention``: the hand-written CUDA kernel on
-the card (TPU kernel 9), its plain version on the CPU.  Attention over a
+FFNs; ``init_params``, ``trunk``, ``forward``, ``prefill`` and
+``loss_fn``; the causal ``_mask``, the masked dense attention
+``_sdpa_dense``, ``cache_len``, ``init_cache`` and ``decode_step``.  The
+no-cache branch of ``_attn_block`` (prefill and training) is
+``ops.flash_attention``: the hand-written CUDA kernels on the card (TPU
+kernel 9 forward, kernel 9b backward), its plain version on the CPU.
+
+Training (``loss_fn``) follows the reference's memory plan: with grad
+enabled, ``trunk`` recomputes each layer in the backward (a non-reentrant
+``torch.utils.checkpoint`` per layer, the reference's ``nothing_saveable``
+remat), so one layer's activations are live at a time; the head and the
+cross-entropy run in the reference's token chunks, each under a
+checkpoint, through ``common.softmax_cross_entropy``, whose hand-written
+vjp keeps one float32 chunk of logits.  The embedding's backward is a
+scatter-add in the table's dtype (``common.embed_lookup``).  Attention over a
 KV cache (decode) is the reference's ``_sdpa_dense`` in plain PyTorch, as
 in the reference (jnp, no Pallas kernel), with its roundings: the scores
 leave the product in the model dtype and are widened to float32, scaled,
@@ -29,12 +39,12 @@ port's counterpart of the reference jit's donation: one cache is live at a
 time.
 
 Not ported yet, and raising ``NotImplementedError`` on every device: MoE
-FFNs and the windowed and chunked masks (ROADMAP.md A10d), sequence-sharded
-activations (A8), and training, the attention's backward and ``loss_fn``
-(A10c).  The reference's attention-choice and loss knobs
-(``dense_attn_threshold``, ``attn_block_kv``, ``attn_block_q``,
-``ce_chunk_tokens``) have no field here: the port's prefill runs the flash
-kernel at every length and it has no loss yet.
+FFNs and the windowed and chunked masks (ROADMAP.md A10d) and
+sequence-sharded activations (A8).  The reference's attention-choice knobs
+(``dense_attn_threshold``, ``attn_block_kv``, ``attn_block_q``) have no
+field here: the port runs the flash kernels at every length, where the
+reference takes ``_sdpa_dense`` or ``_sdpa_qblocked`` in training and
+rounds p to the model dtype before ``p @ v`` (ROADMAP.md §C).
 """
 
 from __future__ import annotations
@@ -44,9 +54,12 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
+import torch.utils.checkpoint
+
 from repro_torch import resolve_device
 from repro_torch.kernels import ops
-from repro_torch.models.common import apply_rope, he_init, rms_norm
+from repro_torch.models.common import (apply_rope, embed_lookup, he_init,
+                                       rms_norm, softmax_cross_entropy)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -76,6 +89,7 @@ class TransformerConfig:
     shared_expert: bool = False             # llama4 shared expert
     router_aux_coef: float = 0.0
     dtype: Any = torch.bfloat16
+    ce_chunk_tokens: int = 65536  # global tokens per cross-entropy chunk
     seq_shard: bool = False       # sequence-sharded activations (A8)
 
     @property
@@ -287,18 +301,29 @@ def _layer(cfg, lp, layer_idx, x, q_pos, cache=None):
 
 
 # ---------------------------------------------------------------- forward
+def _layer_out(cfg, lp, layer_idx, x, q_pos):
+    return _layer(cfg, lp, layer_idx, x, q_pos)[0]
+
+
 def trunk(params, tokens, cfg: TransformerConfig):
     """tokens (B, S) -> (final-normed hidden (B, S, D), aux_loss).  The
-    tokens go to the parameters' device; aux_loss is 0 (dense FFNs)."""
+    tokens go to the parameters' device; aux_loss is 0 (dense FFNs).  With
+    grad enabled each layer is recomputed in the backward (the
+    reference's ``nothing_saveable`` checkpoint of the scanned body)."""
     _check_ported(cfg)
     embed = params["embed"]
     tokens = torch.as_tensor(tokens, device=embed.device)
     B, S = tokens.shape
-    x = embed.index_select(0, tokens.reshape(-1)).reshape(B, S, -1)
+    x = embed_lookup(embed, tokens)
     q_pos = torch.arange(S, dtype=torch.int32, device=embed.device)
     for i in range(cfg.n_layers):
         lp = {k: v[i] for k, v in params["layers"].items()}
-        x, _ = _layer(cfg, lp, i, x, q_pos)
+        if torch.is_grad_enabled():
+            x = torch.utils.checkpoint.checkpoint(
+                _layer_out, cfg, lp, i, x, q_pos, use_reentrant=False,
+                preserve_rng_state=False)
+        else:
+            x, _ = _layer(cfg, lp, i, x, q_pos)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return x, torch.zeros((), dtype=torch.float32, device=embed.device)
 
@@ -311,6 +336,41 @@ def forward(params, tokens, cfg: TransformerConfig) -> Tuple[torch.Tensor, torch
     """tokens (B, S) -> (logits (B, S, V), aux_loss scalar)."""
     x, aux = trunk(params, tokens, cfg)
     return x @ _head(params, cfg), aux
+
+
+def _chunk_ce(xc, head, lc):
+    return torch.sum(softmax_cross_entropy(xc @ head, lc))
+
+
+def loss_fn(params, batch, cfg: TransformerConfig) -> torch.Tensor:
+    """batch: {'tokens': (B, S), 'labels': (B, S)} integer tensors or
+    arrays -> the mean token cross-entropy, a 0-dim float32 tensor.
+
+    The head and the cross-entropy run in ``n_chunks`` chunks of the
+    sequence, the reference's count (``max(1, min(T // ce_chunk_tokens,
+    S, 64))``, lowered until it divides S), each under a checkpoint, so
+    one chunk's (tokens, V) logits are live at a time; the chunks' sums
+    are added in order and divided by T = B S."""
+    x, aux = trunk(params, batch["tokens"], cfg)
+    head = _head(params, cfg)
+    labels = torch.as_tensor(batch["labels"], device=x.device)
+    B, S, D = x.shape
+    T = B * S
+    n_chunks = max(1, min(T // max(cfg.ce_chunk_tokens, 1), S, 64))
+    while S % n_chunks:
+        n_chunks -= 1
+    c = S // n_chunks
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(n_chunks):
+        xc, lc = x[:, i * c:(i + 1) * c], labels[:, i * c:(i + 1) * c]
+        if torch.is_grad_enabled():
+            part = torch.utils.checkpoint.checkpoint(
+                _chunk_ce, xc, head, lc, use_reentrant=False,
+                preserve_rng_state=False)
+        else:
+            part = _chunk_ce(xc, head, lc)
+        total = total + part
+    return total / T + cfg.router_aux_coef * aux
 
 
 def prefill(params, tokens, cfg: TransformerConfig) -> torch.Tensor:

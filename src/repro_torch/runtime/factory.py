@@ -2,9 +2,10 @@
 
 Counterpart of ``repro/runtime/factory.py`` for the archs the port has
 reached (``baidu-ctr`` and ``dlrm-mlperf``, each training and serving; the
-LMs ``qwen3-14b``, ``qwen2-7b`` and ``granite-8b`` have no trainer yet and
-raise naming A10c):
+LMs ``qwen3-14b``, ``qwen2-7b`` and ``granite-8b`` training, on a
+``DenseTrainer``):
 
+    tr = build_trainer("qwen3-14b", TrainerConfig(n_pod=2))
     tr = build_trainer("baidu-ctr", TrainerConfig(placement="gather"))
     tr = build_trainer("dlrm-mlperf", TrainerConfig(placement="gather"))
     tr = build_trainer("baidu-ctr", TrainerConfig(placement="cached",
@@ -32,7 +33,8 @@ from repro_torch.core.row_store import make_store
 from repro_torch.core.sparse_optim import SparseAdagrad
 from repro_torch.kernels import ops
 from repro_torch.models import recsys as R
-from repro_torch.runtime.trainer import HybridTrainer, TrainerConfig, next_pow2
+from repro_torch.runtime.trainer import (DenseTrainer, HybridTrainer,
+                                         TrainerConfig, next_pow2)
 
 # Bounds the deduplicated ids of one global batch at smoke/example scales;
 # the default clamps to the table size.  At full width (batch 1024 x 100
@@ -135,20 +137,22 @@ def _recsys_wiring(mcfg):
 def build_trainer(arch: str, cfg: TrainerConfig, *, smoke: bool = True,
                   seed: int = 0, model_cfg: Any = None,
                   table_scale: float = TABLE_SCALE,
-                  device="cuda") -> HybridTrainer:
-    """Construct the trainer for ``arch`` from the config registry (the
-    dense tower under ``cfg.kstep``, the tables drawn with std
-    ``table_scale``)."""
+                  device="cuda"):
+    """Construct the trainer for ``arch`` from the config registry: for an
+    LM a ``DenseTrainer`` over ``transformer.loss_fn``; for a recsys arch a
+    ``HybridTrainer`` (the dense tower under ``cfg.kstep``, the tables
+    drawn with std ``table_scale``)."""
     device = resolve_device(device)
     spec = configs.get(arch)
-    if spec.family == "lm":
-        raise NotImplementedError(
-            f"build_trainer({arch!r}): LM training is not ported yet: "
-            "ROADMAP.md queue A10c (LM training); the port serves the LM "
-            "through repro_torch.models.transformer.prefill and "
-            "repro_torch.runtime.serve.BatchedServer")
     mcfg = model_cfg if model_cfg is not None else (
         spec.smoke_cfg if smoke else spec.model_cfg)
+    if spec.family == "lm":
+        from repro_torch.models import transformer as T
+
+        params = T.init_params(torch.Generator(device).manual_seed(seed),
+                               mcfg, device=device)
+        return DenseTrainer(lambda p, b: T.loss_fn(p, b, mcfg), params, cfg,
+                            device=device)
     init_dense, build_engine, embed_of, loss_of = _recsys_wiring(mcfg)
     generator = torch.Generator(device).manual_seed(seed)
     dense = init_dense(generator, mcfg, device=device)

@@ -1,6 +1,20 @@
-"""The hybrid trainer (dense tower + sparse tables).
+"""The training runtimes: ``DenseTrainer`` (all-dense models: the LM) and
+``HybridTrainer`` (dense tower + sparse tables).
 
-Counterpart of ``repro/runtime/trainer.py``'s ``HybridTrainer``: the
+``DenseTrainer`` is the reference's: podded replicas of every parameter
+under k-step Adam, each pod's loss on its own replica and its own share of
+the batch, one backward of the summed loss (the reference's ``jax.grad``
+of the vmapped sum), the local step or the merge step every k steps, and
+with ``merge_delay > 0`` the delayed merge (each boundary's pod average
+applied ``merge_delay`` boundaries late, keeping the local drift since its
+snapshot).  Parameters, gradients and optimizer state are updated in
+place; the gradients land in one podded buffer per leaf, each pod's
+accumulated into its slice as autograd produces it (``.grad`` of the pod's
+view), so no second copy of the gradient tree is ever live.  The batch
+goes to the card from pinned memory without a wait, and the mean loss
+comes back as a device tensor: a step makes no host sync.
+
+``HybridTrainer`` is ``repro/runtime/trainer.py``'s ``HybridTrainer``: the
 paper's CTR regime, a dense tower under k-step Adam (podded replicas) and
 giant sparse tables behind an ``EmbeddingEngine``.  One training step is
 Algorithm 1's pull -> train -> push:
@@ -36,12 +50,14 @@ dense parameters keep the reference's leading pod dimension, so a state
 exported from the reference loads unchanged (``repro_torch.interop``).
 
 Not ported yet, and raising when asked for: ``prefetch`` (ROADMAP.md queue
-A5), ``ckpt_dir`` (A3), ``merge_delay > 0`` and ``merge_quorum != 1.0``
-(rejected as the reference rejects them), ``DenseTrainer`` (A10).
+A5; ``DenseTrainer`` rejects it as the reference does) and ``ckpt_dir``
+(A3); ``merge_delay > 0`` (``HybridTrainer``) and ``merge_quorum != 1.0``
+are rejected as the reference rejects them.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import time
 from typing import Any, Callable, Dict, Iterator, Optional
@@ -162,6 +178,162 @@ def _fit_loop(trainer, batches: Iterator, steps: int, eval_fn=None) -> list:
                 rec["eval"] = eval_fn(trainer)
             trainer.history.append(rec)
     return trainer.history
+
+
+def _stage_batch(batch, device) -> Dict[str, torch.Tensor]:
+    """A host batch (numpy or CPU tensors) on ``device``: to the card from
+    pinned memory, without a wait (the caching host allocator keeps the
+    pinned block until the copy is done)."""
+    out = {}
+    for k, x in batch.items():
+        t = torch.as_tensor(np.asarray(x) if not torch.is_tensor(x) else x)
+        if t.device != device:
+            if device.type == "cuda":
+                t = t.pin_memory().to(device, non_blocking=True)
+            else:
+                t = t.to(device)
+        out[k] = t
+    return out
+
+
+class DenseTrainer:
+    """All-dense models: k-step Adam over podded replicas.
+
+    Parameters
+    ----------
+    loss_fn(params, batch) -> 0-dim float32 loss, for one pod's replica and
+        its share of the batch.
+    params: the parameter tree, un-podded (``podded=False``, replicated
+        ``cfg.n_pod`` times) or already carrying the leading pod dimension.
+    opt_state: a ``KStepAdamState`` to start from (None: a fresh one).
+    device: where everything lives; CUDA unless the caller asks for "cpu".
+    """
+
+    def __init__(self, loss_fn: Callable, params: Tree, cfg: TrainerConfig,
+                 *, opt_state=None, podded: bool = False, device="cuda"):
+        self.cfg = cfg
+        if cfg.prefetch:
+            raise ValueError(
+                "DenseTrainer: prefetch=True is a sparse-path feature "
+                "(HybridTrainer's pull prefetch) — an all-dense model has "
+                "no pull stage to overlap; set prefetch=False")
+        _reject_dead_knobs(cfg, "DenseTrainer", merge_delay_ok=True)
+        if cfg.fused_kernels:
+            raise ValueError(
+                "DenseTrainer: fused_kernels=True is a sparse-path feature "
+                "(the fused embedding pull/push kernels) — an all-dense "
+                "model has no working set to fuse over; leave "
+                "fused_kernels=None")
+        if (cfg.store != "host" or cfg.spill_dir is not None
+                or cfg.page_rows is not None
+                or cfg.page_cache_pages is not None):
+            raise ValueError(
+                "DenseTrainer: store/spill_dir/page_rows/page_cache_pages "
+                "are sparse-path knobs (the embedding tables' storage "
+                "hierarchy) — an all-dense model has no tables to spill")
+        if cfg.merge_delay > 0 and cfg.kstep.merge == "int8_ef":
+            raise NotImplementedError(
+                "merge_delay>0 with merge='int8_ef' is not supported: the "
+                "error-feedback residual needs the fused merge path")
+        self.n_pod = cfg.n_pod
+        self.device = resolve_device(device)
+        if self.device.type == "cuda" and self.device.index is None:
+            self.device = torch.device("cuda", torch.cuda.current_device())
+        self.params = (params if podded
+                       else pod_replicate(params, self.n_pod))
+        for leaf in leaves(self.params):
+            if leaf.shape[0] != self.n_pod or leaf.device != self.device:
+                raise ValueError(
+                    f"a podded leaf is {tuple(leaf.shape)} on {leaf.device}; "
+                    f"expected {self.n_pod} pod replicas on {self.device}")
+        self.opt = KStepAdam(cfg.kstep, cfg.n_pod)
+        if opt_state is None:
+            opt_state = self.opt.init(self.params)
+        elif (opt_state.ef is None) != (cfg.kstep.merge != "int8_ef"):
+            raise ValueError(
+                f"opt_state has ef={opt_state.ef is not None}, but "
+                f"merge={cfg.kstep.merge!r} "
+                f"{'needs' if cfg.kstep.merge == 'int8_ef' else 'has no'} "
+                "error-feedback residual")
+        self.opt_state = opt_state
+        self.step_num = int(opt_state.step)
+        # one podded gradient buffer per leaf, in the leaf's dtype
+        self.grads = tree_map(torch.zeros_like, self.params)
+        self._loss_fn = loss_fn
+        # merge_delay > 0: queue of (snapshot, in-flight merged average)
+        self._pending_merges: collections.deque = collections.deque()
+        self.ckpt = None          # checkpoints: ROADMAP.md queue A3
+        self.history: list = []
+
+    def pod_batch(self, batch):
+        return pod_batch(batch, self.n_pod)
+
+    def _forward(self, batch_podded):
+        """Each pod's loss on its replica (a view of the podded leaves, its
+        ``.grad`` the pod's slice of ``self.grads``, zeroed); returns the
+        (n_pod,) losses, the views and their slices' addresses."""
+        grads = leaves(self.grads)
+        for g in grads:
+            g.zero_()
+        views, inputs, slots = [], [], []   # slots: the slices' addresses
+        for i in range(self.n_pod):
+            view = tree_map(lambda x: x[i].detach().requires_grad_(True),
+                            self.params)
+            for v, g in zip(leaves(view), grads):
+                v.grad = g[i]
+                inputs.append(v)
+                slots.append(v.grad.data_ptr())
+            views.append(view)
+        losses = torch.stack([
+            self._loss_fn(views[i], {k: x[i] for k, x in batch_podded.items()})
+            for i in range(self.n_pod)])
+        return losses, inputs, slots
+
+    @staticmethod
+    def _backward(losses, inputs, slots) -> torch.Tensor:
+        """One backward of the pods' summed loss, each pod's gradient added
+        into its slice of ``self.grads``; returns the losses, detached."""
+        torch.autograd.backward(losses.sum(), inputs=inputs)
+        # autograd adds into an existing .grad in place; a replaced one
+        # would leave the buffer without this step's gradient
+        for v, ptr in zip(inputs, slots):
+            if v.grad is None or v.grad.data_ptr() != ptr:
+                raise RuntimeError("a pod's gradient did not land in its "
+                                   "slice of the gradient buffer")
+        return losses.detach()
+
+    def train_step(self, batch, podded: bool = False) -> torch.Tensor:
+        """One step on ``batch`` (``podded=True``: its leaves already carry
+        the leading pod dimension).  Returns the mean loss over pods as a
+        DEVICE tensor (``float()`` it at logging boundaries)."""
+        self.step_num += 1
+        is_boundary = (self.step_num % self.cfg.kstep.k) == 0
+        fused_merge = is_boundary and self.cfg.merge_delay == 0
+        staged = _stage_batch(batch, self.device)
+        pb = staged if podded else self.pod_batch(staged)
+        losses = self._backward(*self._forward(pb))
+        self.opt.step(self.params, self.grads, self.opt_state,
+                      merge=fused_merge)
+        if is_boundary and self.cfg.merge_delay > 0:
+            self._delayed_merge_boundary()
+        return losses.mean()
+
+    def _delayed_merge_boundary(self):
+        """``merge_delay > 0``: at each merge boundary, first apply the
+        average launched ``merge_delay`` boundaries ago (keeping the local
+        drift since its snapshot), then launch this boundary's: the
+        parameter average and the ``v_hat <- mean v_local`` refresh, which
+        applies now."""
+        if len(self._pending_merges) >= self.cfg.merge_delay:
+            snap_old, merged_old = self._pending_merges.popleft()
+            KStepAdam.apply_delayed_merge(self.params, snap_old, merged_old)
+        snap = KStepAdam.snapshot(self.params)
+        merged, self.opt_state = self.opt.delayed_merge_collective(
+            self.params, self.opt_state)
+        self._pending_merges.append((snap, merged))
+
+    def fit(self, batches: Iterator, steps: int, eval_fn=None) -> list:
+        return _fit_loop(self, batches, steps, eval_fn)
 
 
 class HybridTrainer:

@@ -1236,10 +1236,13 @@ def test_cuda_flash_attention_prefix_is_bit_equal(dtype):
 
 
 @pytest.mark.gpu
-def test_cuda_flash_attention_launches_the_kernel_forward_only(tmp_path):
-    """One counted launch per call; a CUDA graph captured around the calls
-    holds the fma kernel for float32 and the mma kernel for bfloat16, as
-    ``cudaGraphDebugDotPrint`` names them."""
+def test_cuda_flash_attention_launches_the_kernels_both_ways(tmp_path):
+    """One counted launch per forward call; a CUDA graph captured around
+    the calls holds the fma kernel for float32 and the mma kernel for
+    bfloat16, as ``cudaGraphDebugDotPrint`` names them.  Under autograd
+    the backward is kernel 9b (counted once per backward, the same bits
+    as the wrapper's call, whose graph holds its three kernels) and no
+    plain version runs."""
     _cuda_or_skip()
     q, k, v = _qkv(2, 96, 4, 2, 32, torch.float32, seed=3)
     half = [x.to(torch.bfloat16) for x in (q, k, v)]
@@ -1257,9 +1260,202 @@ def test_cuda_flash_attention_launches_the_kernel_forward_only(tmp_path):
     assert ops.launches["flash_attention"] == 2
     assert ops.launches["flash_attention_ref"] == 0
     assert out.shape == q.shape
-    x = q.clone().requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="A10c"):
-        ops.flash_attention(x, k, v).sum().backward()
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_backward_cuda, flash_attention_cuda)
+
+    for xs in ((q, k, v), half):
+        xs = [x.clone().requires_grad_(True) for x in xs]
+        o = ops.flash_attention(*xs)
+        grads = torch.autograd.grad(o, xs, torch.ones_like(o))
+        assert [t.shape for t in grads] == [x.shape for x in xs]
+        plain = [x.detach() for x in xs]
+        out, lse = flash_attention_cuda(*plain, True, return_lse=True)
+        want = flash_attention_backward_cuda(*plain, out, lse,
+                                             torch.ones_like(o), True)
+        assert all(torch.equal(a, b) for a, b in zip(grads, want))
+        bwd = torch.cuda.CUDAGraph(keep_graph=True)
+        bwd.enable_debug_mode()
+        with torch.cuda.graph(bwd):
+            flash_attention_backward_cuda(*plain, out, lse,
+                                          torch.ones_like(o), True)
+        path = tmp_path / f"bwd_{xs[0].dtype}.dot"
+        bwd.debug_dump(str(path))
+        text = path.read_text()
+        for name in ("flash_attention_bwd_delta_kernel",
+                     "flash_attention_bwd_kv_kernel",
+                     "flash_attention_bwd_q_kernel"):
+            assert text.count(name) == 1, name
+    assert ops.launches["flash_attention_backward"] == 2
+    assert ops.launches["flash_attention_backward_ref"] == 0
+
+
+FLASH_BWD_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("B,S,H,Kv,hd,dtype", [
+    (2, 64, 8, 2, 16, torch.float32), (1, 257, 4, 4, 128, torch.float32),
+    (3, 5, 2, 1, 8, torch.float32), (1, 70, 2, 1, 256, torch.float32),
+    (1, 1000, 8, 2, 128, torch.bfloat16), (2, 63, 4, 4, 64, torch.bfloat16),
+    (1, 130, 10, 2, 40, torch.bfloat16), (1, 17, 8, 1, 256, torch.bfloat16),
+    (1, 1, 4, 2, 64, torch.bfloat16), (1, 512, 40, 8, 128, torch.bfloat16),
+])
+def test_cuda_flash_attention_backward_matches_plain_vjp(B, S, H, Kv, hd,
+                                                         dtype, causal):
+    """Kernel 9b against ``ref.flash_attention_backward_ref`` (autograd's
+    vjp of the plain version) on the card: every gradient within
+    FLASH_BWD_TOL times its largest magnitude, or times 1 where that is
+    below 1 (the inputs are standard normal, so a gradient's sums are of
+    order 1; at S 1, dq and dk are 0 up to that noise): float32, the same
+    float32 math summed in another order; bfloat16, one bf16 rounding of
+    each gradient, and D = rowsum(dO o) from the bf16 output where the
+    plain vjp has the float32 one.  The forward's log-sum-exp within 1e-5 of
+    ``ref.flash_attention_lse_ref`` and its output the same bits as
+    without it; two backward runs bit-equal."""
+    _cuda_or_skip()
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_backward_cuda, flash_attention_cuda)
+
+    q, k, v = _qkv(B, S, H, Kv, hd, dtype, seed=S + hd + 1)
+    dout = torch.randn(q.shape, generator=torch.Generator("cuda").manual_seed(
+        S), device="cuda").to(dtype)
+    out, lse = flash_attention_cuda(q, k, v, causal, return_lse=True)
+    assert torch.equal(out, flash_attention_cuda(q, k, v, causal))
+    torch.testing.assert_close(lse, tref.flash_attention_lse_ref(q, k, causal),
+                               atol=1e-5, rtol=1e-5)
+    got = flash_attention_backward_cuda(q, k, v, out, lse, dout, causal)
+    again = flash_attention_backward_cuda(q, k, v, out, lse, dout, causal)
+    torch.cuda.synchronize()
+    want = tref.flash_attention_backward_ref(q, k, v, dout, causal)
+    for name, a, b, c in zip("qkv", got, again, want):
+        assert a.dtype == dtype and a.shape == c.shape, name
+        assert torch.equal(a, b), name
+        scale = max(c.float().abs().max().item(), 1.0)
+        err = (a.float() - c.float()).abs().max().item()
+        assert err <= FLASH_BWD_TOL[dtype] * scale, (name, err, scale)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lr_tensor", [False, True])
+@pytest.mark.parametrize("bias,wd", [(False, 0.0), (True, 1e-4)])
+@pytest.mark.parametrize("warmup,t", [(True, 3), (True, 25), (False, 3)])
+def test_cuda_fused_adam_bf16_leaves_match_plain_version(warmup, t, bias, wd,
+                                                         lr_tensor):
+    """Kernel 6 on bfloat16 params and gradients (float32 moments), mixed
+    with float32 leaves in one call: one launch, params and moments bit-
+    equal to the plain version on the card."""
+    _cuda_or_skip()
+    from repro_torch.kernels.fused_adam import fused_adam_cuda
+
+    sizes = [4096, 1, 1310720, 513, 131071, 7]
+    leaves = list(_adam_leaves(8, sizes, "cuda"))
+    for grp in (0, 1):
+        leaves[grp] = [x.to(torch.bfloat16) if i % 2 == 0 else x
+                       for i, x in enumerate(leaves[grp])]
+    kw = _adam_kwargs(t, "cuda", warmup, bias, wd, lr_tensor)
+    want = [[x.clone() for x in grp] for grp in leaves]
+    tref.fused_adam_ref(*want, **kw)
+    got = [[x.clone() for x in grp] for grp in leaves]
+    ops.reset_launches()
+    ops.fused_adam(*got, **kw)
+    torch.cuda.synchronize()
+    assert ops.launches["fused_adam"] == 1
+    for i in (0, 2, 3):
+        for a, b in zip(got[i], want[i]):
+            assert a.dtype == b.dtype and torch.equal(a, b)
+    with pytest.raises(ValueError, match="gradient 0"):
+        fused_adam_cuda(got[0], [g.float() for g in got[1]], *got[2:], **kw)
+
+
+def _smoke_trainer(device, state=None, **kstep):
+    """qwen3-14b's smoke config (float32) on a ``DenseTrainer`` from one
+    state drawn on the CPU: n_pod 2, k 2, lr 1e-4."""
+    from repro_torch import configs, tree_map
+    from repro_torch.core.kstep import KStepConfig
+    from repro_torch.models import transformer as T
+    from repro_torch.runtime.trainer import DenseTrainer, TrainerConfig
+
+    cfg = configs.get("qwen3-14b").smoke_cfg
+    if state is None:
+        state = T.init_params(torch.Generator("cpu").manual_seed(5), cfg,
+                              device="cpu")
+    return cfg, DenseTrainer(
+        lambda p, b: T.loss_fn(p, b, cfg),
+        tree_map(lambda t: t.clone().to(device), state),
+        TrainerConfig(n_pod=2, kstep=KStepConfig(lr=1e-4, k=2, **kstep)),
+        device=device)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("merge", ["two_phase", "int8_ef"])
+def test_cuda_dense_trainer_matches_the_cpu(merge):
+    """Four ``DenseTrainer`` steps (two merges) of the smoke LM on the card
+    and on the CPU from one state: losses, parameters and moments within
+    rtol 1e-4, atol 1e-6 (phase 6's tolerance: float32 sums in other
+    orders, carried through Adam); each step launches kernel 9 twice and
+    9b once per layer and pod and kernel 6 on the local steps on the card,
+    their plain versions as often on the CPU."""
+    _cuda_or_skip()
+    from repro_torch.core.kstep import leaves
+    from repro_torch.data.synthetic import lm_batches
+
+    cfg, cpu = _smoke_trainer("cpu", merge=merge)
+    _, gpu = _smoke_trainer("cuda", merge=merge)
+    gen = lm_batches(seed=0, batch=4, seq_len=64, vocab=cfg.vocab)
+    ops.reset_launches()
+    for _ in range(4):
+        b = next(gen)
+        want = cpu.train_step(b)
+        got = gpu.train_step(b)
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-6)
+    n = 4 * 2 * cfg.n_layers
+    assert ops.launches["flash_attention"] == 2 * n
+    assert ops.launches["flash_attention_backward"] == n
+    assert ops.launches["fused_adam"] == 2
+    assert ops.launches["flash_attention_ref"] == 2 * n
+    assert ops.launches["fused_adam_ref"] == 2
+    for a, b in zip(leaves(gpu.params) + leaves(gpu.opt_state.m),
+                    leaves(cpu.params) + leaves(cpu.opt_state.m)):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-6)
+
+
+@pytest.mark.gpu
+def test_cuda_dense_trainer_step_makes_no_host_sync():
+    """A local and a merge step of the smoke LM in bfloat16 on the card
+    under the sync debug mode "error" (the batch from pinned memory, the
+    loss a device tensor): finite losses; the gradient buffers and the
+    parameters keep their storage."""
+    _cuda_or_skip()
+    import dataclasses
+
+    from repro_torch import configs, tree_map
+    from repro_torch.core.kstep import KStepConfig, leaves
+    from repro_torch.data.synthetic import lm_batches
+    from repro_torch.models import transformer as T
+    from repro_torch.runtime.trainer import DenseTrainer, TrainerConfig
+
+    cfg = dataclasses.replace(configs.get("qwen3-14b").smoke_cfg,
+                              dtype=torch.bfloat16)
+    params = T.init_params(torch.Generator("cuda").manual_seed(5), cfg,
+                           device="cuda")
+    tr = DenseTrainer(lambda p, b: T.loss_fn(p, b, cfg), params,
+                      TrainerConfig(n_pod=2, kstep=KStepConfig(k=2)),
+                      device="cuda")
+    gen = lm_batches(seed=0, batch=4, seq_len=64, vocab=cfg.vocab)
+    tr.train_step(next(gen))                     # warm-up: builds, tables
+    ptrs = [x.data_ptr() for x in leaves(tr.params) + leaves(tr.grads)]
+    torch.cuda.synchronize()
+    losses = []
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(3):
+            losses.append(tr.train_step(next(gen)))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert all(torch.isfinite(x).item() for x in losses)
+    assert [x.data_ptr() for x in leaves(tr.params) + leaves(tr.grads)] == ptrs
+    assert all(x.dtype == torch.bfloat16 for x in leaves(tr.params))
 
 
 @pytest.mark.gpu

@@ -119,11 +119,11 @@ def test_configs_match_the_reference(arch):
     jfields = {f.name: f for f in dataclasses.fields(JT.TransformerConfig)}
     fields = [f.name for f in dataclasses.fields(T.TransformerConfig)]
     assert set(fields) <= set(jfields)
-    # the reference's fields the port leaves out: its attention choice and
-    # its loss chunking, at their defaults in every config the port takes
+    # the reference's fields the port leaves out: its attention choice, at
+    # its defaults in every config the port takes
     dropped = set(jfields) - set(fields)
     assert dropped == {"dense_attn_threshold", "attn_block_kv",
-                       "attn_block_q", "ce_chunk_tokens"}
+                       "attn_block_q"}
     for name in ("model_cfg", "smoke_cfg"):
         got, want = getattr(spec, name), getattr(jspec, name)
         for f in fields:
@@ -538,16 +538,26 @@ def test_unported_fields_raise_naming_their_items(field, value, item):
         T.prefill(params, torch.zeros((1, 4), dtype=torch.int32), bad)
 
 
-def test_lm_training_raises_naming_a10c():
-    with pytest.raises(NotImplementedError, match="A10c"):
-        build_trainer("qwen3-14b", TrainerConfig(), device="cpu")
-    with pytest.raises(NotImplementedError, match="A10c"):
-        launch.main(["--arch", "qwen3-14b", "--steps", "1", "--device",
-                     "cpu"])
-    rng = np.random.default_rng(6)
-    q = torch.from_numpy(rng.standard_normal((1, 8, 2, 8)).astype(np.float32))
-    with pytest.raises(NotImplementedError, match="A10c"):
-        ops._FlashAttention.backward(None, q)
+def test_lm_training_runs_through_the_entry_points(capsys):
+    """``build_trainer`` gives a ``DenseTrainer`` that takes steps with
+    finite losses and counts the attention's plain backward; the launcher
+    trains and prints the reference's final line."""
+    from repro_torch.data.synthetic import lm_batches
+    from repro_torch.runtime.trainer import DenseTrainer
+
+    tr = build_trainer("qwen3-14b", TrainerConfig(), device="cpu")
+    assert isinstance(tr, DenseTrainer)
+    gen = lm_batches(seed=0, batch=2, seq_len=16, vocab=SMOKE.vocab)
+    ops.reset_launches()
+    losses = [float(tr.train_step(next(gen))) for _ in range(2)]
+    assert all(math.isfinite(x) for x in losses)
+    # each layer's attention runs twice (forward, and again when the
+    # checkpointed layer is recomputed), its backward once
+    assert ops.launches["flash_attention_ref"] == 2 * 2 * SMOKE.n_layers
+    assert ops.launches["flash_attention_backward_ref"] == 2 * SMOKE.n_layers
+    launch.main(["--arch", "qwen3-14b", "--steps", "2", "--device", "cpu"])
+    out = capsys.readouterr().out.strip().splitlines()[-1]
+    assert out.startswith("final loss n/a (steps < log_every) (")
 
 
 def test_entry_points_default_to_cuda(monkeypatch):

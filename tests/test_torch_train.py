@@ -343,7 +343,8 @@ def test_training_slice_matches_reference_end_to_end():
         "fused_adam": 0, "fused_adam_ref": 3,   # the local steps 1, 3, 5
         "dot_interaction": 0, "dot_interaction_ref": 0,
         "dot_interaction_backward": 0, "dot_interaction_backward_ref": 0,
-        "flash_attention": 0, "flash_attention_ref": 0}
+        "flash_attention": 0, "flash_attention_ref": 0,
+        "flash_attention_backward": 0, "flash_attention_backward_ref": 0}
 
 
 def test_training_slice_int8_ef_merge_matches_reference():
