@@ -220,16 +220,20 @@ Phases (any failure raises and the script exits non-zero):
      cache):
      (a) kernel 9b, flash attention's backward, against the plain vjp
      (autograd through ``ref.flash_attention_ref``) at (1, 4096, 40, 8,
-     128) bf16 and f32 causal (the cell's), (2, 64, 8, 2, 16) f32 causal
+     128) bf16 and f32 causal (the cell's), (1, 129, 40, 8, 128) bf16
+     causal, (1, 200, 8, 8, 256) bf16 full, (2, 64, 8, 2, 16) f32 causal
      and full, (1, 1000, 40, 8, 128) bf16 causal, (1, 333, 8, 2, 64) bf16
      full, (2, 97, 4, 2, 64) f32 causal and (1, 257, 4, 4, 128) f32 full:
      every gradient within 1e-5 (f32) or 2e-2 (bf16) of its largest
      magnitude, two runs bit-equal, the forward's log-sum-exp within 1e-5
      of the plain one and its output bit-equal to the output without it,
-     a CUDA graph of a call holding the three kernels; timed cold and warm
-     at the cell's shape in both dtypes beside the plain vjp, the backward
-     of ``F.scaled_dot_product_attention(is_causal, enable_gqa)`` and the
-     bound; its instantiations' registers and spills (``cuobjdump``).
+     a CUDA graph of a call holding its dtype's three kernels (bf16: D,
+     then the mma dK/dV and dQ kernels); timed cold and warm at the cell's
+     shape in both dtypes beside the plain vjp, the backward of
+     ``F.scaled_dot_product_attention(is_causal, enable_gqa)`` and the
+     bound; its instantiations' registers, stack, spill stores and HMMA
+     count (``cuobjdump``): every bf16 one with HMMA, none at HDP 64 or 128
+     with a spill store.
      Kernel 6 on bf16 params and gradients (f32 moments) at one podded
      layer of the cell (660.6 M elements): bit-equal to its plain version
      before and after the first merge, timed beside it and its bound (26 B
@@ -4509,9 +4513,15 @@ LM_TRAIN_SEQ = 4096        # lm_shapes()["train_4k"]'s sequence
 LM_TRAIN_BATCH = 2         # train_4k's batch 256 cut to 2: 1 sequence a pod
 LM_TRAIN_STEPS = 20        # two merges at k 10
 LM_TRAIN_K = 10
-FLASH_BWD_KERNELS = ("flash_attention_bwd_delta_kernel",
-                     "flash_attention_bwd_kv_kernel",
-                     "flash_attention_bwd_q_kernel")
+# kernel 9b's three launches a backward, by dtype: D, then dK and dV, then
+# dQ (bf16 on the tensor cores, f32 on the CUDA cores)
+FLASH_BWD_KERNELS = {
+    "bfloat16": ("flash_attention_bwd_delta_kernel",
+                 "flash_attention_bwd_kv_mma_kernel",
+                 "flash_attention_bwd_q_mma_kernel"),
+    "float32": ("flash_attention_bwd_delta_kernel",
+                "flash_attention_bwd_kv_kernel",
+                "flash_attention_bwd_q_kernel")}
 # kernel 9b against the plain vjp: every gradient within this share of its
 # largest magnitude (f32: float32 sums in another order; bf16: one bf16
 # rounding of each gradient, and D from the bf16 output)
@@ -4521,7 +4531,8 @@ FLASH_BWD_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 def _flash_bwd_times(q, k, v, dout, causal=True, iters=5):
     """Kernel 9b's times (cold and warm L2), its plain vjp's, the backward
     of ``F.scaled_dot_product_attention`` (timed only: the port never
-    calls it) and its bound at ``q, k, v``."""
+    calls it) and its bound at ``q, k, v``; the device time of its three
+    kernels (D, dK/dV, dQ) per call under the profiler (``_kernel_times``)."""
     import torch
     import torch.nn.functional as F
 
@@ -4568,22 +4579,28 @@ def _flash_bwd_times(q, k, v, dout, causal=True, iters=5):
         "bound_ms": bound_ms, "bound_by": bound_by, "gflop": flops / 1e9,
         "mb": nbytes / 1e6,
     }
+    per_kernel = _kernel_times(kernel, calls=iters)
+    res["kernels_ms"] = {
+        part: sum(ms for key, ms in per_kernel.items() if name in key)
+        for part, name in zip(("D", "dK/dV", "dQ"),
+                              FLASH_BWD_KERNELS[dtype])}
     del lib_out, xs
     return res
 
 
 def _flash_bwd_sass_report():
     """Phase 14 (a): each instantiation of kernel 9b's dK/dV and dQ kernels
-    (``_sass_report``): "kv<T,HDP>", "q<T,HDP>"."""
+    (``_sass_report``): "kv<T,HDP>", "q<T,HDP>", T "bf16" (the mma
+    kernels) or "f32" (the fma kernels).  Fails on a bf16 one without
+    HMMA, or with a spill store (STL) at HDP 64 or 128, and on an f32 one
+    with HMMA."""
     import re
 
     def short(mangled):
-        m = re.search(r"flash_attention_bwd_(kv|q)_kernelI(\w+?)Li(\d+)E",
+        m = re.search(r"flash_attention_bwd_(kv|q)_(mma_)?kernelILi(\d+)E",
                       mangled)
-        if not m:
-            return None
-        t = "bf16" if "bfloat16" in m.group(2) else "f32"
-        return f"{m.group(1)}<{t},{m.group(3)}>"
+        return m and (f"{m.group(1)}<{'bf16' if m.group(2) else 'f32'},"
+                      f"{m.group(3)}>")
 
     report, usage = _sass_report(short)
     want = sorted(f"{n}<{t},{w}>" for n in ("kv", "q") for t in ("bf16",
@@ -4594,6 +4611,11 @@ def _flash_bwd_sass_report():
                              f"; cuobjdump -res-usage began:\n"
                              f"{usage[:3000]}")
     _print_sass(report)
+    for name, r in sorted(report.items()):
+        bf16 = "bf16" in name
+        if ("hmma" not in r or (r["hmma"] > 0) != bf16
+                or (bf16 and not name.endswith(",256>") and r["stl"])):
+            raise AssertionError(f"kernel 9b {name}: SASS report {r}")
     return report
 
 
@@ -4613,6 +4635,8 @@ def phase_flash_backward(device):
     # (B, S, H, Kv, hd), dtype, causal, timed
     cases = [((1, S, 40, 8, 128), torch.bfloat16, True, True),
              ((1, S, 40, 8, 128), torch.float32, True, True),
+             ((1, 129, 40, 8, 128), torch.bfloat16, True, False),
+             ((1, 200, 8, 8, 256), torch.bfloat16, False, False),
              ((2, 64, 8, 2, 16), torch.float32, True, False),
              ((2, 64, 8, 2, 16), torch.float32, False, False),
              ((1, 1000, 40, 8, 128), torch.bfloat16, True, False),
@@ -4665,16 +4689,18 @@ def phase_flash_backward(device):
                 max_err = max(max_err, err)
             else:
                 max_err_bf16 = max(max_err_bf16, err)
+        names = sorted(set(sum(FLASH_BWD_KERNELS.values(), ())))
         ran = _graph_kernels(lambda: flash_attention_backward_cuda(
-            q, k, v, out, lse, dout, causal), FLASH_BWD_KERNELS)
-        if ran != [1, 1, 1]:
-            raise AssertionError(f"kernel 9b's graph holds {ran} of "
-                                 f"{FLASH_BWD_KERNELS}")
+            q, k, v, out, lse, dout, causal), names)
+        if ran != [int(n in FLASH_BWD_KERNELS[name]) for n in names]:
+            raise AssertionError(f"kernel 9b's graph holds {ran} of {names}"
+                                 f"; {name} launches "
+                                 f"{FLASH_BWD_KERNELS[name]} once each")
         print(f"  {(B, Sq, H, Kv, hd)} {name} causal {causal}: max |kernel "
               f"- plain| / max |plain| dq {errs[0]:.3g}, dk {errs[1]:.3g}, "
               f"dv {errs[2]:.3g}; log-sum-exp max |diff| "
               f"{lse_err.max().item():.3g}; two runs bit-equal; its graph "
-              f"holds the three kernels")
+              f"holds its dtype's three kernels")
         del want, got, again, lse_err
         if timed:
             times.append(_flash_bwd_times(q, k, v, dout, causal))
@@ -4686,9 +4712,12 @@ def phase_flash_backward(device):
               f"({t['gflop'] / t['ms']:.2f} TFLOP/s cold); plain vjp "
               f"{t['plain_ms']:.4f}; library (SDPA's backward, is_causal, "
               f"enable_gqa) {t['library_ms']:.4f}; bound {t['bound_ms']:.4f} "
-              f"({t['gflop']:.1f} GFLOP, {t['mb']:.1f} MB, {t['bound_by']})")
+              f"({t['gflop']:.1f} GFLOP, {t['mb']:.1f} MB, {t['bound_by']});"
+              f" its kernels (profiler, L2 cold, ms a call): "
+              + ", ".join(f"{part} {ms:.4f}"
+                          for part, ms in t["kernels_ms"].items()))
     keys = ("shape", "dtype", "ms", "ms_l2_warm", "plain_ms", "bound_ms",
-            "bound_by", "library_ms")
+            "bound_by", "library_ms", "kernels_ms")
     return {
         "name": "flash_attention_backward",
         "route": "cuda",
@@ -4863,7 +4892,8 @@ def _lm_train_breakdown(tr, batch, cfg):
     _release()
     groups = {"kernel 9 (flash_attention_mma_kernel)":
                   ("flash_attention_mma_kernel",),
-              "kernel 9b (flash_attention_bwd_*)": FLASH_BWD_KERNELS,
+              "kernel 9b (flash_attention_bwd_*)":
+                  FLASH_BWD_KERNELS["bfloat16"],
               "kernel 6 (fused_adam_kernel)": ("fused_adam_kernel",)}
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,

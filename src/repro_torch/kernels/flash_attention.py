@@ -95,8 +95,10 @@ def flash_attention_backward_cuda(q, k, v, out, lse, dout, causal=True):
     ``out`` and ``lse`` (``flash_attention_cuda(..., return_lse=True)``),
     for the output gradient ``dout``, in the inputs' dtype, by three
     launches on the current stream (D = rowsum(dO o), then dK and dV, then
-    dQ; none when the output is empty).  No atomics: two runs give the same
-    bits."""
+    dQ; none when the output is empty): bfloat16 on the tensor cores
+    (``flash_attention_bwd_{kv,q}_mma_kernel``, P and dS rounded once to
+    bfloat16 as the products' operands), float32 on the CUDA cores.  No
+    atomics: two runs give the same bits."""
     _check(q, k, v)
     B, S, H, _ = q.shape
     for name, t in (("out", out), ("dout", dout)):

@@ -1241,8 +1241,9 @@ def test_cuda_flash_attention_launches_the_kernels_both_ways(tmp_path):
     the calls holds the fma kernel for float32 and the mma kernel for
     bfloat16, as ``cudaGraphDebugDotPrint`` names them.  Under autograd
     the backward is kernel 9b (counted once per backward, the same bits
-    as the wrapper's call, whose graph holds its three kernels) and no
-    plain version runs."""
+    as the wrapper's call, whose graph holds its dtype's three kernels:
+    D, then dK and dV, then dQ, the mma kernels for bfloat16) and no plain
+    version runs."""
     _cuda_or_skip()
     q, k, v = _qkv(2, 96, 4, 2, 32, torch.float32, seed=3)
     half = [x.to(torch.bfloat16) for x in (q, k, v)]
@@ -1281,10 +1282,16 @@ def test_cuda_flash_attention_launches_the_kernels_both_ways(tmp_path):
         path = tmp_path / f"bwd_{xs[0].dtype}.dot"
         bwd.debug_dump(str(path))
         text = path.read_text()
+        mma = "_mma" if xs[0].dtype == torch.bfloat16 else ""
+        ran = ("flash_attention_bwd_delta_kernel",
+               f"flash_attention_bwd_kv{mma}_kernel",
+               f"flash_attention_bwd_q{mma}_kernel")
         for name in ("flash_attention_bwd_delta_kernel",
                      "flash_attention_bwd_kv_kernel",
-                     "flash_attention_bwd_q_kernel"):
-            assert text.count(name) == 1, name
+                     "flash_attention_bwd_q_kernel",
+                     "flash_attention_bwd_kv_mma_kernel",
+                     "flash_attention_bwd_q_mma_kernel"):
+            assert text.count(name) == (name in ran), name
     assert ops.launches["flash_attention_backward"] == 2
     assert ops.launches["flash_attention_backward_ref"] == 0
 
@@ -1300,6 +1307,12 @@ FLASH_BWD_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
     (1, 1000, 8, 2, 128, torch.bfloat16), (2, 63, 4, 4, 64, torch.bfloat16),
     (1, 130, 10, 2, 40, torch.bfloat16), (1, 17, 8, 1, 256, torch.bfloat16),
     (1, 1, 4, 2, 64, torch.bfloat16), (1, 512, 40, 8, 128, torch.bfloat16),
+    # the mma kernels' tile edges (128 kv rows a dK/dV block, 64-row q
+    # stages, 128 q rows a dQ block), G 1 and 8, hd 40 and 256
+    (1, 127, 40, 8, 128, torch.bfloat16), (1, 128, 40, 8, 128, torch.bfloat16),
+    (1, 129, 40, 8, 128, torch.bfloat16), (1, 4095, 40, 8, 128, torch.bfloat16),
+    (1, 129, 8, 8, 128, torch.bfloat16), (1, 200, 16, 2, 64, torch.bfloat16),
+    (2, 129, 4, 2, 40, torch.bfloat16), (1, 257, 4, 1, 256, torch.bfloat16),
 ])
 def test_cuda_flash_attention_backward_matches_plain_vjp(B, S, H, Kv, hd,
                                                          dtype, causal):
@@ -1308,11 +1321,13 @@ def test_cuda_flash_attention_backward_matches_plain_vjp(B, S, H, Kv, hd,
     FLASH_BWD_TOL times its largest magnitude, or times 1 where that is
     below 1 (the inputs are standard normal, so a gradient's sums are of
     order 1; at S 1, dq and dk are 0 up to that noise): float32, the same
-    float32 math summed in another order; bfloat16, one bf16 rounding of
-    each gradient, and D = rowsum(dO o) from the bf16 output where the
-    plain vjp has the float32 one.  The forward's log-sum-exp within 1e-5 of
-    ``ref.flash_attention_lse_ref`` and its output the same bits as
-    without it; two backward runs bit-equal."""
+    float32 math summed in another order; bfloat16, P and dS rounded once
+    to bf16 as the products' operands, one bf16 rounding of each gradient,
+    and D = rowsum(dO o) from the bf16 output where the plain vjp has the
+    float32 one (the CPU model of those roundings stays within 7.4e-3,
+    ``tests/test_torch_flash_backward_bf16.py``).  The forward's
+    log-sum-exp within 1e-5 of ``ref.flash_attention_lse_ref`` and its
+    output the same bits as without it; two backward runs bit-equal."""
     _cuda_or_skip()
     from repro_torch.kernels.flash_attention import (
         flash_attention_backward_cuda, flash_attention_cuda)

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Time the bag forward's, the hash probe's, the pushes' and the cached
-gather's wrappers of one checkout on the card, so that two checkouts can be
-compared on one card in one run.
+"""Time the bag forward's, the hash probe's, the pushes', the cached
+gather's and flash attention's backward's wrappers of one checkout on the
+card, so that two checkouts can be compared on one card in one run.
 
     python3 tools/kernel_ab.py ROOT [--label NAME] [--out FILE]
 
@@ -32,14 +32,21 @@ Inputs:
   - the cached gather at those slots, with the working set's drop row:
     ``ops.gather_rows_cached(..., drop_row=True)`` where the checkout has
     it, else ``_with_drop_row(ops.gather_rows_cached(...))`` (the pull's
-    gather, then its ``cat``).
+    gather, then its ``cat``);
+  - flash attention's backward (kernel 9b,
+    ``flash_attention_backward_cuda``) at the LM training cell's shape,
+    (B, S, H, Kv, hd) = (1, 4096, 40, 8, 128), causal, in bfloat16 and in
+    float32, from the output and log-sum-exp of the checkout's forward;
+    with a digest of its gradients' bytes (two checkouts whose kernels give
+    the same bits give the same digest).
 Times (ms, or us where said): the wrapper with a cold L2 (after a 256 MB
 write, and after a 256 MB read, which leaves no dirty line in L2) and a
 warm one, the device alone (CUDA graph replays, cold L2 and warm), the
 host per call.  Also,
-the same in every checkout: ``F.embedding_bag`` on the bag's CSR and
-``index_add_`` (library calls), and the latency of one dependent trip to
-HBM (``tools/pointer_chase.cu``).  Each push's and gather's result is held
+the same in every checkout: ``F.embedding_bag`` on the bag's CSR,
+``index_add_`` and the backward of ``F.scaled_dot_product_attention``
+(library calls), and the latency of one dependent trip to HBM
+(``tools/pointer_chase.cu``).  Each push's and gather's result is held
 against the plain version on the card (bit-equal) before it is timed.
 Appends one JSON line per run to ``FILE`` (default
 ``build/kernel_ab.jsonl``) and prints it.
@@ -166,6 +173,48 @@ def _push_gather_times(cs, dev, times):
     return out
 
 
+def _flash_backward_times(cs, dev, times):
+    """Kernel 9b of the checkout whose package was imported first, at the
+    LM cell's shape in bfloat16 and float32 (see the module's docstring)."""
+    import hashlib
+
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_backward_cuda, flash_attention_cuda)
+
+    out = {}
+    for key, dtype in (("flash_backward_bf16", torch.bfloat16),
+                       ("flash_backward_f32", torch.float32)):
+        gen = torch.Generator(dev).manual_seed(59)
+        q = torch.randn((1, 4096, 40, 128), generator=gen,
+                        device=dev).to(dtype)
+        k, v = [torch.randn((1, 4096, 8, 128), generator=gen,
+                            device=dev).to(dtype) for _ in range(2)]
+        dout = torch.randn(q.shape, generator=gen, device=dev).to(dtype)
+        o, lse = flash_attention_cuda(q, k, v, True, return_lse=True)
+
+        def kernel():
+            return flash_attention_backward_cuda(q, k, v, o, lse, dout, True)
+
+        digest = hashlib.sha256()
+        for g in kernel():
+            digest.update(g.contiguous().view(torch.uint8).cpu().numpy())
+        out[key] = times(kernel)
+        out[key]["digest"] = digest.hexdigest()[:16]
+        xs = [x.transpose(1, 2).detach().requires_grad_(True)
+              for x in (q, k, v)]
+        lib_out = F.scaled_dot_product_attention(*xs, is_causal=True,
+                                                 enable_gqa=True)
+        g = dout.transpose(1, 2)
+        out[key]["sdpa_backward_ms"] = cs._time_ms(
+            lambda: torch.autograd.grad(lib_out, xs, g, retain_graph=True))
+        del q, k, v, dout, o, lse, xs, lib_out
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("root", type=pathlib.Path)
@@ -241,6 +290,7 @@ def main() -> int:
         rec[key]["hits"] = int((hash_lookup_cuda(*pargs) >= 0).sum())
         del pargs
     rec.update(_push_gather_times(cs, dev, times))
+    rec.update(_flash_backward_times(cs, dev, times))
     trip_us, launch_ms = cs._hbm_trip()
     rec["hbm_trip_us"], rec["empty_launch_graph_ms"] = trip_us, launch_ms
     line = json.dumps(rec)
