@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Run the PyTorch port's baidu-ctr serving and training paths, on the
 gather and the cached placements and on the SSD tier, its dlrm-mlperf
-serving and training paths and its qwen3-14b prefill, decode and
-training, on one NVIDIA GPU (H100).
+serving and training paths, its qwen3-14b prefill, decode and training,
+and its mixtral-8x7b and llama4-scout serving (MoE, windowed and chunked
+attention), on one NVIDIA GPU (H100).
 
     python3 chip_smoke.py        # from the root of a checkout
 
@@ -255,6 +256,43 @@ Phases (any failure raises and the script exits non-zero):
      (f32), card vs CPU from one state, 4 steps with merge_delay 0 and 6
      with merge_delay 1 (k 2, lr 1e-4): losses, parameters, m and v_hat
      within rtol 1e-4, atol 1e-6.
+ 15. MoE and the windowed and chunked masks (after phase 14 has released
+     its memory):
+     (a) kernel 9 with the window and chunk terms against its plain
+     version at (1, 8192, 32, 8, 128) window 4096 and (1, 8192, 40, 8,
+     128) chunk 2048, bf16 and f32, at the prefill's (4, 4096, 32, 8,
+     128) window 4096, and at S 1000 (not a multiple of a tile) with
+     window 100, window 17 (below a tile), chunk 300 (not dividing S)
+     and window 200 with chunk 256; the causal kernel's tolerance (bf16:
+     every element within one bf16 ulp); two runs bit-equal; windows and
+     chunks of S or more give the causal kernel's bits (output and lse);
+     timed at 1 x 32768 (mixtral: H 32, window 4096; llama4: H 40, chunk
+     8192) cold and warm, beside the causal kernel at the same shape and
+     SDPA with the boolean mask (memory-efficient kernel; held to the
+     kernel within 2e-2), and the bound from the visible pairs;
+     (b) mixtral-8x7b at the published widths (d 4096, 32/8 heads, 8
+     experts top-2 of d_ff 14336, window 4096, bf16), **cut from 32
+     layers to 20** (58.6 GB of random weights on the card): prefill 4 x
+     4096 and 1 x 32768, two timed each (wall, tokens/s, peak memory,
+     launches: kernel 9 with the window once a layer, plain versions 0,
+     the same logits), one of each by part (``_qkv``, kernel 9, o-proj,
+     router + dispatch + combine, the expert products); a prefill under
+     the profiler makes no sync and no host-to-device copy; the
+     ``BatchedServer`` at decode_32k (8 slots of a 4096-slot ring, 16
+     seeded requests); long_500k: ``decode_step`` at batch 1 from a ring
+     filled as at t = 524288 - 32, 64 steps across the wrap (the ring's
+     positions checked), ms a step against its bound (every expert's
+     weights each step), one step under the sync debug mode "error" and
+     one under the profiler (launches, busy share);
+     (c) llama4-scout-17b-16e at the published widths (d 5120, 40/8
+     heads, 16 experts top-1 of d_ff 8192 and a shared expert, chunk 8192,
+     every 4th layer global, vocab 202048, bf16), **cut from 48 layers to
+     12** (57.0 GB; three global layers): (b)'s prefills, parts and
+     server (8 slots of a full 32768-slot cache);
+     (d) both smoke configs (f32), card vs CPU from one state: prefill
+     logits and 3 x window (or chunk) decode steps across the ring's wrap
+     within atol 5e-5, rtol 1e-5, and the server's tokens, token for
+     token.
 
 TF32 is off for matmuls and convolutions.  Prints the card (``nvidia-smi``
 name and power limit), a ``kernels`` JSON line, and as its last line
@@ -3740,17 +3778,20 @@ def _bag_probe_sass_report():
 def _flash_sass_report():
     """Phase 11 (a): each instantiation of kernel 9 (``_sass_report``).
     Keys: "mma<HDP>" (bf16) and "fma<HDP>" (float32), HDP the padded head
-    width."""
+    width, and "mma<HDP,local>", "fma<HDP,local>" for the kernels with the
+    window and chunk terms."""
     import re
 
     def short(mangled):
-        m = re.search(r"flash_attention_(mma_)?kernelI(?:f)?Li(\d+)E",
+        m = re.search(r"flash_attention_(mma_)?kernelI(?:f)?Li(\d+)ELb([01])E",
                       mangled)
-        return m and f"{'mma' if m.group(1) else 'fma'}<{m.group(2)}>"
+        return m and (f"{'mma' if m.group(1) else 'fma'}<{m.group(2)}"
+                      f"{',local' if m.group(3) == '1' else ''}>")
 
     report, usage = _sass_report(short)
-    if sorted(report) != sorted(f"{k}<{w}>" for k in ("fma", "mma")
-                                for w in (64, 128, 256)):
+    if sorted(report) != sorted(f"{k}<{w}{local}>" for k in ("fma", "mma")
+                                for w in (64, 128, 256)
+                                for local in ("", ",local")):
         raise AssertionError(f"kernel 9's instantiations: "
                              f"{sorted(report)}; cuobjdump -res-usage "
                              f"began:\n{usage[:3000]}")
@@ -3902,7 +3943,7 @@ def _lm_breakdown(params, tokens, cfg, want):
         o = timed("attention (kernel 9)",
                   lambda: ops.flash_attention(q, k, v, causal=True))
         x = timed("o-proj", lambda: x + o.reshape(B, S, -1) @ lp["wo"])
-        x = timed("FFN", lambda: T._ffn_block(cfg, lp, x))
+        x = timed("FFN", lambda: T._ffn_block(cfg, lp, x)[0])
     logits = timed("final norm + head", lambda: rms_norm(
         x, params["final_norm"], cfg.norm_eps)[:, -1] @ T._head(params, cfg))
     torch.cuda.synchronize()
@@ -4253,7 +4294,7 @@ def _decode_breakdown(params, cache, tokens, cfg):
 
         o = timed("KV write + attention", attend)
         x = timed("o-proj", lambda: x + o.reshape(B, 1, -1) @ lp["wo"])
-        x = timed("FFN", lambda: T._ffn_block(cfg, lp, x))
+        x = timed("FFN", lambda: T._ffn_block(cfg, lp, x)[0])
     logits = timed("final norm + head", lambda: (rms_norm(
         x, params["final_norm"], cfg.norm_eps) @ T._head(params, cfg))[:, 0])
     t.add_(1)
@@ -5098,6 +5139,611 @@ def phase_lm_train_smoke(device):
     _release()
 
 
+# ------------------------------ MoE and the windowed and chunked masks (15)
+# the one reduction of each model: its layers (PERF.md section 4)
+MOE_LAYERS = {"mixtral-8x7b": 20, "llama4-scout-17b-16e": 12}
+MOE_PREFILL = ((4, 4096), (1, 32768))   # LM_BATCH x LM_SEQ, prefill_32k's seq
+MOE_PREFILLS = 2           # timed prefills a shape
+MOE_SEED = 0
+LONG_T = 524288 - 32       # long_500k: t of the first step, 32 before a wrap
+LONG_STEPS = 64            # steps across the wrap
+LOCAL_LONG = 32768         # (a)'s timed shape: prefill_32k's sequence
+LOCAL_CHECK = 8192         # (a)'s checked shape (the plain version fits)
+LOCAL_EDGE = 1000          # (a)'s edge cases: S not a multiple of a tile
+
+
+def _visible_keys(S, window=None, chunk=None):
+    """The (query, key) pairs ``ref.attention_mask(S, True, window, chunk)``
+    keeps: row r sees keys [lo(r), r], lo(r) = max(r - window + 1,
+    r - r % chunk, 0)."""
+    r = np.arange(S, dtype=np.int64)
+    lo = np.zeros(S, dtype=np.int64)
+    if window is not None:
+        lo = np.maximum(lo, r - window + 1)
+    if chunk is not None:
+        lo = np.maximum(lo, r - r % chunk)
+    return int((r - lo + 1).sum())
+
+
+def _local_flash_times(q, k, v, window, chunk, iters=10):
+    """Kernel 9 under ``window``/``chunk`` at q, k, v: cold and warm L2,
+    the causal kernel at the same shape, SDPA with the boolean mask (the
+    library call, K and V repeated to H heads; timed only, and held to the
+    kernel within 2e-2), and the bound from the visible pairs."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+
+    B, S, H, hd = q.shape
+    G = H // k.shape[2]
+
+    def kernel():
+        return flash_attention_cuda(q, k, v, True, window=window, chunk=chunk)
+
+    got = kernel()
+    mask = ref.attention_mask(S, True, window, chunk, q.device)
+    kk, vv = (x.repeat_interleave(G, dim=2).transpose(1, 2) for x in (k, v))
+
+    def library():
+        # the memory-efficient kernel: the math one would hold the
+        # (B, H, S, S) scores
+        with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION
+                         if q.is_cuda else SDPBackend.MATH):
+            return F.scaled_dot_product_attention(q.transpose(1, 2), kk, vv,
+                                                  attn_mask=mask)
+
+    lib = library().transpose(1, 2)
+    lib_err = (lib.float() - got.float()).abs().max().item()
+    if not lib_err <= 2e-2:
+        raise AssertionError(f"flash_attention {tuple(q.shape)} window "
+                             f"{window} chunk {chunk}: SDPA with the mask "
+                             f"and the kernel differ by {lib_err}")
+    del lib, got
+    pairs = _visible_keys(S, window, chunk)
+    flops = 4 * B * H * hd * pairs
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    bound_ms, bound_by = _bound(nbytes, flops, BF16_FLOP_PER_S)
+    out = {
+        "shape": [B, S, H, k.shape[2], hd], "window": window, "chunk": chunk,
+        "dtype": str(q.dtype).split(".")[-1],
+        "ms": _time_ms(kernel, iters=iters, warmup=2),
+        "ms_l2_warm": _time_ms(kernel, iters=iters, warmup=2, cold_l2=False),
+        "causal_ms": _time_ms(lambda: flash_attention_cuda(q, k, v, True),
+                              iters=iters, warmup=2),
+        "library_ms": _time_ms(library, iters=max(2, iters // 2), warmup=1),
+        "library_max_abs_diff": lib_err,
+        "bound_ms": bound_ms, "bound_by": bound_by, "gflop": flops / 1e9,
+        "causal_bound_ms": _bound(nbytes, 4 * B * H * hd * S * (S + 1) // 2,
+                                  BF16_FLOP_PER_S)[0],
+    }
+    del kk, vv, mask
+    _release()
+    return out
+
+
+def phase_flash_local(device):
+    """Phase 15 (a): kernel 9 with the window and chunk terms against its
+    plain version on the card (bf16 and f32; the edge cases), the terms
+    that do not bind against the causal kernel's bits, and the windowed
+    and chunked kernels timed at prefill_32k's shapes; returns the kernels
+    line's ``window`` and ``chunk`` entries (without ``launches``)."""
+    import torch
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import (bf16_ulps,
+                                                     flash_attention_cuda)
+
+    gen = torch.Generator(device).manual_seed(57)
+    S = LOCAL_CHECK
+    # (B, S, H, Kv, hd), dtype, window, chunk
+    cases = [((1, S, 32, 8, 128), torch.bfloat16, 4096, None),
+             ((1, S, 32, 8, 128), torch.float32, 4096, None),
+             ((1, S, 40, 8, 128), torch.bfloat16, None, 2048),
+             ((1, S, 40, 8, 128), torch.float32, None, 2048),
+             ((LM_BATCH, LM_SEQ, 32, 8, 128), torch.bfloat16, 4096, None),
+             ((1, LOCAL_EDGE, 8, 2, 128), torch.bfloat16, 100, None),
+             ((1, LOCAL_EDGE, 8, 2, 128), torch.float32, 100, None),
+             ((2, LOCAL_EDGE, 8, 2, 128), torch.bfloat16, 17, None),
+             ((2, LOCAL_EDGE, 8, 2, 128), torch.float32, 17, None),
+             ((1, LOCAL_EDGE, 8, 2, 128), torch.bfloat16, None, 300),
+             ((1, LOCAL_EDGE, 8, 2, 128), torch.float32, None, 300),
+             ((1, LOCAL_EDGE, 8, 2, 128), torch.bfloat16, 200, 256)]
+    print("phase 15 (a): flash_attention (kernel 9) with the window and "
+          "chunk terms against its plain version (the causal kernel's "
+          "tolerance: f32 atol = rtol = 1e-5; bf16 atol 4e-3, rtol 8e-3 and "
+          "every element within one bf16 ulp, flash_attention.bf16_ulps)")
+    plain = {}
+    max_err, max_err_bf16, max_ulps = 0.0, 0.0, 0.0
+    for (B, S_, H, Kv, hd), dtype, window, chunk in cases:
+        q = torch.randn((B, S_, H, hd), generator=gen, device=device).to(dtype)
+        k, v = [torch.randn((B, S_, Kv, hd), generator=gen,
+                            device=device).to(dtype) for _ in range(2)]
+        got = flash_attention_cuda(q, k, v, True, window=window, chunk=chunk)
+        again = flash_attention_cuda(q, k, v, True, window=window,
+                                     chunk=chunk)
+        torch.cuda.synchronize()
+        want = ref.flash_attention_ref(q, k, v, True, window, chunk)
+        name = str(dtype).split(".")[-1]
+        err = (got.float() - want.float()).abs().max().item()
+        ulps = ""
+        if (not torch.equal(got, again) or not torch.allclose(
+                got.float(), want.float(), **FLASH_TOL[name])):
+            raise AssertionError(f"flash_attention {(B, S_, H, Kv, hd)} "
+                                 f"{name} window {window} chunk {chunk}: "
+                                 f"kernel and plain version differ (max "
+                                 f"|diff| {err}) or two runs differ")
+        if dtype == torch.bfloat16:
+            u = bf16_ulps(got, want)
+            n_off = int((u > 1).sum().item())
+            max_ulps = max(max_ulps, u.max().item())
+            ulps = f", max {u.max().item():.3g} bf16 ulps"
+            if n_off:
+                raise AssertionError(f"flash_attention {(B, S_, H, Kv, hd)} "
+                                     f"window {window} chunk {chunk}: "
+                                     f"{n_off} elements more than one bf16 "
+                                     "ulp from the plain version")
+            max_err_bf16 = max(max_err_bf16, err)
+        else:
+            max_err = max(max_err, err)
+        ran = _graph_kernels(lambda: flash_attention_cuda(
+            q, k, v, True, window=window, chunk=chunk), FLASH_KERNELS)
+        if ran != ([1, 0] if dtype == torch.bfloat16 else [0, 1]):
+            raise AssertionError(f"flash_attention {name} local: its graph "
+                                 f"holds {ran}")
+        if S_ == S and B == 1:
+            key = "window" if window is not None else "chunk"
+            if key not in plain:
+                plain[key] = {"plain_shape": [B, S_, H, Kv, hd],
+                              "plain_dtype": name,
+                              "plain_ms": _time_ms(
+                                  lambda: ref.flash_attention_ref(
+                                      q, k, v, True, window, chunk),
+                                  iters=3, warmup=1)}
+        print(f"  {(B, S_, H, Kv, hd)} {name} window {window} chunk "
+              f"{chunk}: max |kernel - plain| {err:.3g}{ulps}, two runs "
+              f"bit-equal, {FLASH_KERNELS[ran.index(1)]} (its graph)")
+        del q, k, v, got, again, want
+        _release()
+    # terms of S or more: the causal kernel's bits
+    for dtype in (torch.bfloat16, torch.float32):
+        q = torch.randn((1, S, 32, 128), generator=gen, device=device).to(
+            dtype)
+        k, v = [torch.randn((1, S, 8, 128), generator=gen,
+                            device=device).to(dtype) for _ in range(2)]
+        want, want_lse = flash_attention_cuda(q, k, v, True, return_lse=True)
+        for kw in (dict(window=S), dict(window=4 * S), dict(chunk=S),
+                   dict(window=2 * S, chunk=S)):
+            got, lse = flash_attention_cuda(q, k, v, True, return_lse=True,
+                                            **kw)
+            if not (torch.equal(got, want) and torch.equal(lse, want_lse)):
+                raise AssertionError(f"flash_attention {kw} at S {S}: not "
+                                     "the causal kernel's bits")
+        print(f"  (1, {S}, 32, 8, 128) "
+              f"{str(dtype).split('.')[-1]}: window {S}, {4 * S}, chunk "
+              f"{S} and both: output and lse bit-equal to the causal "
+              "kernel's")
+        del q, k, v, want, want_lse, got, lse
+        _release()
+
+    entries = {}
+    for key, H, window, chunk in (("window", 32, 4096, None),
+                                  ("chunk", 40, None, 8192)):
+        q = torch.randn((1, LOCAL_LONG, H, 128), generator=gen,
+                        device=device).to(torch.bfloat16)
+        k, v = [torch.randn((1, LOCAL_LONG, 8, 128), generator=gen,
+                            device=device).to(torch.bfloat16)
+                for _ in range(2)]
+        t = _local_flash_times(q, k, v, window, chunk)
+        t.update(plain[key], launches=None)
+        entries[key] = t
+        print(f"  times {tuple(t['shape'])} bf16 {key} "
+              f"{window or chunk} (ms): kernel {t['ms']:.4f} cold, "
+              f"{t['ms_l2_warm']:.4f} warm ({t['gflop'] / t['ms']:.2f} "
+              f"TFLOP/s cold, {t['ms'] / t['causal_ms']:.3f} of the causal "
+              f"kernel's {t['causal_ms']:.4f}); bound {t['bound_ms']:.4f} "
+              f"({t['gflop']:.1f} GFLOP, {t['bound_by']}; causal "
+              f"{t['causal_bound_ms']:.4f}); library (SDPA with the boolean "
+              f"mask, K and V repeated) {t['library_ms']:.4f}, max |SDPA - "
+              f"kernel| {t['library_max_abs_diff']:.3g}; plain "
+              f"{t['plain_ms']:.4f} at {tuple(t['plain_shape'])} "
+              f"{t['plain_dtype']}")
+        del q, k, v
+        _release()
+    entries["window"]["max_abs_err"] = max_err
+    entries["window"]["max_abs_err_bf16"] = max_err_bf16
+    entries["window"]["max_ulps_bf16"] = max_ulps
+    return entries
+
+
+def _moe_cfg(arch):
+    """The arch's published config with its one reduction, its layers."""
+    import dataclasses as dc
+
+    from repro_torch import configs
+
+    full = configs.get(arch).model_cfg
+    return full, dc.replace(full, n_layers=MOE_LAYERS[arch])
+
+
+def _moe_breakdown(params, tokens, cfg, want):
+    """Phase 15 (b), (c): one prefill's stream time by part (CUDA events
+    around each part of each layer, summed over the layers), the same
+    calls as ``prefill``; its logits must be ``want``'s bits."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as T
+    from repro_torch.models.common import rms_norm
+
+    events = []
+
+    def timed(part, fn):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn()
+        end.record()
+        events.append((part, start, end))
+        return out
+
+    B, S = tokens.shape
+    D, E, top_k = cfg.d_model, cfg.n_experts, cfg.top_k
+    gsz, G = moe.groups(B * S, cfg.moe_group_size)
+    cap = moe.capacity(gsz, E, top_k, cfg.capacity_factor)
+    x = timed("embed", lambda: params["embed"].index_select(
+        0, tokens.reshape(-1)).reshape(B, S, -1))
+    q_pos = torch.arange(S, dtype=torch.int32, device=tokens.device)
+    for i in range(cfg.n_layers):
+        lp = {k: v[i] for k, v in params["layers"].items()}
+        q, k, v = timed("norms + QKV + rope",
+                        lambda: T._qkv(cfg, lp, x, q_pos))
+        o = timed("attention (kernel 9)", lambda: ops.flash_attention(
+            q, k, v, causal=True, **T._local_terms(cfg, i)))
+        x = timed("o-proj", lambda: x + o.reshape(B, S, -1) @ lp["wo"])
+
+        def route():
+            h = rms_norm(x, lp["ffn_norm"], cfg.norm_eps)
+            xg = h.reshape(G, gsz, D)
+            plan, _ = moe.route(xg, lp["router"], E, top_k, cap, True)
+            return h, plan, moe.dispatch(xg, plan, E, cap)
+
+        h, plan, xe = timed("ffn norm + router + dispatch + combine", route)
+        ye = timed("expert products", lambda: moe.experts(xe, lp))
+        y = timed("ffn norm + router + dispatch + combine",
+                  lambda: moe.combine(ye, plan, gsz).reshape(B, S, D))
+        if cfg.shared_expert:
+            def shared():
+                ht = h.reshape(B * S, D)
+                sg = torch.nn.functional.silu(ht @ lp["ws_gate"]) * (
+                    ht @ lp["ws_up"])
+                return y + (sg @ lp["ws_down"]).reshape(B, S, D)
+
+            y = timed("shared expert", shared)
+        x = timed("ffn norm + router + dispatch + combine", lambda: x + y)
+    logits = timed("final norm + head", lambda: rms_norm(
+        x, params["final_norm"], cfg.norm_eps)[:, -1] @ T._head(params, cfg))
+    torch.cuda.synchronize()
+    if not torch.equal(logits, want):
+        raise AssertionError("the timed parts' logits differ from prefill's")
+    parts = {}
+    for part, start, end in events:
+        parts[part] = parts.get(part, 0.0) + start.elapsed_time(end)
+    return parts
+
+
+def _moe_decode_bound(params, cache, cfg, batch):
+    """(ms, bytes, FLOP) of one MoE ``decode_step`` of ``batch`` tokens:
+    every weight read once (every expert's: the capacity dispatch runs
+    each expert over its slots; the embedding only its ``batch`` rows),
+    the whole cache once, the logits written once; its FLOP (the experts
+    over every capacity slot) at the bf16 peak."""
+    from repro_torch.models import moe
+
+    Skv, hd = cache["k"].shape[3], cfg.hd
+    d, H, F, E = cfg.d_model, cfg.n_heads, cfg.d_ff, cfg.n_experts
+    emb = params["embed"]
+    weights = _param_bytes(params) - emb.numel() * emb.element_size()
+    nbytes = (weights + batch * d * emb.element_size() + _cache_bytes(cache)
+              + batch * cfg.vocab * emb.element_size())
+    cap = moe.capacity(batch, E, cfg.top_k, cfg.capacity_factor)
+    per_layer = (batch * (d * (H + 2 * cfg.n_kv_heads) * hd + H * hd * d
+                          + d * E + (3 * d * F if cfg.shared_expert else 0))
+                 + E * cap * 3 * d * F)
+    flop = 2 * (cfg.n_layers * per_layer + batch * d * cfg.vocab)
+    flop += 4 * batch * cfg.n_layers * H * Skv * hd
+    ms = max(nbytes / HBM_BYTES_PER_S, flop / BF16_FLOP_PER_S) * 1e3
+    return ms, nbytes, flop
+
+
+def _moe_long(device, params, cfg):
+    """Phase 15 (b) long_500k: ``decode_step`` at batch 1 from a ring of
+    ``attn_window`` slots filled as at t = LONG_T (random K and V, ``pos``
+    the last window positions in ring order), LONG_STEPS steps across the
+    wrap; ms a step against its bound, launches and busy share."""
+    import torch
+
+    from repro_torch.models import transformer as T
+
+    W = cfg.attn_window
+    cache = T.init_cache(cfg, 1, 524288, device=device)
+    Skv = cache["k"].shape[3]
+    gen = torch.Generator(device).manual_seed(MOE_SEED + 7)
+    cache["k"].normal_(generator=gen)
+    cache["v"].normal_(generator=gen)
+    first = LONG_T - Skv
+    ring = torch.arange(first, LONG_T, dtype=torch.int32, device=device)
+    cache["pos"][ring % Skv] = ring
+    cache["t"].fill_(LONG_T)
+    toks = np.random.default_rng(MOE_SEED + 8).integers(
+        0, cfg.vocab, (LONG_STEPS + 2, 1)).astype(np.int32)
+    walls, finite = [], torch.ones((), dtype=torch.bool, device=device)
+    for tok in toks[:LONG_STEPS]:
+        t0 = time.perf_counter()
+        logits, _ = T.decode_step(params, cache,
+                                  torch.from_numpy(tok).pin_memory(), cfg)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        finite &= torch.isfinite(logits).all()
+    t_end = LONG_T + LONG_STEPS
+    want_pos = torch.arange(t_end - Skv, t_end, dtype=torch.int32)
+    pos = cache["pos"].cpu()
+    if (int(cache["t"].item()) != t_end or not finite.item()
+            or not torch.equal(pos[want_pos % Skv], want_pos)):
+        raise AssertionError("long_500k: the ring does not hold the last "
+                             f"{Skv} positions at t {t_end}, or a logit is "
+                             "not finite")
+    bound_ms, nbytes, flop = _moe_decode_bound(params, cache, cfg, 1)
+    step_ms = float(np.mean(walls[2:])) * 1e3
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        T.decode_step(params, cache, torch.from_numpy(
+            toks[LONG_STEPS]).pin_memory(), cfg)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    h2d, syncs, launches, largest, share, dev_ms, wall_ms, top = (
+        _decode_profile(lambda: T.decode_step(params, cache, torch.from_numpy(
+            toks[LONG_STEPS + 1]).pin_memory(), cfg)))
+    if h2d > 1 or syncs:
+        raise AssertionError(f"a long_500k step made {h2d} host-to-device "
+                             f"copies and {syncs} syncs")
+    print(f"  long_500k: {LONG_STEPS} decode_step calls at batch 1 from t "
+          f"{LONG_T} over a ring of {Skv} slots (window {W}; random bf16 K "
+          f"and V, pos the last {Skv} positions), across the wrap at "
+          f"524288: ring holds positions {t_end - Skv}..{t_end - 1} at the "
+          f"end, every logit finite; wall per step mean {step_ms:.3f} ms "
+          f"(steps 3-{LONG_STEPS}; first two "
+          f"{walls[0] * 1e3:.3f}, {walls[1] * 1e3:.3f}), min "
+          f"{min(walls) * 1e3:.3f}, max {max(walls) * 1e3:.3f}; bound "
+          f"{bound_ms:.3f} ms ({nbytes / 1e9:.2f} GB at 3.35 TB/s: every "
+          f"expert's weights each step; {flop / 1e9:.1f} GFLOP): "
+          f"{step_ms / bound_ms:.2f}x it; a step under the sync debug mode "
+          f"'error'; profiler: {launches} kernel launches, {h2d} "
+          f"host-to-device copies, 0 syncs, " + (
+              "busy share not measured (no device time in the trace)"
+              if share is None else
+              f"device busy share {share:.3f} ({dev_ms:.3f} ms device in "
+              f"{wall_ms:.3f} ms wall, profiler on); top kernels (ms): "
+              + "; ".join(f"{k} {v:.3f}" for k, v in top)))
+    del cache, logits
+    _release()
+    return {"step_ms": step_ms, "bound_ms": bound_ms, "launches": launches,
+            "busy_share": share}
+
+
+def phase_moe_lm(device, arch):
+    """Phase 15 (b) mixtral-8x7b, (c) llama4-scout-17b-16e at the published
+    widths with their layers cut (``MOE_LAYERS``), random bf16 weights
+    drawn on the card: prefill at MOE_PREFILL with its launches, walls,
+    peak memory and parts; the ``BatchedServer`` at decode_32k over
+    DECODE_SLOTS slots; mixtral's long_500k.  Returns the launch counts
+    of the timed prefills."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+
+    full, cfg = _moe_cfg(arch)
+    clock = time.perf_counter()
+    layer_gb = (full.total_params() - 2 * full.d_model * full.vocab) * 2 / (
+        full.n_layers * 1e9)
+    print(f"phase 15 ({'b' if arch == 'mixtral-8x7b' else 'c'}): {arch} at "
+          f"the published widths (d {cfg.d_model}, {cfg.n_heads} heads over "
+          f"{cfg.n_kv_heads} KV heads, hd {cfg.hd}, {cfg.n_experts} experts "
+          f"top-{cfg.top_k} of d_ff {cfg.d_ff}"
+          + (" + a shared expert" if cfg.shared_expert else "")
+          + f", vocab {cfg.vocab}, "
+          + (f"window {cfg.attn_window}" if cfg.attn_window else
+             f"chunk {cfg.attn_chunk}, every {cfg.global_every}th layer "
+             "global") + ", bf16)")
+    print(f"  reduction: {arch} n_layers {full.n_layers} -> {cfg.n_layers} "
+          f"({layer_gb:.2f} GB a layer; all {full.n_layers} would be "
+          f"{full.total_params() * 2 / 1e9:.1f} GB of bf16 weights, the card "
+          "holds 80 GB)")
+    params = T.init_params(torch.Generator(device).manual_seed(MOE_SEED),
+                           cfg, device=device)
+    torch.cuda.synchronize()
+    weights = _param_bytes(params)
+    print(f"  random weights from seed {MOE_SEED}: {weights / 1e9:.2f} GB "
+          f"drawn on the card in {time.perf_counter() - clock:.1f} s")
+    n_local = sum(1 for i in range(cfg.n_layers)
+                  if T._local_terms(cfg, i) != {"window": None,
+                                                "chunk": None})
+    key = ("flash_attention_window" if cfg.attn_window else
+           "flash_attention_chunk")
+    rng = np.random.default_rng(MOE_SEED)
+    total = dict.fromkeys(ops.launches, 0)
+    with torch.inference_mode():
+        for B, S in MOE_PREFILL:
+            tokens = torch.from_numpy(rng.integers(
+                0, cfg.vocab, (B, S))).to(device)
+            want = T.prefill(params, tokens, cfg)       # warm-up
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ops.reset_launches()
+            walls = []
+            for _ in range(MOE_PREFILLS):
+                t0 = time.perf_counter()
+                logits = T.prefill(params, tokens, cfg)
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+            launches = dict(ops.launches)
+            peak = torch.cuda.max_memory_allocated() / 1e9
+            expect = dict.fromkeys(launches, 0)
+            expect[key] = MOE_PREFILLS * n_local
+            expect["flash_attention"] = MOE_PREFILLS * (cfg.n_layers
+                                                        - n_local)
+            if launches != expect:
+                raise AssertionError(f"launches {launches}, expected "
+                                     f"{expect}")
+            for k_, n in launches.items():
+                total[k_] += n
+            if (logits.shape != (B, cfg.vocab)
+                    or not torch.isfinite(logits).all().item()
+                    or not torch.equal(logits, want)):
+                raise AssertionError("prefill logits are not finite of "
+                                     f"shape {(B, cfg.vocab)} or differ "
+                                     "between two prefills")
+            wall = float(np.mean(walls))
+            print(f"  prefill {B} x {S}: wall "
+                  + ", ".join(f"{w:.4f}" for w in walls)
+                  + f" s (mean {wall:.4f} s, {B * S / wall:.1f} tokens/s), "
+                  f"peak memory {peak:.2f} GB; logits finite, bit-equal "
+                  f"across the prefills; launches {key} {launches[key]}, "
+                  f"flash_attention {launches['flash_attention']}, every "
+                  "other counter 0")
+            parts = _moe_breakdown(params, tokens, cfg, want)
+            print(f"  one prefill {B} x {S}, stream time by part (ms, CUDA "
+                  f"events, summed over {cfg.n_layers} layers): "
+                  + ", ".join(f"{k_} {v:.3f}" for k_, v in parts.items())
+                  + f"; all parts {sum(parts.values()):.3f}")
+            del tokens, want, logits
+            _release()
+        _stamp(clock)
+        h2d, syncs, _ = _transfers(lambda: T.prefill(
+            params, torch.zeros((1, 4096), dtype=torch.int64,
+                                device=device), cfg))
+        if h2d or syncs:
+            raise AssertionError(f"a prefill made {h2d} host-to-device "
+                                 f"copies and {syncs} syncs")
+
+        # ---- the server at decode_32k
+        requests = _decode_requests(cfg, np.random.default_rng(DECODE_SEED))
+        srv = _counted_server(params, cfg, DECODE_SLOTS, DECODE_LEN)
+        cache_b = _cache_bytes(srv.cache)
+        Skv = srv.cache["k"].shape[3]
+        for r in requests:
+            srv.submit(r)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        stats = srv.run_to_completion()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        n_tok = stats["decoded_tokens"]
+        if (n_tok != DECODE_REQUESTS * DECODE_NEW
+                or any(len(r.out) != DECODE_NEW for r in requests)
+                or not srv.finite.item()):
+            raise AssertionError("the server decoded "
+                                 f"{[len(r.out) for r in requests]} tokens "
+                                 "or a logit is not finite")
+        t_end = int(srv.cache["t"].item())
+        bound_ms = _moe_decode_bound(params, srv.cache, cfg,
+                                     DECODE_SLOTS)[0]
+        print(f"  BatchedServer at decode_32k ({DECODE_SLOTS} slots of "
+              f"{DECODE_LEN} positions, a {Skv}-slot "
+              + ("ring" if Skv < DECODE_LEN else "cache")
+              + f", {cache_b / 1e9:.2f} GB): {DECODE_REQUESTS} requests, "
+              f"{n_tok} tokens in {srv.calls} decode_step calls "
+              f"({srv.calls - stats['steps']} fill, {stats['steps']} decode)"
+              f", t {t_end} at the end; wall {wall:.4f} s "
+              f"({n_tok / wall:.2f} tokens/s, {wall / srv.calls * 1e3:.3f} "
+              f"ms a call; a call's bound {bound_ms:.3f} ms), peak memory "
+              f"{peak / 1e9:.2f} GB; every logit finite; first request's "
+              f"tokens {requests[0].out[:8]}...")
+        del srv, requests
+        _release()
+        _stamp(clock)
+        if cfg.attn_window:
+            _moe_long(device, params, cfg)
+            _stamp(clock)
+    del params
+    _release()
+    return total
+
+
+def phase_moe_agreement(device):
+    """Phase 15 (d): both MoE smoke configs (f32) on the card and on the
+    CPU from one state drawn on the CPU: prefill logits, 3 x window (or
+    chunk) decode steps across the ring's wrap (atol 5e-5, rtol 1e-5:
+    float32 products summed in other orders), and the server's tokens,
+    token for token."""
+    import torch
+
+    from repro_torch import configs, tree_map
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+    from repro_torch.runtime.serve import BatchedServer, Request
+
+    for arch in MOE_LAYERS:
+        cfg = configs.get(arch).smoke_cfg
+        cpu = T.init_params(torch.Generator("cpu").manual_seed(7), cfg,
+                            device="cpu")
+        gpu = tree_map(lambda t: t.to(device), cpu)
+        tokens = torch.from_numpy(np.random.default_rng(8).integers(
+            0, cfg.vocab, (2, 256)))
+        ops.reset_launches()
+        got = T.prefill(gpu, tokens.to(device), cfg)
+        torch.cuda.synchronize()
+        launched = (ops.launches["flash_attention_window"]
+                    + ops.launches["flash_attention_chunk"]
+                    + ops.launches["flash_attention"])
+        if launched != cfg.n_layers or ops.launches["flash_attention_ref"]:
+            raise AssertionError(f"launches {ops.launches}")
+        want = T.prefill(cpu, tokens, cfg)
+        np.testing.assert_allclose(got.cpu().numpy(), want.numpy(),
+                                   atol=5e-5, rtol=1e-5)
+        pre = (got.cpu() - want).abs().max().item()
+        span = cfg.attn_window or cfg.attn_chunk
+        ccache = T.init_cache(cfg, 3, 64, device="cpu")
+        gcache = T.init_cache(cfg, 3, 64, device=device)
+        worst = 0.0
+        for tok in torch.from_numpy(np.random.default_rng(9).integers(
+                0, cfg.vocab, (3 * span, 3))):
+            want, ccache = T.decode_step(cpu, ccache, tok, cfg)
+            got, gcache = T.decode_step(gpu, gcache, tok, cfg)
+            np.testing.assert_allclose(got.cpu().numpy(), want.numpy(),
+                                       atol=5e-5, rtol=1e-5)
+            worst = max(worst, (got.cpu() - want).abs().max().item())
+        if not torch.equal(gcache["pos"].cpu(), ccache["pos"]):
+            raise AssertionError("the card's and the CPU's ring differ")
+        outs = []
+        for params in (gpu, cpu):
+            srv = BatchedServer(params, cfg, slots=3, max_len=256)
+            rng = np.random.default_rng(12)
+            reqs = [Request(prompt=rng.integers(0, cfg.vocab, rng.integers(
+                2, 10)), max_new_tokens=int(rng.integers(3, 9)))
+                for _ in range(12)]
+            for r in reqs:
+                srv.submit(r)
+            srv.run_to_completion()
+            outs.append([r.out for r in reqs])
+        if outs[0] != outs[1]:
+            raise AssertionError(f"{arch}: the card's server decoded other "
+                                 "tokens than the CPU's")
+        print(f"phase 15 (d): {cfg.name} ({cfg.n_layers} layers, f32), card "
+              f"vs CPU from one state: prefill 2 x 256 logits max |diff| "
+              f"{pre:.3g}; {3 * span} decode steps of 3 slots (a "
+              f"{gcache['k'].shape[3]}-slot cache; positions equal) max "
+              f"|diff| {worst:.3g} (atol 5e-5, rtol 1e-5); the server's "
+              f"{sum(len(o) for o in outs[0])} tokens of 12 requests equal, "
+              "token for token")
+
+
 def main() -> int:
     import torch
 
@@ -5174,6 +5820,18 @@ def main() -> int:
     adam["bf16"].update(cell, launches=launches["fused_adam"])
     phase_lm_train_smoke(device)
     print(f"phase 14 took {time.perf_counter() - t14:.1f} s")
+    _release()
+    t15 = time.perf_counter()
+    local = phase_flash_local(device)
+    launches = phase_moe_lm(device, "mixtral-8x7b")
+    local["window"]["launches"] = launches["flash_attention_window"]
+    launches = phase_moe_lm(device, "llama4-scout-17b-16e")
+    local["chunk"]["launches"] = launches["flash_attention_chunk"]
+    if not all(local[k]["launches"] for k in local):
+        raise AssertionError(f"a local kernel 9 ran no time: {local}")
+    flash.update(local)
+    phase_moe_agreement(device)
+    print(f"phase 15 took {time.perf_counter() - t15:.1f} s")
     print(json.dumps({"kernels": [bag, backward, push] + cache_entries
                       + [staged, adam, dot, dot_bwd, flash, flash_bwd]}))
     print(json.dumps({"ok": True, "device": {

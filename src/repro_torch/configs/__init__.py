@@ -16,6 +16,8 @@ _MODULES = {
     "qwen2-7b": "repro_torch.configs.qwen2_7b",
     "granite-8b": "repro_torch.configs.granite_8b",
     "dlrm-mlperf": "repro_torch.configs.dlrm_mlperf",
+    "mixtral-8x7b": "repro_torch.configs.mixtral_8x7b",
+    "llama4-scout-17b-16e": "repro_torch.configs.llama4_scout",
 }
 
 

@@ -56,8 +56,8 @@ void launch_dot_interaction_backward(const void* g, const void* feats,
 cudaError_t launch_flash_attention(const void* q, const void* k,
                                    const void* v, void* o, float* lse,
                                    int64_t B, int S, int H, int Kv, int hd,
-                                   bool causal, bool bf16,
-                                   cudaStream_t stream);
+                                   bool causal, int window, int chunk,
+                                   bool bf16, cudaStream_t stream);
 cudaError_t launch_flash_attention_backward(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const float* lse, float* delta, void* dq, void* dk,
@@ -515,11 +515,13 @@ void check_rows(const torch::Tensor& t, const char* name,
 }
 
 // out (B, S, H, hd) = softmax(q k^T / sqrt(hd) + mask) v with KV head
-// h / (H / Kv) for q head h, causal or full (csrc/flash_attention.cu);
-// with lse (B, H, S) float32 also each row's log-sum-exp.
+// h / (H / Kv) for q head h, causal or full, with a sliding window and a
+// chunk under causal (0: none; csrc/flash_attention.cu); with lse
+// (B, H, S) float32 also each row's log-sum-exp.
 void flash_attention(const torch::Tensor& q, const torch::Tensor& k,
                      const torch::Tensor& v, const torch::Tensor& out,
-                     bool causal, const c10::optional<torch::Tensor>& lse) {
+                     bool causal, const c10::optional<torch::Tensor>& lse,
+                     int window, int chunk) {
   const auto d = check_attention(q, k, v, out);
   if (lse.has_value()) check_rows(*lse, "lse", q);
   if (d[0] * d[1] == 0) return;
@@ -528,7 +530,8 @@ void flash_attention(const torch::Tensor& q, const torch::Tensor& k,
       q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
       lse.has_value() ? lse->data_ptr<float>() : nullptr, d[0],
       static_cast<int>(d[1]), static_cast<int>(d[2]), static_cast<int>(d[3]),
-      static_cast<int>(d[4]), causal, q.scalar_type() == torch::kBFloat16,
+      static_cast<int>(d[4]), causal, window, chunk,
+      q.scalar_type() == torch::kBFloat16,
       c10::cuda::getCurrentCUDAStream().stream()));
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
@@ -713,9 +716,11 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
         py::arg("out"));
   m.def("flash_attention", &flash_attention,
         "Causal or full GQA softmax attention with the online-softmax "
-        "recurrence, forward, optionally with the rows' log-sum-exp (CUDA)",
+        "recurrence, forward, with an optional sliding window and chunk, "
+        "optionally with the rows' log-sum-exp (CUDA)",
         py::arg("q"), py::arg("k"), py::arg("v"), py::arg("out"),
-        py::arg("causal"), py::arg("lse") = py::none());
+        py::arg("causal"), py::arg("lse") = py::none(),
+        py::arg("window") = 0, py::arg("chunk") = 0);
   m.def("flash_attention_backward", &flash_attention_backward,
         "Causal or full GQA softmax attention's backward: dq, dk, dv from "
         "the forward's output and log-sum-exp (CUDA)", py::arg("q"),

@@ -12,6 +12,27 @@
 // Neither stands in for the other; any other dtype, hd not a multiple of 8
 // in [8, 256], or H not a multiple of Kv is refused.
 //
+// The local terms (the reference model's _mask, src/repro/models/
+// transformer.py:168-180): a sliding window and a chunk, runtime arguments
+// (0: none), on top of causal.  Row r then sees keys c in [lo(r), r],
+// lo(r) = max(r - window + 1, r - r % chunk, 0): r - c < window and
+// r / chunk == c / chunk.  lo is non-decreasing in r, and the diagonal is
+// always seen, so no row is empty.  Both kernels take them as a template
+// flag (kLocal), so the causal kernels are the instructions they were:
+// - the kv loop starts at the tile that holds lo(first row of the block),
+//   not at 0;
+// - the mma kernel's warps skip a tile wholly before lo(first row of the
+//   warp), as they skip one wholly above the diagonal;
+// - the element mask adds c < lo(r): in the mma kernel in a tile that
+//   reaches below lo of the warp's last row, in the fma kernel (which
+//   masks every tile element by element) everywhere.
+// A row whose first tiles are wholly masked for it (another row of its
+// block sees them) ends them with m = -1e30; its first seen score then
+// gives corr = exp(-1e30 - m_new) = 0, which zeroes l and acc exactly, so
+// its bits are those of a loop that started at its own first tile.  With
+// window >= S and chunk >= S, lo is 0 everywhere: the same tiles in the same
+// order, the same bits as causal.
+//
 // Replaces the Pallas TPU kernel src/repro/kernels/flash_attention.py
 // (flash_attention_pallas, pallas_call at :79; the body _flash_kernel at
 // :24-56: the mask at :41, the accumulate at :50, the divide at :56).  That
@@ -175,12 +196,20 @@ constexpr size_t smem_bytes() {
           static_cast<size_t>(kBQ) * kPStride) * sizeof(float);
 }
 
-template <typename T, int HDP>
+// the first key row r sees under the local terms (0: none); see the top
+__device__ __forceinline__ int first_key(int r, int window, int chunk) {
+  int lo = 0;
+  if (window > 0) lo = max(lo, r - window + 1);
+  if (chunk > 0) lo = max(lo, r - r % chunk);
+  return lo;
+}
+
+template <typename T, int HDP, bool kLocal>
 __global__ void __launch_bounds__(kThreads, HDP <= 128 ? 2 : 1)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, T* __restrict__ o,
                        float* __restrict__ lse, int S, int H, int Kv, int hd,
-                       float scale, bool causal) {
+                       float scale, bool causal, int window, int chunk) {
   constexpr int kStride = HDP + 4;   // floats a staged row takes
   constexpr int kVecs = HDP / 4;     // float4s a staged row holds
   constexpr int kOut = HDP / 16;     // output columns a thread owns
@@ -237,7 +266,13 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   const int last_row = min(q0 + kBQ, S) - 1;
   const int n_kt = causal ? last_row / kBK + 1 : (S + kBK - 1) / kBK;
-  for (int kt = 0; kt < n_kt; ++kt) {
+  // under the local terms: each row's first key, and the block's first tile
+  int lo[kRows];
+#pragma unroll
+  for (int i = 0; i < kRows; ++i)
+    lo[i] = kLocal ? first_key(q0 + ty + 16 * i, window, chunk) : 0;
+  const int kt0 = kLocal ? first_key(q0, window, chunk) / kBK : 0;
+  for (int kt = kt0; kt < n_kt; ++kt) {
     const int k0 = kt * kBK;
     __syncthreads();                 // the last tile's reads are done
     stage(skv, kb, kv_row, k0, false);
@@ -281,7 +316,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < kCols; ++j) {
         const int c = k0 + tx + 16 * j;
-        if (c >= S || (causal && c > r)) s[i][j] = kMasked;
+        if (c >= S || (causal && c > r) || (kLocal && c < lo[i]))
+          s[i][j] = kMasked;
         mx = fmaxf(mx, s[i][j]);
       }
 #pragma unroll
@@ -362,33 +398,49 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int HDP>
+template <typename T, int HDP, bool kLocal>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    float* lse, int64_t B, int S, int H, int Kv, int hd,
-                   bool causal, cudaStream_t stream) {
+                   bool causal, int window, int chunk, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<HDP>();
   const cudaError_t err = cudaFuncSetAttribute(
-      flash_attention_kernel<T, HDP>,
+      flash_attention_kernel<T, HDP, kLocal>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const dim3 grid((S + kBQ - 1) / kBQ, H, static_cast<unsigned>(B));
   const float scale = static_cast<float>(1.0 / std::sqrt(static_cast<double>(hd)));
-  flash_attention_kernel<T, HDP><<<grid, kThreads, smem, stream>>>(
+  flash_attention_kernel<T, HDP, kLocal><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), lse, S, H, Kv, hd,
-      scale, causal);
+      scale, causal, window, chunk);
   return cudaSuccess;
+}
+
+template <typename T, bool kLocal>
+cudaError_t launch_width(const void* q, const void* k, const void* v,
+                         void* o, float* lse, int64_t B, int S, int H, int Kv,
+                         int hd, bool causal, int window, int chunk,
+                         cudaStream_t stream) {
+  if (hd <= 64)
+    return launch<T, 64, kLocal>(q, k, v, o, lse, B, S, H, Kv, hd, causal,
+                                 window, chunk, stream);
+  if (hd <= 128)
+    return launch<T, 128, kLocal>(q, k, v, o, lse, B, S, H, Kv, hd, causal,
+                                  window, chunk, stream);
+  return launch<T, 256, kLocal>(q, k, v, o, lse, B, S, H, Kv, hd, causal,
+                                window, chunk, stream);
 }
 
 template <typename T>
 cudaError_t launch_dtype(const void* q, const void* k, const void* v,
                          void* o, float* lse, int64_t B, int S, int H, int Kv,
-                         int hd, bool causal, cudaStream_t stream) {
-  if (hd <= 64)
-    return launch<T, 64>(q, k, v, o, lse, B, S, H, Kv, hd, causal, stream);
-  if (hd <= 128)
-    return launch<T, 128>(q, k, v, o, lse, B, S, H, Kv, hd, causal, stream);
-  return launch<T, 256>(q, k, v, o, lse, B, S, H, Kv, hd, causal, stream);
+                         int hd, bool causal, int window, int chunk,
+                         cudaStream_t stream) {
+  if (window > 0 || chunk > 0)
+    return launch_width<T, true>(q, k, v, o, lse, B, S, H, Kv, hd, causal,
+                                 window, chunk, stream);
+  return launch_width<T, false>(q, k, v, o, lse, B, S, H, Kv, hd, causal, 0,
+                                0, stream);
 }
 
 // ------------------------------------- the bfloat16 kernel: tensor cores
@@ -524,14 +576,15 @@ __device__ __forceinline__ void store_rows(__nv_bfloat16* dst, int64_t row,
   }
 }
 
-template <int HDP>
+template <int HDP, bool kLocal>
 __global__ void __launch_bounds__(kMmaThreads, 1)
 flash_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
                            const __nv_bfloat16* __restrict__ k,
                            const __nv_bfloat16* __restrict__ v,
                            __nv_bfloat16* __restrict__ o,
                            float* __restrict__ lse, int S, int H, int Kv,
-                           int hd, float scale, bool causal) {
+                           int hd, float scale, bool causal, int window,
+                           int chunk) {
   constexpr int kStride = mma_stride<HDP>();
   constexpr int kKs = HDP / 16;        // k steps of q . k over hd
   constexpr int kN = kMmaBK / 8;       // 8-column score tiles of a warp
@@ -571,8 +624,11 @@ flash_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
 
   const int last_row = min(q0 + kMmaBQ, S) - 1;
   const int n_kt = causal ? last_row / kMmaBK + 1 : (S + kMmaBK - 1) / kMmaBK;
+  // under the local terms the block starts at the tile of its first row's
+  // first key
+  const int kt0 = kLocal ? first_key(q0, window, chunk) / kMmaBK : 0;
   stage(sq, qb, q_row, q0, kMmaBQ);
-  stage_kv(0);
+  stage_kv(kt0);
   cp_async_commit();
 
   // the lanes' row addresses for ldmatrix: Q as the A operand, K as B
@@ -594,8 +650,14 @@ flash_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
   // this thread's part of the row sum, added over the quad at the end
   const int row0 = q0 + wr0 + g;
   float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
+  // under the local terms: the first key of rows row0 and row0 + 8, and of
+  // the warp's first and last rows
+  const int lo0 = kLocal ? first_key(row0, window, chunk) : 0;
+  const int lo1 = kLocal ? first_key(row0 + 8, window, chunk) : 0;
+  const int lo_first = kLocal ? first_key(q0 + wr0, window, chunk) : 0;
+  const int lo_last = kLocal ? first_key(q0 + wr0 + 15, window, chunk) : 0;
 
-  for (int kt = 0; kt < n_kt; ++kt) {
+  for (int kt = kt0; kt < n_kt; ++kt) {
     cp_async_wait<0>();                // tile kt (and, first, q) landed
     // every warp is past tile kt - 1, so its stage may be refilled
     __syncthreads();
@@ -604,15 +666,17 @@ flash_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
       cp_async_commit();
     }
     if constexpr (kQInRegs) {
-      if (kt == 0) {
+      if (kt == kt0) {
 #pragma unroll
         for (int kk = 0; kk < kKs; ++kk) ldsm_x4(qf[kk], q_lane + kk * 32);
       }
     }
     const int k0 = kt * kMmaBK;
     // under causal a tile wholly above the warp's rows would add exp(-1e30
-    // - m) = 0 and leave m, l and acc as they are: skipped
-    if (!causal || k0 <= q0 + wr0 + 15) {
+    // - m) = 0 and leave m, l and acc as they are: skipped; so is one
+    // wholly before the first key of the warp's rows
+    if ((!causal || k0 <= q0 + wr0 + 15) &&
+        (!kLocal || k0 + kMmaBK > lo_first)) {
       const uint32_t sk = skv0 + (kt & 1) * kStageBytes;
       const uint32_t sv = sk + kMmaBK * kStride * 2;
 
@@ -642,7 +706,8 @@ flash_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
 
       // ---- scale, mask, then the online-softmax update of m, l and acc
       const bool edge = k0 + kMmaBK > S ||
-                        (causal && k0 + kMmaBK - 1 > q0 + wr0);
+                        (causal && k0 + kMmaBK - 1 > q0 + wr0) ||
+                        (kLocal && k0 < lo_last);
       float mx0 = -INFINITY, mx1 = -INFINITY;
 #pragma unroll
       for (int j = 0; j < kN; ++j)
@@ -652,7 +717,9 @@ flash_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
           if (edge) {
             const int c = k0 + 8 * j + 2 * t + (e & 1);
             const int r = row0 + (e >> 1) * 8;
-            if (c >= S || (causal && c > r)) x = kMasked;
+            if (c >= S || (causal && c > r) ||
+                (kLocal && c < ((e >> 1) ? lo1 : lo0)))
+              x = kMasked;
           }
           s[j][e] = x;
           if (e < 2) mx0 = fmaxf(mx0, x);
@@ -739,35 +806,41 @@ flash_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
   store_rows<HDP>(ob, q_row, so, q0 + wr0, 16, S, hd, lane, 32);
 }
 
-template <int HDP>
+template <int HDP, bool kLocal>
 cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o,
                        float* lse, int64_t B, int S, int H, int Kv, int hd,
-                       bool causal, cudaStream_t stream) {
+                       bool causal, int window, int chunk,
+                       cudaStream_t stream) {
   constexpr size_t smem = mma_smem_bytes<HDP>();
   const cudaError_t err = cudaFuncSetAttribute(
-      flash_attention_mma_kernel<HDP>,
+      flash_attention_mma_kernel<HDP, kLocal>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const dim3 grid((S + kMmaBQ - 1) / kMmaBQ, H, static_cast<unsigned>(B));
   const float scale =
       static_cast<float>(1.0 / std::sqrt(static_cast<double>(hd)));
   using bf16 = __nv_bfloat16;
-  flash_attention_mma_kernel<HDP><<<grid, kMmaThreads, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(o), lse, S, H, Kv,
-      hd, scale, causal);
+  flash_attention_mma_kernel<HDP, kLocal>
+      <<<grid, kMmaThreads, smem, stream>>>(
+          static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+          static_cast<const bf16*>(v), static_cast<bf16*>(o), lse, S, H, Kv,
+          hd, scale, causal, window, chunk);
   return cudaSuccess;
 }
 
+template <bool kLocal>
 cudaError_t launch_mma_width(const void* q, const void* k, const void* v,
                              void* o, float* lse, int64_t B, int S, int H,
-                             int Kv, int hd, bool causal,
-                             cudaStream_t stream) {
+                             int Kv, int hd, bool causal, int window,
+                             int chunk, cudaStream_t stream) {
   if (hd <= 64)
-    return launch_mma<64>(q, k, v, o, lse, B, S, H, Kv, hd, causal, stream);
+    return launch_mma<64, kLocal>(q, k, v, o, lse, B, S, H, Kv, hd, causal,
+                                  window, chunk, stream);
   if (hd <= 128)
-    return launch_mma<128>(q, k, v, o, lse, B, S, H, Kv, hd, causal, stream);
-  return launch_mma<256>(q, k, v, o, lse, B, S, H, Kv, hd, causal, stream);
+    return launch_mma<128, kLocal>(q, k, v, o, lse, B, S, H, Kv, hd, causal,
+                                   window, chunk, stream);
+  return launch_mma<256, kLocal>(q, k, v, o, lse, B, S, H, Kv, hd, causal,
+                                 window, chunk, stream);
 }
 
 
@@ -1693,22 +1766,27 @@ int flash_attention_max_head_dim() { return 256; }
 // hd % 8 == 0, hd <= 256, and B, H below 2^16; anything else returns
 // cudaErrorInvalidValue.  With ``lse`` (B, H, S) float32 also each row's
 // log-sum-exp of its scaled, masked scores (the backward's input); with
-// nullptr the kernels write the same o as without it.  Launches on
-// ``stream``; returns the error of the shared-memory opt-in (the launch's
-// own is left for cudaGetLastError).
+// nullptr the kernels write the same o as without it.  window and chunk
+// are the local terms (0: none; either needs causal; see the top).
+// Launches on ``stream``; returns the error of the shared-memory opt-in
+// (the launch's own is left for cudaGetLastError).
 cudaError_t launch_flash_attention(const void* q, const void* k,
                                    const void* v, void* o, float* lse,
                                    int64_t B, int S, int H, int Kv, int hd,
-                                   bool causal, bool bf16,
-                                   cudaStream_t stream) {
+                                   bool causal, int window, int chunk,
+                                   bool bf16, cudaStream_t stream) {
   if (B < 1 || S < 1 || Kv < 1 || H % Kv || hd < 8 || hd % 8 ||
-      hd > flash_attention_max_head_dim())
+      hd > flash_attention_max_head_dim() || window < 0 || chunk < 0 ||
+      ((window > 0 || chunk > 0) && !causal))
     return cudaErrorInvalidValue;
+  const bool local = window > 0 || chunk > 0;
   if (bf16)
-    return launch_mma_width(q, k, v, o, lse, B, S, H, Kv, hd, causal,
-                            stream);
+    return local ? launch_mma_width<true>(q, k, v, o, lse, B, S, H, Kv, hd,
+                                          causal, window, chunk, stream)
+                 : launch_mma_width<false>(q, k, v, o, lse, B, S, H, Kv, hd,
+                                           causal, 0, 0, stream);
   return launch_dtype<float>(q, k, v, o, lse, B, S, H, Kv, hd, causal,
-                             stream);
+                             window, chunk, stream);
 }
 
 // The backward (kernel 9b): dq (B, S, H, hd), dk and dv (B, S, Kv, hd) of

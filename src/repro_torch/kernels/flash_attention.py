@@ -13,7 +13,10 @@ bfloat16, q head h reading KV head ``h // (H // Kv)``, any S, hd a multiple
 of 8 up to 256.  The dtype picks the kernel: bfloat16 runs on the tensor
 cores (``flash_attention_mma_kernel``), float32 on the CUDA cores
 (``flash_attention_kernel``).  The plain version is
-``ref.flash_attention_ref``.
+``ref.flash_attention_ref``.  The forward also takes the reference
+model's sliding window and chunk (``window``, ``chunk``: key c is seen by
+row r only if ``r - c < window`` and ``r // chunk == c // chunk``, on top
+of causal); the backward has no such terms yet.
 
 No host sync and no host-to-device copy per call: the wrapper checks the
 inputs from their metadata only and allocates the output on the card.
@@ -75,18 +78,37 @@ def _rows(q: torch.Tensor) -> torch.Tensor:
     return torch.empty((B, H, S), dtype=torch.float32, device=q.device)
 
 
+def local_terms(causal: bool, window, chunk):
+    """``(window, chunk)`` as the kernel takes them, 0 for none; raises for
+    a term below 1 or one without causal.  A term of S or more masks
+    nothing past causal: the kernel's first key is 0 on every row, so the
+    bits are the causal kernel's."""
+    terms = []
+    for name, x in (("window", window), ("chunk", chunk)):
+        if x is not None and (int(x) != x or x < 1):
+            raise ValueError(f"{name} must be a positive int, got {x!r}")
+        terms.append(0 if x is None else int(x))
+    if any(terms) and not causal:
+        raise ValueError("a window or a chunk needs causal=True (the "
+                         "reference's mask is causal first)")
+    return terms
+
+
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         causal: bool = True, return_lse: bool = False):
+                         causal: bool = True, return_lse: bool = False,
+                         window=None, chunk=None):
     """The attention of ``q`` over ``k`` and ``v`` by one kernel launch on
-    the current stream (none when the output is empty).  With
-    ``return_lse`` returns ``(out, lse)``, lse (B, H, S) float32 the rows'
-    log-sum-exp of their scaled, masked scores (what the backward takes);
-    ``out`` is the same either way."""
+    the current stream (none when the output is empty), under
+    ``ref.attention_mask(S, causal, window, chunk)``.  With ``return_lse``
+    returns ``(out, lse)``, lse (B, H, S) float32 the rows' log-sum-exp of
+    their scaled, masked scores (what the backward takes); ``out`` is the
+    same either way."""
     _check(q, k, v)
+    w, c = local_terms(causal, window, chunk)
     out = torch.empty_like(q)
     lse = _rows(q) if return_lse else None
     if out.numel():
-        extension().flash_attention(q, k, v, out, bool(causal), lse)
+        extension().flash_attention(q, k, v, out, bool(causal), lse, w, c)
     return (out, lse) if return_lse else out
 
 

@@ -10,10 +10,11 @@ kernels under their names (``embedding_bag``, ``embedding_bag_backward``,
 ``gather_rows_cached``, ``sparse_adagrad_cached_apply``, the SSD tier's
 staged push ``sparse_adagrad``, the k-step local Adam step ``fused_adam``,
 DLRM's ``dot_interaction`` and its backward ``dot_interaction_backward``,
-and the LM's ``flash_attention`` and its backward
-``flash_attention_backward``), the plain versions under the same name with
-``_ref``.  A run resets it with ``reset_launches()`` and reads it
-afterwards to show which path it took.
+and the LM's ``flash_attention`` (``flash_attention_window`` with a
+sliding window, ``flash_attention_chunk`` with a chunk alone: one count a
+launch) and its backward ``flash_attention_backward``), the plain versions
+under the same name with ``_ref``.  A run resets it with
+``reset_launches()`` and reads it afterwards to show which path it took.
 """
 
 from __future__ import annotations
@@ -32,6 +33,7 @@ from repro_torch.kernels.embedding_bag import (
 from repro_torch.kernels.flash_attention import (
     flash_attention_backward_cuda,
     flash_attention_cuda,
+    local_terms,
 )
 from repro_torch.kernels.fused_adam import fused_adam_cuda
 from repro_torch.kernels.hash_map import hash_lookup_cuda
@@ -57,6 +59,7 @@ launches = {
     "dot_interaction": 0, "dot_interaction_ref": 0,
     "dot_interaction_backward": 0, "dot_interaction_backward_ref": 0,
     "flash_attention": 0, "flash_attention_ref": 0,
+    "flash_attention_window": 0, "flash_attention_chunk": 0,
     "flash_attention_backward": 0, "flash_attention_backward_ref": 0,
 }
 
@@ -321,28 +324,38 @@ class _FlashAttention(torch.autograd.Function):
     """Forward and backward: the CUDA kernels (9 and 9b).  Under autograd
     the forward also writes the rows' log-sum-exp, which the backward
     takes with q, k, v and the output; outside it (prefill) it writes the
-    output alone, the same bits."""
+    output alone, the same bits.  Kernel 9b has no window or chunk terms
+    yet: the backward of a windowed or chunked call raises."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal):
+    def forward(ctx, q, k, v, causal, window, chunk):
         if any(ctx.needs_input_grad[:3]):
-            out, lse = flash_attention_cuda(q, k, v, causal, return_lse=True)
+            out, lse = flash_attention_cuda(q, k, v, causal, return_lse=True,
+                                            window=window, chunk=chunk)
             ctx.save_for_backward(q, k, v, out, lse)
         else:
-            out = flash_attention_cuda(q, k, v, causal)
-        ctx.causal = causal
+            out = flash_attention_cuda(q, k, v, causal, window=window,
+                                       chunk=chunk)
+        ctx.causal, ctx.local = causal, (window, chunk) != (None, None)
         if out.numel():
-            launches["flash_attention"] += 1
+            launches["flash_attention_window" if window is not None else
+                     "flash_attention_chunk" if chunk is not None else
+                     "flash_attention"] += 1
         return out
 
     @staticmethod
     def backward(ctx, g):
+        if ctx.local:
+            raise NotImplementedError(
+                "the flash attention backward (kernel 9b) has no window or "
+                "chunk terms yet: ROADMAP.md queue A10d training (kernel "
+                "9b's window and chunk terms, the MoE backward)")
         q, k, v, out, lse = ctx.saved_tensors
         grads = flash_attention_backward_cuda(q, k, v, out, lse, g,
                                               ctx.causal)
         if q.numel():
             launches["flash_attention_backward"] += 1
-        return (*grads, None)
+        return (*grads, None, None, None)
 
 
 class _FlashAttentionRef(torch.autograd.Function):
@@ -350,25 +363,28 @@ class _FlashAttentionRef(torch.autograd.Function):
     autograd's vjp of it), counted (CPU tensors)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal):
+    def forward(ctx, q, k, v, causal, window, chunk):
         ctx.save_for_backward(q, k, v)
-        ctx.causal = causal
+        ctx.terms = (causal, window, chunk)
         launches["flash_attention_ref"] += 1
-        return ref.flash_attention_ref(q, k, v, causal)
+        return ref.flash_attention_ref(q, k, v, causal, window, chunk)
 
     @staticmethod
     def backward(ctx, g):
         q, k, v = ctx.saved_tensors
-        grads = ref.flash_attention_backward_ref(q, k, v, g, ctx.causal)
+        grads = ref.flash_attention_backward_ref(q, k, v, g, *ctx.terms)
         launches["flash_attention_backward_ref"] += 1
-        return (*grads, None)
+        return (*grads, None, None, None)
 
 
-def flash_attention(q, k, v, causal=True):
+def flash_attention(q, k, v, causal=True, window=None, chunk=None):
     """Softmax attention in the model's layout, q (B, S, H, hd) over k and v
-    (B, S, Kv, hd), in q's dtype (see ``ref.flash_attention_ref``),
-    differentiable.  CUDA: the kernel, and kernel 9b for its backward;
-    CPU: the plain version, its backward autograd's vjp of it."""
+    (B, S, Kv, hd), in q's dtype, under ``ref.attention_mask(S, causal,
+    window, chunk)`` (see ``ref.flash_attention_ref``), differentiable.
+    CUDA: the kernel, and kernel 9b for its backward (causal or full
+    only); CPU: the plain version, its backward autograd's vjp of it."""
     if kernel_mode(q) == "ref":
-        return _FlashAttentionRef.apply(q, k, v, causal)
-    return _FlashAttention.apply(q, k, v, causal)
+        # raises on bad terms (flash_attention_cuda checks its own)
+        local_terms(causal, window, chunk)
+        return _FlashAttentionRef.apply(q, k, v, causal, window, chunk)
+    return _FlashAttention.apply(q, k, v, causal, window, chunk)

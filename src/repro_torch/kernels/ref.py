@@ -208,10 +208,43 @@ def dot_interaction_backward_ref(g, feats):
     return torch.einsum("bij,bjd->bid", m,
                         feats.to(torch.float32)).to(feats.dtype)
 
-def flash_attention_ref(q, k, v, causal=True):
+def attention_mask(S, causal=True, window=None, chunk=None, device=None):
+    """(S, S) bool, True where query row r may see key column c: c <= r
+    under causal, ``r - c < window`` with a window, ``r // chunk == c //
+    chunk`` with a chunk (the reference model's ``_mask`` on positions
+    ``0..S-1``); None when nothing is masked."""
+    if not causal and window is None and chunk is None:
+        return None
+    pos = torch.arange(S, device=device)
+    r, c = pos[:, None], pos[None, :]
+    m = torch.ones((S, S), dtype=torch.bool, device=device)
+    if causal:
+        m &= c <= r
+    if window is not None:
+        m &= (r - c) < window
+    if chunk is not None:
+        m &= (r // chunk) == (c // chunk)
+    return m
+
+
+def _scores(q, k, causal, window, chunk):
+    """(B, Kv, G, S, S) float32 scaled, masked scores, and q's shape."""
+    B, S, H, hd = q.shape
+    Kv = k.shape[2]
+    qg = (q.to(torch.float32) * (1.0 / hd ** 0.5)).reshape(B, S, Kv,
+                                                            H // Kv, hd)
+    s = torch.einsum("bskgd,btkd->bkgst", qg, k.to(torch.float32))
+    m = attention_mask(S, causal, window, chunk, q.device)
+    if m is not None:
+        s.masked_fill_(~m, -1e30)
+    return s
+
+
+def flash_attention_ref(q, k, v, causal=True, window=None, chunk=None):
     """Softmax attention in the model's layout, in one pass: q (B, S, H, hd),
     k and v (B, S, Kv, hd) -> (B, S, H, hd) in q's dtype, q head h reading
-    KV head ``h // (H // Kv)``.
+    KV head ``h // (H // Kv)``, under ``attention_mask(S, causal, window,
+    chunk)``.
 
     The arithmetic of the TPU kernel's body (``_flash_kernel``) over the
     whole kv axis at once: q widened and scaled by ``1/sqrt(hd)`` in
@@ -221,13 +254,7 @@ def flash_attention_ref(q, k, v, causal=True):
     autograd differentiates the rest, through the in-place steps.
     """
     B, S, H, hd = q.shape
-    Kv = k.shape[2]
-    qg = (q.to(torch.float32) * (1.0 / hd ** 0.5)).reshape(B, S, Kv,
-                                                            H // Kv, hd)
-    s = torch.einsum("bskgd,btkd->bkgst", qg, k.to(torch.float32))
-    if causal:
-        pos = torch.arange(S, device=q.device)
-        s.masked_fill_(pos[None, :] > pos[:, None], -1e30)
+    s = _scores(q, k, causal, window, chunk)
     # in place: the (B, Kv, G, S, S) scores are the one large buffer
     p = s.sub_(s.amax(-1, keepdim=True).detach()).exp_()
     o = torch.einsum("bkgst,btkd->bkgsd", p, v.to(torch.float32))
@@ -235,27 +262,22 @@ def flash_attention_ref(q, k, v, causal=True):
     return o.permute(0, 3, 1, 2, 4).reshape(B, S, H, hd).to(q.dtype)
 
 
-def flash_attention_lse_ref(q, k, causal=True):
+def flash_attention_lse_ref(q, k, causal=True, window=None, chunk=None):
     """The rows' log-sum-exp of ``flash_attention_ref``'s scaled, masked
     float32 scores, (B, H, S) float32: what ``flash_attention_cuda(...,
     return_lse=True)`` returns beside the output."""
-    B, S, H, hd = q.shape
-    Kv = k.shape[2]
-    qg = (q.to(torch.float32) * (1.0 / hd ** 0.5)).reshape(B, S, Kv,
-                                                            H // Kv, hd)
-    s = torch.einsum("bskgd,btkd->bkgst", qg, k.to(torch.float32))
-    if causal:
-        pos = torch.arange(S, device=q.device)
-        s.masked_fill_(pos[None, :] > pos[:, None], -1e30)
-    return torch.logsumexp(s, -1).reshape(B, H, S)
+    B, S, H, _ = q.shape
+    return torch.logsumexp(_scores(q, k, causal, window, chunk),
+                           -1).reshape(B, H, S)
 
 
-def flash_attention_backward_ref(q, k, v, dout, causal=True):
+def flash_attention_backward_ref(q, k, v, dout, causal=True, window=None,
+                                 chunk=None):
     """``(dq, dk, dv)``, the plain vjp of ``flash_attention_ref`` for the
     output gradient ``dout`` (autograd through it, in float32 inside, each
     gradient in its input's dtype): the plain version of
     ``flash_attention_backward_cuda``."""
     with torch.enable_grad():
         xs = [x.detach().requires_grad_(True) for x in (q, k, v)]
-        out = flash_attention_ref(*xs, causal)
+        out = flash_attention_ref(*xs, causal, window, chunk)
         return torch.autograd.grad(out, xs, dout)

@@ -2,12 +2,16 @@
 decode and training loss.
 
 Ported: GQA, qk-norm, QKV bias, RoPE, tied or untied embeddings, dense
-FFNs; ``init_params``, ``trunk``, ``forward``, ``prefill`` and
-``loss_fn``; the causal ``_mask``, the masked dense attention
-``_sdpa_dense``, ``cache_len``, ``init_cache`` and ``decode_step``.  The
-no-cache branch of ``_attn_block`` (prefill and training) is
-``ops.flash_attention``: the hand-written CUDA kernels on the card (TPU
-kernel 9 forward, kernel 9b backward), its plain version on the CPU.
+and MoE FFNs (``models/moe.py``), the causal, sliding-window and chunked
+masks (with ``global_every`` full layers); ``init_params``, ``trunk``,
+``forward``, ``prefill`` and ``loss_fn``; ``_mask``, the masked dense
+attention ``_sdpa_dense``, ``cache_len``, ``init_cache`` and
+``decode_step``.  The no-cache branch of ``_attn_block`` (prefill and
+training) is ``ops.flash_attention`` with the layer's window or chunk: the
+hand-written CUDA kernels on the card (TPU kernel 9 forward, kernel 9b
+backward), its plain version on the CPU.  On the card kernel 9b has no
+window or chunk terms yet: the backward of a windowed or chunked layer
+raises there (ROADMAP.md, A10d training).
 
 Training (``loss_fn``) follows the reference's memory plan: with grad
 enabled, ``trunk`` recomputes each layer in the backward (a non-reentrant
@@ -36,10 +40,9 @@ The KV cache is laid out ``(L, B, Kv, Skv, hd)``, not the reference's
 over them with no copy (``interop.lm_cache_from_reference`` carries a
 reference cache across).  ``decode_step`` updates the cache in place, the
 port's counterpart of the reference jit's donation: one cache is live at a
-time.
+time.  A windowed model's cache is a ring of ``attn_window`` slots.
 
-Not ported yet, and raising ``NotImplementedError`` on every device: MoE
-FFNs and the windowed and chunked masks (ROADMAP.md A10d) and
+Not ported yet, and raising ``NotImplementedError`` on every device:
 sequence-sharded activations (A8).  The reference's attention-choice knobs
 (``dense_attn_threshold``, ``attn_block_kv``, ``attn_block_q``) have no
 field here: the port runs the flash kernels at every length, where the
@@ -58,6 +61,7 @@ import torch.utils.checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.kernels import ops
+from repro_torch.models import moe
 from repro_torch.models.common import (apply_rope, embed_lookup, he_init,
                                        rms_norm, softmax_cross_entropy)
 
@@ -124,14 +128,6 @@ class TransformerConfig:
 
 def _check_ported(cfg: TransformerConfig) -> None:
     """Raise for the config fields the port does not have yet."""
-    if cfg.n_experts:
-        raise NotImplementedError(
-            "MoE FFNs (n_experts > 0) are not ported yet: ROADMAP.md queue "
-            "A10d (MoE and the windowed and chunked masks)")
-    if cfg.attn_window is not None or cfg.attn_chunk is not None:
-        raise NotImplementedError(
-            "the windowed and chunked attention masks are not ported yet: "
-            "ROADMAP.md queue A10d (MoE and the windowed and chunked masks)")
     if cfg.seq_shard:
         raise NotImplementedError(
             "sequence-sharded activations (seq_shard) are not ported yet: "
@@ -145,7 +141,8 @@ def init_params(generator: torch.Generator, cfg: TransformerConfig,
     asks for the CPU; ``generator`` must live there), with its
     distributions: He-normal weights with the reference's ``fan_in``, ones
     for the norms, zeros for the biases.  Stacked leaves are drawn layer by
-    layer, so the largest float32 temporary is one layer's matrix."""
+    layer (the experts' one (layer, expert) matrix at a time), so the
+    largest float32 temporary is one matrix."""
     _check_ported(cfg)
     device = resolve_device(device)
     d, hd, H, Kv, L, F = (
@@ -153,11 +150,11 @@ def init_params(generator: torch.Generator, cfg: TransformerConfig,
     )
     dt = cfg.dtype
 
-    def stack(shape, fan_in):
-        out = torch.empty((L,) + shape, dtype=dt, device=device)
-        for i in range(L):
-            out[i] = he_init(generator, shape, dt, device=device,
-                             fan_in=fan_in)
+    def stack(shape, fan_in, lead=(L,)):
+        out = torch.empty(lead + shape, dtype=dt, device=device)
+        for m in out.view((-1,) + shape):
+            m.copy_(he_init(generator, shape, dt, device=device,
+                            fan_in=fan_in))
         return out
 
     def full(shape, value):
@@ -178,9 +175,20 @@ def init_params(generator: torch.Generator, cfg: TransformerConfig,
     if cfg.qk_norm:
         layers["q_norm"] = full((L, hd), 1.0)
         layers["k_norm"] = full((L, hd), 1.0)
-    layers["w_gate"] = stack((d, F), d)
-    layers["w_up"] = stack((d, F), d)
-    layers["w_down"] = stack((F, d), F)
+    if cfg.n_experts:
+        E = cfg.n_experts
+        layers["router"] = stack((d, E), d)
+        layers["we_gate"] = stack((d, F), d, lead=(L, E))
+        layers["we_up"] = stack((d, F), d, lead=(L, E))
+        layers["we_down"] = stack((F, d), F, lead=(L, E))
+        if cfg.shared_expert:
+            layers["ws_gate"] = stack((d, F), d)
+            layers["ws_up"] = stack((d, F), d)
+            layers["ws_down"] = stack((F, d), F)
+    else:
+        layers["w_gate"] = stack((d, F), d)
+        layers["w_up"] = stack((d, F), d)
+        layers["w_down"] = stack((F, d), F)
 
     params = {
         "embed": he_init(generator, (cfg.vocab, d), dt, device=device,
@@ -219,10 +227,24 @@ def _qkv(cfg, lp, x, q_pos):
 
 
 # -------------------------------------------------------------- attention
+def _is_global(cfg: TransformerConfig, layer_idx: int) -> bool:
+    """A full-attention layer of a chunked model (every ``global_every``-th,
+    the last of each run)."""
+    return (cfg.global_every > 0
+            and layer_idx % cfg.global_every == cfg.global_every - 1)
+
+
 def _mask(cfg: TransformerConfig, layer_idx, q_pos, kv_pos):
-    """(Sq, Skv) boolean mask from absolute positions (int32): causal.  The
-    windowed and chunked masks are A10d (``_check_ported`` raises)."""
-    return kv_pos[None, :] <= q_pos[:, None]
+    """(Sq, Skv) boolean mask from absolute positions (int32): causal, and
+    within ``attn_window`` of the query, and in the query's
+    ``attn_chunk`` unless the layer is global."""
+    m = kv_pos[None, :] <= q_pos[:, None]
+    if cfg.attn_window is not None:
+        m &= (q_pos[:, None] - kv_pos[None, :]) < cfg.attn_window
+    if cfg.attn_chunk is not None and not _is_global(cfg, layer_idx):
+        m &= (q_pos[:, None] // cfg.attn_chunk) == (kv_pos[None, :]
+                                                   // cfg.attn_chunk)
+    return m
 
 
 def _sdpa_dense(cfg, layer_idx, q, kk, vv, q_pos, kv_pos, kv_valid=None):
@@ -269,12 +291,18 @@ def _write_kv(ck, cv, kx, vx, write_idx):
     cv.index_copy_(2, idx, vx.transpose(1, 2))
 
 
+def _local_terms(cfg, layer_idx):
+    """The layer's ``window`` and ``chunk`` for ``ops.flash_attention``."""
+    chunk = None if _is_global(cfg, layer_idx) else cfg.attn_chunk
+    return {"window": cfg.attn_window, "chunk": chunk}
+
+
 def _attn_block(cfg, lp, layer_idx, x, q_pos, cache=None):
     """Self-attention sublayer; returns ``(x + o @ wo, (k, v))``.  With
     ``cache=(ck, cv, kv_pos, kv_valid, write_idx)`` (ck, cv a layer's
     (B, Kv, Skv, hd) cache), writes the new K and V into it in place and
     attends over it (decode, ``_sdpa_dense``); otherwise self-attends over
-    x, causal, through the flash kernel."""
+    x through the flash kernel, under the layer's mask (``_mask``)."""
     B, S, _ = x.shape
     q, kx, vx = _qkv(cfg, lp, x, q_pos)
     if cache is not None:
@@ -283,31 +311,41 @@ def _attn_block(cfg, lp, layer_idx, x, q_pos, cache=None):
         o = _sdpa_dense(cfg, layer_idx, q, ck, cv, q_pos, kv_pos, kv_valid)
         new_cache = (ck, cv)
     else:
-        o = ops.flash_attention(q, kx, vx, causal=True)
+        o = ops.flash_attention(q, kx, vx, causal=True,
+                                **_local_terms(cfg, layer_idx))
         new_cache = (kx, vx)
     return x + o.reshape(B, S, -1) @ lp["wo"], new_cache
 
 
-def _ffn_block(cfg, lp, x):
-    """The dense FFN sublayer: x + (silu(h @ w_gate) * (h @ w_up)) @ w_down."""
+def _ffn_block(cfg, lp, x, with_aux=True):
+    """The FFN sublayer -> (x + y, aux): y = (silu(h @ w_gate) * (h @ w_up))
+    @ w_down and aux None (dense), or ``moe.moe_ffn``'s y and float32
+    aux (None without ``with_aux``)."""
     h = rms_norm(x, lp["ffn_norm"], cfg.norm_eps)
+    if cfg.n_experts:
+        y, aux = moe.moe_ffn(h, lp, cfg, with_aux)
+        return x + y, aux
     g = torch.nn.functional.silu(h @ lp["w_gate"]) * (h @ lp["w_up"])
-    return x + g @ lp["w_down"]
+    return x + g @ lp["w_down"], None
 
 
 def _layer(cfg, lp, layer_idx, x, q_pos, cache=None):
+    """-> (x, new_cache, aux); decode (a cache) computes no aux."""
     x, new_cache = _attn_block(cfg, lp, layer_idx, x, q_pos, cache)
-    return _ffn_block(cfg, lp, x), new_cache
+    x, aux = _ffn_block(cfg, lp, x, with_aux=cache is None)
+    return x, new_cache, aux
 
 
 # ---------------------------------------------------------------- forward
 def _layer_out(cfg, lp, layer_idx, x, q_pos):
-    return _layer(cfg, lp, layer_idx, x, q_pos)[0]
+    x, _, aux = _layer(cfg, lp, layer_idx, x, q_pos)
+    return x, aux
 
 
 def trunk(params, tokens, cfg: TransformerConfig):
     """tokens (B, S) -> (final-normed hidden (B, S, D), aux_loss).  The
-    tokens go to the parameters' device; aux_loss is 0 (dense FFNs).  With
+    tokens go to the parameters' device; aux_loss (0-dim float32) is the
+    sum of the MoE layers' load-balance losses, 0 for dense FFNs.  With
     grad enabled each layer is recomputed in the backward (the
     reference's ``nothing_saveable`` checkpoint of the scanned body)."""
     _check_ported(cfg)
@@ -316,16 +354,21 @@ def trunk(params, tokens, cfg: TransformerConfig):
     B, S = tokens.shape
     x = embed_lookup(embed, tokens)
     q_pos = torch.arange(S, dtype=torch.int32, device=embed.device)
+    auxs = []
     for i in range(cfg.n_layers):
         lp = {k: v[i] for k, v in params["layers"].items()}
         if torch.is_grad_enabled():
-            x = torch.utils.checkpoint.checkpoint(
+            x, aux = torch.utils.checkpoint.checkpoint(
                 _layer_out, cfg, lp, i, x, q_pos, use_reentrant=False,
                 preserve_rng_state=False)
         else:
-            x, _ = _layer(cfg, lp, i, x, q_pos)
+            x, _, aux = _layer(cfg, lp, i, x, q_pos)
+        if aux is not None:
+            auxs.append(aux)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return x, torch.zeros((), dtype=torch.float32, device=embed.device)
+    if not auxs:
+        return x, torch.zeros((), dtype=torch.float32, device=embed.device)
+    return x, torch.stack(auxs).sum()
 
 
 def _head(params, cfg: TransformerConfig) -> torch.Tensor:
@@ -438,8 +481,9 @@ def decode_step(params, cache, tokens, cfg: TransformerConfig):
     x = embed.index_select(0, tokens.reshape(-1)).reshape(B, 1, -1)
     for i in range(cfg.n_layers):
         lp = {k: v[i] for k, v in params["layers"].items()}
-        x, _ = _layer(cfg, lp, i, x, q_pos,
-                      cache=(ck_all[i], cv_all[i], pos, kv_valid, write_idx))
+        x, _, _ = _layer(cfg, lp, i, x, q_pos,
+                         cache=(ck_all[i], cv_all[i], pos, kv_valid,
+                                write_idx))
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = (x @ _head(params, cfg))[:, 0]
     t.add_(1)

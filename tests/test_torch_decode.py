@@ -256,15 +256,18 @@ def test_attn_block_over_a_cache_matches_the_reference():
                                rtol=1e-5)
 
 
-@pytest.mark.parametrize("arch", ["qwen3-14b", "qwen2-7b", "granite-8b"])
+@pytest.mark.parametrize("arch", ["qwen3-14b", "qwen2-7b", "granite-8b",
+                                  "mixtral-8x7b", "llama4-scout-17b-16e"])
 def test_registered_lm_archs_prefill_and_decode_match_the_reference(arch):
     """Each registered LM's smoke config (qwen2's QKV bias, granite's rope
-    theta 1e4): prefill of 2 x 48 tokens within atol 5e-5, then 6 decode
-    steps, each package on its own cache, within atol 5e-5."""
+    theta 1e4, mixtral's window and MoE, llama4's chunks and shared
+    expert): prefill of 2 x 48 tokens (2 x 64 for the MoE archs, whose
+    64-token groups must divide the tokens) within atol 5e-5, then 6
+    decode steps, each package on its own cache, within atol 5e-5."""
     jcfg = jconfigs.get(arch).smoke_cfg
     tcfg = configs.get(arch).smoke_cfg
     jparams, tparams = _models(jcfg, tcfg)
-    tokens = _tokens(jcfg.vocab, 2, 48)
+    tokens = _tokens(jcfg.vocab, 2, 64 if jcfg.n_experts else 48)
     want = JT.prefill(jparams, jnp.asarray(tokens), jcfg)
     got = T.prefill(tparams, torch.from_numpy(tokens), tcfg)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=5e-5,
@@ -437,12 +440,21 @@ def test_decode_entry_points_raise_for_cuda_without_a_card(monkeypatch):
     ("n_experts", 8), ("attn_window", 64), ("attn_chunk", 64),
 ])
 def test_decode_raises_naming_a10d(field, value):
+    """Decode with MoE or a windowed or chunked mask runs since A10d's
+    serving path (a window's cache is its ring); training such a config
+    raises naming A10d training."""
+    from repro_torch.runtime.factory import build_trainer
+    from repro_torch.runtime.trainer import TrainerConfig
+
     _, tcfg = _cfgs("float32")
     bad = dataclasses.replace(tcfg, **{field: value})
-    with pytest.raises(NotImplementedError, match="A10d"):
-        T.init_cache(bad, 1, 8, device="cpu")
-    params = T.init_params(torch.Generator("cpu").manual_seed(0), tcfg,
+    cache = T.init_cache(bad, 1, 80, device="cpu")
+    assert cache["k"].shape[3] == T.cache_len(bad, 80)
+    params = T.init_params(torch.Generator("cpu").manual_seed(0), bad,
                            device="cpu")
-    cache = T.init_cache(tcfg, 1, 8, device="cpu")
+    logits, cache = T.decode_step(params, cache,
+                                  torch.zeros(1, dtype=torch.int32), bad)
+    assert logits.shape == (1, bad.vocab) and int(cache["t"]) == 1
     with pytest.raises(NotImplementedError, match="A10d"):
-        T.decode_step(params, cache, torch.zeros(1, dtype=torch.int32), bad)
+        build_trainer("qwen3-14b", TrainerConfig(), model_cfg=bad,
+                      device="cpu")

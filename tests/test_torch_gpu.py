@@ -1562,3 +1562,160 @@ def test_cuda_decode_step_makes_no_sync_and_keeps_the_cache_in_place():
     assert logits.shape == (4, cfg.vocab)
     assert torch.isfinite(logits).all()
     assert int(cache["t"]) == 2 and cache["pos"][:3].tolist() == [0, 1, -1]
+
+
+# ------------------------------------- kernel 9's window and chunk terms
+@pytest.mark.gpu
+@pytest.mark.parametrize("window,chunk", [
+    (64, None), (40, None), (None, 64), (None, 48), (100, 96), (17, None),
+    (None, 7),
+])
+@pytest.mark.parametrize("B,S,H,Kv,hd,dtype", [
+    (1, 300, 8, 2, 128, torch.bfloat16), (2, 257, 4, 1, 64, torch.float32),
+    (1, 1000, 8, 2, 128, torch.bfloat16), (1, 130, 4, 2, 32, torch.float32),
+    (1, 200, 2, 1, 256, torch.bfloat16), (1, 77, 4, 2, 256, torch.float32),
+])
+def test_cuda_flash_attention_local_terms_match_plain_version(
+        B, S, H, Kv, hd, dtype, window, chunk):
+    """Kernel 9 under a window or a chunk (or both) against its plain
+    version: windows below and above a tile (64 rows), chunks that do and
+    do not divide S, S not a multiple of the tile; within FLASH_TOL, two
+    runs bit-equal, bf16 within one bf16 ulp; the row log-sum-exp too."""
+    _cuda_or_skip()
+    from repro_torch.kernels.flash_attention import (bf16_ulps,
+                                                     flash_attention_cuda)
+
+    q, k, v = _qkv(B, S, H, Kv, hd, dtype, seed=S + hd + (window or 0))
+    got, lse = flash_attention_cuda(q, k, v, True, return_lse=True,
+                                    window=window, chunk=chunk)
+    again = flash_attention_cuda(q, k, v, True, window=window, chunk=chunk)
+    torch.cuda.synchronize()
+    want = tref.flash_attention_ref(q, k, v, True, window, chunk)
+    assert torch.equal(got, again)
+    torch.testing.assert_close(got.float(), want.float(), **FLASH_TOL[dtype])
+    if dtype == torch.bfloat16:
+        assert bf16_ulps(got, want).max().item() <= 1.0
+    torch.testing.assert_close(
+        lse, tref.flash_attention_lse_ref(q, k, True, window, chunk),
+        atol=1e-4, rtol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_cuda_flash_attention_unbinding_terms_are_causal_bits(dtype):
+    """A window or a chunk of S or more masks nothing past causal: the
+    local kernel gives the causal kernel's bits (output and lse)."""
+    _cuda_or_skip()
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+
+    q, k, v = _qkv(1, 1000, 8, 2, 128, dtype, seed=21)
+    want, want_lse = flash_attention_cuda(q, k, v, True, return_lse=True)
+    for kw in (dict(window=1000), dict(window=4096), dict(chunk=1000),
+               dict(chunk=8192), dict(window=5000, chunk=1024)):
+        got, lse = flash_attention_cuda(q, k, v, True, return_lse=True, **kw)
+        assert torch.equal(got, want), kw
+        assert torch.equal(lse, want_lse), kw
+
+
+@pytest.mark.gpu
+def test_cuda_flash_attention_local_terms_count_and_refuse_the_backward():
+    """``ops`` counts a windowed launch as flash_attention_window and a
+    chunked one as flash_attention_chunk; the backward of either raises on
+    the card (kernel 9b has no such terms yet), where the CPU's plain vjp
+    runs."""
+    _cuda_or_skip()
+    q, k, v = _qkv(1, 128, 4, 2, 64, torch.bfloat16, seed=3)
+    ops.reset_launches()
+    ops.flash_attention(q, k, v, window=32)
+    ops.flash_attention(q, k, v, chunk=32)
+    ops.flash_attention(q, k, v)
+    assert (ops.launches["flash_attention_window"],
+            ops.launches["flash_attention_chunk"],
+            ops.launches["flash_attention"]) == (1, 1, 1)
+    for kw in (dict(window=32), dict(chunk=32)):
+        xs = [x.clone().requires_grad_(True) for x in (q, k, v)]
+        out = ops.flash_attention(*xs, **kw)
+        with pytest.raises(NotImplementedError, match="A10d training"):
+            out.float().sum().backward()
+        cpu = [x.detach().cpu().float().requires_grad_(True) for x in xs]
+        ops.flash_attention(*cpu, **kw).sum().backward()
+        assert all(torch.isfinite(x.grad).all() for x in cpu)
+    with pytest.raises(ValueError, match="causal"):
+        ops.flash_attention(q, k, v, causal=False, window=8)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["mixtral-8x7b", "llama4-scout-17b-16e"])
+def test_cuda_moe_is_bit_reproducible_and_matches_the_cpu(arch):
+    """The MoE FFN on the card (bf16 at the smoke widths, 8 groups of 64
+    tokens with drops at capacity_factor 0.5): two runs give the same bits
+    (the dispatch writes each kept slot once, the combine adds at most two
+    terms onto an exact zero); in float32 the plan equals the CPU's and y
+    lies within atol 1e-5."""
+    _cuda_or_skip()
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as T
+
+    cfg = dataclasses.replace(configs.get(arch).smoke_cfg,
+                              capacity_factor=0.5)
+    cpu = T.init_params(torch.Generator("cpu").manual_seed(2), cfg,
+                        device="cpu")
+    lp = {n: t[0] for n, t in cpu["layers"].items()}
+    x = torch.randn((8, 64, cfg.d_model),
+                    generator=torch.Generator("cpu").manual_seed(3))
+    for dtype in (torch.bfloat16, torch.float32):
+        c = dataclasses.replace(cfg, dtype=dtype)
+        glp = {n: t.to("cuda", dtype) for n, t in lp.items()}
+        y1, a1 = moe.moe_ffn(x.to("cuda", dtype), glp, c)
+        y2, a2 = moe.moe_ffn(x.to("cuda", dtype), glp, c)
+        assert torch.equal(y1, y2) and torch.equal(a1, a2)
+    want, aux = moe.moe_ffn(x, lp, cfg)
+    torch.testing.assert_close(y1.cpu(), want, atol=1e-5, rtol=0)
+    assert abs(float(a1) - float(aux)) <= 1e-6
+    xg = x.reshape(8, 64, -1)
+    cap = moe.capacity(64, cfg.n_experts, cfg.top_k, 0.5)
+    plan, _ = moe.route(xg.cuda(), lp["router"].cuda(), cfg.n_experts,
+                        cfg.top_k, cap)
+    want_plan, _ = moe.route(xg, lp["router"], cfg.n_experts, cfg.top_k, cap)
+    assert torch.equal(plan.row.cpu(), want_plan.row)
+    assert torch.equal(plan.keep.cpu(), want_plan.keep)
+    assert not plan.keep.all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["mixtral-8x7b", "llama4-scout-17b-16e"])
+def test_cuda_moe_arch_decodes_without_a_sync_and_matches_the_cpu(arch):
+    """Prefill and 3 x window decode steps (mixtral across its 16-slot
+    ring's wrap) of the smoke config (f32) on the card and on the CPU from
+    one state: logits within atol 5e-5, rtol 1e-5; a decode step runs
+    under the sync debug mode "error"."""
+    _cuda_or_skip()
+    from repro_torch import configs, tree_map
+    from repro_torch.models import transformer as T
+
+    cfg = configs.get(arch).smoke_cfg
+    cpu = T.init_params(torch.Generator("cpu").manual_seed(7), cfg,
+                        device="cpu")
+    gpu = tree_map(lambda t: t.cuda(), cpu)
+    tokens = torch.from_numpy(np.random.default_rng(8).integers(
+        0, cfg.vocab, (2, 128)))
+    torch.testing.assert_close(T.prefill(gpu, tokens.cuda(), cfg).cpu(),
+                               T.prefill(cpu, tokens, cfg), atol=5e-5,
+                               rtol=1e-5)
+    ccache = T.init_cache(cfg, 2, 64, device="cpu")
+    gcache = T.init_cache(cfg, 2, 64, device="cuda")
+    n = 3 * (cfg.attn_window or cfg.attn_chunk)
+    for i, tok in enumerate(tokens[:, :n].T.contiguous()):
+        want, ccache = T.decode_step(cpu, ccache, tok, cfg)
+        if i == n - 1:
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            got, gcache = T.decode_step(gpu, gcache, tok.pin_memory(), cfg)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.testing.assert_close(got.cpu(), want, atol=5e-5, rtol=1e-5)
+    assert torch.equal(gcache["pos"].cpu(), ccache["pos"])

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Time the bag forward's, the hash probe's, the pushes', the cached
-gather's and flash attention's backward's wrappers of one checkout on the
-card, so that two checkouts can be compared on one card in one run.
+gather's and flash attention's forward's and backward's wrappers of one
+checkout on the card, so that two checkouts can be compared on one card in
+one run.
 
     python3 tools/kernel_ab.py ROOT [--label NAME] [--out FILE]
 
@@ -33,6 +34,10 @@ Inputs:
     ``ops.gather_rows_cached(..., drop_row=True)`` where the checkout has
     it, else ``_with_drop_row(ops.gather_rows_cached(...))`` (the pull's
     gather, then its ``cat``);
+  - flash attention's forward (kernel 9, ``flash_attention_cuda``,
+    causal) at the LM prefill cell's shape, (B, S, H, Kv, hd) = (4, 4096,
+    40, 8, 128), in bfloat16, and at (1, 4096, 40, 8, 128) in float32,
+    with a digest of its output's bytes;
   - flash attention's backward (kernel 9b,
     ``flash_attention_backward_cuda``) at the LM training cell's shape,
     (B, S, H, Kv, hd) = (1, 4096, 40, 8, 128), causal, in bfloat16 and in
@@ -173,6 +178,36 @@ def _push_gather_times(cs, dev, times):
     return out
 
 
+def _flash_forward_times(cs, dev, times):
+    """Kernel 9 of the checkout whose package was imported first, causal,
+    at the LM prefill cell's shape in bfloat16 and one sequence in float32
+    (see the module's docstring)."""
+    import hashlib
+
+    import torch
+
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+
+    out = {}
+    for key, B, dtype in (("flash_forward_bf16", 4, torch.bfloat16),
+                          ("flash_forward_f32", 1, torch.float32)):
+        gen = torch.Generator(dev).manual_seed(61)
+        q = torch.randn((B, 4096, 40, 128), generator=gen,
+                        device=dev).to(dtype)
+        k, v = [torch.randn((B, 4096, 8, 128), generator=gen,
+                            device=dev).to(dtype) for _ in range(2)]
+
+        def kernel():
+            return flash_attention_cuda(q, k, v, True)
+
+        digest = hashlib.sha256(kernel().view(torch.uint8).cpu().numpy())
+        out[key] = times(kernel)
+        out[key]["digest"] = digest.hexdigest()[:16]
+        del q, k, v
+        torch.cuda.empty_cache()
+    return out
+
+
 def _flash_backward_times(cs, dev, times):
     """Kernel 9b of the checkout whose package was imported first, at the
     LM cell's shape in bfloat16 and float32 (see the module's docstring)."""
@@ -290,6 +325,7 @@ def main() -> int:
         rec[key]["hits"] = int((hash_lookup_cuda(*pargs) >= 0).sum())
         del pargs
     rec.update(_push_gather_times(cs, dev, times))
+    rec.update(_flash_forward_times(cs, dev, times))
     rec.update(_flash_backward_times(cs, dev, times))
     trip_us, launch_ms = cs._hbm_trip()
     rec["hbm_trip_us"], rec["empty_launch_graph_ms"] = trip_us, launch_ms
