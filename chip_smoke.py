@@ -2,8 +2,8 @@
 """Run the PyTorch port's baidu-ctr serving and training paths, on the
 gather and the cached placements and on the SSD tier, its dlrm-mlperf
 serving and training paths, its qwen3-14b prefill, decode and training,
-and its mixtral-8x7b and llama4-scout serving (MoE, windowed and chunked
-attention), on one NVIDIA GPU (H100).
+its mixtral-8x7b and llama4-scout serving (MoE, windowed and chunked
+attention) and its mixtral-8x7b training, on one NVIDIA GPU (H100).
 
     python3 chip_smoke.py        # from the root of a checkout
 
@@ -293,6 +293,42 @@ Phases (any failure raises and the script exits non-zero):
      logits and 3 x window (or chunk) decode steps across the ring's wrap
      within atol 5e-5, rtol 1e-5, and the server's tokens, token for
      token.
+ 16. A10d training (after phase 15 has released its memory):
+     (a) kernel 9b with the window and chunk terms against the plain vjp
+     (autograd through ``ref.flash_attention_ref`` with the same terms)
+     at (1, 8192, 32, 8, 128) with window 4096 (mixtral's) and chunk
+     2048, bf16 and f32, and at S 1000 (not a multiple of any tile) with
+     window 100 (H 40 over Kv 8 in bf16), window 17 (below a tile),
+     chunk 300 (not dividing S; H 40 in bf16) and window 200 with chunk
+     256: the causal backward's tolerance (every gradient within 1e-5
+     f32, 2e-2 bf16, of its largest magnitude), two runs bit-equal, a
+     graph of a call holding its dtype's three kernels; windows and
+     chunks of S or more give the causal backward's bits; timed at 1 x
+     32768 (window 4096 at H 32, chunk 8192 at H 40) cold and warm,
+     beside causal 9b at the same shape, the backward of SDPA with the
+     boolean mask (held to the kernel within 5 % of the largest
+     gradient) and the bound from the visible pairs (10 hd FLOP a pair
+     and head); the local instantiations' registers join phase 14 (a)'s
+     SASS report;
+     (b) ``build_trainer("mixtral-8x7b", ...)`` at the published widths
+     (bf16) under the launcher's k-step settings (n_pod 2, two_phase, lr
+     1e-3) with k 10, **cut from 32 layers to 1** (32 B a podded
+     parameter: 54.8 GB; two layers would be 101 GB) and **train_4k's
+     256 x 4096 tokens to 2 x 8192** (one sequence a pod; at 4096 the
+     window masks nothing): 20 ``train_step`` calls (merges at 10 and
+     20; steps 3-20 under the sync debug mode "error"): finite losses,
+     walls, tokens/s, peak memory, exact launches (kernel 9 with the
+     window 80, 9b with the window 40, kernel 6 18, everything else 0);
+     the first step's loss within 1e-2 of float32 on the same weights;
+     one more step by part and under the profiler (kernels 9, 9b, 6, the
+     products, the index kernels, busy share); one pod's MoE FFN by part;
+     (c) llama4-scout-17b-16e: no full-width training cell (its
+     embedding and head alone take 66 GB podded), stated on its line;
+     (d) both MoE smoke configs (f32, S 64: the window 16 and chunk 16
+     bind, llama4's layer 3 is global), card vs CPU from one state, 4
+     steps at n_pod 2, k 2, lr 1e-4: losses, parameters, m and v_hat
+     within rtol 1e-4, atol 1e-6; one ``moe_ffn`` backward twice on the
+     card, bit-equal.
 
 TF32 is off for matmuls and convolutions.  Prints the card (``nvidia-smi``
 name and power limit), a ``kernels`` JSON line, and as its last line
@@ -4632,21 +4668,22 @@ def _flash_bwd_times(q, k, v, dout, causal=True, iters=5):
 def _flash_bwd_sass_report():
     """Phase 14 (a): each instantiation of kernel 9b's dK/dV and dQ kernels
     (``_sass_report``): "kv<T,HDP>", "q<T,HDP>", T "bf16" (the mma
-    kernels) or "f32" (the fma kernels).  Fails on a bf16 one without
-    HMMA, or with a spill store (STL) at HDP 64 or 128, and on an f32 one
-    with HMMA."""
+    kernels) or "f32" (the fma kernels), and "kv<T,HDP,local>",
+    "q<T,HDP,local>" with the window and chunk terms.  Fails on a bf16 one
+    without HMMA, or a causal bf16 one with a spill store (STL) at HDP 64
+    or 128, and on an f32 one with HMMA."""
     import re
 
     def short(mangled):
-        m = re.search(r"flash_attention_bwd_(kv|q)_(mma_)?kernelILi(\d+)E",
-                      mangled)
+        m = re.search(r"flash_attention_bwd_(kv|q)_(mma_)?kernelILi(\d+)E"
+                      r"Lb([01])E", mangled)
         return m and (f"{m.group(1)}<{'bf16' if m.group(2) else 'f32'},"
-                      f"{m.group(3)}>")
+                      f"{m.group(3)}{',local' if m.group(4) == '1' else ''}>")
 
     report, usage = _sass_report(short)
-    want = sorted(f"{n}<{t},{w}>" for n in ("kv", "q") for t in ("bf16",
-                                                                 "f32")
-                  for w in (64, 128, 256))
+    want = sorted(f"{n}<{t},{w}{local}>" for n in ("kv", "q")
+                  for t in ("bf16", "f32") for w in (64, 128, 256)
+                  for local in ("", ",local"))
     if sorted(report) != want:
         raise AssertionError(f"kernel 9b's instantiations: {sorted(report)}"
                              f"; cuobjdump -res-usage began:\n"
@@ -4655,7 +4692,7 @@ def _flash_bwd_sass_report():
     for name, r in sorted(report.items()):
         bf16 = "bf16" in name
         if ("hmma" not in r or (r["hmma"] > 0) != bf16
-                or (bf16 and not name.endswith(",256>") and r["stl"])):
+                or (bf16 and name.endswith((",64>", ",128>")) and r["stl"])):
             raise AssertionError(f"kernel 9b {name}: SASS report {r}")
     return report
 
@@ -4871,7 +4908,7 @@ def _f32_first_loss(device, cfg, batch):
     c32 = dataclasses.replace(cfg, dtype=torch.float32)
     toks = torch.from_numpy(batch["tokens"]).to(device)
     labs = torch.from_numpy(batch["labels"]).to(device)
-    per = LM_TRAIN_BATCH // 2
+    per = len(batch["tokens"]) // 2
     with torch.no_grad():
         losses = [T.loss_fn(params, {"tokens": toks[i * per:(i + 1) * per],
                                      "labels": labs[i * per:(i + 1) * per]},
@@ -4881,12 +4918,12 @@ def _f32_first_loss(device, cfg, batch):
     return float(np.mean(losses))
 
 
-def _lm_train_breakdown(tr, batch, cfg):
+def _lm_train_breakdown(tr, batch, cfg, groups=None):
     """Phase 14 (b): one more local step split into parts by CUDA events
     (forward, backward, the local Adam step), a merge step's optimizer
     part, and one pod's head + cross-entropy forward and backward alone;
     then one step under the profiler: the device time of kernels 9, 9b and
-    6 and the busy share."""
+    6 (or of ``groups``: {label: kernel name parts}) and the busy share."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -4931,11 +4968,11 @@ def _lm_train_breakdown(tr, batch, cfg):
                  e5.elapsed_time(e6)}
     del x, xc, head
     _release()
-    groups = {"kernel 9 (flash_attention_mma_kernel)":
-                  ("flash_attention_mma_kernel",),
-              "kernel 9b (flash_attention_bwd_*)":
-                  FLASH_BWD_KERNELS["bfloat16"],
-              "kernel 6 (fused_adam_kernel)": ("fused_adam_kernel",)}
+    groups = groups or {
+        "kernel 9 (flash_attention_mma_kernel)":
+            ("flash_attention_mma_kernel",),
+        "kernel 9b (flash_attention_bwd_*)": FLASH_BWD_KERNELS["bfloat16"],
+        "kernel 6 (fused_adam_kernel)": ("fused_adam_kernel",)}
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -5744,6 +5781,539 @@ def phase_moe_agreement(device):
               "token for token")
 
 
+# -------------------------------------- A10d training: MoE and 9b's terms (16)
+MOE_TRAIN_LAYERS = 1       # mixtral-8x7b's 32 layers cut to 1 (PERF.md §4)
+MOE_TRAIN_SEQ = 8192       # train_4k's 4096 doubled, so the window binds
+MOE_TRAIN_BATCH = 2        # train_4k's batch 256 cut to 2: 1 sequence a pod
+MOE_TRAIN_STEPS = 20       # two merges at k 10
+MOE_TRAIN_K = 10
+LOCAL_BWD_LONG = 32768     # (a)'s timed shape: prefill_32k's sequence
+# (d)'s trainer state, card against CPU: phase 14's rtol 1e-4 with atol
+# 1e-5, not 1e-6.  The MoE archs' gradients carry more float32 noise than
+# the dense model's (the CPU against the reference: up to 5.2e-6 of a
+# leaf's largest gradient, 1.4e-6 for qwen3), and k-step Adam's local
+# step divides each by sqrt(v_hat) of the last merge, a gain of ~400 for
+# an embedding row seen since (tests/test_torch_moe_train.py, TRAIN_MOE).
+# On the card a few elements in a million of the smoke states so part
+# from the CPU's by up to ~5e-6 after 4 steps, while every loss holds
+# phase 14's tolerance.
+MOE_STATE_TOL = dict(rtol=1e-4, atol=1e-5)
+
+
+def _local_flash_bwd_times(q, k, v, dout, window, chunk, iters=5):
+    """Kernel 9b under ``window``/``chunk`` at q, k, v: cold and warm L2,
+    the causal 9b at the same shape, the backward of SDPA with the boolean
+    mask (the library call, K and V repeated to H heads; timed only, and
+    held to the kernel within 5 % of the largest gradient) where it fits,
+    and the bound from the visible pairs (10 hd FLOP a pair and head: five
+    products of 2 hd)."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_backward_cuda, flash_attention_cuda)
+
+    B, S, H, hd = q.shape
+    G = H // k.shape[2]
+    out, lse = flash_attention_cuda(q, k, v, True, return_lse=True,
+                                    window=window, chunk=chunk)
+    c_out, c_lse = flash_attention_cuda(q, k, v, True, return_lse=True)
+
+    def kernel():
+        return flash_attention_backward_cuda(q, k, v, out, lse, dout, True,
+                                             window=window, chunk=chunk)
+
+    def causal():
+        return flash_attention_backward_cuda(q, k, v, c_out, c_lse, dout,
+                                             True)
+
+    got = kernel()
+    res = {"shape": [B, S, H, k.shape[2], hd], "window": window,
+           "chunk": chunk, "dtype": str(q.dtype).split(".")[-1]}
+    try:
+        mask = ref.attention_mask(S, True, window, chunk, q.device)
+        xs = [x.transpose(1, 2).detach().requires_grad_(True) for x in (
+            q, k.repeat_interleave(G, dim=2), v.repeat_interleave(G, dim=2))]
+        # the memory-efficient kernel: the math one would hold the
+        # (B, H, S, S) scores
+        with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION
+                         if q.is_cuda else SDPBackend.MATH):
+            lib_out = F.scaled_dot_product_attention(*xs, attn_mask=mask)
+        g = dout.transpose(1, 2)
+
+        def library():
+            return torch.autograd.grad(lib_out, xs, g, retain_graph=True)
+
+        lib = library()
+        worst = 0.0
+        for a, b in zip(got, (lib[0], lib[1].unflatten(1, (-1, G)).sum(2),
+                              lib[2].unflatten(1, (-1, G)).sum(2))):
+            b = b.transpose(1, 2).float()
+            worst = max(worst, (a.float() - b).abs().max().item()
+                        / b.abs().max().item())
+        if not worst <= 0.05:
+            raise AssertionError(f"flash_attention_backward {tuple(q.shape)}"
+                                 f" window {window} chunk {chunk}: SDPA's "
+                                 f"backward and the kernel differ by {worst}"
+                                 " of the largest gradient")
+        del lib
+        res["library_ms"] = _time_ms(library, iters=2, warmup=1)
+        res["library_rel_diff"] = worst
+        del lib_out, xs, mask
+    except torch.cuda.OutOfMemoryError:
+        res["library_ms"] = None
+    _release()
+    del got
+    pairs = _visible_keys(S, window, chunk)
+    flops = 10 * B * H * hd * pairs
+    elt = q.element_size()
+    nbytes = (4 * q.numel() + 4 * k.numel()) * elt + 4 * B * H * S
+    peak = BF16_FLOP_PER_S if q.dtype == torch.bfloat16 else F32_FLOP_PER_S
+    bound_ms, bound_by = _bound(nbytes, flops, peak)
+    res.update(
+        ms=_time_ms(kernel, iters=iters, warmup=1),
+        ms_l2_warm=_time_ms(kernel, iters=iters, warmup=1, cold_l2=False),
+        causal_ms=_time_ms(causal, iters=iters, warmup=1),
+        bound_ms=bound_ms, bound_by=bound_by, gflop=flops / 1e9,
+        causal_bound_ms=_bound(nbytes, 10 * B * H * hd * S * (S + 1) // 2,
+                               peak)[0])
+    del out, lse, c_out, c_lse
+    _release()
+    return res
+
+
+def phase_flash_local_backward(device):
+    """Phase 16 (a): kernel 9b with the window and chunk terms against the
+    plain vjp on the card (bf16 and f32; the edge cases), terms of S or
+    more against the causal backward's bits, and the windowed and chunked
+    backward timed at prefill_32k's shapes; returns the kernels line's
+    ``window`` and ``chunk`` entries (without ``launches``)."""
+    import torch
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_backward_cuda, flash_attention_cuda)
+
+    gen = torch.Generator(device).manual_seed(63)
+    S = LOCAL_CHECK
+    # (B, S, H, Kv, hd), dtype, window, chunk
+    cases = [((1, S, 32, 8, 128), torch.bfloat16, 4096, None),
+             ((1, S, 32, 8, 128), torch.float32, 4096, None),
+             ((1, S, 32, 8, 128), torch.bfloat16, None, 2048),
+             ((1, S, 32, 8, 128), torch.float32, None, 2048),
+             ((1, LOCAL_EDGE, 40, 8, 128), torch.bfloat16, 100, None),
+             ((1, LOCAL_EDGE, 8, 2, 128), torch.float32, 100, None),
+             ((2, LOCAL_EDGE, 8, 2, 128), torch.bfloat16, 17, None),
+             ((2, LOCAL_EDGE, 8, 2, 128), torch.float32, 17, None),
+             ((1, LOCAL_EDGE, 40, 8, 128), torch.bfloat16, None, 300),
+             ((1, LOCAL_EDGE, 8, 2, 128), torch.float32, None, 300),
+             ((1, LOCAL_EDGE, 8, 2, 128), torch.bfloat16, 200, 256)]
+    print("phase 16 (a): flash_attention_backward (kernel 9b) with the "
+          "window and chunk terms against the plain vjp (autograd through "
+          "ref.flash_attention_ref with the same terms); tolerance: the "
+          "causal backward's, every gradient within 1e-5 (f32) or 2e-2 "
+          "(bf16) of its largest magnitude")
+    names = sorted(set(sum(FLASH_BWD_KERNELS.values(), ())))
+    plain, max_err, max_err_bf16 = {}, 0.0, 0.0
+    for (B, S_, H, Kv, hd), dtype, window, chunk in cases:
+        name = str(dtype).split(".")[-1]
+        q = torch.randn((B, S_, H, hd), generator=gen, device=device).to(
+            dtype)
+        k, v = [torch.randn((B, S_, Kv, hd), generator=gen,
+                            device=device).to(dtype) for _ in range(2)]
+        dout = torch.randn(q.shape, generator=gen, device=device).to(dtype)
+        kw = dict(window=window, chunk=chunk)
+        out, lse = flash_attention_cuda(q, k, v, True, return_lse=True, **kw)
+        got = flash_attention_backward_cuda(q, k, v, out, lse, dout, True,
+                                            **kw)
+        again = flash_attention_backward_cuda(q, k, v, out, lse, dout, True,
+                                              **kw)
+        torch.cuda.synchronize()
+        want = ref.flash_attention_backward_ref(q, k, v, dout, True, window,
+                                                chunk)
+        errs = []
+        for which, a, b, c in zip(("dq", "dk", "dv"), got, again, want):
+            scale = c.float().abs().max().item()
+            err = (a.float() - c.float()).abs().max().item()
+            errs.append(err / scale)
+            if (a.dtype != dtype or a.shape != c.shape
+                    or not torch.equal(a, b)
+                    or err > FLASH_BWD_TOL[name] * scale):
+                raise AssertionError(f"flash_attention_backward "
+                                     f"{(B, S_, H, Kv, hd)} {name} window "
+                                     f"{window} chunk {chunk} {which}: max "
+                                     f"|kernel - plain| {err} of {scale}, "
+                                     "or two runs differ")
+            if dtype == torch.float32:
+                max_err = max(max_err, err)
+            else:
+                max_err_bf16 = max(max_err_bf16, err)
+        ran = _graph_kernels(lambda: flash_attention_backward_cuda(
+            q, k, v, out, lse, dout, True, **kw), names)
+        if ran != [int(n in FLASH_BWD_KERNELS[name]) for n in names]:
+            raise AssertionError(f"kernel 9b's graph holds {ran} of {names}")
+        key = "window" if window is not None else "chunk"
+        if S_ == S and B == 1 and key not in plain:
+            plain[key] = {
+                "plain_shape": [B, S_, H, Kv, hd], "plain_dtype": name,
+                "plain_ms": _time_ms(lambda: ref.flash_attention_backward_ref(
+                    q, k, v, dout, True, window, chunk), iters=2, warmup=1)}
+        print(f"  {(B, S_, H, Kv, hd)} {name} window {window} chunk {chunk}:"
+              f" max |kernel - plain| / max |plain| dq {errs[0]:.3g}, dk "
+              f"{errs[1]:.3g}, dv {errs[2]:.3g}; two runs bit-equal; its "
+              "graph holds its dtype's three kernels")
+        del q, k, v, dout, out, lse, got, again, want
+        _release()
+    # terms of S or more: the causal backward's bits
+    for dtype in (torch.bfloat16, torch.float32):
+        q = torch.randn((1, S, 32, 128), generator=gen, device=device).to(
+            dtype)
+        k, v = [torch.randn((1, S, 8, 128), generator=gen,
+                            device=device).to(dtype) for _ in range(2)]
+        dout = torch.randn(q.shape, generator=gen, device=device).to(dtype)
+        out, lse = flash_attention_cuda(q, k, v, True, return_lse=True)
+        want = flash_attention_backward_cuda(q, k, v, out, lse, dout, True)
+        for kw in (dict(window=S), dict(window=4 * S), dict(chunk=S),
+                   dict(window=2 * S, chunk=S)):
+            got = flash_attention_backward_cuda(q, k, v, out, lse, dout,
+                                                True, **kw)
+            if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                raise AssertionError(f"flash_attention_backward {kw} at S "
+                                     f"{S}: not the causal backward's bits")
+        print(f"  (1, {S}, 32, 8, 128) {str(dtype).split('.')[-1]}: window "
+              f"{S}, {4 * S}, chunk {S} and both: dq, dk, dv bit-equal to the"
+              " causal backward's")
+        del q, k, v, dout, out, lse, want, got
+        _release()
+
+    entries = {}
+    for key, H, window, chunk in (("window", 32, 4096, None),
+                                  ("chunk", 40, None, 8192)):
+        q = torch.randn((1, LOCAL_BWD_LONG, H, 128), generator=gen,
+                        device=device).to(torch.bfloat16)
+        k, v = [torch.randn((1, LOCAL_BWD_LONG, 8, 128), generator=gen,
+                            device=device).to(torch.bfloat16)
+                for _ in range(2)]
+        dout = torch.randn(q.shape, generator=gen, device=device).to(
+            torch.bfloat16)
+        t = _local_flash_bwd_times(q, k, v, dout, window, chunk)
+        t.update(plain[key], launches=None)
+        entries[key] = t
+        lib = ("did not fit" if t["library_ms"] is None else
+               f"{t['library_ms']:.4f} (max |SDPA - kernel| / max |SDPA| "
+               f"{t['library_rel_diff']:.3g})")
+        print(f"  times {tuple(t['shape'])} bf16 {key} {window or chunk} "
+              f"(ms): kernel {t['ms']:.4f} cold, {t['ms_l2_warm']:.4f} warm "
+              f"({t['gflop'] / t['ms']:.2f} TFLOP/s cold, "
+              f"{t['ms'] / t['causal_ms']:.3f} of the causal backward's "
+              f"{t['causal_ms']:.4f}); bound {t['bound_ms']:.4f} "
+              f"({t['gflop']:.1f} GFLOP, {t['bound_by']}; causal "
+              f"{t['causal_bound_ms']:.4f}); library (SDPA's backward with the"
+              f" boolean mask, K and V repeated) {lib}; plain "
+              f"{t['plain_ms']:.4f} at {tuple(t['plain_shape'])} "
+              f"{t['plain_dtype']}")
+        del q, k, v, dout
+        _release()
+    entries["window"]["max_abs_err"] = max_err
+    entries["window"]["max_abs_err_bf16"] = max_err_bf16
+    return entries
+
+
+def _moe_train_cfg():
+    import dataclasses as dc
+
+    from repro_torch import configs
+
+    return dc.replace(configs.get("mixtral-8x7b").model_cfg,
+                      n_layers=MOE_TRAIN_LAYERS)
+
+
+def _moe_ffn_parts(tr, batch, cfg):
+    """Phase 16 (b): one pod's MoE FFN at the cell's shape (its 8192
+    tokens through layer 0's MoE leaves, on random activations), forward by
+    part and backward, by CUDA events: route (with the aux), dispatch, the
+    expert products, combine, then the backward of all of it."""
+    import torch
+
+    from repro_torch.models import moe
+
+    E, top_k, D = cfg.n_experts, cfg.top_k, cfg.d_model
+    gsz, G = moe.groups(MOE_TRAIN_SEQ, cfg.moe_group_size)
+    cap = moe.capacity(gsz, E, top_k, cfg.capacity_factor)
+    lp = {k: v[0, 0].detach().requires_grad_(True)
+          for k, v in tr.params["layers"].items()
+          if k in ("router", "we_gate", "we_up", "we_down")}
+    x = torch.randn((G, gsz, D), device=lp["router"].device,
+                    dtype=cfg.dtype).requires_grad_(True)
+    events = []
+
+    def mark():
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        events.append(e)
+
+    torch.cuda.synchronize()
+    mark()
+    plan, aux = moe.route(x, lp["router"], E, top_k, cap, True)
+    mark()
+    xe = moe.dispatch(x, plan, E, cap)
+    mark()
+    ye = moe.experts(xe, lp)
+    mark()
+    y = moe.combine(ye, plan, gsz)
+    mark()
+    (y.float().square().mean() + 0.01 * aux.mean()).backward()
+    mark()
+    torch.cuda.synchronize()
+    parts = ("route + aux", "dispatch", "expert products", "combine",
+             "backward of all")
+    out = {p: a.elapsed_time(b) for p, a, b in zip(parts, events,
+                                                    events[1:])}
+    del x, lp, plan, aux, xe, ye, y
+    _release()
+    return out, G, cap
+
+
+def phase_moe_train(device):
+    """Phase 16 (b) at full width: ``build_trainer`` of mixtral-8x7b cut to
+    1 layer, 20 ``train_step`` calls of 2 x 8192 tokens (two merges), their
+    launches, walls, peak memory and parts; the first step's loss against
+    float32 on the same weights.  Returns the launch counts."""
+    import torch
+
+    from repro_torch.core.kstep import KStepConfig, leaves
+    from repro_torch.data.synthetic import lm_batches
+    from repro_torch.kernels import ops
+    from repro_torch.runtime.factory import build_trainer
+    from repro_torch.runtime.trainer import TrainerConfig
+
+    cfg = _moe_train_cfg()
+    full = _moe_cfg("mixtral-8x7b")[0]
+    gen = lm_batches(seed=0, batch=MOE_TRAIN_BATCH, seq_len=MOE_TRAIN_SEQ,
+                     vocab=cfg.vocab)
+    t0 = time.perf_counter()
+    batches = [next(gen) for _ in range(MOE_TRAIN_STEPS + 2)]
+    data_s = time.perf_counter() - t0
+    f32_loss = _f32_first_loss(device, cfg, batches[0])
+    t0 = time.perf_counter()
+    tr = build_trainer("mixtral-8x7b", TrainerConfig(
+        n_pod=2, kstep=KStepConfig(lr=1e-3, k=MOE_TRAIN_K,
+                                   merge="two_phase")),
+        model_cfg=cfg, device=device)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    n = sum(x.numel() for x in leaves(tr.params))
+    state_gb = torch.cuda.memory_allocated() / 1e9
+    print(f"phase 16 (b): mixtral-8x7b training at full width (d "
+          f"{cfg.d_model}, {cfg.n_heads} heads over {cfg.n_kv_heads} KV "
+          f"heads, hd {cfg.hd}, {cfg.n_experts} experts top-{cfg.top_k} of "
+          f"d_ff {cfg.d_ff}, window {cfg.attn_window}, vocab {cfg.vocab}, "
+          f"bf16); DenseTrainer, n_pod 2, two_phase, lr 1e-3, k "
+          f"{MOE_TRAIN_K}: {n} podded parameters ({n // 2} a pod), "
+          f"{state_gb:.2f} GB allocated after the build ({build_s:.1f} s; "
+          f"batches from lm_batches in {data_s:.1f} s)")
+    print(f"  reduction: mixtral-8x7b n_layers {full.n_layers} -> "
+          f"{cfg.n_layers} (32 B a podded parameter at n_pod 2: one layer "
+          f"and the embedding and head are {n // 2 * 32 / 1e9:.1f} GB, two "
+          f"layers would be ~101 GB)")
+    print(f"  reduction: train_4k's 256 x 4096 tokens -> {MOE_TRAIN_BATCH} x"
+          f" {MOE_TRAIN_SEQ} (one sequence a pod; at 4096 the window of "
+          f"{cfg.attn_window} masks nothing, at {MOE_TRAIN_SEQ} it hides up "
+          f"to half the keys; the MoE group stays {cfg.moe_group_size})")
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    losses, walls = [], []
+    for i, b in enumerate(batches[:MOE_TRAIN_STEPS]):
+        t0 = time.perf_counter()
+        if i >= 2:          # the first two build and warm up, then no sync
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            loss = tr.train_step(b)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        losses.append(loss.item())
+    launches = dict(ops.launches)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    L, P_ = cfg.n_layers, 2
+    want = dict.fromkeys(launches, 0)
+    want["flash_attention_window"] = 2 * MOE_TRAIN_STEPS * L * P_
+    want["flash_attention_backward_window"] = MOE_TRAIN_STEPS * L * P_
+    want["fused_adam"] = MOE_TRAIN_STEPS - MOE_TRAIN_STEPS // MOE_TRAIN_K
+    if launches != want:
+        raise AssertionError(f"launches {launches}, expected {want}")
+    if not all(np.isfinite(losses)) or int(tr.opt_state.step) != \
+            MOE_TRAIN_STEPS:
+        raise AssertionError(f"losses {losses}, step "
+                             f"{int(tr.opt_state.step)}")
+    rel = abs(losses[0] - f32_loss) / abs(f32_loss)
+    steady = float(np.mean(walls[2:]))
+    merge_walls = [walls[i] for i in range(MOE_TRAIN_K - 1, MOE_TRAIN_STEPS,
+                                           MOE_TRAIN_K)]
+    tokens = MOE_TRAIN_BATCH * MOE_TRAIN_SEQ
+    print(f"  {MOE_TRAIN_STEPS} train_step calls, merges at steps "
+          f"{MOE_TRAIN_K} and {2 * MOE_TRAIN_K}: losses "
+          f"{', '.join(f'{x:.4f}' for x in losses)} (finite); walls (s) "
+          f"{', '.join(f'{w:.4f}' for w in walls)}; steps 3-"
+          f"{MOE_TRAIN_STEPS} mean {steady:.4f} s, {tokens / steady:.1f} "
+          f"tokens/s; merge steps "
+          f"{', '.join(f'{w:.4f}' for w in merge_walls)} s; peak memory "
+          f"{peak_gb:.2f} GB; steps 3-{MOE_TRAIN_STEPS} ran under the sync "
+          "debug mode 'error'")
+    print(f"  launches in the {MOE_TRAIN_STEPS} steps: "
+          f"flash_attention_window {launches['flash_attention_window']} (= "
+          f"2 x {L} layer x {P_} pods x {MOE_TRAIN_STEPS}: the forward and "
+          f"the checkpoint's recompute), flash_attention_backward_window "
+          f"{launches['flash_attention_backward_window']} (= {L} x {P_} x "
+          f"{MOE_TRAIN_STEPS}), fused_adam {launches['fused_adam']} (the "
+          "local steps); every other counter, every plain version, 0")
+    print(f"  phase 16 (b): the first step's loss {losses[0]:.6f} against "
+          f"{f32_loss:.6f} from the same weights widened to float32 on the "
+          f"card (no grad): relative difference {rel:.3g} (required below "
+          "1e-2)")
+    if rel > 1e-2:
+        raise AssertionError("the first step's loss is off the float32 one")
+    parts, by_group, busy, wall_ms, top = _lm_train_breakdown(
+        tr, batches[MOE_TRAIN_STEPS], cfg, groups={
+            "kernel 9 (flash_attention_mma_kernel)":
+                ("flash_attention_mma_kernel",),
+            "kernel 9b (flash_attention_bwd_*)":
+                FLASH_BWD_KERNELS["bfloat16"],
+            "kernel 6 (fused_adam_kernel)": ("fused_adam_kernel",),
+            "products (cuBLAS: QKV, o-proj, router, experts, head)":
+                ("nvjet", "gemm", "Kernel2", "cutlass", "xmma", "sm90"),
+            "index kernels (dispatch, combine, embedding)": ("index",)})
+    print("  one more step by part (stream ms, CUDA events): " + "; ".join(
+        f"{k} {v:.3f}" for k, v in parts.items()))
+    print(f"  one more step under the profiler: wall {wall_ms:.3f} ms, "
+          f"device busy {busy:.3f} ms (share {busy / wall_ms:.3f}, profiler "
+          f"on); " + "; ".join(f"{k} {v:.3f} ms" for k, v in
+                               by_group.items())
+          + "; top kernels (ms): " + "; ".join(
+              f"{e.key[:48]} {e.self_device_time_total / 1e3:.3f}"
+              for e in top))
+    moe_parts, G, cap = _moe_ffn_parts(tr, batches[0], cfg)
+    print(f"  one pod's MoE FFN alone ({G} groups of {cfg.moe_group_size} "
+          f"tokens, capacity {cap} a group and expert; stream ms, CUDA "
+          f"events): " + "; ".join(f"{k} {v:.3f}"
+                                   for k, v in moe_parts.items()))
+    del tr
+    _release()
+    return launches, {"train_step_s": steady, "tokens_per_s": tokens / steady,
+                      "peak_gb": peak_gb, "busy_share": busy / wall_ms}
+
+
+def phase_moe_train_smoke(device):
+    """Phase 16 (c) and (d): llama4-scout-17b-16e has no full-width
+    training cell (stated); both MoE smoke configs (f32, from one state
+    drawn on the CPU) train on the card and on the CPU at S 64, where the
+    window 16 and chunk 16 bind and llama4's layer 3 is global: 4 steps,
+    n_pod 2, k 2, lr 1e-4 (two merges); the losses within phase 14's
+    smoke tolerance (rtol 1e-4, atol 1e-6), the final parameters and
+    moments within rtol 1e-4, atol 1e-5 (``MOE_STATE_TOL``); one
+    ``moe_ffn`` backward twice on the card, bit-equal.  Returns the card's
+    launch counts."""
+    import torch
+
+    from repro_torch import configs, tree_map
+    from repro_torch.core.kstep import KStepConfig, leaves
+    from repro_torch.data.synthetic import lm_batches
+    from repro_torch.kernels import ops
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as T
+    from repro_torch.runtime.trainer import DenseTrainer, TrainerConfig
+
+    full = configs.get("llama4-scout-17b-16e").model_cfg
+    emb_gb = 2 * full.d_model * full.vocab * 32 / 1e9
+    layer_gb = (full.total_params() - 2 * full.d_model * full.vocab) * 32 / (
+        full.n_layers * 1e9)
+    print(f"phase 16 (c): llama4-scout-17b-16e has no full-width training "
+          f"cell: at n_pod 2 (32 B a podded parameter) its embedding and "
+          f"head alone take {emb_gb:.1f} GB and one layer {layer_gb:.1f} GB "
+          f"more, past the card's 80 GB; its chunk term on the card is held "
+          f"by (a) at (1, 32768, 40, 8, 128) chunk 8192 and by (d)")
+    total = dict.fromkeys(ops.launches, 0)
+    for arch in MOE_LAYERS:
+        cfg = configs.get(arch).smoke_cfg
+        state = T.init_params(torch.Generator("cpu").manual_seed(5), cfg,
+                              device="cpu")
+        tcfg = TrainerConfig(n_pod=2, kstep=KStepConfig(lr=1e-4, k=2))
+        trs = [DenseTrainer(lambda p, b: T.loss_fn(p, b, cfg),
+                            tree_map(lambda t: t.clone().to(d), state), tcfg,
+                            device=d) for d in (device, "cpu")]
+        gen = lm_batches(seed=1, batch=4, seq_len=64, vocab=cfg.vocab)
+        worst = 0.0
+        card = dict.fromkeys(ops.launches, 0)
+        for _ in range(4):
+            b = next(gen)
+            ops.reset_launches()
+            got = trs[0].train_step(b).item()
+            for k_, n in ops.launches.items():
+                card[k_] += n
+            want = trs[1].train_step(b).item()
+            worst = max(worst, abs(got - want) / abs(want))
+            if not np.isfinite(got) or not np.isclose(got, want, rtol=1e-4,
+                                                      atol=1e-6):
+                raise AssertionError(f"{arch}: card loss {got}, CPU {want}")
+        n_local = sum(1 for i in range(cfg.n_layers)
+                      if T._local_terms(cfg, i) != {"window": None,
+                                                    "chunk": None})
+        key = "window" if cfg.attn_window else "chunk"
+        n = 4 * 2
+        if (card[f"flash_attention_backward_{key}"] != n * n_local
+                or card["flash_attention_backward"] != n * (cfg.n_layers
+                                                            - n_local)
+                or any(v for k_, v in card.items() if k_.endswith("_ref"))):
+            raise AssertionError(f"{arch}: the card's launches {card}")
+        for k_, v in card.items():
+            total[k_] += v
+        pairs = list(zip(leaves(trs[0].params) + leaves(trs[0].opt_state.m)
+                         + leaves(trs[0].opt_state.v_hat),
+                         leaves(trs[1].params) + leaves(trs[1].opt_state.m)
+                         + leaves(trs[1].opt_state.v_hat)))
+        diff = max((a.cpu() - b).abs().max().item() for a, b in pairs)
+        past = sum(int((~torch.isclose(a.cpu(), b, rtol=1e-4,
+                                       atol=1e-6)).sum()) for a, b in pairs)
+        for a, b in pairs:
+            np.testing.assert_allclose(a.cpu().numpy(), b.numpy(),
+                                       **MOE_STATE_TOL)
+        # one moe_ffn backward, twice on the card
+        lp = {k_: v[0, 0].detach() for k_, v in trs[0].params[
+            "layers"].items()}
+        x = torch.randn((4, 64, cfg.d_model), device=device,
+                        generator=torch.Generator(device).manual_seed(9))
+        runs = []
+        for _ in range(2):
+            xs = x.clone().requires_grad_(True)
+            ps = {k_: v.clone().requires_grad_(True) for k_, v in lp.items()
+                  if k_ in ("router", "we_gate", "we_up", "we_down",
+                            "ws_gate", "ws_up", "ws_down")}
+            y, aux = moe.moe_ffn(xs, ps, cfg)
+            (y.square().mean() + 0.01 * aux).backward()
+            runs.append([xs.grad] + [ps[k_].grad for k_ in sorted(ps)])
+        if not all(torch.equal(a, b) for a, b in zip(*runs)):
+            raise AssertionError(f"{arch}: two moe_ffn backwards differ")
+        print(f"phase 16 (d): {cfg.name} smoke (f32, {cfg.n_layers} layers, "
+              f"{key} {cfg.attn_window or cfg.attn_chunk}), n_pod 2, k 2, lr"
+              f" 1e-4, 4 steps of 4 x 64 tokens on the card and on the CPU "
+              f"from one state: losses (largest relative difference "
+              f"{worst:.3g}) within rtol 1e-4, atol 1e-6; parameters, m and "
+              f"v_hat (max |diff| {diff:.3g}; {past} of "
+              f"{sum(a.numel() for a, _ in pairs)} elements past atol 1e-6) "
+              f"within rtol 1e-4, atol 1e-5; on the card kernel "
+              f"9 {card['flash_attention'] + card['flash_attention_' + key]}"
+              f" and 9b {card['flash_attention_backward'] + card['flash_attention_backward_' + key]}"
+              f" launches ({card['flash_attention_backward_' + key]} with "
+              f"the {key}), no plain version; one moe_ffn backward twice on "
+              "the card: the gradients of x and every MoE leaf bit-equal")
+        del trs, runs
+        _release()
+    return total
+
+
 def main() -> int:
     import torch
 
@@ -5832,6 +6402,22 @@ def main() -> int:
     flash.update(local)
     phase_moe_agreement(device)
     print(f"phase 15 took {time.perf_counter() - t15:.1f} s")
+    _release()
+    t16 = time.perf_counter()
+    local_bwd = phase_flash_local_backward(device)
+    launches, cell = phase_moe_train(device)
+    local_bwd["window"]["launches"] = launches[
+        "flash_attention_backward_window"]
+    local_bwd["window"]["moe_train"] = cell
+    flash["window"]["launches_train"] = launches["flash_attention_window"]
+    adam["bf16"]["launches_moe_train"] = launches["fused_adam"]
+    launches = phase_moe_train_smoke(device)
+    local_bwd["chunk"]["launches"] = launches[
+        "flash_attention_backward_chunk"]
+    if not all(local_bwd[k]["launches"] for k in local_bwd):
+        raise AssertionError(f"a local kernel 9b ran no time: {local_bwd}")
+    flash_bwd.update(local_bwd)
+    print(f"phase 16 took {time.perf_counter() - t16:.1f} s")
     print(json.dumps({"kernels": [bag, backward, push] + cache_entries
                       + [staged, adam, dot, dot_bwd, flash, flash_bwd]}))
     print(json.dumps({"ok": True, "device": {

@@ -61,8 +61,8 @@ cudaError_t launch_flash_attention(const void* q, const void* k,
 cudaError_t launch_flash_attention_backward(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const float* lse, float* delta, void* dq, void* dk,
-    void* dv, int64_t B, int S, int H, int Kv, int hd, bool causal, bool bf16,
-    cudaStream_t stream);
+    void* dv, int64_t B, int S, int H, int Kv, int hd, bool causal,
+    int window, int chunk, bool bf16, cudaStream_t stream);
 int flash_attention_max_head_dim();
 cudaError_t launch_hash_lookup(const int32_t* key_tab,
                                const int32_t* slot_tab, int64_t n_buckets,
@@ -537,7 +537,8 @@ void flash_attention(const torch::Tensor& q, const torch::Tensor& k,
 }
 
 // kernel 9b: dq, dk, dv of the attention whose forward gave out and lse,
-// given dout; delta a (B, H, S) float32 scratch (csrc/flash_attention.cu).
+// given dout, under the forward's window and chunk (0: none); delta a
+// (B, H, S) float32 scratch (csrc/flash_attention.cu).
 void flash_attention_backward(const torch::Tensor& q, const torch::Tensor& k,
                               const torch::Tensor& v, const torch::Tensor& out,
                               const torch::Tensor& dout,
@@ -545,7 +546,8 @@ void flash_attention_backward(const torch::Tensor& q, const torch::Tensor& k,
                               const torch::Tensor& delta,
                               const torch::Tensor& dq,
                               const torch::Tensor& dk,
-                              const torch::Tensor& dv, bool causal) {
+                              const torch::Tensor& dv, bool causal,
+                              int window, int chunk) {
   const auto d = check_attention(q, k, v, out);
   const auto dtype = q.scalar_type();
   check_cuda(dout, "dout", dtype, 4, q);
@@ -567,8 +569,8 @@ void flash_attention_backward(const torch::Tensor& q, const torch::Tensor& k,
       dout.data_ptr(), lse.data_ptr<float>(), delta.data_ptr<float>(),
       dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), d[0],
       static_cast<int>(d[1]), static_cast<int>(d[2]), static_cast<int>(d[3]),
-      static_cast<int>(d[4]), causal, dtype == torch::kBFloat16,
-      c10::cuda::getCurrentCUDAStream().stream()));
+      static_cast<int>(d[4]), causal, window, chunk,
+      dtype == torch::kBFloat16, c10::cuda::getCurrentCUDAStream().stream()));
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
@@ -723,10 +725,12 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
         py::arg("window") = 0, py::arg("chunk") = 0);
   m.def("flash_attention_backward", &flash_attention_backward,
         "Causal or full GQA softmax attention's backward: dq, dk, dv from "
-        "the forward's output and log-sum-exp (CUDA)", py::arg("q"),
+        "the forward's output and log-sum-exp, with an optional sliding "
+        "window and chunk (CUDA)", py::arg("q"),
         py::arg("k"), py::arg("v"), py::arg("out"), py::arg("dout"),
         py::arg("lse"), py::arg("delta"), py::arg("dq"), py::arg("dk"),
-        py::arg("dv"), py::arg("causal"));
+        py::arg("dv"), py::arg("causal"), py::arg("window") = 0,
+        py::arg("chunk") = 0);
   m.def("hash_lookup", &hash_lookup,
         "Batch linear probe of the cache's id -> slot hash map (CUDA)",
         py::arg("key_tab"), py::arg("slot_tab"), py::arg("slot_uid"),

@@ -17,8 +17,9 @@
 // (0: none), on top of causal.  Row r then sees keys c in [lo(r), r],
 // lo(r) = max(r - window + 1, r - r % chunk, 0): r - c < window and
 // r / chunk == c / chunk.  lo is non-decreasing in r, and the diagonal is
-// always seen, so no row is empty.  Both kernels take them as a template
-// flag (kLocal), so the causal kernels are the instructions they were:
+// always seen, so no row is empty.  Both kernels (and the backward's four,
+// below) take them as a template flag (kLocal), so the causal kernels are
+// the instructions they were:
 // - the kv loop starts at the tile that holds lo(first row of the block),
 //   not at 0;
 // - the mma kernel's warps skip a tile wholly before lo(first row of the
@@ -166,6 +167,21 @@
 // - float32 -> the fma kernels (CUDA cores): the same split with 64-row
 //   tiles (32 at HDP 256), P and dS through shared memory, s recomputed in
 //   the forward's order (q scaled first).
+// The local terms in the backward: the forward's window and chunk, behind
+// the same kLocal flag, so the causal kernels stay the instructions they
+// were.  Key c is seen by rows [c, last_row(c)], last_row(c) = min(S - 1,
+// c + window - 1, the end of c's chunk), non-decreasing in c (first_key's
+// mirror).  The dK/dV kernels' q loop stops at the tile that holds
+// last_row of the block's last column; the dQ kernels' kv loop starts at
+// the tile of the block's first row's first key.  An mma warp skips a
+// step wholly past last_row of its last kv row (dK/dV) or wholly before
+// first_key of its first q row (dQ), and masks element by element a step
+// that crosses the window's far edge or a chunk boundary for any of its
+// rows; the fma kernels mask every element.  A skipped step adds P = 0
+// and dS = 0, as the causal skip does, so the bits are those of a loop
+// over every tile; with window >= S and chunk >= S every bound is the
+// causal one, the causal kernel's bits.  D is rowsum(dO O) as before, and
+// no row is empty (the diagonal is always seen), so lse is finite.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 
@@ -202,6 +218,20 @@ __device__ __forceinline__ int first_key(int r, int window, int chunk) {
   if (window > 0) lo = max(lo, r - window + 1);
   if (chunk > 0) lo = max(lo, r - r % chunk);
   return lo;
+}
+
+// the last row below S that sees key c under the local terms (0: none):
+// min(S - 1, c + window - 1, the end of c's chunk), written so that no
+// term overflows; non-decreasing in c
+__device__ __forceinline__ int last_row(int c, int S, int window,
+                                        int chunk) {
+  int hi = S - 1;
+  if (window > 0 && window - 1 < hi - c) hi = c + window - 1;
+  if (chunk > 0) {
+    const int c0 = c - c % chunk;
+    if (chunk - 1 < hi - c0) hi = c0 + chunk - 1;
+  }
+  return hi;
 }
 
 template <typename T, int HDP, bool kLocal>
@@ -964,11 +994,14 @@ struct BwdTile {
 
   // thread (ty, tx)'s P and dS of the pair: q rows ty + 16 a, kv columns
   // tx + 16 c; P = exp(s - lse) (0 where masked or past S), dS = P (dP - D)
-  // with dP = dO . V
+  // with dP = dO . V; under kLocal a column before its row's first key is
+  // masked too
+  template <bool kLocal>
   __device__ static void p_ds(const float* sq, const float* sdo,
                               const float* sk, const float* sv,
                               const float* slse, const float* sd, int q0,
                               int k0, int S, int hd, bool causal,
+                              int window, int chunk,
                               float (&p)[kR][kC], float (&ds)[kR][kC]) {
     const int tx = threadIdx.x & 15;
     const int ty = threadIdx.x >> 4;
@@ -999,10 +1032,12 @@ struct BwdTile {
 #pragma unroll
     for (int a = 0; a < kR; ++a) {
       const int r = q0 + ty + 16 * a;
+      const int lo = kLocal ? first_key(r, window, chunk) : 0;
 #pragma unroll
       for (int c = 0; c < kC; ++c) {
         const int col = k0 + tx + 16 * c;
-        const bool live = r < S && col < S && !(causal && col > r);
+        const bool live = r < S && col < S && !(causal && col > r) &&
+                          !(kLocal && col < lo);
         p[a][c] = live ? expf(s[a][c] - slse[ty + 16 * a]) : 0.f;
         ds[a][c] = p[a][c] * (dp[a][c] - sd[ty + 16 * a]);
       }
@@ -1062,11 +1097,12 @@ struct BwdTile {
 
 // dK and dV: one block per (kv tile, KV head, batch), looping over the G
 // query heads of its KV head and, for each, over the q tiles that reach
-// the kv tile (under causal from the diagonal tile on):
+// the kv tile (under causal from the diagonal tile on; under kLocal up to
+// the tile that holds the last row that sees the kv tile's last column):
 //   dV += P^T dO,   dK += dS^T Q (q staged scaled, so dK needs no scale).
 // Nothing else writes the block's rows, so no atomics: the sums run in one
 // fixed order.
-template <int HDP>
+template <int HDP, bool kLocal>
 __global__ void __launch_bounds__(kBwdThreads, 1)
 flash_attention_bwd_kv_kernel(const float* __restrict__ q,
                               const float* __restrict__ k,
@@ -1076,7 +1112,7 @@ flash_attention_bwd_kv_kernel(const float* __restrict__ q,
                               const float* __restrict__ delta,
                               float* __restrict__ dk, float* __restrict__ dv,
                               int S, int H, int Kv, int hd, float scale,
-                              bool causal) {
+                              bool causal, int window, int chunk) {
   using Tile = BwdTile<HDP>;
   constexpr int kT = Tile::kT;
   constexpr int kStride = Tile::kStride;
@@ -1110,7 +1146,9 @@ flash_attention_bwd_kv_kernel(const float* __restrict__ q,
 #pragma unroll
     for (int n = 0; n < Tile::kOut; ++n) acc_k[a][n] = acc_v[a][n] = 0.f;
 
-  const int n_qt = (S + kT - 1) / kT;
+  const int n_qt =
+      kLocal ? last_row(min(k0 + kT, S) - 1, S, window, chunk) / kT + 1
+             : (S + kT - 1) / kT;
   for (int g = 0; g < G; ++g) {
     const int h = kvh * G + g;
     const float* qh = q + b * S * q_row + static_cast<int64_t>(h) * hd;
@@ -1125,7 +1163,8 @@ flash_attention_bwd_kv_kernel(const float* __restrict__ q,
       Tile::stage_rows(slse, sd, lh, dh, q0, S);
       __syncthreads();
       float p[Tile::kR][Tile::kC], ds[Tile::kR][Tile::kC];
-      Tile::p_ds(sq, sdo, sk, sv, slse, sd, q0, k0, S, hd, causal, p, ds);
+      Tile::template p_ds<kLocal>(sq, sdo, sk, sv, slse, sd, q0, k0, S, hd,
+                                  causal, window, chunk, p, ds);
 #pragma unroll
       for (int a = 0; a < Tile::kR; ++a)
 #pragma unroll
@@ -1146,9 +1185,10 @@ flash_attention_bwd_kv_kernel(const float* __restrict__ q,
 }
 
 // dQ: one block per (q tile, head, batch), the heaviest causal tiles
-// first, looping over the kv tiles up to the diagonal: dQ += dS K, times
+// first, looping over the kv tiles up to the diagonal (under kLocal from
+// the tile of the block's first row's first key): dQ += dS K, times
 // 1/sqrt(hd) at the end.
-template <int HDP>
+template <int HDP, bool kLocal>
 __global__ void __launch_bounds__(kBwdThreads, 1)
 flash_attention_bwd_q_kernel(const float* __restrict__ q,
                              const float* __restrict__ k,
@@ -1157,7 +1197,8 @@ flash_attention_bwd_q_kernel(const float* __restrict__ q,
                              const float* __restrict__ lse,
                              const float* __restrict__ delta,
                              float* __restrict__ dq, int S, int H, int Kv,
-                             int hd, float scale, bool causal) {
+                             int hd, float scale, bool causal, int window,
+                             int chunk) {
   using Tile = BwdTile<HDP>;
   constexpr int kT = Tile::kT;
   constexpr int kStride = Tile::kStride;
@@ -1196,14 +1237,16 @@ flash_attention_bwd_q_kernel(const float* __restrict__ q,
 
   const int last_row = min(q0 + kT, S) - 1;
   const int n_kt = causal ? last_row / kT + 1 : n_qt;
-  for (int kt = 0; kt < n_kt; ++kt) {
+  const int kt0 = kLocal ? first_key(q0, window, chunk) / kT : 0;
+  for (int kt = kt0; kt < n_kt; ++kt) {
     const int k0 = kt * kT;
     __syncthreads();                   // the last tile's reads are done
     Tile::stage(sk, kb, kv_row, k0, S, hd, 1.f);
     Tile::stage(sv, vb, kv_row, k0, S, hd, 1.f);
     __syncthreads();
     float p[Tile::kR][Tile::kC], ds[Tile::kR][Tile::kC];
-    Tile::p_ds(sq, sdo, sk, sv, slse, sd, q0, k0, S, hd, causal, p, ds);
+    Tile::template p_ds<kLocal>(sq, sdo, sk, sv, slse, sd, q0, k0, S, hd,
+                                causal, window, chunk, p, ds);
 #pragma unroll
     for (int a = 0; a < Tile::kR; ++a)
 #pragma unroll
@@ -1216,20 +1259,20 @@ flash_attention_bwd_q_kernel(const float* __restrict__ q,
               S, hd, acc, scale);
 }
 
-template <int HDP>
+template <int HDP, bool kLocal>
 cudaError_t launch_bwd(const void* q, const void* k, const void* v,
                        const void* o, const void* dout, const float* lse,
                        float* delta, void* dq, void* dk, void* dv, int64_t B,
-                       int S, int H, int Kv, int hd, bool causal,
-                       cudaStream_t stream) {
+                       int S, int H, int Kv, int hd, bool causal, int window,
+                       int chunk, cudaStream_t stream) {
   constexpr size_t smem = bwd_smem_bytes<HDP>();
   constexpr int kT = bwd_tile<HDP>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_attention_bwd_kv_kernel<HDP>,
+      flash_attention_bwd_kv_kernel<HDP, kLocal>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   err = cudaFuncSetAttribute(
-      flash_attention_bwd_q_kernel<HDP>,
+      flash_attention_bwd_q_kernel<HDP, kLocal>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const float scale =
@@ -1240,14 +1283,15 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v,
   const float* tdo = static_cast<const float*>(dout);
   launch_delta<float>(o, dout, delta, B, S, H, hd, stream);
   const int n_t = (S + kT - 1) / kT;
-  flash_attention_bwd_kv_kernel<HDP>
+  flash_attention_bwd_kv_kernel<HDP, kLocal>
       <<<dim3(n_t, Kv, static_cast<unsigned>(B)), kBwdThreads, smem,
          stream>>>(tq, tk, tv, tdo, lse, delta, static_cast<float*>(dk),
-                   static_cast<float*>(dv), S, H, Kv, hd, scale, causal);
-  flash_attention_bwd_q_kernel<HDP>
+                   static_cast<float*>(dv), S, H, Kv, hd, scale, causal,
+                   window, chunk);
+  flash_attention_bwd_q_kernel<HDP, kLocal>
       <<<dim3(n_t, H, static_cast<unsigned>(B)), kBwdThreads, smem,
          stream>>>(tq, tk, tv, tdo, lse, delta, static_cast<float*>(dq), S,
-                   H, Kv, hd, scale, causal);
+                   H, Kv, hd, scale, causal, window, chunk);
   return cudaSuccess;
 }
 
@@ -1319,8 +1363,12 @@ __device__ __forceinline__ void put_acc(__nv_bfloat16* dst, int c0,
 //   dV += bf16(P^T) dO, dK += bf16(dS^T) Q              (mma, P^T and dS^T
 //      straight from the accumulators into the A operand)
 // dK times 1/sqrt(hd) once at the end.  Nothing else writes the block's
-// rows: the sums run in one fixed order, no atomics.
-template <int HDP>
+// rows: the sums run in one fixed order, no atomics.  Under kLocal the q
+// tiles end at the one that holds the last row that sees the block's last
+// column (last_row), a warp skips a step wholly past last_row of its last
+// row, and a step that reaches past last_row of its first row is masked
+// element by element.
+template <int HDP, bool kLocal>
 __global__ void __launch_bounds__(kBwdThreads, 1)
 flash_attention_bwd_kv_mma_kernel(const __nv_bfloat16* __restrict__ q,
                                   const __nv_bfloat16* __restrict__ k,
@@ -1331,7 +1379,7 @@ flash_attention_bwd_kv_mma_kernel(const __nv_bfloat16* __restrict__ q,
                                   __nv_bfloat16* __restrict__ dk,
                                   __nv_bfloat16* __restrict__ dv, int S,
                                   int H, int Kv, int hd, float scale,
-                                  bool causal) {
+                                  bool causal, int window, int chunk) {
   using bf16 = __nv_bfloat16;
   constexpr int kStride = mma_stride<HDP>();
   constexpr int kKs = HDP / 16;              // k steps over hd
@@ -1368,7 +1416,10 @@ flash_attention_bwd_kv_mma_kernel(const __nv_bfloat16* __restrict__ q,
 
   // step i: head kvh G + i / nq, q tile qt0 + i % nq
   const int qt0 = causal ? k0 / kBwdQTile : 0;
-  const int nq = (S + kBwdQTile - 1) / kBwdQTile - qt0;
+  const int nq =
+      (kLocal ? last_row(min(k0 + kBK, S) - 1, S, window, chunk) /
+                    kBwdQTile + 1
+              : (S + kBwdQTile - 1) / kBwdQTile) - qt0;
   const int n_steps = G * nq;
   auto stage_q = [&](int i) {
     const int h = kvh * G + i / nq;
@@ -1407,6 +1458,12 @@ flash_attention_bwd_kv_mma_kernel(const __nv_bfloat16* __restrict__ q,
   for (int n = 0; n < kW / 8; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc_k[n][e] = acc_v[n][e] = 0.f;
+  // under the local terms: the last row that sees kv row kr0 + g and
+  // kr0 + g + 8, and the warp's first and last rows
+  const int lr0 = kLocal ? last_row(kr0 + g, S, window, chunk) : 0;
+  const int lr1 = kLocal ? last_row(kr0 + g + 8, S, window, chunk) : 0;
+  const int lr_first = kLocal ? last_row(kr0, S, window, chunk) : 0;
+  const int lr_last = kLocal ? last_row(kr0 + 15, S, window, chunk) : 0;
 
   for (int i = 0; i < n_steps; ++i) {
     cp_async_wait<0>();                // step i (first: K and V too) landed
@@ -1425,8 +1482,11 @@ flash_attention_bwd_kv_mma_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll 1
     for (int j0 = 0; j0 < kBwdQTile; j0 += kBwdStep) {
       const int qs = q0 + j0;
-      // under causal, columns wholly before the warp's rows add P = 0
-      if (qs >= S || (causal && qs + kBwdStep - 1 < kr0)) continue;
+      // under causal, columns wholly before the warp's rows add P = 0; so
+      // do, under the local terms, columns wholly past their last rows
+      if (qs >= S || (causal && qs + kBwdStep - 1 < kr0) ||
+          (kLocal && qs > lr_last))
+        continue;
 
       // ---- S^T = K Q^T and dP^T = V dO^T over the step's 32 q columns
       float st[kN][4], dpt[kN][4];
@@ -1455,7 +1515,8 @@ flash_attention_bwd_kv_mma_kernel(const __nv_bfloat16* __restrict__ q,
 
       // ---- P^T and dS^T, masked, rounded to bf16 as A operands: 16-column
       // chunk j / 2, elements 0 and 2 for row g, 1 and 3 for row g + 8
-      const bool edge = qs + kBwdStep > S || (causal && qs < kr0 + 15);
+      const bool edge = qs + kBwdStep > S || (causal && qs < kr0 + 15) ||
+                        (kLocal && qs + kBwdStep - 1 > lr_first);
       uint32_t pa[kN / 2][4], da[kN / 2][4];
 #pragma unroll
       for (int j = 0; j < kN; ++j) {
@@ -1469,7 +1530,9 @@ flash_attention_bwd_kv_mma_kernel(const __nv_bfloat16* __restrict__ q,
           if (edge) {
             const int qi = q0 + c + (e & 1);
             const int kj = kr0 + g + 8 * (e >> 1);
-            if (qi >= S || (causal && kj > qi)) x = 0.f;
+            if (qi >= S || (causal && kj > qi) ||
+                (kLocal && qi > ((e >> 1) ? lr1 : lr0)))
+              x = 0.f;
           }
           p[e] = x;
           ds[e] = x * (dpt[j][e] - ((e & 1) ? d2.y : d2.x));
@@ -1518,8 +1581,12 @@ flash_attention_bwd_kv_mma_kernel(const __nv_bfloat16* __restrict__ q,
 //   S = Q K^T, dP = dO V^T, P = exp(S scale - lse), dS = P (dP - D),
 //   dQ += bf16(dS) K;
 // times 1/sqrt(hd) once at the end.  The recompute of S and dP (two of
-// the backward's seven products) keeps dQ free of atomics.
-template <int HDP>
+// the backward's seven products) keeps dQ free of atomics.  Under kLocal
+// the kv tiles start at the one that holds the block's first row's first
+// key, a warp skips a step wholly before the first key of its first row,
+// and a step that reaches below the first key of its last row is masked
+// element by element.
+template <int HDP, bool kLocal>
 __global__ void __launch_bounds__(kBwdThreads, 1)
 flash_attention_bwd_q_mma_kernel(const __nv_bfloat16* __restrict__ q,
                                  const __nv_bfloat16* __restrict__ k,
@@ -1528,7 +1595,8 @@ flash_attention_bwd_q_mma_kernel(const __nv_bfloat16* __restrict__ q,
                                  const float* __restrict__ lse,
                                  const float* __restrict__ delta,
                                  __nv_bfloat16* __restrict__ dq, int S, int H,
-                                 int Kv, int hd, float scale, bool causal) {
+                                 int Kv, int hd, float scale, bool causal,
+                                 int window, int chunk) {
   using bf16 = __nv_bfloat16;
   constexpr int kStride = mma_stride<HDP>();
   constexpr int kKs = HDP / 16;        // k steps over hd
@@ -1575,13 +1643,14 @@ flash_attention_bwd_q_mma_kernel(const __nv_bfloat16* __restrict__ q,
   };
   const int last_row = min(q0 + kBwdDqRows, S) - 1;
   const int n_kt = causal ? last_row / kBK + 1 : (S + kBK - 1) / kBK;
+  const int kt0 = kLocal ? first_key(q0, window, chunk) / kBK : 0;
   cp_async_rows<HDP, kBwdThreads>(
       sq, q + b * S * q_row + static_cast<int64_t>(h) * hd, q_row, q0,
       kBwdDqRows, S, hd);
   cp_async_rows<HDP, kBwdThreads>(
       sdo, dout + b * S * q_row + static_cast<int64_t>(h) * hd, q_row, q0,
       kBwdDqRows, S, hd);
-  stage_kv(0);
+  stage_kv(kt0);
   cp_async_commit();
 
   const uint32_t a_lane = a_lane_bytes<HDP>(lane);
@@ -1595,8 +1664,14 @@ flash_attention_bwd_q_mma_kernel(const __nv_bfloat16* __restrict__ q,
   for (int n = 0; n < kOutN; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  // under the local terms: the first key of rows r0 and r0 + 8, and of the
+  // warp's first and last rows
+  const int lo0 = kLocal ? first_key(r0, window, chunk) : 0;
+  const int lo1 = kLocal ? first_key(r0 + 8, window, chunk) : 0;
+  const int lo_first = kLocal ? first_key(qr0, window, chunk) : 0;
+  const int lo_last = kLocal ? first_key(qr0 + 15, window, chunk) : 0;
 
-  for (int kt = 0; kt < n_kt; ++kt) {
+  for (int kt = kt0; kt < n_kt; ++kt) {
     cp_async_wait<0>();                // tile kt (first: Q and dO too) landed
     // every warp is past tile kt - 1, so its stage may be refilled
     __syncthreads();
@@ -1605,7 +1680,7 @@ flash_attention_bwd_q_mma_kernel(const __nv_bfloat16* __restrict__ q,
       cp_async_commit();
     }
     if constexpr (kInRegs) {
-      if (kt == 0) {
+      if (kt == kt0) {
 #pragma unroll
         for (int kk = 0; kk < kKs; ++kk) {
           ldsm_x4(qf[kk], sq_w + kk * 32);
@@ -1619,8 +1694,11 @@ flash_attention_bwd_q_mma_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll 1
     for (int j0 = 0; j0 < kBK; j0 += kBwdStep) {
       const int ks = kt * kBK + j0;
-      // under causal, columns wholly past the warp's rows add P = 0
-      if (ks >= S || (causal && ks > qr0 + 15)) continue;
+      // under causal, columns wholly past the warp's rows add P = 0; so
+      // do, under the local terms, columns wholly before their first keys
+      if (ks >= S || (causal && ks > qr0 + 15) ||
+          (kLocal && ks + kBwdStep - 1 < lo_first))
+        continue;
 
       // ---- S = Q K^T and dP = dO V^T over the step's 32 kv columns
       float s[kN][4], dp[kN][4];
@@ -1657,7 +1735,8 @@ flash_attention_bwd_q_mma_kernel(const __nv_bfloat16* __restrict__ q,
 
       // ---- dS, masked, rounded to bf16 as the A operand
       const bool edge = ks + kBwdStep > S || qr0 + 16 > S ||
-                        (causal && ks + kBwdStep - 1 > qr0);
+                        (causal && ks + kBwdStep - 1 > qr0) ||
+                        (kLocal && ks < lo_last);
       uint32_t dsa[kN / 2][4];
 #pragma unroll
       for (int j = 0; j < kN; ++j) {
@@ -1668,7 +1747,9 @@ flash_attention_bwd_q_mma_kernel(const __nv_bfloat16* __restrict__ q,
           if (edge) {
             const int c = ks + 8 * j + 2 * t + (e & 1);
             const int r = r0 + 8 * (e >> 1);
-            if (c >= S || r >= S || (causal && c > r)) x = 0.f;
+            if (c >= S || r >= S || (causal && c > r) ||
+                (kLocal && c < ((e >> 1) ? lo1 : lo0)))
+              x = 0.f;
           }
           ds[e] = x * (dp[j][e] - (e < 2 ? d0 : d1));
         }
@@ -1700,12 +1781,13 @@ flash_attention_bwd_q_mma_kernel(const __nv_bfloat16* __restrict__ q,
                   so, qr0, 16, S, hd, lane, 32);
 }
 
-template <int HDP>
+template <int HDP, bool kLocal>
 cudaError_t launch_bwd_mma(const void* q, const void* k, const void* v,
                            const void* o, const void* dout, const float* lse,
                            float* delta, void* dq, void* dk, void* dv,
                            int64_t B, int S, int H, int Kv, int hd,
-                           bool causal, cudaStream_t stream) {
+                           bool causal, int window, int chunk,
+                           cudaStream_t stream) {
   constexpr size_t kv_smem = bwd_kv_mma_smem_bytes<HDP>();
   constexpr size_t q_smem = bwd_q_mma_smem_bytes<HDP>();
   const int64_t kv_blocks =
@@ -1713,11 +1795,11 @@ cudaError_t launch_bwd_mma(const void* q, const void* k, const void* v,
   const int64_t q_blocks = (S + kBwdDqRows - 1) / kBwdDqRows * H * B;
   if (q_blocks > 0x7fffffff) return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_attention_bwd_kv_mma_kernel<HDP>,
+      flash_attention_bwd_kv_mma_kernel<HDP, kLocal>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(kv_smem));
   if (err != cudaSuccess) return err;
   err = cudaFuncSetAttribute(
-      flash_attention_bwd_q_mma_kernel<HDP>,
+      flash_attention_bwd_q_mma_kernel<HDP, kLocal>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(q_smem));
   if (err != cudaSuccess) return err;
   const float scale =
@@ -1728,30 +1810,51 @@ cudaError_t launch_bwd_mma(const void* q, const void* k, const void* v,
   const bf16* tv = static_cast<const bf16*>(v);
   const bf16* tdo = static_cast<const bf16*>(dout);
   launch_delta<bf16>(o, dout, delta, B, S, H, hd, stream);
-  flash_attention_bwd_kv_mma_kernel<HDP>
+  flash_attention_bwd_kv_mma_kernel<HDP, kLocal>
       <<<static_cast<unsigned>(kv_blocks), kBwdThreads, kv_smem, stream>>>(
           tq, tk, tv, tdo, lse, delta, static_cast<bf16*>(dk),
-          static_cast<bf16*>(dv), S, H, Kv, hd, scale, causal);
-  flash_attention_bwd_q_mma_kernel<HDP>
+          static_cast<bf16*>(dv), S, H, Kv, hd, scale, causal, window,
+          chunk);
+  flash_attention_bwd_q_mma_kernel<HDP, kLocal>
       <<<static_cast<unsigned>(q_blocks), kBwdThreads, q_smem, stream>>>(
           tq, tk, tv, tdo, lse, delta, static_cast<bf16*>(dq), S, H, Kv, hd,
-          scale, causal);
+          scale, causal, window, chunk);
   return cudaSuccess;
 }
 
 // the backward at template width HDP: the mma kernels for bfloat16, the
 // fma kernels for float32
-template <int HDP>
+template <int HDP, bool kLocal>
 cudaError_t launch_bwd_dtype(const void* q, const void* k, const void* v,
                              const void* o, const void* dout,
                              const float* lse, float* delta, void* dq,
                              void* dk, void* dv, int64_t B, int S, int H,
-                             int Kv, int hd, bool causal, bool bf16,
-                             cudaStream_t stream) {
-  return bf16 ? launch_bwd_mma<HDP>(q, k, v, o, dout, lse, delta, dq, dk, dv,
-                                    B, S, H, Kv, hd, causal, stream)
-              : launch_bwd<HDP>(q, k, v, o, dout, lse, delta, dq, dk, dv, B,
-                                S, H, Kv, hd, causal, stream);
+                             int Kv, int hd, bool causal, int window,
+                             int chunk, bool bf16, cudaStream_t stream) {
+  return bf16 ? launch_bwd_mma<HDP, kLocal>(q, k, v, o, dout, lse, delta, dq,
+                                            dk, dv, B, S, H, Kv, hd, causal,
+                                            window, chunk, stream)
+              : launch_bwd<HDP, kLocal>(q, k, v, o, dout, lse, delta, dq, dk,
+                                        dv, B, S, H, Kv, hd, causal, window,
+                                        chunk, stream);
+}
+
+// the backward at width HDP, with the local terms or without them (the
+// causal kernels, as they were before the terms)
+template <int HDP>
+cudaError_t launch_bwd_width(const void* q, const void* k, const void* v,
+                             const void* o, const void* dout,
+                             const float* lse, float* delta, void* dq,
+                             void* dk, void* dv, int64_t B, int S, int H,
+                             int Kv, int hd, bool causal, int window,
+                             int chunk, bool bf16, cudaStream_t stream) {
+  if (window > 0 || chunk > 0)
+    return launch_bwd_dtype<HDP, true>(q, k, v, o, dout, lse, delta, dq, dk,
+                                       dv, B, S, H, Kv, hd, causal, window,
+                                       chunk, bf16, stream);
+  return launch_bwd_dtype<HDP, false>(q, k, v, o, dout, lse, delta, dq, dk,
+                                      dv, B, S, H, Kv, hd, causal, 0, 0, bf16,
+                                      stream);
 }
 
 }  // namespace
@@ -1767,17 +1870,17 @@ int flash_attention_max_head_dim() { return 256; }
 // cudaErrorInvalidValue.  With ``lse`` (B, H, S) float32 also each row's
 // log-sum-exp of its scaled, masked scores (the backward's input); with
 // nullptr the kernels write the same o as without it.  window and chunk
-// are the local terms (0: none; either needs causal; see the top).
-// Launches on ``stream``; returns the error of the shared-memory opt-in
-// (the launch's own is left for cudaGetLastError).
+// are the local terms as the wrapper's local_terms validated them (0:
+// none; either under causal; see the top).  Launches on ``stream``;
+// returns the error of the shared-memory opt-in (the launch's own is left
+// for cudaGetLastError).
 cudaError_t launch_flash_attention(const void* q, const void* k,
                                    const void* v, void* o, float* lse,
                                    int64_t B, int S, int H, int Kv, int hd,
                                    bool causal, int window, int chunk,
                                    bool bf16, cudaStream_t stream) {
   if (B < 1 || S < 1 || Kv < 1 || H % Kv || hd < 8 || hd % 8 ||
-      hd > flash_attention_max_head_dim() || window < 0 || chunk < 0 ||
-      ((window > 0 || chunk > 0) && !causal))
+      hd > flash_attention_max_head_dim())
     return cudaErrorInvalidValue;
   const bool local = window > 0 || chunk > 0;
   if (bf16)
@@ -1795,20 +1898,21 @@ cudaError_t launch_flash_attention(const void* q, const void* k,
 // (B, H, S) float32 scratch for D = rowsum(dO o).  Every tensor
 // contiguous and 16-byte aligned, q, k, v, o, dout, dq, dk, dv of one
 // dtype (bf16: bfloat16, the mma kernels; else float32, the fma kernels),
-// as the forward takes them.  Three launches on ``stream``: D, then dK and
-// dV, then dQ; returns the first shared-memory opt-in's error (the
-// launches' own are left for cudaGetLastError).
+// as the forward takes them, with the forward's window and chunk (0:
+// none).  Three launches on ``stream``: D, then dK and dV, then dQ;
+// returns the first shared-memory opt-in's error (the launches' own are
+// left for cudaGetLastError).
 cudaError_t launch_flash_attention_backward(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const float* lse, float* delta, void* dq, void* dk,
-    void* dv, int64_t B, int S, int H, int Kv, int hd, bool causal, bool bf16,
-    cudaStream_t stream) {
+    void* dv, int64_t B, int S, int H, int Kv, int hd, bool causal,
+    int window, int chunk, bool bf16, cudaStream_t stream) {
   if (B < 1 || S < 1 || Kv < 1 || H % Kv || hd < 8 || hd % 8 ||
       hd > flash_attention_max_head_dim())
     return cudaErrorInvalidValue;
-  const auto launch = hd <= 64    ? launch_bwd_dtype<64>
-                      : hd <= 128 ? launch_bwd_dtype<128>
-                                  : launch_bwd_dtype<256>;
+  const auto launch = hd <= 64    ? launch_bwd_width<64>
+                      : hd <= 128 ? launch_bwd_width<128>
+                                  : launch_bwd_width<256>;
   return launch(q, k, v, o, dout, lse, delta, dq, dk, dv, B, S, H, Kv, hd,
-                causal, bf16, stream);
+                causal, window, chunk, bf16, stream);
 }

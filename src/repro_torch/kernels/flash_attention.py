@@ -13,10 +13,10 @@ bfloat16, q head h reading KV head ``h // (H // Kv)``, any S, hd a multiple
 of 8 up to 256.  The dtype picks the kernel: bfloat16 runs on the tensor
 cores (``flash_attention_mma_kernel``), float32 on the CUDA cores
 (``flash_attention_kernel``).  The plain version is
-``ref.flash_attention_ref``.  The forward also takes the reference
-model's sliding window and chunk (``window``, ``chunk``: key c is seen by
-row r only if ``r - c < window`` and ``r // chunk == c // chunk``, on top
-of causal); the backward has no such terms yet.
+``ref.flash_attention_ref``.  Both take the reference model's sliding
+window and chunk (``window``, ``chunk``: key c is seen by row r only if
+``r - c < window`` and ``r // chunk == c // chunk``, on top of causal),
+validated once by ``local_terms``; the backward takes the forward's.
 
 No host sync and no host-to-device copy per call: the wrapper checks the
 inputs from their metadata only and allocates the output on the card.
@@ -112,16 +112,19 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return (out, lse) if return_lse else out
 
 
-def flash_attention_backward_cuda(q, k, v, out, lse, dout, causal=True):
+def flash_attention_backward_cuda(q, k, v, out, lse, dout, causal=True,
+                                  window=None, chunk=None):
     """Kernel 9b: ``(dq, dk, dv)`` of the attention whose forward gave
-    ``out`` and ``lse`` (``flash_attention_cuda(..., return_lse=True)``),
-    for the output gradient ``dout``, in the inputs' dtype, by three
-    launches on the current stream (D = rowsum(dO o), then dK and dV, then
-    dQ; none when the output is empty): bfloat16 on the tensor cores
+    ``out`` and ``lse`` (``flash_attention_cuda(..., return_lse=True)``
+    with the same ``causal``, ``window`` and ``chunk``), for the output
+    gradient ``dout``, in the inputs' dtype, by three launches on the
+    current stream (D = rowsum(dO o), then dK and dV, then dQ; none when
+    the output is empty): bfloat16 on the tensor cores
     (``flash_attention_bwd_{kv,q}_mma_kernel``, P and dS rounded once to
     bfloat16 as the products' operands), float32 on the CUDA cores.  No
     atomics: two runs give the same bits."""
     _check(q, k, v)
+    w, c = local_terms(causal, window, chunk)
     B, S, H, _ = q.shape
     for name, t in (("out", out), ("dout", dout)):
         if t.shape != q.shape or t.dtype != q.dtype or not t.is_cuda:
@@ -137,5 +140,5 @@ def flash_attention_backward_cuda(q, k, v, out, lse, dout, causal=True):
     if q.numel():
         extension().flash_attention_backward(q, k, v, out, dout, lse,
                                              _rows(q), dq, dk, dv,
-                                             bool(causal))
+                                             bool(causal), w, c)
     return dq, dk, dv

@@ -12,8 +12,9 @@ staged push ``sparse_adagrad``, the k-step local Adam step ``fused_adam``,
 DLRM's ``dot_interaction`` and its backward ``dot_interaction_backward``,
 and the LM's ``flash_attention`` (``flash_attention_window`` with a
 sliding window, ``flash_attention_chunk`` with a chunk alone: one count a
-launch) and its backward ``flash_attention_backward``), the plain versions
-under the same name with ``_ref``.  A run resets it with
+launch) and its backward ``flash_attention_backward`` (likewise
+``flash_attention_backward_window`` and ``flash_attention_backward_chunk``)),
+the plain versions under the same name with ``_ref``.  A run resets it with
 ``reset_launches()`` and reads it afterwards to show which path it took.
 """
 
@@ -61,6 +62,8 @@ launches = {
     "flash_attention": 0, "flash_attention_ref": 0,
     "flash_attention_window": 0, "flash_attention_chunk": 0,
     "flash_attention_backward": 0, "flash_attention_backward_ref": 0,
+    "flash_attention_backward_window": 0,
+    "flash_attention_backward_chunk": 0,
 }
 
 
@@ -320,12 +323,20 @@ def dot_interaction(feats):
     return _DotInteraction.apply(feats)
 
 
+def _counter(base, window, chunk):
+    """The launch counter of a flash kernel call: ``base`` with
+    ``_window`` (a sliding window), ``_chunk`` (a chunk alone) or
+    neither."""
+    return (f"{base}_window" if window is not None else
+            f"{base}_chunk" if chunk is not None else base)
+
+
 class _FlashAttention(torch.autograd.Function):
-    """Forward and backward: the CUDA kernels (9 and 9b).  Under autograd
-    the forward also writes the rows' log-sum-exp, which the backward
-    takes with q, k, v and the output; outside it (prefill) it writes the
-    output alone, the same bits.  Kernel 9b has no window or chunk terms
-    yet: the backward of a windowed or chunked call raises."""
+    """Forward and backward: the CUDA kernels (9 and 9b), the backward
+    under the forward's window and chunk.  Under autograd the forward also
+    writes the rows' log-sum-exp, which the backward takes with q, k, v
+    and the output; outside it (prefill) it writes the output alone, the
+    same bits."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, chunk):
@@ -336,25 +347,19 @@ class _FlashAttention(torch.autograd.Function):
         else:
             out = flash_attention_cuda(q, k, v, causal, window=window,
                                        chunk=chunk)
-        ctx.causal, ctx.local = causal, (window, chunk) != (None, None)
+        ctx.terms = (causal, window, chunk)
         if out.numel():
-            launches["flash_attention_window" if window is not None else
-                     "flash_attention_chunk" if chunk is not None else
-                     "flash_attention"] += 1
+            launches[_counter("flash_attention", window, chunk)] += 1
         return out
 
     @staticmethod
     def backward(ctx, g):
-        if ctx.local:
-            raise NotImplementedError(
-                "the flash attention backward (kernel 9b) has no window or "
-                "chunk terms yet: ROADMAP.md queue A10d training (kernel "
-                "9b's window and chunk terms, the MoE backward)")
         q, k, v, out, lse = ctx.saved_tensors
         grads = flash_attention_backward_cuda(q, k, v, out, lse, g,
-                                              ctx.causal)
+                                              *ctx.terms)
         if q.numel():
-            launches["flash_attention_backward"] += 1
+            launches[_counter("flash_attention_backward",
+                              *ctx.terms[1:])] += 1
         return (*grads, None, None, None)
 
 
@@ -381,8 +386,8 @@ def flash_attention(q, k, v, causal=True, window=None, chunk=None):
     """Softmax attention in the model's layout, q (B, S, H, hd) over k and v
     (B, S, Kv, hd), in q's dtype, under ``ref.attention_mask(S, causal,
     window, chunk)`` (see ``ref.flash_attention_ref``), differentiable.
-    CUDA: the kernel, and kernel 9b for its backward (causal or full
-    only); CPU: the plain version, its backward autograd's vjp of it."""
+    CUDA: the kernel, and kernel 9b for its backward, with the same
+    terms; CPU: the plain version, its backward autograd's vjp of it."""
     if kernel_mode(q) == "ref":
         # raises on bad terms (flash_attention_cuda checks its own)
         local_terms(causal, window, chunk)

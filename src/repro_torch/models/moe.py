@@ -39,7 +39,19 @@ Determinism on the card: the dispatch writes each kept slot once; only the
 dump row takes duplicate writes, and it is never read.  The combine adds
 ``top_k`` contributions to each token's row, which starts as an exact zero:
 with ``top_k <= 2`` the sum is ``0 + a + b``, the same bits in either
-order, so the combine is bit-reproducible even with atomic adds.
+order, so the combine is bit-reproducible even with atomic adds.  So is
+the backward, autograd through the same ops: ``index_add_``'s backward
+gathers each choice's row once; ``index_select``'s backward adds into a
+zero buffer one term a kept buffer row (each is gathered by one choice)
+and many onto the dump row, whose gradient is discarded;
+``index_copy_``'s backward gathers, and the ``repeat``'s backward sums
+the ``top_k`` copies in a fixed order.
+
+Training: the backward is autograd's, as the reference's is ``jax.grad``.
+The aux loss's gradient flows through ``probs`` alone (``frac`` is a
+count); a dropped choice's weight is multiplied by ``keep = 0``, so it
+gets none; top-1 renormalises its weight to exactly 1, so the router's
+gradient is the aux loss's alone, up to rounding, in both packages.
 """
 
 from __future__ import annotations

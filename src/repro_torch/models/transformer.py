@@ -9,9 +9,8 @@ attention ``_sdpa_dense``, ``cache_len``, ``init_cache`` and
 ``decode_step``.  The no-cache branch of ``_attn_block`` (prefill and
 training) is ``ops.flash_attention`` with the layer's window or chunk: the
 hand-written CUDA kernels on the card (TPU kernel 9 forward, kernel 9b
-backward), its plain version on the CPU.  On the card kernel 9b has no
-window or chunk terms yet: the backward of a windowed or chunked layer
-raises there (ROADMAP.md, A10d training).
+backward, both under the layer's window or chunk), its plain version on
+the CPU.  The MoE FFN's backward is autograd through ``models/moe.py``.
 
 Training (``loss_fn``) follows the reference's memory plan: with grad
 enabled, ``trunk`` recomputes each layer in the backward (a non-reentrant

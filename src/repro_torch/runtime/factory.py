@@ -2,11 +2,11 @@
 
 Counterpart of ``repro/runtime/factory.py`` for the archs the port has
 reached (``baidu-ctr`` and ``dlrm-mlperf``, each training and serving; the
-LMs ``qwen3-14b``, ``qwen2-7b`` and ``granite-8b`` training, on a
-``DenseTrainer``; ``mixtral-8x7b`` and ``llama4-scout-17b-16e`` serve
-only, and raise here naming A10d training):
+LMs ``qwen3-14b``, ``qwen2-7b``, ``granite-8b``, ``mixtral-8x7b`` and
+``llama4-scout-17b-16e`` training, on a ``DenseTrainer``):
 
     tr = build_trainer("qwen3-14b", TrainerConfig(n_pod=2))
+    tr = build_trainer("mixtral-8x7b", TrainerConfig(n_pod=2))
     tr = build_trainer("baidu-ctr", TrainerConfig(placement="gather"))
     tr = build_trainer("dlrm-mlperf", TrainerConfig(placement="gather"))
     tr = build_trainer("baidu-ctr", TrainerConfig(placement="cached",
@@ -150,13 +150,6 @@ def build_trainer(arch: str, cfg: TrainerConfig, *, smoke: bool = True,
     if spec.family == "lm":
         from repro_torch.models import transformer as T
 
-        if (mcfg.n_experts or mcfg.attn_window is not None
-                or mcfg.attn_chunk is not None):
-            raise NotImplementedError(
-                f"training {mcfg.name} (MoE FFNs or a windowed or chunked "
-                "mask) is not ported yet: ROADMAP.md queue A10d training "
-                "(kernel 9b's window and chunk terms, the MoE backward); "
-                "its prefill, decode and server run")
         params = T.init_params(torch.Generator(device).manual_seed(seed),
                                mcfg, device=device)
         return DenseTrainer(lambda p, b: T.loss_fn(p, b, mcfg), params, cfg,

@@ -440,9 +440,10 @@ def test_decode_entry_points_raise_for_cuda_without_a_card(monkeypatch):
     ("n_experts", 8), ("attn_window", 64), ("attn_chunk", 64),
 ])
 def test_decode_raises_naming_a10d(field, value):
-    """Decode with MoE or a windowed or chunked mask runs since A10d's
-    serving path (a window's cache is its ring); training such a config
-    raises naming A10d training."""
+    """Decode with MoE or a windowed or chunked mask runs (A10d's serving
+    path; a window's cache is its ring), and so does training such a
+    config (A10d training): ``build_trainer`` builds a ``DenseTrainer``
+    over it that takes a step with a finite loss."""
     from repro_torch.runtime.factory import build_trainer
     from repro_torch.runtime.trainer import TrainerConfig
 
@@ -455,6 +456,8 @@ def test_decode_raises_naming_a10d(field, value):
     logits, cache = T.decode_step(params, cache,
                                   torch.zeros(1, dtype=torch.int32), bad)
     assert logits.shape == (1, bad.vocab) and int(cache["t"]) == 1
-    with pytest.raises(NotImplementedError, match="A10d"):
-        build_trainer("qwen3-14b", TrainerConfig(), model_cfg=bad,
-                      device="cpu")
+    tr = build_trainer("qwen3-14b", TrainerConfig(), model_cfg=bad,
+                       device="cpu")
+    toks = np.random.default_rng(3).integers(0, bad.vocab, (2, 33))
+    loss = tr.train_step({"tokens": toks[:, :-1], "labels": toks[:, 1:]})
+    assert np.isfinite(float(loss))

@@ -1620,9 +1620,11 @@ def test_cuda_flash_attention_unbinding_terms_are_causal_bits(dtype):
 @pytest.mark.gpu
 def test_cuda_flash_attention_local_terms_count_and_refuse_the_backward():
     """``ops`` counts a windowed launch as flash_attention_window and a
-    chunked one as flash_attention_chunk; the backward of either raises on
-    the card (kernel 9b has no such terms yet), where the CPU's plain vjp
-    runs."""
+    chunked one as flash_attention_chunk, and the backward of either runs
+    kernel 9b with the same terms, counted as
+    flash_attention_backward_window / _chunk: its gradients within
+    FLASH_BWD_TOL of the CPU's plain vjp.  Bad terms raise in either
+    direction."""
     _cuda_or_skip()
     q, k, v = _qkv(1, 128, 4, 2, 64, torch.bfloat16, seed=3)
     ops.reset_launches()
@@ -1632,16 +1634,197 @@ def test_cuda_flash_attention_local_terms_count_and_refuse_the_backward():
     assert (ops.launches["flash_attention_window"],
             ops.launches["flash_attention_chunk"],
             ops.launches["flash_attention"]) == (1, 1, 1)
-    for kw in (dict(window=32), dict(chunk=32)):
-        xs = [x.clone().requires_grad_(True) for x in (q, k, v)]
-        out = ops.flash_attention(*xs, **kw)
-        with pytest.raises(NotImplementedError, match="A10d training"):
-            out.float().sum().backward()
-        cpu = [x.detach().cpu().float().requires_grad_(True) for x in xs]
-        ops.flash_attention(*cpu, **kw).sum().backward()
-        assert all(torch.isfinite(x.grad).all() for x in cpu)
+    for dtype in (torch.bfloat16, torch.float32):
+        for kw, name in ((dict(window=32), "window"),
+                         (dict(chunk=32), "chunk")):
+            xs = [x.detach().to(dtype).clone().requires_grad_(True)
+                  for x in (q, k, v)]
+            ops.reset_launches()
+            out = ops.flash_attention(*xs, **kw)
+            g = torch.randn(out.shape, device="cuda").to(dtype)
+            out.backward(g)
+            assert ops.launches[f"flash_attention_backward_{name}"] == 1
+            assert ops.launches["flash_attention_backward"] == 0
+            assert ops.launches["flash_attention_backward_ref"] == 0
+            cpu = [x.detach().cpu().float().requires_grad_(True) for x in xs]
+            ops.flash_attention(*cpu, **kw).backward(g.cpu().float())
+            for a, b in zip(xs, cpu):
+                scale = max(b.grad.abs().max().item(), 1.0)
+                err = (a.grad.cpu().float() - b.grad).abs().max().item()
+                assert err <= FLASH_BWD_TOL[dtype] * scale, (kw, dtype, err)
     with pytest.raises(ValueError, match="causal"):
         ops.flash_attention(q, k, v, causal=False, window=8)
+    with pytest.raises(ValueError, match="causal"):
+        from repro_torch.kernels.flash_attention import (
+            flash_attention_backward_cuda)
+
+        flash_attention_backward_cuda(q, k, v, q, torch.zeros(
+            (1, 4, 128), device="cuda"), q, causal=False, chunk=8)
+
+
+# ----------------------------------- kernel 9b's window and chunk terms
+@pytest.mark.gpu
+@pytest.mark.parametrize("window,chunk", [
+    (64, None), (17, None), (100, None), (129, None), (None, 64),
+    (None, 48), (None, 7), (None, 130), (100, 96), (200, 256),
+])
+@pytest.mark.parametrize("B,S,H,Kv,hd,dtype", [
+    (1, 300, 8, 2, 128, torch.bfloat16), (2, 257, 4, 1, 64, torch.float32),
+    (1, 1000, 40, 8, 128, torch.bfloat16), (1, 130, 4, 2, 32, torch.float32),
+    (1, 200, 2, 1, 256, torch.bfloat16), (1, 77, 4, 2, 256, torch.float32),
+    (2, 129, 4, 2, 40, torch.bfloat16), (1, 513, 40, 8, 128, torch.float32),
+])
+def test_cuda_flash_attention_backward_local_terms_match_plain_vjp(
+        B, S, H, Kv, hd, dtype, window, chunk):
+    """Kernel 9b under a window or a chunk (or both) against
+    ``ref.flash_attention_backward_ref`` with the same terms: windows
+    below one tile and across the mma kernels' 128-row blocks, chunks
+    that do and do not divide S, S not a multiple of any tile, hd 32 to
+    256, H 40 over Kv 8; every gradient within FLASH_BWD_TOL of its
+    largest magnitude (or of 1), as the causal backward; two runs
+    bit-equal."""
+    _cuda_or_skip()
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_backward_cuda, flash_attention_cuda)
+
+    q, k, v = _qkv(B, S, H, Kv, hd, dtype, seed=S + hd + (chunk or 0))
+    dout = torch.randn(q.shape, generator=torch.Generator("cuda").manual_seed(
+        S + 1), device="cuda").to(dtype)
+    kw = dict(window=window, chunk=chunk)
+    out, lse = flash_attention_cuda(q, k, v, True, return_lse=True, **kw)
+    got = flash_attention_backward_cuda(q, k, v, out, lse, dout, True, **kw)
+    again = flash_attention_backward_cuda(q, k, v, out, lse, dout, True, **kw)
+    torch.cuda.synchronize()
+    want = tref.flash_attention_backward_ref(q, k, v, dout, True, window,
+                                             chunk)
+    for name, a, b, c in zip("qkv", got, again, want):
+        assert a.dtype == dtype and a.shape == c.shape, name
+        assert torch.equal(a, b), name
+        scale = max(c.float().abs().max().item(), 1.0)
+        err = (a.float() - c.float()).abs().max().item()
+        assert err <= FLASH_BWD_TOL[dtype] * scale, (name, err, scale)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_cuda_flash_attention_backward_unbinding_terms_are_causal_bits(
+        dtype):
+    """A window or a chunk of S or more masks nothing past causal: kernel
+    9b with such terms gives the causal backward's bits."""
+    _cuda_or_skip()
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_backward_cuda, flash_attention_cuda)
+
+    q, k, v = _qkv(1, 1000, 8, 2, 128, dtype, seed=23)
+    dout = torch.randn(q.shape, generator=torch.Generator("cuda").manual_seed(
+        24), device="cuda").to(dtype)
+    out, lse = flash_attention_cuda(q, k, v, True, return_lse=True)
+    want = flash_attention_backward_cuda(q, k, v, out, lse, dout, True)
+    for kw in (dict(window=1000), dict(window=4096), dict(chunk=1000),
+               dict(chunk=8192), dict(window=5000, chunk=1024)):
+        got = flash_attention_backward_cuda(q, k, v, out, lse, dout, True,
+                                            **kw)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b), kw
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["mixtral-8x7b", "llama4-scout-17b-16e"])
+def test_cuda_moe_backward_is_bit_reproducible_and_matches_the_cpu(arch):
+    """The MoE FFN's backward on the card (autograd through
+    ``moe.moe_ffn``, with the aux term at 0.01; 8 groups of 64 tokens with
+    drops at capacity_factor 0.5): two runs give the same bits, in bf16
+    and float32 (each kept buffer row is gathered once, the dump row's
+    terms are discarded, the repeat's backward is a fixed-order sum); in
+    float32 every gradient within atol 1e-5 of the CPU's (the forward's
+    tolerance, ``test_cuda_moe_is_bit_reproducible_and_matches_the_cpu``:
+    gy is N(0, 1) / T, as a mean over the T tokens gives it)."""
+    _cuda_or_skip()
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as T
+
+    cfg = dataclasses.replace(configs.get(arch).smoke_cfg,
+                              capacity_factor=0.5)
+    cpu = T.init_params(torch.Generator("cpu").manual_seed(2), cfg,
+                        device="cpu")
+    lp = {n: t[0] for n, t in cpu["layers"].items()
+          if n in ("router", "we_gate", "we_up", "we_down", "ws_gate",
+                   "ws_up", "ws_down")}
+    gen = torch.Generator("cpu").manual_seed(3)
+    x = torch.randn((8, 64, cfg.d_model), generator=gen)
+    gy = torch.randn(x.shape, generator=gen) / x[..., 0].numel()
+
+    def grads(device, dtype):
+        c = dataclasses.replace(cfg, dtype=dtype)
+        xs = x.to(device, dtype).requires_grad_(True)
+        ps = {n: t.to(device, dtype).requires_grad_(True)
+              for n, t in lp.items()}
+        y, aux = moe.moe_ffn(xs, ps, c)
+        ((y.float() * gy.to(device)).sum() + 0.01 * aux).backward()
+        return [xs.grad] + [ps[n].grad for n in sorted(ps)]
+
+    for dtype in (torch.bfloat16, torch.float32):
+        one, two = grads("cuda", dtype), grads("cuda", dtype)
+        assert all(torch.equal(a, b) for a, b in zip(one, two)), dtype
+    for a, b in zip(one, grads("cpu", torch.float32)):
+        torch.testing.assert_close(a.cpu(), b, atol=1e-5, rtol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["mixtral-8x7b", "llama4-scout-17b-16e"])
+def test_cuda_moe_dense_trainer_matches_the_cpu(arch):
+    """Four ``DenseTrainer`` steps (n_pod 2, k 2, lr 1e-4: two merges) of
+    the arch's smoke config (f32) at S 64, where its window or chunk
+    binds, on the card and on the CPU from one state: losses within rtol
+    1e-4, atol 1e-6 and parameters and m within rtol 1e-4, atol 1e-5
+    (``test_torch_moe_train.TRAIN_MOE``: MoE gradients' float32 noise
+    through k-step Adam); on the card each layer and pod launches kernel 9
+    twice and 9b once a step, with the layer's terms, and no plain
+    version."""
+    _cuda_or_skip()
+    from repro_torch import configs, tree_map
+    from repro_torch.core.kstep import KStepConfig, leaves
+    from repro_torch.data.synthetic import lm_batches
+    from repro_torch.models import transformer as T
+    from repro_torch.runtime.trainer import DenseTrainer, TrainerConfig
+
+    cfg = configs.get(arch).smoke_cfg
+    state = T.init_params(torch.Generator("cpu").manual_seed(5), cfg,
+                          device="cpu")
+    trs = [DenseTrainer(lambda p, b: T.loss_fn(p, b, cfg),
+                        tree_map(lambda t: t.clone().to(d), state),
+                        TrainerConfig(n_pod=2, kstep=KStepConfig(lr=1e-4,
+                                                                 k=2)),
+                        device=d) for d in ("cuda", "cpu")]
+    gen = lm_batches(seed=0, batch=4, seq_len=64, vocab=cfg.vocab)
+    cuda_counts = {}
+    for _ in range(4):
+        b = next(gen)
+        ops.reset_launches()
+        got = trs[0].train_step(b)
+        torch.cuda.synchronize()
+        for key, n in ops.launches.items():
+            cuda_counts[key] = cuda_counts.get(key, 0) + n
+        want = trs[1].train_step(b)
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-6)
+    n_local = sum(1 for i in range(cfg.n_layers)
+                  if T._local_terms(cfg, i) != {"window": None,
+                                                "chunk": None})
+    key = "window" if cfg.attn_window else "chunk"
+    n = 4 * 2
+    assert cuda_counts[f"flash_attention_{key}"] == 2 * n * n_local
+    assert cuda_counts[f"flash_attention_backward_{key}"] == n * n_local
+    assert cuda_counts["flash_attention"] == 2 * n * (cfg.n_layers - n_local)
+    assert cuda_counts["flash_attention_backward"] == n * (cfg.n_layers
+                                                          - n_local)
+    assert cuda_counts["fused_adam"] == 2
+    assert not any(v for k_, v in cuda_counts.items() if k_.endswith("_ref"))
+    for a, b in zip(leaves(trs[0].params) + leaves(trs[0].opt_state.m),
+                    leaves(trs[1].params) + leaves(trs[1].opt_state.m)):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-5)
 
 
 @pytest.mark.gpu

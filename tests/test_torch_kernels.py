@@ -137,7 +137,9 @@ def test_cpu_dispatch_runs_the_plain_version_and_counts_it():
         "dot_interaction_backward": 0, "dot_interaction_backward_ref": 0,
         "flash_attention": 0, "flash_attention_ref": 0,
         "flash_attention_window": 0, "flash_attention_chunk": 0,
-        "flash_attention_backward": 0, "flash_attention_backward_ref": 0}
+        "flash_attention_backward": 0, "flash_attention_backward_ref": 0,
+        "flash_attention_backward_window": 0,
+        "flash_attention_backward_chunk": 0}
     np.testing.assert_array_equal(
         out.numpy(), tref.embedding_bag_ref(_t(working), _t(inv), _t(seg),
                                             _t(w), SHAPES[1][3]).numpy())
@@ -551,7 +553,9 @@ def test_cached_ops_on_the_cpu_run_the_plain_versions_and_count_them():
         "dot_interaction_backward": 0, "dot_interaction_backward_ref": 0,
         "flash_attention": 0, "flash_attention_ref": 0,
         "flash_attention_window": 0, "flash_attention_chunk": 0,
-        "flash_attention_backward": 0, "flash_attention_backward_ref": 0}
+        "flash_attention_backward": 0, "flash_attention_backward_ref": 0,
+        "flash_attention_backward_window": 0,
+        "flash_attention_backward_chunk": 0}
     for fn, args, kw in (
             (tsa.gather_rows_cached_cuda, (_t(rows), _t(slots)), {}),
             (tsa.gather_rows_cached_cuda, (_t(rows), _t(slots)),

@@ -540,8 +540,9 @@ def test_trunk_is_causal_in_its_prefix():
 ])
 def test_unported_fields_raise_naming_their_items(field, value, item):
     """seq_shard (A8) raises everywhere.  MoE and the windowed and chunked
-    masks serve since A10d (init_params and prefill run); training them
-    (A10d training) still raises, in ``build_trainer``."""
+    masks serve (A10d: init_params and prefill run) and train (A10d
+    training): ``build_trainer`` builds a ``DenseTrainer`` over them whose
+    step takes a finite loss."""
     from repro_torch.runtime.factory import build_trainer
 
     _, tcfg = _cfgs("float32")
@@ -551,9 +552,12 @@ def test_unported_fields_raise_naming_their_items(field, value, item):
         params = T.init_params(g, bad, device="cpu")
         out = T.prefill(params, torch.zeros((1, 4), dtype=torch.int32), bad)
         assert out.shape == (1, bad.vocab) and torch.isfinite(out).all()
-        with pytest.raises(NotImplementedError, match="A10d training"):
-            build_trainer("qwen3-14b", TrainerConfig(), model_cfg=bad,
-                          device="cpu")
+        tr = build_trainer("qwen3-14b", TrainerConfig(), model_cfg=bad,
+                           device="cpu")
+        toks = np.random.default_rng(4).integers(0, bad.vocab, (2, 65))
+        loss = tr.train_step({"tokens": toks[:, :-1],
+                              "labels": toks[:, 1:]})
+        assert math.isfinite(float(loss))
         return
     with pytest.raises(NotImplementedError, match=item):
         T.init_params(g, bad, device="cpu")

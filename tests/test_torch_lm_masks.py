@@ -266,10 +266,22 @@ def test_serve_lm_launcher_runs_the_arch(arch, capsys):
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_training_the_arch_raises_naming_a10d(arch):
-    """Training comes with kernel 9b's window and chunk terms and the MoE
-    backward (ROADMAP.md A10d training): ``build_trainer`` refuses."""
+    """Training the arch (A10d training: kernel 9b's window and chunk
+    terms, the MoE backward; ``test_torch_moe_train`` holds it against the
+    reference): ``build_trainer`` gives a ``DenseTrainer`` whose two steps
+    take finite losses, each layer's attention under its window or chunk
+    (the plain version, its recompute and its vjp counted)."""
     from repro_torch.runtime.factory import build_trainer
-    from repro_torch.runtime.trainer import TrainerConfig
+    from repro_torch.runtime.trainer import DenseTrainer, TrainerConfig
 
-    with pytest.raises(NotImplementedError, match="A10d training"):
-        build_trainer(arch, TrainerConfig(), device="cpu")
+    _, tcfg = _smoke(arch)
+    tr = build_trainer(arch, TrainerConfig(), device="cpu")
+    assert isinstance(tr, DenseTrainer)
+    toks = np.random.default_rng(5).integers(0, tcfg.vocab, (4, 65))
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    ops.reset_launches()
+    losses = [float(tr.train_step(batch)) for _ in range(2)]
+    assert all(np.isfinite(losses))
+    n = 2 * tr.n_pod * tcfg.n_layers     # steps x pods x layers
+    assert ops.launches["flash_attention_ref"] == 2 * n
+    assert ops.launches["flash_attention_backward_ref"] == n

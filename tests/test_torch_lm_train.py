@@ -324,7 +324,7 @@ def _grid_step(merge, want, param):
     return np.abs(want) * 2.0 ** -7          # a bfloat16 ulp, at most
 
 
-def _assert_state_close(ttr, jtr, merge):
+def _assert_state_close(ttr, jtr, merge, tol=TRAIN):
     js, ts = jtr.opt_state, ttr.opt_state
     assert int(ts.step) == int(js.step) == ttr.step_num == jtr.step_num
     # (port, reference, rounded to the payload's grid)
@@ -337,13 +337,13 @@ def _assert_state_close(ttr, jtr, merge):
     for got, want, gridded in pairs:
         for a, b, p in zip(_torch_leaves(got), _leaves_np(want), params):
             if merge in LOSSY and gridded:
-                off = np.abs(a - b) > TRAIN["atol"] + TRAIN["rtol"] * np.abs(b)
+                off = np.abs(a - b) > tol["atol"] + tol["rtol"] * np.abs(b)
                 assert np.all(np.abs(a - b)[off]
                               <= 1.5 * _grid_step(merge, b, p)[off])
                 off_grid += int(off.sum())
                 total += off.size
             else:
-                np.testing.assert_allclose(a, b, **TRAIN)
+                np.testing.assert_allclose(a, b, **tol)
     assert off_grid <= total // 1000
 
 

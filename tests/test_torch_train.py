@@ -345,7 +345,9 @@ def test_training_slice_matches_reference_end_to_end():
         "dot_interaction_backward": 0, "dot_interaction_backward_ref": 0,
         "flash_attention": 0, "flash_attention_ref": 0,
         "flash_attention_window": 0, "flash_attention_chunk": 0,
-        "flash_attention_backward": 0, "flash_attention_backward_ref": 0}
+        "flash_attention_backward": 0, "flash_attention_backward_ref": 0,
+        "flash_attention_backward_window": 0,
+        "flash_attention_backward_chunk": 0}
 
 
 def test_training_slice_int8_ef_merge_matches_reference():
