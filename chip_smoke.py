@@ -3,14 +3,16 @@
 gather and the cached placements and on the SSD tier, its dlrm-mlperf
 serving and training paths, its qwen3-14b prefill, decode and training,
 its mixtral-8x7b and llama4-scout serving (MoE, windowed and chunked
-attention) and its mixtral-8x7b training, on one NVIDIA GPU (H100).
+attention), its mixtral-8x7b training and its DIN, DIEN and two-tower
+retrieval training and serving, on one NVIDIA GPU (H100).
 
     python3 chip_smoke.py        # from the root of a checkout
 
 Phases (any failure raises and the script exits non-zero):
   1. kernels: builds the CUDA kernels from ``src/repro_torch/kernels/csrc``
-     (into ``build/torch_kernels/``), then holds each kernel against its
-     plain PyTorch version on the card.
+     (into ``build/torch_kernels/``; the first line gives the build's wall
+     and each source's compile time from ``.ninja_log``), then holds each
+     kernel against its plain PyTorch version on the card.
      - The bag: at the serving path's shapes (working set 65537 x 64,
        102400 ids, 40960 bags), at small odd shapes with empty bags, with
        the sum/mean/sqrtn combiners and their gradients.  Forward within
@@ -311,8 +313,11 @@ Phases (any failure raises and the script exits non-zero):
      and head); the local instantiations' registers join phase 14 (a)'s
      SASS report;
      (b) ``build_trainer("mixtral-8x7b", ...)`` at the published widths
-     (bf16) under the launcher's k-step settings (n_pod 2, two_phase, lr
-     1e-3) with k 10, **cut from 32 layers to 1** (32 B a podded
+     (bf16) under the launcher's k-step settings (n_pod 2, two_phase) with
+     k 10 and lr 1e-4 (the CPU tests' value: at the launcher's 1e-3 the
+     runs part after step 14, the embedding's bf16 backward adding in no
+     fixed order, and one went non-finite at step 19), **cut from 32
+     layers to 1** (32 B a podded
      parameter: 54.8 GB; two layers would be 101 GB) and **train_4k's
      256 x 4096 tokens to 2 x 8192** (one sequence a pod; at 4096 the
      window masks nothing): 20 ``train_step`` calls (merges at 10 and
@@ -329,6 +334,41 @@ Phases (any failure raises and the script exits non-zero):
      steps at n_pod 2, k 2, lr 1e-4: losses, parameters, m and v_hat
      within rtol 1e-4, atol 1e-6; one ``moe_ffn`` backward twice on the
      card, bit-equal.
+ 17. A9, DIN, DIEN and two-tower retrieval (after phase 16 has released
+     its memory; each arch's 20 training batches drawn in background
+     threads meanwhile):
+     (a) kernels 1, 1b and 2 at DIN's width 18 (not a multiple of 4: the
+     bag's scalar walk and the push's scalar branch) and two-tower's 256
+     (the top of the bag's range), on one pod's inputs from each stream's
+     first batch of 65536, deduplicated at capacity 2^20: DIN's 3,309,568
+     takes as bags of one id, two-tower's mask-weighted history bag of 50
+     (1,638,400 entries, 32768 bags) and its 32768 item takes; kernel 2
+     on the whole 2 M- and 5 M-row tables at the batch's ~821 k and ~701
+     k real uids with the pull's pads.  Bit-equal to the CPU plain
+     versions (the push to its plain version on the card), two runs
+     equal; timed cold and warm beside the plain version, the bound, and
+     ``F.embedding_bag`` on the same CSR and ``index_select`` (a take) or
+     ``index_add_`` (a bag; 1b), the scatter alone (2);
+     (b) ``build_trainer`` at the published widths (din: embed 18, seq
+     100, attention 80-40, MLP 200-80, 2 M items; dien: the same with GRU
+     108; two-tower: embed 256, towers 1024-512-256, history 50, 5 M
+     items, pool 4096), the launcher's k-step settings (n_pod 2, k 20,
+     two_phase, lr 1e-3, sparse lr 0.5), gather placement, capacity 2^20,
+     batch 65536, **DIEN's cut to 32768** (1.05 MB of autograd state an
+     instance): 20 ``fit_online`` steps (one merge): finite losses, no
+     dropped id, exact launches (kernel 1 n_pod + 1 a step for DIN and
+     DIEN, 2 n_pod for two-tower; 1b n_pod (2 n_pod); 2 one; 6 per local
+     step; every other 0), online AUC (DIN, DIEN), peak memory; a step's
+     stream time by part, the ``train_step`` wall, the busy share;
+     (c) a ``CTRServer`` (max_batch 512, serve_p99) over each trained
+     trainer, 2048 requests: QPS, p50/p99, scores finite in (0, 1) (u·v
+     in [-1, 1] for two-tower), no id dropped; two-tower's retrieval_cand:
+     one user against 1,000,000 candidates on the card's table, the wall,
+     the first 1000 scores against a CPU run;
+     (d) each arch at smoke size, 6 steps on the gather and the cached
+     placement (kernels 3, 4 and 5), card against CPU from one state:
+     losses, tables, accumulators and dense within rtol 1e-4, atol 1e-6
+     (two-tower 1e-5: its logits are divided by the temperature 0.05).
 
 TF32 is off for matmuls and convolutions.  Prints the card (``nvidia-smi``
 name and power limit), a ``kernels`` JSON line, and as its last line
@@ -608,6 +648,18 @@ def _hbm_trip(steps=2048, lines=1 << 19):
     return (chase_ms - empty_ms) / steps * 1e3, _graph_ms(lambda: run(0))
 
 
+def _compile_times(build_dir) -> str:
+    """Each object's compile time from the build's ``.ninja_log`` (its
+    last record per output: start and end in ms), longest first."""
+    last = {}
+    log = pathlib.Path(build_dir) / ".ninja_log"
+    for line in log.read_text().splitlines()[1:] if log.exists() else []:
+        start, end, _, out, _ = line.split("\t")
+        last[out] = (int(end) - int(start)) / 1e3
+    return ", ".join(f"{o} {s:.1f} s" for o, s in
+                     sorted(last.items(), key=lambda kv: -kv[1])) or "n/a"
+
+
 def phase_kernels(device):
     """Each kernel against its plain version; returns the kernels-line entry
     (without ``launches``, which the slice phase fills)."""
@@ -649,7 +701,8 @@ def phase_kernels(device):
     build.extension()
     print(f"kernel build: {time.perf_counter() - t0:.1f} s "
           f"({', '.join(build.SOURCES)} into "
-          f"{build.BUILD_DIR.relative_to(ROOT)})")
+          f"{build.BUILD_DIR.relative_to(ROOT)}; each source's compile, "
+          f"side by side: {_compile_times(build.BUILD_DIR)})")
 
     working, inv, seg, w, num_bags = _slice_case(device)
     print(f"phase 1: embedding_bag against its plain version "
@@ -4799,7 +4852,7 @@ def phase_flash_backward(device):
     return {
         "name": "flash_attention_backward",
         "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "source": "src/repro_torch/kernels/csrc/flash_attention_backward.cu",
         "replaces": "src/repro/models/transformer.py:183, :239 (XLA vjp "
                     "of the training attention, no Pallas kernel)",
         "launches": None,
@@ -5787,6 +5840,11 @@ MOE_TRAIN_SEQ = 8192       # train_4k's 4096 doubled, so the window binds
 MOE_TRAIN_BATCH = 2        # train_4k's batch 256 cut to 2: 1 sequence a pod
 MOE_TRAIN_STEPS = 20       # two merges at k 10
 MOE_TRAIN_K = 10
+# the CPU tests' lr: at the launcher's 1e-3 mixtral's runs part after step
+# 14 (the embedding's bf16 backward adds a repeated token's rows in no
+# fixed order on the card), and one run went non-finite at step 19
+# (PERF.md §7)
+MOE_TRAIN_LR = 1e-4
 LOCAL_BWD_LONG = 32768     # (a)'s timed shape: prefill_32k's sequence
 # (d)'s trainer state, card against CPU: phase 14's rtol 1e-4 with atol
 # 1e-5, not 1e-6.  The MoE archs' gradients carry more float32 noise than
@@ -6099,7 +6157,7 @@ def phase_moe_train(device):
     f32_loss = _f32_first_loss(device, cfg, batches[0])
     t0 = time.perf_counter()
     tr = build_trainer("mixtral-8x7b", TrainerConfig(
-        n_pod=2, kstep=KStepConfig(lr=1e-3, k=MOE_TRAIN_K,
+        n_pod=2, kstep=KStepConfig(lr=MOE_TRAIN_LR, k=MOE_TRAIN_K,
                                    merge="two_phase")),
         model_cfg=cfg, device=device)
     torch.cuda.synchronize()
@@ -6110,7 +6168,7 @@ def phase_moe_train(device):
           f"{cfg.d_model}, {cfg.n_heads} heads over {cfg.n_kv_heads} KV "
           f"heads, hd {cfg.hd}, {cfg.n_experts} experts top-{cfg.top_k} of "
           f"d_ff {cfg.d_ff}, window {cfg.attn_window}, vocab {cfg.vocab}, "
-          f"bf16); DenseTrainer, n_pod 2, two_phase, lr 1e-3, k "
+          f"bf16); DenseTrainer, n_pod 2, two_phase, lr {MOE_TRAIN_LR:g}, k "
           f"{MOE_TRAIN_K}: {n} podded parameters ({n // 2} a pod), "
           f"{state_gb:.2f} GB allocated after the build ({build_s:.1f} s; "
           f"batches from lm_batches in {data_s:.1f} s)")
@@ -6314,6 +6372,619 @@ def phase_moe_train_smoke(device):
     return total
 
 
+# --------------------------------------------------- A9: DIN, DIEN, two-tower
+A9_ARCHS = ("din", "dien", "two-tower-retrieval")
+A9_BATCH = 65536           # recsys_shapes()["train_batch"]
+# DIEN's train_batch halved: autograd keeps 1,050,839 bytes an instance
+# (both GRUs' 100 steps and the attention in the GRU's space, counted on
+# the CPU with saved_tensors_hooks), and every pod's forward runs before the
+# one backward: 68.9 GB at 65536, 34.4 GB at 32768 (PERF.md §4)
+A9_DIEN_BATCH = 32768
+A9_STEPS = 20              # one merge at k 20
+A9_CAPACITY = 1 << 20      # > the ~821 k distinct ids of a DIN batch
+A9_SERVE_BATCH = 512       # recsys_shapes()["serve_p99"]
+A9_REQUESTS = 2048
+A9_CANDIDATES = 1_000_000  # recsys_shapes()["retrieval_cand"]
+A9_PARTS = ("pull (stage + dedup + gather)",
+            "forward (takes/bags by kernel 1 + tower)",
+            "backward (kernel 1b + autograd)", "k-step Adam",
+            "push (kernel 2)")
+
+
+def _a9_cfg(arch):
+    """The arch's published config (a rehearsal on the CPU cuts its
+    table)."""
+    from repro_torch import configs
+
+    return configs.get(arch).model_cfg
+
+
+def _a9_batches(mcfg, n, batch, seed=1):
+    from repro_torch.data.synthetic import recsys_batches
+
+    stream = recsys_batches(mcfg, batch=batch, seed=seed)
+    return [next(stream) for _ in range(n)]
+
+
+def _a9_stream_ahead():
+    """Each A9 arch's ``A9_STEPS`` training batches, drawn in background
+    threads (numpy's bulk draws release the GIL) while the card runs (a):
+    {arch: future of the batches}."""
+    import concurrent.futures
+
+    pool = concurrent.futures.ThreadPoolExecutor(max_workers=len(A9_ARCHS))
+    futures = {arch: pool.submit(
+        _a9_batches, _a9_cfg(arch), A9_STEPS,
+        A9_DIEN_BATCH if arch == "dien" else A9_BATCH) for arch in A9_ARCHS}
+    pool.shutdown(wait=False)
+    return futures
+
+
+def _a9_ids(mcfg, b):
+    """A batch's item ids, instance-major (history, then the target or
+    the positive item), as the engine joins them."""
+    if "hist_ids" in b:
+        return np.concatenate([b["hist_ids"], b["target_id"][:, None]], 1)
+    return np.concatenate([b["user_ids"], b["item_id"][:, None]], 1)
+
+
+def _a9_bag_case(device, mcfg, D, b):
+    """One pod's bag inputs at the slice's width ``D`` from the training
+    batch ``b`` (deduplicated at the capacity, pod 0 of n_pod 2):
+    ``(working, [(name, inv, seg, w, num_bags)])``; DIN's B x 101 takes as
+    bags of one id; two-tower's mask-weighted history bag of 50 and its
+    item take."""
+    import torch
+
+    from repro_torch.core.embedding_backend import _dedup
+
+    ids = torch.from_numpy(_a9_ids(mcfg, b)).to(device)
+    _, inv, _ = _dedup(ids.reshape(-1), A9_CAPACITY)
+    half = A9_BATCH // 2
+    inv = inv.reshape(A9_BATCH, -1)[:half]
+    gen = torch.Generator(device).manual_seed(17)
+    working = torch.randn((A9_CAPACITY + 1, D), generator=gen, device=device)
+    working[A9_CAPACITY] = 0
+    arange = lambda n: torch.arange(n, dtype=torch.int32,      # noqa: E731
+                                    device=device)
+    if "hist_ids" in b:
+        flat = inv.reshape(-1).contiguous()
+        return working, [("takes (DIN pod)", flat, arange(flat.numel()),
+                          None, flat.numel())]
+    H = mcfg.user_hist_len
+    hist = inv[:, :H].reshape(-1).contiguous()
+    mask = torch.from_numpy(b["user_mask"][:half]).to(device).reshape(-1)
+    item = inv[:, H].contiguous()
+    return working, [
+        ("history bag (two-tower pod)", hist,
+         arange(half).repeat_interleave(H), mask, half),
+        ("item takes (two-tower pod)", item, arange(half), None, half)]
+
+
+def _a9_bag_times(working, inv, seg, w, num_bags):
+    """Kernel 1 (the wrapper), its plain version and two library calls
+    (``F.embedding_bag`` on the same CSR, ``index_select`` for a take or
+    ``index_add_`` for a bag) on one input, and its bound (ms)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import embedding_bag as kb
+    from repro_torch.kernels import ref
+
+    order, offsets = kb.csr_from_segments(seg, num_bags)
+    inv_s, w_s = inv[order].long(), None if w is None else w[order]
+    inv64, seg64 = inv.long(), seg.long()
+    take = num_bags == inv.numel()
+
+    def wrapper():
+        return kb.embedding_bag_cuda(working, inv, seg, w, num_bags)
+
+    def embedding_bag():
+        return F.embedding_bag(inv_s, working, offsets, mode="sum",
+                               per_sample_weights=w_s,
+                               include_last_offset=True)
+
+    def library():
+        if take:
+            return working.index_select(0, inv64)
+        return torch.zeros((num_bags, working.shape[1]),
+                           device=working.device).index_add_(
+            0, seg64, working[inv64] * w[:, None])
+
+    want = ref.embedding_bag_ref(working, inv, seg, w, num_bags)
+    for fn in (embedding_bag, library):
+        if not torch.allclose(fn(), want, **TOL):
+            raise AssertionError("a library call differs from the plain bag")
+    D = working.shape[1]
+    nbytes = (torch.unique(inv).numel() * D * 4
+              + inv.numel() * (8 if w is None else 12) + num_bags * D * 4)
+    bound_ms, bound_by = _bound(nbytes, 2 * inv.numel() * D)
+    iters = 20
+    return {"ms": _time_ms(wrapper, iters=iters),
+            "ms_l2_warm": _time_ms(wrapper, iters=iters, cold_l2=False),
+            "plain_ms": _time_ms(lambda: ref.embedding_bag_ref(
+                working, inv, seg, w, num_bags), iters=iters),
+            "embedding_bag_ms": _time_ms(embedding_bag, iters=iters),
+            "library_ms": _time_ms(library, iters=iters),
+            "library": "index_select" if take else "index_add_",
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "nnz": inv.numel(), "num_bags": num_bags}
+
+
+def _a9_backward_times(g, working, inv, seg, w):
+    """Kernel 1b (the working rows' gradient), its plain vjp, the
+    ``index_add_`` library call and the bound (ms) on one input."""
+    import torch
+
+    from repro_torch.kernels import embedding_bag as kb
+    from repro_torch.kernels import ref
+
+    inv64, seg64 = inv.long(), seg.long()
+
+    def wrapper():
+        return kb.embedding_bag_backward_cuda(g, working, inv, seg, w, True,
+                                              False)
+
+    def library():
+        rows = g[seg64] if w is None else g[seg64] * w[:, None]
+        return torch.zeros_like(working).index_add_(0, inv64, rows)
+
+    D = working.shape[1]
+    nbytes = (torch.unique(seg).numel() * D * 4
+              + inv.numel() * (8 if w is None else 12)
+              + working.shape[0] * D * 4)
+    bound_ms, bound_by = _bound(nbytes, 2 * inv.numel() * D)
+    iters = 20
+    return {"ms": _time_ms(wrapper, iters=iters),
+            "ms_l2_warm": _time_ms(wrapper, iters=iters, cold_l2=False),
+            "plain_ms": _time_ms(lambda: ref.embedding_bag_backward_ref(
+                g, working, inv, seg, w, True, False), iters=iters),
+            "library_ms": _time_ms(library, iters=iters),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "hot_row_entries": int(torch.bincount(
+                inv64, minlength=working.shape[0]).max())}
+
+
+def phase_a9_kernels(device):
+    """Phase 17 (a): kernels 1, 1b and 2 at DIN's width 18 and two-tower's
+    256 on the slice's inputs, against their plain versions; returns
+    ``{kernel: {"dim18": ..., "dim256": ...}}`` for the kernels line."""
+    import torch
+
+    from repro_torch.core.embedding_backend import pull_working_set
+    from repro_torch.kernels import embedding_bag as kb
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.sparse_adagrad import sparse_adagrad_apply_cuda
+
+    t0 = time.perf_counter()
+    out = {"embedding_bag": {}, "embedding_bag_backward": {},
+           "sparse_adagrad_apply": {}}
+    for arch, D in (("din", 18), ("two-tower-retrieval", 256)):
+        mcfg = _a9_cfg(arch)
+        key = f"dim{D}"
+        first = _a9_batches(mcfg, 1, A9_BATCH)[0]   # the stream's first
+        working, cases = _a9_bag_case(device, mcfg, D, first)
+        fwd, bwd, err_f, err_b = [], [], 0.0, 0.0
+        for name, inv, seg, w, nb in cases:
+            got = kb.embedding_bag_cuda(working, inv, seg, w, nb)
+            again = kb.embedding_bag_cuda(working, inv, seg, w, nb)
+            want = ref.embedding_bag_ref(working, inv, seg, w, nb)
+            cpu = ref.embedding_bag_ref(working.cpu(), inv.cpu(), seg.cpu(),
+                                        None if w is None else w.cpu(), nb)
+            if not (torch.equal(got, again) and torch.equal(got.cpu(), cpu)
+                    and torch.allclose(got, want, **TOL)):
+                raise AssertionError(f"kernel 1 at {D}, {name}: differs from "
+                                     "its plain version or between runs")
+            err_f = max(err_f, (got - want).abs().max().item())
+            g = torch.randn((nb, D), device=device,
+                            generator=torch.Generator(device).manual_seed(D))
+            gk, _ = kb.embedding_bag_backward_cuda(g, working, inv, seg, w,
+                                                   True, False)
+            gk2, _ = kb.embedding_bag_backward_cuda(g, working, inv, seg, w,
+                                                    True, False)
+            gw, _ = ref.embedding_bag_backward_ref(
+                g.cpu(), working.cpu(), inv.cpu(), seg.cpu(),
+                None if w is None else w.cpu(), True, False)
+            if not (torch.equal(gk, gk2) and torch.equal(gk.cpu(), gw)):
+                raise AssertionError(f"kernel 1b at {D}, {name}: differs from"
+                                     " the CPU plain vjp or between runs")
+            err_b = max(err_b, (gk.cpu() - gw).abs().max().item())
+            f, bk = (_a9_bag_times(working, inv, seg, w, nb),
+                     _a9_backward_times(g, working, inv, seg, w))
+            fwd.append({"case": name, **f})
+            bwd.append({"case": name, **bk})
+            print(f"phase 17 (a): kernel 1 at dim {D}, {name} (nnz "
+                  f"{inv.numel()}, {nb} bags, working {tuple(working.shape)}"
+                  f"): bit-equal to the CPU plain version, two runs equal; "
+                  f"ms: kernel {f['ms']:.4f} cold, {f['ms_l2_warm']:.4f} "
+                  f"warm, plain {f['plain_ms']:.4f}, F.embedding_bag "
+                  f"{f['embedding_bag_ms']:.4f}, {f['library']} "
+                  f"{f['library_ms']:.4f}, bound {f['bound_ms']:.4f} "
+                  f"({f['bound_by']})")
+            print(f"phase 17 (a): kernel 1b at dim {D}, {name} (hottest "
+                  f"working row {bk['hot_row_entries']} entries): bit-equal "
+                  f"to the CPU plain vjp, two runs equal; ms: kernel "
+                  f"{bk['ms']:.4f} cold, {bk['ms_l2_warm']:.4f} warm, plain "
+                  f"vjp {bk['plain_ms']:.4f}, index_add_ "
+                  f"{bk['library_ms']:.4f}, bound {bk['bound_ms']:.4f} "
+                  f"({bk['bound_by']})")
+        out["embedding_bag"][key] = {"max_abs_err": err_f, "cases": fwd,
+                                     **{k: fwd[0][k] for k in (
+                                         "ms", "ms_l2_warm", "plain_ms",
+                                         "bound_ms", "bound_by",
+                                         "library_ms")}}
+        out["embedding_bag_backward"][key] = {
+            "max_abs_err": err_b, "cases": bwd,
+            **{k: bwd[0][k] for k in ("ms", "ms_l2_warm", "plain_ms",
+                                      "bound_ms", "bound_by",
+                                      "library_ms")}}
+        del working, cases
+        # ---- kernel 2 at D: the batch's uids laid out as the pull lays
+        # them out (ascending real ids, then pads), on the whole table
+        ids = torch.from_numpy(_a9_ids(mcfg, first)).to(device).reshape(-1)
+        uids, _ = pull_working_set(ids, A9_CAPACITY)
+        n_real = int(torch.unique(ids).numel())
+        gen = torch.Generator(device).manual_seed(D + 1)
+        table, accum, grads, delta, g2 = _push_inputs(
+            gen, uids, n_real, mcfg.item_vocab, D, device)
+        want = ref.sparse_adagrad_apply_ref(table.clone(), accum.clone(),
+                                            uids, delta, g2)
+        for _ in range(2):      # two runs, each bit-equal to the plain one
+            t, a = table.clone(), accum.clone()
+            sparse_adagrad_apply_cuda(t, a, uids, grads, lr=0.5, eps=1e-10)
+            if not (torch.equal(t, want[0]) and torch.equal(a, want[1])):
+                raise AssertionError(f"kernel 2 at {D}: differs from its "
+                                     "plain version")
+            del t, a
+        del want
+        uids64 = uids.long()
+
+        def kernel():
+            sparse_adagrad_apply_cuda(table, accum, uids, grads, lr=0.5,
+                                      eps=1e-10)
+
+        def plain():
+            ref.sparse_adagrad_apply_ref(table, accum, uids, delta, g2)
+
+        def scatter():
+            table.index_add_(0, uids64, delta)
+            accum.index_add_(0, uids64, g2)
+
+        bound_ms, bound_by, _ = _push_bound(n_real, uids.numel(), D)
+        p = {"ms": _time_ms(kernel, iters=20),
+             "ms_l2_warm": _time_ms(kernel, iters=20, cold_l2=False),
+             "plain_ms": _time_ms(plain, iters=20),
+             "scatter_ms": _time_ms(scatter, iters=20),
+             "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by,
+             "max_abs_err": 0.0, "rows": mcfg.item_vocab, "n_real": n_real}
+        out["sparse_adagrad_apply"][key] = p
+        print(f"phase 17 (a): kernel 2 at dim {D} ({mcfg.item_vocab} rows, "
+              f"{n_real} real of {uids.numel()} uids): bit-equal to its "
+              f"plain version, two runs equal; ms: kernel {p['ms']:.4f} "
+              f"cold, {p['ms_l2_warm']:.4f} warm, plain {p['plain_ms']:.4f},"
+              f" the scatter alone (two index_add_) {p['scatter_ms']:.4f}, "
+              f"bound {bound_ms:.4f} ({bound_by})")
+        del table, accum, grads, delta, g2
+        _release()
+    print(f"phase 17 (a) took {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def _a9_train_config(**kw):
+    """The launcher's training settings: n_pod 2, k 20, two_phase, lr 1e-3,
+    sparse lr 0.5, initial accumulator 0.01."""
+    from repro_torch.core.kstep import KStepConfig
+    from repro_torch.core.sparse_optim import SparseAdagradConfig
+    from repro_torch.runtime.trainer import TrainerConfig
+
+    return TrainerConfig(
+        n_pod=2, kstep=KStepConfig(lr=1e-3, k=20, merge="two_phase"),
+        sparse=SparseAdagradConfig(lr=0.5, initial_accumulator=0.01),
+        log_every=10, **kw)
+
+
+def phase_a9_train(device, arch, batches=None):
+    """Phase 17 (b) and (c) for ``arch``: ``A9_STEPS`` ``fit_online`` steps
+    (over ``batches``, by default drawn here) at the published widths on
+    the gather placement, then a ``CTRServer`` over the trained trainer
+    (and for two-tower the 1 M-candidate retrieval); returns the launch
+    counts of the training run."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.runtime.factory import build_ctr_server, build_trainer
+    from repro_torch.runtime.online import fit_online
+    from repro_torch.runtime.serve_ctr import requests_from_batch
+
+    mcfg = _a9_cfg(arch)
+    batch = A9_DIEN_BATCH if arch == "dien" else A9_BATCH
+    t_arch = t0 = time.perf_counter()
+    tr = build_trainer(arch, _a9_train_config(placement="gather",
+                                              capacity=A9_CAPACITY),
+                       smoke=False, model_cfg=mcfg, seed=0, device=device)
+    torch.cuda.synchronize()
+    built = time.perf_counter() - t0
+    state_gb = sum(t.numel() * t.element_size() for t in
+                   list(tr.tables.values())
+                   + list(tr.sparse_state.accum.values())) / 1e9
+    t0 = time.perf_counter()
+    run = batches if batches is not None else _a9_batches(mcfg, A9_STEPS,
+                                                          batch)
+    data_s = time.perf_counter() - t0
+    distinct = np.unique(_a9_ids(mcfg, run[0])).size
+    print(f"phase 17 (b): {arch} at the published widths ({mcfg}), batch "
+          f"{batch}, capacity {tr.engine.capacity}, n_pod {tr.n_pod}, k "
+          f"{tr.cfg.kstep.k}, {tr.cfg.kstep.merge}, sparse lr "
+          f"{tr.cfg.sparse.lr}; table + accumulator {state_gb:.2f} GB on the "
+          f"card, built in {built:.1f} s; {A9_STEPS} batches ready after "
+          f"{data_s:.1f} s more ({_a9_ids(mcfg, run[0]).size} ids a batch, "
+          f"{distinct} distinct in the first)")
+    step_losses = []
+    train_step = tr.train_step
+
+    def recorded(b):
+        loss = train_step(b)
+        step_losses.append(loss)
+        return loss
+
+    tr.train_step = recorded
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    _, online_auc = fit_online(tr, iter(run), A9_STEPS, window=20)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(ops.launches)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    del tr.train_step
+    every = torch.stack(step_losses).cpu().numpy()
+    n = A9_STEPS
+    if every.shape != (n,) or not np.isfinite(every).all():
+        raise AssertionError(f"{arch}: a loss is not finite: {every}")
+    if tr.overflow_dropped != 0:
+        raise AssertionError(f"{arch}: overflow_dropped "
+                             f"{tr.overflow_dropped}")
+    labeled = "label" in run[0]
+    bags = 1 if labeled else 2      # two-tower: the history bag, the item
+    want = dict.fromkeys(ops.launches, 0)
+    want.update({"embedding_bag": n * (tr.n_pod + labeled) * bags,
+                 "embedding_bag_backward": n * tr.n_pod * bags,
+                 "sparse_adagrad_apply": n,
+                 "fused_adam": n - n // tr.cfg.kstep.k})
+    if launches != want:
+        raise AssertionError(f"{arch}: launches {launches}, expected {want}")
+    auc = f"online AUC {online_auc:.4f}" if labeled else "no labels: no AUC"
+    at = (0, 1, n // 2 - 1, n - 2, n - 1)
+    print(f"  losses at steps {'/'.join(str(i + 1) for i in at)}: "
+          f"{', '.join(f'{every[i]:.6f}' for i in at)} (all "
+          f"{n} finite, {every.min():.4f} to {every.max():.4f}); {auc}; "
+          f"overflow_dropped 0")
+    print(f"  {'predict + train' if labeled else 'train'} per step "
+          f"(fit_online wall / {n}): {wall / n * 1e3:.2f} ms "
+          f"({n * batch / wall:.1f} instances/s trained); peak device memory"
+          f" {peak_gb:.2f} GB; launches: kernel 1 "
+          f"{launches['embedding_bag']}, 1b "
+          f"{launches['embedding_bag_backward']}, 2 "
+          f"{launches['sparse_adagrad_apply']}, 6 {launches['fused_adam']}, "
+          f"every other 0")
+    _a9_breakdown(tr, run[:2])
+    # one step under the profiler: DIEN's makes ~25 k launches
+    _busy_share(tr, run[2:3])
+    # ---- (c) serving over the trained trainer
+    requests = _a9_batches(mcfg, 1, A9_REQUESTS, seed=2)[0]
+    ids = _a9_ids(mcfg, requests)
+    for i in range(0, A9_REQUESTS, A9_SERVE_BATCH):
+        if np.unique(ids[i:i + A9_SERVE_BATCH]).size > tr.engine.capacity:
+            raise AssertionError("a served batch would drop ids")
+    srv = build_ctr_server(tr, max_batch=A9_SERVE_BATCH)
+    reqs = requests_from_batch(requests)
+    ops.reset_launches()
+    for r in reqs:
+        srv.submit(r)
+    srv.drain()
+    s = srv.summary()
+    scores = np.asarray([r.score for r in reqs])
+    ok = (np.abs(scores) <= 1 + 1e-6) if not labeled else (
+        (scores > 0) & (scores < 1))
+    if not (np.isfinite(scores).all() and ok.all()):
+        raise AssertionError(f"{arch}: a served score is out of range")
+    if int(s["served"]) != A9_REQUESTS:
+        raise AssertionError(f"{arch}: served {s['served']}")
+    print(f"phase 17 (c): {arch} CTRServer (max_batch {A9_SERVE_BATCH}) over"
+          f" the trained trainer, {A9_REQUESTS} requests: {s['qps']:.1f} QPS,"
+          f" p50 {s['p50'] * 1e3:.2f} ms, p99 {s['p99'] * 1e3:.2f} ms; "
+          f"scores finite, {scores.min():.4f} to {scores.max():.4f} "
+          f"({'u.v in [-1, 1]' if not labeled else 'in (0, 1)'}); no id "
+          f"dropped; kernel 1 launches {ops.launches['embedding_bag']}")
+    if arch == "two-tower-retrieval":
+        _a9_retrieval(tr, mcfg, requests, device)
+    del tr, run, srv, reqs
+    _release()
+    print(f"phase 17 (b)-(c): {arch} took {time.perf_counter() - t_arch:.1f}"
+          " s")
+    return launches
+
+
+def _a9_breakdown(tr, batches):
+    """Stream time of a training step by part (CUDA events between the
+    parts of ``train_step``) and the synchronized ``train_step`` wall."""
+    import torch
+
+    sums = dict.fromkeys(A9_PARTS, 0.0)
+    for b in batches:
+        tr.step_num += 1
+        merge = tr.step_num % tr.cfg.kstep.k == 0
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
+        ev[0].record()
+        staged = tr._stage(b)
+        wss, tables, accum, bstate = tr.engine.pull_batch(
+            tr.tables, tr.sparse_state.accum, tr.backend_state, staged)
+        ev[1].record()
+        dense, workings, losses = tr._forward(wss, tr.pod_batch(staged))
+        ev[2].record()
+        dense_g, work_g = tr._backward(dense, workings, losses)
+        ev[3].record()
+        _adam_step_no_sync(tr, dense_g, merge)
+        ev[4].record()
+        tr.engine.push(tables, accum, bstate, wss, work_g)
+        ev[5].record()
+        torch.cuda.synchronize()
+        for i, k in enumerate(A9_PARTS):
+            sums[k] += ev[i].elapsed_time(ev[i + 1])
+    parts = {k: v / len(batches) for k, v in sums.items()}
+    walls = []
+    for b in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tr.train_step(b)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    print("  one train step, stream time by part (ms): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in parts.items())
+        + f"; sum {sum(parts.values()):.3f}; train_step wall "
+          f"(synchronized, {len(walls)} steps): mean "
+          f"{np.mean(walls) * 1e3:.2f} ms, min {np.min(walls) * 1e3:.2f} ms")
+
+
+def _a9_retrieval(tr, mcfg, requests, device):
+    """Phase 17 (c): one user against ``A9_CANDIDATES`` items through
+    ``two_tower_score_candidates`` on the card's table: the wall, scores
+    in [-1, 1], and the first 1000 equal to a CPU run."""
+    import torch
+
+    from repro_torch import tree_map
+    from repro_torch.core.kstep import pod_slice
+    from repro_torch.models import recsys as R
+
+    dense = pod_slice(tr.dense, 0)
+    H = mcfg.user_hist_len
+    ids = torch.from_numpy(requests["user_ids"][:1]).to(device)
+    mask = torch.from_numpy(requests["user_mask"][:1]).to(device)
+    table = tr.tables["items"]
+    user = (table[ids.long()] * mask[..., None]).sum(1) / H   # the mean bag
+    gen = torch.Generator(device).manual_seed(23)
+    cand = torch.randperm(mcfg.item_vocab, generator=gen,
+                          device=device)[:A9_CANDIDATES].to(torch.int32)
+    score = lambda: R.two_tower_score_candidates(        # noqa: E731
+        dense, {"items": table}, user, cand, mcfg)
+    with torch.inference_mode():
+        got = score()
+        walls = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            score()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        cpu = R.two_tower_score_candidates(
+            tree_map(lambda x: x.cpu(), dense),
+            {"items": table[cand[:1000].long()].cpu()}, user.cpu(),
+            torch.arange(1000, dtype=torch.int32), mcfg)
+    got = got.float()
+    if got.shape != (1, A9_CANDIDATES) or not torch.isfinite(got).all() \
+            or got.abs().max() > 1 + 1e-6:
+        raise AssertionError("retrieval scores are not finite in [-1, 1]")
+    err = (got[:, :1000].cpu() - cpu).abs().max().item()
+    if err > 1e-5:
+        raise AssertionError(f"retrieval: card and CPU differ by {err}")
+    top = torch.topk(got[0], 5)
+    print(f"phase 17 (c): two-tower retrieval_cand, one user against "
+          f"{A9_CANDIDATES} candidates on the card's {tuple(table.shape)} "
+          f"table: wall {np.mean(walls) * 1e3:.2f} ms (mean of 3, min "
+          f"{np.min(walls) * 1e3:.2f}); scores finite in [-1, 1], the first "
+          f"1000 within {err:.3g} of a CPU run; top 5 "
+          f"{[round(float(x), 4) for x in top.values]}")
+
+
+def phase_a9_smoke(device):
+    """Phase 17 (d): each A9 arch at smoke size, 6 ``fit_online`` steps on
+    the gather and the cached placement, card against CPU from one state;
+    returns the card's launch counts summed."""
+    import torch
+
+    from repro_torch import configs, tree_map
+    from repro_torch.core.kstep import KStepAdamState, KStepConfig, leaves
+    from repro_torch.data.synthetic import recsys_batches
+    from repro_torch.interop import ReferenceState
+    from repro_torch.kernels import ops
+    from repro_torch.runtime import factory
+    from repro_torch.runtime.online import fit_online
+    from repro_torch.runtime.trainer import HybridTrainer, TrainerConfig
+
+    total = dict.fromkeys(ops.launches, 0)
+    for arch in A9_ARCHS:
+        smoke = configs.get(arch).smoke_cfg
+        # two-tower's logits are divided by its temperature 0.05: 20 times
+        # the float32 noise of the others (tests/test_torch_recsys_a9.py)
+        tol = dict(rtol=1e-4, atol=1e-5 if arch == "two-tower-retrieval"
+                   else 1e-6)
+        _, build_engine, embed_of, loss_of = factory._recsys_wiring(smoke)
+        for placement in ("gather", "cached"):
+            cfg = TrainerConfig(n_pod=2, kstep=KStepConfig(k=2), log_every=1,
+                                placement=placement)
+            src = factory.build_trainer(arch, cfg, seed=4, device=device)
+            cpu_of = lambda x: x.detach().cpu().clone()      # noqa: E731
+            s = src.opt_state
+            tables = src.engine.export(src.tables)
+            state = ReferenceState(
+                dense=tree_map(cpu_of, src.dense),
+                tables={n: cpu_of(t) for n, t in tables.items()},
+                accum={n: cpu_of(a) for n, a in
+                       src.sparse_state.accum.items()},
+                opt_state=KStepAdamState(cpu_of(s.step), tree_map(cpu_of, s.m),
+                                         tree_map(cpu_of, s.v_local),
+                                         tree_map(cpu_of, s.v_hat), None))
+            to = lambda x: x.to(device, copy=True)           # noqa: E731
+            card_state = ReferenceState(
+                tree_map(to, state.dense), tree_map(to, state.tables),
+                tree_map(to, state.accum), KStepAdamState(
+                    *(tree_map(to, f) for f in state.opt_state[:4]), None))
+            out, launched = [], None
+            for dev, st in ((device, card_state), ("cpu", state)):
+                tr = HybridTrainer(None, build_engine(smoke, cfg, device=dev),
+                                   embed_of(smoke), loss_of(smoke), cfg,
+                                   state=st, device=dev)
+                losses = []
+                step = tr.train_step
+                tr.train_step = lambda b: losses.append(step(b)) or losses[-1]
+                ops.reset_launches()
+                fit_online(tr, recsys_batches(smoke, batch=64, seed=5), 6,
+                           window=5)
+                if launched is None:
+                    launched = dict(ops.launches)
+                del tr.train_step
+                tabs, acc, _ = tr.engine.flush(tr.tables,
+                                               tr.sparse_state.accum,
+                                               tr.backend_state)
+                out.append([torch.stack(losses).cpu()] + [
+                    torch.cat([x.reshape(-1).cpu() for x in xs]) for xs in (
+                        list(tr.engine.export(tabs).values()),
+                        list(acc.values()), leaves(tr.dense))])
+            if any(v for k, v in launched.items() if k.endswith("_ref")):
+                raise AssertionError(f"{arch} {placement}: a plain version "
+                                     f"ran on the card: {launched}")
+            cached = ("hash_lookup", "gather_rows_cached",
+                      "sparse_adagrad_cached_apply")
+            if placement == "cached" and not all(launched[k] for k in cached):
+                raise AssertionError(f"{arch}: a cached kernel ran no time: "
+                                     f"{launched}")
+            for k, v in launched.items():
+                total[k] += v
+            diffs = []
+            for what, a, b in zip(("losses", "tables", "accumulators",
+                                   "dense"), *out):
+                np.testing.assert_allclose(a.numpy(), b.numpy(),
+                                           err_msg=f"{arch} {what}", **tol)
+                diffs.append(f"{what} {np.abs(a.numpy() - b.numpy()).max():.3g}")
+            print(f"phase 17 (d): {arch} smoke, {placement}, 6 steps, card vs"
+                  f" CPU from one state: max |diff| {', '.join(diffs)} "
+                  f"(rtol 1e-4, atol {tol['atol']:g}); card launches " +
+                  ", ".join(f"{k} {v}" for k, v in launched.items() if v))
+            del src, out
+    return total
+
+
 def main() -> int:
     import torch
 
@@ -6418,6 +7089,25 @@ def main() -> int:
         raise AssertionError(f"a local kernel 9b ran no time: {local_bwd}")
     flash_bwd.update(local_bwd)
     print(f"phase 16 took {time.perf_counter() - t16:.1f} s")
+    _release()
+    t17 = time.perf_counter()
+    streams = _a9_stream_ahead()
+    a9 = phase_a9_kernels(device)
+    for entry in (bag, backward, push):
+        entry.update(a9[entry["name"]])
+        entry["launches_a9"] = {}
+    for arch in A9_ARCHS:
+        launches = phase_a9_train(device, arch, streams[arch].result())
+        for entry in (bag, backward, push):
+            entry["launches_a9"][arch] = launches[entry["name"]]
+        adam.setdefault("launches_a9", {})[arch] = launches["fused_adam"]
+    launches = phase_a9_smoke(device)
+    for entry in cache_entries:
+        entry["launches_a9_smoke"] = launches[entry["name"]]
+    if not all(e["launches_a9"][a] for e in (bag, backward, push)
+               for a in A9_ARCHS):
+        raise AssertionError("a kernel of the A9 path ran no time")
+    print(f"phase 17 took {time.perf_counter() - t17:.1f} s")
     print(json.dumps({"kernels": [bag, backward, push] + cache_entries
                       + [staged, adam, dot, dot_bwd, flash, flash_bwd]}))
     print(json.dumps({"ok": True, "device": {

@@ -18,6 +18,9 @@ _MODULES = {
     "dlrm-mlperf": "repro_torch.configs.dlrm_mlperf",
     "mixtral-8x7b": "repro_torch.configs.mixtral_8x7b",
     "llama4-scout-17b-16e": "repro_torch.configs.llama4_scout",
+    "din": "repro_torch.configs.din",
+    "dien": "repro_torch.configs.dien",
+    "two-tower-retrieval": "repro_torch.configs.two_tower",
 }
 
 

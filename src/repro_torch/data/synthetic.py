@@ -10,10 +10,10 @@ All generators are numpy-side (host pipeline territory) and deterministic in
 their seed; different worker shards draw i.i.d. slices (paper §2.3: "the
 streamed data for different nodes are in an i.i.d. distribution").
 
-A copy of ``repro/data/synthetic.py``'s CTR, DLRM and LM streams: the
-same seed gives byte-identical batches, so the port and the reference see
-the same inputs.  ``recsys_batches`` picks the stream for a model config; the other
-recsys archs' streams come with their slice (ROADMAP.md queue A9).
+A copy of ``repro/data/synthetic.py``'s CTR, DLRM, DIN, two-tower and LM
+streams: the same seed gives byte-identical batches, so the port and the
+reference see the same inputs.  ``recsys_batches`` picks the stream for a
+model config.
 """
 
 from __future__ import annotations
@@ -90,12 +90,64 @@ def dlrm_batches(
         }
 
 
+def din_batches(
+    seed: int, batch: int, vocab: int, seq_len: int = 100, worker: int = 0,
+) -> Iterator[Dict[str, np.ndarray]]:
+    """Behavior-sequence stream: label = teacher affinity(target, history)."""
+    rng = np.random.default_rng(seed + worker * 1_000_003)
+    n_interests = 32
+    while True:
+        # each user has an interest cluster; history and positive targets
+        # concentrate in it
+        interest = rng.integers(0, n_interests, (batch,))
+        base = interest * (vocab // n_interests)
+        width = vocab // n_interests
+        hist = (base[:, None] + _zipf_ids(rng, (batch, seq_len), width)) % vocab
+        lens = rng.integers(seq_len // 4, seq_len + 1, (batch,))
+        mask = (np.arange(seq_len)[None, :] < lens[:, None]).astype(np.float32)
+        pos = rng.random(batch) < 0.5
+        in_cluster = (base + _zipf_ids(rng, (batch,), width)) % vocab
+        random_item = rng.integers(0, vocab, (batch,))
+        target = np.where(pos, in_cluster, random_item)
+        # teacher: affinity + noise
+        aff = (_id_weights(target) * _id_weights(hist[:, 0]) * 0.3 + np.where(pos, 0.8, -0.8))
+        p = 1.0 / (1.0 + np.exp(-2.0 * aff))
+        label = (rng.random(batch) < p).astype(np.float32)
+        yield {
+            "hist_ids": hist.astype(np.int32),
+            "hist_mask": mask,
+            "target_id": target.astype(np.int32),
+            "label": label,
+        }
+
+
+def two_tower_batches(
+    seed: int, batch: int, vocab: int, hist_len: int = 50, worker: int = 0,
+) -> Iterator[Dict[str, np.ndarray]]:
+    """Retrieval stream: a user's history in an interest cluster and a
+    positive item from it (no label: the loss is in-batch softmax)."""
+    rng = np.random.default_rng(seed + worker * 1_000_003)
+    n_interests = 64
+    while True:
+        interest = rng.integers(0, n_interests, (batch,))
+        base = interest * (vocab // n_interests)
+        width = vocab // n_interests
+        hist = (base[:, None] + _zipf_ids(rng, (batch, hist_len), width)) % vocab
+        lens = rng.integers(hist_len // 4, hist_len + 1, (batch,))
+        mask = (np.arange(hist_len)[None, :] < lens[:, None]).astype(np.float32)
+        item = (base + _zipf_ids(rng, (batch,), width)) % vocab  # positive item
+        yield {
+            "user_ids": hist.astype(np.int32),
+            "user_mask": mask,
+            "item_id": item.astype(np.int32),
+        }
+
+
 def recsys_batches(
     model_cfg, batch: int, seed: int = 1, worker: int = 0,
 ) -> Iterator[Dict[str, np.ndarray]]:
-    """The synthetic stream for a recsys model config (``CTRConfig``: the
-    CTR stream, ``DLRMConfig``: the DLRM stream; the other configs are not
-    ported yet)."""
+    """The synthetic stream for a recsys model config, dispatched on its
+    type (the launcher's counterpart of the factory's ``_recsys_wiring``)."""
     from repro_torch.models import recsys as R
 
     if isinstance(model_cfg, R.CTRConfig):
@@ -105,9 +157,15 @@ def recsys_batches(
     if isinstance(model_cfg, R.DLRMConfig):
         return dlrm_batches(seed=seed, batch=batch, rows=model_cfg.rows,
                             n_dense=model_cfg.n_dense, worker=worker)
-    raise NotImplementedError(
-        f"recsys_batches: {type(model_cfg).__name__} is not ported yet "
-        "(ROADMAP.md queue A9, the other recsys archs)")
+    if isinstance(model_cfg, R.DINConfig):
+        return din_batches(seed=seed, batch=batch, vocab=model_cfg.item_vocab,
+                           seq_len=model_cfg.seq_len, worker=worker)
+    if isinstance(model_cfg, R.TwoTowerConfig):
+        return two_tower_batches(seed=seed, batch=batch,
+                                 vocab=model_cfg.item_vocab,
+                                 hist_len=model_cfg.user_hist_len,
+                                 worker=worker)
+    raise TypeError(f"no synthetic stream for {type(model_cfg).__name__}")
 
 
 # -------------------------------------------------------------------- LM

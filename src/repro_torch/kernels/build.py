@@ -2,10 +2,14 @@
 
 All sources under ``csrc/`` go into one ``torch.utils.cpp_extension.load``
 call, into ``build/torch_kernels/`` at the root of the checkout
-(gitignored).  Only ``bindings.cpp`` includes PyTorch's headers; the
-kernels (``*.cu``) see plain pointers, so ``nvcc`` compiles them in
-seconds.  The build happens at first use, never on import: the CPU tests
-import every module on machines without ``nvcc``.
+(gitignored), whose ``ninja`` compiles them side by side.  The kernels
+(``*.cu``) see plain pointers, so ``nvcc`` compiles them without PyTorch's
+headers.  Their wrappers (``bind_*.cpp``, declared in ``bindings.h``)
+include ATen's tensor alone, and only the module (``bindings.cpp``) the
+Python binding's headers; none includes ``<torch/extension.h>``, whose
+C++ frontend took one source most of a minute to compile.  The build
+happens at first use, never on import: the CPU tests import every module
+on machines without ``nvcc``.
 """
 
 from __future__ import annotations
@@ -17,9 +21,10 @@ _CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 _REPO = pathlib.Path(__file__).resolve().parents[3]
 BUILD_DIR = _REPO / "build" / "torch_kernels"
 CUDA_FLAGS = ["-O3", "-gencode=arch=compute_90a,code=sm_90a"]
-SOURCES = ("bindings.cpp", "embedding_bag.cu", "sparse_adagrad.cu",
+SOURCES = ("bindings.cpp", "bind_embedding_bag.cpp", "bind_sparse.cpp",
+           "bind_dense.cpp", "embedding_bag.cu", "sparse_adagrad.cu",
            "hash_map.cu", "fused_adam.cu", "dot_interaction.cu",
-           "flash_attention.cu")
+           "flash_attention.cu", "flash_attention_backward.cu")
 
 _ext = None
 

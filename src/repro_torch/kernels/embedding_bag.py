@@ -12,7 +12,7 @@ scatter adds with float atomics on the card, so its bits would change from
 run to run.
 
 The kernels are ``csrc/embedding_bag.cu`` (its header says how they are laid
-out and what bounds them), bound by ``csrc/bindings.cpp`` and built by
+out and what bounds them), bound by ``csrc/bind_embedding_bag.cpp`` and built by
 ``kernels.build``.  Both walks need each output row's entries in ascending
 original position, and each direction makes one call of the extension,
 which builds those index streams on the card without a sort (a stable

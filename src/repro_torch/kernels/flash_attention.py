@@ -2,8 +2,9 @@
 (kernel 9) and backward (kernel 9b).
 
 Counterpart of ``repro/kernels/flash_attention.py::flash_attention_pallas``;
-the kernels are in ``csrc/flash_attention.cu`` (its header states the
-arithmetic, what bounds them and their design).  The backward has no TPU
+the kernels are in ``csrc/flash_attention.cu`` (the forward; its header
+states the arithmetic, what bounds them and their design) and
+``csrc/flash_attention_backward.cu`` (the backward).  The backward has no TPU
 kernel: the reference takes XLA's vjp of its attention; 9b is
 FlashAttention-2's backward from the forward's output and row
 log-sum-exp, and its plain version is ``ref.flash_attention_backward_ref``

@@ -9,8 +9,8 @@
     PYTHONPATH=src python -m repro_torch.launch.train --arch baidu-ctr \\
         --store disk --spill-dir /tmp/pages --page-rows 64 --device cpu
 
-Counterpart of ``repro/launch/train.py``'s recsys branch for ``baidu-ctr``
-and ``dlrm-mlperf``:
+Counterpart of ``repro/launch/train.py``'s recsys branch for ``baidu-ctr``,
+``dlrm-mlperf``, ``din``, ``dien`` and ``two-tower-retrieval``:
 the hybrid trainer (k-step Adam on the dense tower, AdaGrad pushes into the
 tables) through the online predict-then-train loop
 ``runtime.online.fit_online``, with the reference's defaults (n_pod 2, k 20,
@@ -40,6 +40,12 @@ hold: pass ``--rows`` to cut the table, e.g. ``--rows 50000000``).
 ``--arch dlrm-mlperf`` trains MLPerf's DLRM the same way (26 single-hot
 tables, the dot interaction's CUDA kernels in both directions); with
 ``--rows N`` each of its 26 tables keeps at most N rows.
+
+``--arch din``, ``--arch dien`` and ``--arch two-tower-retrieval`` train on
+one item table (history and target ids; on the card the takes and the
+history bag run as the bag's kernels); ``--rows N`` caps the item table
+at N rows (``item_vocab``).  Two-tower's stream has no labels: it trains
+without the online AUC.
 
 ``--arch qwen3-14b`` (and the other registered LMs: ``qwen2-7b``,
 ``granite-8b``) trains a ``DenseTrainer`` as the reference's launcher
@@ -78,7 +84,9 @@ def build_argparser() -> argparse.ArgumentParser:
                     help="working-set bound per batch (0: arch default)")
     ap.add_argument("--rows", type=int, default=0,
                     help="cut the table to this many rows, or each table "
-                         "to at most this many (DLRM) (0: the config's)")
+                         "to at most this many (DLRM), or the item table to "
+                         "at most this many (DIN, DIEN, two-tower) (0: the "
+                         "config's)")
     ap.add_argument("--cache-rows", type=int, default=0,
                     help="device cache rows for --placement cached "
                          "(0: the capacity)")
@@ -130,16 +138,24 @@ def _reject_unported(args) -> None:
 def model_config(args):
     """The model config ``args`` select: the arch's smoke or full config,
     its table cut to ``--rows`` rows (DLRM: each of its tables to at most
-    ``--rows``)."""
+    ``--rows``; DIN, DIEN and two-tower: the item table, ``item_vocab``, to
+    at most ``--rows``)."""
     from repro_torch import configs
 
     spec = configs.get(args.arch)
     cfg = spec.smoke_cfg if args.smoke else spec.model_cfg
-    if args.rows:
-        rows = (tuple(min(r, args.rows) for r in cfg.rows)
-                if isinstance(cfg.rows, tuple) else args.rows)
-        cfg = dataclasses.replace(cfg, rows=rows)
-    return cfg
+    if not args.rows:
+        return cfg
+    if hasattr(cfg, "item_vocab"):
+        if args.rows < 64:
+            # the streams split the items into up to 64 interest clusters
+            raise ValueError(f"--rows {args.rows}: the item table needs at "
+                             "least 64 rows (one per interest cluster)")
+        return dataclasses.replace(cfg,
+                                   item_vocab=min(cfg.item_vocab, args.rows))
+    rows = (tuple(min(r, args.rows) for r in cfg.rows)
+            if isinstance(cfg.rows, tuple) else args.rows)
+    return dataclasses.replace(cfg, rows=rows)
 
 
 def main(argv=None):

@@ -1,7 +1,8 @@
 """Config-driven construction: ``build_trainer(arch, TrainerConfig)``.
 
 Counterpart of ``repro/runtime/factory.py`` for the archs the port has
-reached (``baidu-ctr`` and ``dlrm-mlperf``, each training and serving; the
+reached (the recsys archs ``baidu-ctr``, ``dlrm-mlperf``, ``din``,
+``dien`` and ``two-tower-retrieval``, each training and serving; the
 LMs ``qwen3-14b``, ``qwen2-7b``, ``granite-8b``, ``mixtral-8x7b`` and
 ``llama4-scout-17b-16e`` training, on a ``DenseTrainer``):
 
@@ -9,6 +10,7 @@ LMs ``qwen3-14b``, ``qwen2-7b``, ``granite-8b``, ``mixtral-8x7b`` and
     tr = build_trainer("mixtral-8x7b", TrainerConfig(n_pod=2))
     tr = build_trainer("baidu-ctr", TrainerConfig(placement="gather"))
     tr = build_trainer("dlrm-mlperf", TrainerConfig(placement="gather"))
+    tr = build_trainer("din", TrainerConfig(placement="gather"))
     tr = build_trainer("baidu-ctr", TrainerConfig(placement="cached",
                                                   cache_rows=262144))
     tr = build_trainer("baidu-ctr", TrainerConfig(store="disk",
@@ -118,21 +120,42 @@ def build_dlrm_engine(model_cfg: R.DLRMConfig, cfg: TrainerConfig,
     return _build_engine(R.dlrm_table_specs(model_cfg), cfg, device)
 
 
+def build_din_engine(model_cfg: R.DINConfig, cfg: TrainerConfig,
+                     device="cuda") -> EmbeddingEngine:
+    """DIN/DIEN: one item table fed by history + target ids
+    (``_build_engine``)."""
+    return _build_engine(R.din_table_specs(model_cfg), cfg, device)
+
+
+def build_two_tower_engine(model_cfg: R.TwoTowerConfig, cfg: TrainerConfig,
+                           device="cuda") -> EmbeddingEngine:
+    """Two-tower retrieval: one item table fed by user history + item ids
+    (``_build_engine``)."""
+    return _build_engine(R.two_tower_table_specs(model_cfg), cfg, device)
+
+
 def _recsys_wiring(mcfg):
     """(init_dense, build_engine, embed_adapter, loss_adapter) for a recsys
-    model config, dispatched on the config type."""
+    model config, dispatched on the config type (so a ``model_cfg``
+    override and dien, a ``DINConfig`` with ``gru_dim > 0``, route
+    right)."""
     wiring = {
         R.CTRConfig: (R.ctr_init_dense, build_ctr_engine,
                       R.ctr_embed_from_workings, R.ctr_hybrid_loss),
         R.DLRMConfig: (R.dlrm_init_dense, build_dlrm_engine,
                        R.dlrm_embed_from_workings, R.dlrm_hybrid_loss),
+        R.DINConfig: (R.din_init_dense, build_din_engine,
+                      R.din_embed_from_workings, R.din_hybrid_loss),
+        R.TwoTowerConfig: (R.two_tower_init_dense, build_two_tower_engine,
+                           R.two_tower_embed_from_workings,
+                           R.two_tower_hybrid_loss),
     }
     for cls, w in wiring.items():
         if isinstance(mcfg, cls):
             return w
-    raise NotImplementedError(
-        f"build_trainer: {type(mcfg).__name__} is not ported yet "
-        "(ROADMAP.md queue A9, the other recsys archs)")
+    raise TypeError(
+        f"build_trainer: unknown recsys model config {type(mcfg).__name__} "
+        f"(expected one of {sorted(c.__name__ for c in wiring)})")
 
 
 def build_trainer(arch: str, cfg: TrainerConfig, *, smoke: bool = True,

@@ -1,6 +1,9 @@
 """Evaluation metrics (AUC is the paper's quality measure).
 
-A copy of ``repro/runtime/metrics.py``: ``auc`` and ``StreamingAUC``.
+``auc`` and ``StreamingAUC`` of ``repro/runtime/metrics.py``, the same
+values; ``auc`` gives tied scores their average rank by whole arrays, not
+by a Python loop over the scores (a full-width online window holds
+millions of them).
 """
 
 from __future__ import annotations
@@ -17,18 +20,15 @@ def auc(labels: np.ndarray, scores: np.ndarray) -> float:
     if n_pos == 0 or n_neg == 0:
         return 0.5
     order = np.argsort(scores, kind="mergesort")
-    ranks = np.empty_like(scores)
-    ranks[order] = np.arange(1, len(scores) + 1)
-    # average ranks for ties
     sorted_scores = scores[order]
-    i = 0
-    while i < len(scores):
-        j = i
-        while j + 1 < len(scores) and sorted_scores[j + 1] == sorted_scores[i]:
-            j += 1
-        if j > i:
-            ranks[order[i:j + 1]] = (i + j + 2) / 2.0
-        i = j + 1
+    # a run of equal scores at sorted positions i..j takes the average rank
+    # (i + j + 2) / 2 (1-based); a lone score at i takes i + 1
+    first = np.ones(len(scores), dtype=bool)
+    first[1:] = sorted_scores[1:] != sorted_scores[:-1]
+    starts = np.flatnonzero(first)
+    ends = np.append(starts[1:], len(scores)) - 1
+    ranks = np.empty_like(scores)
+    ranks[order] = ((starts + ends + 2) / 2.0)[np.cumsum(first) - 1]
     return float((ranks[labels == 1].sum() - n_pos * (n_pos + 1) / 2) / (n_pos * n_neg))
 
 

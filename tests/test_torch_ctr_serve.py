@@ -51,7 +51,7 @@ def test_smoke_and_model_configs_match_the_reference():
     assert configs.get("baidu-ctr").shapes["serve_online"].dims == {
         "batch": 1024}
     with pytest.raises(KeyError, match="not in the port"):
-        configs.get("din")
+        configs.get("gin-tu")
 
 
 def test_ctr_forward_matches_reference():

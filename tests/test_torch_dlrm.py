@@ -274,5 +274,5 @@ def test_factory_defaults_to_cuda_and_names_unported_configs():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             build_trainer("dlrm-mlperf", TrainerConfig(placement="gather"))
-    with pytest.raises(NotImplementedError, match="A9"):
+    with pytest.raises(TypeError, match="unknown recsys model config"):
         factory._recsys_wiring(object())

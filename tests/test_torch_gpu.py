@@ -18,9 +18,12 @@ from repro_torch.kernels import embedding_bag as tbag
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as tref
 
-# (capacity, dim, nnz, num_bags): every dim class of the kernel, empty bags
+# (capacity, dim, nnz, num_bags): every dim class of the kernel, empty bags;
+# DIN's 18 (not a multiple of 4: the scalar walk) and two-tower's 256 (the
+# top of the bag's range)
 SHAPES = [(37, 16, 101, 19), (64, 24, 40, 53), (200, 64, 300, 120),
-          (90, 100, 257, 40), (64, 200, 150, 31)]
+          (90, 100, 257, 40), (64, 200, 150, 31), (50, 18, 120, 37),
+          (40, 256, 90, 23)]
 
 
 def _case(seed, C, D, nnz, num_bags, weighted=True):
@@ -150,7 +153,7 @@ def _backward_case(spec, weighted):
 @pytest.mark.gpu
 @pytest.mark.parametrize("weighted", [True, False])
 @pytest.mark.parametrize("spec", SHAPES + [
-    (D, layout) for D in (16, 24, 64, 100, 200)
+    (D, layout) for D in (16, 18, 24, 64, 100, 200, 256)
     for layout in ("edges", "one_row", "hot", "many_long")] + [
     ("grid", extra) for extra in (-1, 0, 1)])
 def test_cuda_bag_backward_matches_plain_vjp(spec, weighted):
@@ -353,6 +356,8 @@ def _push_case(seed, rows, D, n_ids, capacity):
     (5000, 64, 900, 1024),       # pads
     (3000, 16, 600, 512),        # odd width, pads
     (4000, 100, 700, 256),       # overflow: no pads
+    (3000, 18, 600, 512),        # DIN's width: the scalar branch, pads
+    (2000, 256, 500, 512),       # two-tower's width, pads
 ])
 def test_cuda_push_matches_plain_version(rows, D, n_ids, capacity):
     """The push kernel, which does the row math itself, against the plain
@@ -414,7 +419,7 @@ def test_cuda_push_addresses_rows_beyond_int32_offsets():
 @pytest.mark.gpu
 @pytest.mark.parametrize("stream", ["uids", "slots"])
 @pytest.mark.parametrize("case", ["pads", "overflow", "unaligned"])
-@pytest.mark.parametrize("D", [3, 16, 64, 100])
+@pytest.mark.parametrize("D", [3, 16, 18, 64, 100, 256])
 def test_cuda_fused_push_equals_row_math_and_index_add(D, case, stream):
     """Both pushes (the table's by uids, the cache's by slots) do the row
     math in the kernel: bit-equal to ``adagrad_row_updates`` on the
@@ -614,7 +619,8 @@ def test_cuda_hash_probe_on_tiny_and_full_maps(H):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("C,D,cap", [(300, 64, 1000), (77, 16, 50),
-                                     (129, 100, 257), (40, 3, 33)])
+                                     (129, 100, 257), (40, 3, 33),
+                                     (60, 18, 70), (40, 256, 33)])
 def test_cuda_cached_gather_matches_plain_version(C, D, cap):
     _cuda_or_skip()
     from repro_torch.kernels.sparse_adagrad import gather_rows_cached_cuda
@@ -670,6 +676,7 @@ def test_cuda_cached_gather_with_its_drop_row(C, D, cap, aligned):
     (2048, 64, 900, 1024),       # pads
     (700, 16, 600, 512),         # odd width, pads
     (400, 100, 700, 256),        # overflow: no pads
+    (700, 18, 600, 512),         # DIN's width, pads
 ])
 def test_cuda_cached_push_matches_plain_version(C, D, n_ids, capacity):
     """The cached push at slots that are a permutation of the cache (not

@@ -415,7 +415,7 @@ def test_unported_knobs_raise():
                       device="cpu")
     with pytest.raises(ValueError, match="requires spill_dir"):
         build_trainer("baidu-ctr", TrainerConfig(store="disk"), device="cpu")
-    with pytest.raises(NotImplementedError, match="A9"):
+    with pytest.raises(TypeError, match="no synthetic stream"):
         S.recsys_batches(object(), batch=4)
     with pytest.raises(ValueError, match="n_pod"):
         build_trainer("baidu-ctr", TrainerConfig(n_pod=3),
@@ -483,4 +483,4 @@ def test_launcher_serve_and_flags():
             _launch("--arch", "baidu-ctr", "--steps", "1", "--device", "cpu",
                     *flags)
     with pytest.raises(KeyError, match="not in the port"):
-        _launch("--arch", "din", "--steps", "1", "--device", "cpu")
+        _launch("--arch", "gin-tu", "--steps", "1", "--device", "cpu")
