@@ -3,8 +3,9 @@
 gather and the cached placements and on the SSD tier, its dlrm-mlperf
 serving and training paths, its qwen3-14b prefill, decode and training,
 its mixtral-8x7b and llama4-scout serving (MoE, windowed and chunked
-attention), its mixtral-8x7b training and its DIN, DIEN and two-tower
-retrieval training and serving, on one NVIDIA GPU (H100).
+attention), its mixtral-8x7b training, its DIN, DIEN and two-tower
+retrieval training and serving, its GIN training at the gin-tu cells and
+its checkpoints' save, resume and replay, on one NVIDIA GPU (H100).
 
     python3 chip_smoke.py        # from the root of a checkout
 
@@ -369,6 +370,47 @@ Phases (any failure raises and the script exits non-zero):
      placement (kernels 3, 4 and 5), card against CPU from one state:
      losses, tables, accumulators and dense within rtol 1e-4, atol 1e-6
      (two-tower 1e-5: its logits are divided by the temperature 0.05).
+ 18. GIN (gin-tu), its four cells' graphs made in background threads
+     during phase 17 (``community_graph`` takes an integer degree:
+     ogb_products' 61,859,140 edges -> 61,225,725, minibatch_lg's
+     114,615,892 -> 11,648,250, full_graph_sm's 10,556 -> 10,832):
+     (a) kernels 1 and 1b at ogb_products' widths 100 and 64 (2,449,029
+     rows, bit-equal to the CPU plain version on 4096 sampled bags and
+     working rows), the minibatch_lg block (169,984 nodes, 168,960
+     masked edges) at 602 and 64, full_graph_sm at 1433, the molecule
+     readout (3840 nodes into 128 graphs) and odd widths 257, 300, 513
+     (a very long and a long working row); past 256 columns column tiles
+     of 256.  Bit-equal to the CPU plain versions, two runs bit-equal;
+     timed cold and warm beside the plain version, ``index_select`` +
+     ``index_add_``, ``F.embedding_bag`` on the CSR and
+     ``torch.sparse.mm`` (cuSPARSE SpMM), two bounds (distinct rows; a
+     row an entry), the long rows of each direction;
+     (b) ogb_products full batch at gin-tu's MODEL with width 100 and 47
+     classes, n_pod 2 on one expanded copy of the graph, the launcher's
+     k 20, two_phase, lr 1e-3, 20 steps: finite losses, exact launches (kernel
+     1 n_layers a pod a step, 1b n_layers - 1, 6 per local step, every
+     other 0), walls, peak memory, a step's stream time by part, device
+     time by kernel class and the busy share; a second run saves at
+     step 10 and is dropped after 13, a fresh trainer resumes it: every
+     loss and the final state bit-equal to the first run (phase 19 (b));
+     (c) minibatch_lg: 20 steps through the ported ``NeighborSampler``
+     (1024 seeds, fanouts 15 and 10), x gathered on the host, n_pod 1, k
+     1; (d) full_graph_sm at MODEL and the molecule cell (graph readout,
+     per-worker streams podded), 20 steps each; (e) the smoke config,
+     card against CPU from one state, node and graph readout, 6 steps,
+     within rtol 1e-4, atol 1e-6; (f) ``examples/train_gin.py``'s two
+     regimes from its initial weights (``tests/fixtures``): accuracy
+     above 0.5 (full graph) and 0.4 (minibatch).
+ 19. checkpoints, under ``build/phase19_ckpt`` (deleted at the end):
+     (a) DIN at the published widths (2 M items, gather, capacity 2^20,
+     the launcher's settings, phase 17's batches), 10 steps, ckpt_every
+     5 with the async writer: a run dropped after step 7 and resumed in
+     a fresh trainer replays steps 6-10 with losses, tables,
+     accumulators, dense and moments bit-equal to an uninterrupted run;
+     the save's blocking wall, its wall until the writer lands it and
+     its bytes; (b) the same at smoke size on the cached placement (its
+     cache saved unflushed) and on the DiskStore (its pages in the
+     checkpoint), and for ogb_products in phase 18 (b).
 
 TF32 is off for matmuls and convolutions.  Prints the card (``nvidia-smi``
 name and power limit), a ``kernels`` JSON line, and as its last line
@@ -6985,6 +7027,927 @@ def phase_a9_smoke(device):
     return total
 
 
+# ------------------------------------------------------------ phase 18: GIN
+# gin-tu's cells (configs/gin_tu.py SHAPES), each a community_graph at the
+# spec's nodes, width and classes.  community_graph takes an integer
+# average degree, so the edges are cut (PERF.md §4): ogb_products
+# 61,859,140 -> 61,225,725 (25 a node), minibatch_lg 114,615,892 ->
+# 11,648,250 (50 a node: the sampled block's shape does not depend on it
+# once every node has a neighbour), full_graph_sm 10,556 -> 10,832 (4).
+GIN_DEGREE = {"ogb_products": 25, "minibatch_lg": 50, "full_graph_sm": 4}
+GIN_SEED = {"ogb_products": 0, "minibatch_lg": 1, "full_graph_sm": 2}
+GIN_STEPS = 20
+# the launcher's k 20: at k 10 every gin-tu MODEL cell goes to NaN two
+# steps after the first merge, the reference too (ROADMAP.md §C;
+# tools/gin_merge_divergence.py).  So each cell's last checked step is
+# the first merge, every timed step comes before it, and the steps after
+# it are only reported.
+GIN_K = 20
+GIN_RESUME = (10, 13)      # phase 19 (b): saved at step 10, dropped at 13
+GIN_ODD_WIDTHS = (257, 300, 513)
+GIN_SMOKE_STEPS = 6
+GIN_TOL = dict(rtol=1e-4, atol=1e-6)
+GIN_EXAMPLE_STEPS = (60, 80)   # examples/train_gin.py: full graph, minibatch
+GIN_FIXTURE = ROOT / "tests" / "fixtures" / "gin_example_init.npz"
+GIN_PARTS = ("forward (kernel 1 + MLPs)", "backward (kernel 1b + autograd)",
+             "k-step Adam")
+
+
+def _gin_dims(name):
+    from repro_torch import configs
+
+    return configs.get("gin-tu").shapes[name].dims
+
+
+def _gin_graph(name):
+    """The cell's ``community_graph`` (host numpy)."""
+    from repro_torch.data.synthetic import community_graph
+
+    d = _gin_dims(name)
+    return community_graph(GIN_SEED[name], d["n_nodes"], GIN_DEGREE[name],
+                           d["d_feat"], d["n_classes"])
+
+
+def _gin_blocks():
+    """minibatch_lg's graph and ``GIN_STEPS`` blocks of its sampler (1024
+    seeds from ``default_rng(0)``, fanouts 15 and 10)."""
+    from repro_torch.data.graph_sampler import NeighborSampler
+
+    d = _gin_dims("minibatch_lg")
+    g = _gin_graph("minibatch_lg")
+    sampler = NeighborSampler(d["n_nodes"], g.edge_src.astype(np.int64),
+                              g.edge_dst.astype(np.int64))
+    rng = np.random.default_rng(0)
+    blocks = []
+    for _ in range(GIN_STEPS):
+        seeds = rng.choice(d["n_nodes"], d["batch_nodes"], replace=False)
+        blocks.append(sampler.sample_block(rng, seeds,
+                                           (d["fanout0"], d["fanout1"])))
+    return g, blocks
+
+
+def _gin_stream_ahead():
+    """The GIN cells' graphs (and minibatch_lg's blocks), made in
+    background threads while the card runs phase 17: {cell: future}."""
+    import concurrent.futures
+
+    pool = concurrent.futures.ThreadPoolExecutor(max_workers=3)
+    futures = {"ogb_products": pool.submit(_gin_graph, "ogb_products"),
+               "minibatch_lg": pool.submit(_gin_blocks),
+               "full_graph_sm": pool.submit(_gin_graph, "full_graph_sm")}
+    pool.shutdown(wait=False)
+    return futures
+
+
+def _gin_model(**kw):
+    from repro_torch import configs
+
+    return dataclasses.replace(configs.get("gin-tu").model_cfg, **kw)
+
+
+def _gin_train_config(**kw):
+    """The launcher's k-step settings (n_pod 2, two_phase, lr 1e-3), k
+    ``GIN_K``."""
+    from repro_torch.core.kstep import KStepConfig
+    from repro_torch.runtime.trainer import TrainerConfig
+
+    kw.setdefault("n_pod", 2)
+    kstep = KStepConfig(lr=1e-3, k=kw.pop("k", GIN_K), merge="two_phase")
+    return TrainerConfig(kstep=kstep, **kw)
+
+
+def _gin_subset_check(working, inv, seg, w, num_bags, out, g, g_work,
+                      n=4096):
+    """Kernel 1's and 1b's rows against the CPU plain version on ``n``
+    sampled bags and ``n`` sampled working rows (the whole input does not
+    fit the CPU's time): each sampled bag's entries, in their original
+    order (picked on the card), through ``embedding_bag_ref``, and each
+    sampled working row's through ``embedding_bag_backward_ref`` (their
+    order is the plain version's).  Bit-equal."""
+    import torch
+
+    from repro_torch.kernels import ref
+
+    gen = torch.Generator(working.device).manual_seed(5)
+    n = min(n, num_bags, working.shape[0])
+
+    def entries(keys, count):
+        """(sorted sample, its entries' positions in original order, each
+        entry's index in the sample), on the CPU."""
+        pick = torch.randperm(count, generator=gen,
+                              device=working.device)[:n].sort().values
+        pos = torch.nonzero(torch.isin(keys, pick.to(keys.dtype))).squeeze(1)
+        sub = torch.searchsorted(pick, keys[pos].long()).to(torch.int32)
+        return pick, pos, sub.cpu()
+
+    def at(t, pos):
+        return None if t is None else t[pos].cpu()
+
+    bags, pos, sub = entries(seg, num_bags)
+    want = ref.embedding_bag_ref(working.cpu(), at(inv, pos), sub,
+                                 at(w, pos), n)
+    if not torch.equal(out[bags].cpu(), want):
+        raise AssertionError("kernel 1 differs from the CPU plain version")
+    rows, pos, sub = entries(inv, working.shape[0])
+    want, _ = ref.embedding_bag_backward_ref(
+        g.cpu(), torch.empty((n, working.shape[1])), sub, at(seg, pos),
+        at(w, pos), True, False)
+    if not torch.equal(g_work[rows].cpu(), want):
+        raise AssertionError("kernel 1b differs from the CPU plain vjp")
+
+
+def _gin_kernel_case(label, working, inv, seg, w, num_bags, full_cpu=True):
+    """Kernels 1 and 1b on one input of a GIN cell: bit-equal to the CPU
+    plain version (whole, or on sampled rows where the CPU would take too
+    long), two runs bit-equal; timed cold and warm beside the plain
+    version on the card, ``index_select`` + ``index_add_``,
+    ``F.embedding_bag`` on the CSR and ``torch.sparse.mm`` (cuSPARSE SpMM)
+    with a CSR adjacency; two bounds (the distinct rows read, and a row
+    read per entry); the long rows (> 128 entries) of either direction.
+    Returns {"forward": ..., "backward": ...}."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import embedding_bag as kb
+    from repro_torch.kernels import ref
+
+    D, nnz = working.shape[1], inv.numel()
+    rows = working.shape[0]
+    gen = torch.Generator(working.device).manual_seed(31)
+    g = torch.randn((num_bags, D), generator=gen, device=working.device)
+    out = kb.embedding_bag_cuda(working, inv, seg, w, num_bags)
+    g_work, _ = kb.embedding_bag_backward_cuda(g, working, inv, seg, w)
+    again = kb.embedding_bag_cuda(working, inv, seg, w, num_bags)
+    g_again, _ = kb.embedding_bag_backward_cuda(g, working, inv, seg, w)
+    if not (torch.equal(out, again) and torch.equal(g_work, g_again)):
+        raise AssertionError(f"{label}: two runs differ")
+    del again, g_again
+    if full_cpu:
+        cpu = [None if t is None else t.cpu() for t in (working, inv, seg, w)]
+        if not torch.equal(out.cpu(), ref.embedding_bag_ref(*cpu, num_bags)):
+            raise AssertionError(f"{label}: kernel 1 differs from the CPU "
+                                 "plain version")
+        want, _ = ref.embedding_bag_backward_ref(g.cpu(), *cpu, True, False)
+        if not torch.equal(g_work.cpu(), want):
+            raise AssertionError(f"{label}: kernel 1b differs from the CPU "
+                                 "plain vjp")
+        del cpu, want
+    else:
+        _gin_subset_check(working, inv, seg, w, num_bags, out, g, g_work)
+    # library calls on the same input
+    order, offsets = kb.csr_from_segments(seg, num_bags)
+    lo, hi = int(offsets[0]), int(offsets[-1])
+    inv_s = inv[order[lo:hi]].long()
+    w_s = None if w is None else w[order[lo:hi]].contiguous()
+    csr = torch.sparse_csr_tensor(
+        (offsets - lo), inv_s, torch.ones(hi - lo, device=working.device)
+        if w_s is None else w_s, size=(num_bags, rows))
+    inv64, seg64 = inv.long(), seg.long()
+
+    def index_add():
+        rows_ = working.index_select(0, inv64)
+        if w is not None:
+            rows_ = rows_ * w[:, None]
+        return torch.zeros((num_bags, D), device=working.device).index_add_(
+            0, seg64, rows_)
+
+    def index_add_bwd():
+        rows_ = g.index_select(0, seg64)
+        if w is not None:
+            rows_ = rows_ * w[:, None]
+        return torch.zeros_like(working).index_add_(0, inv64, rows_)
+
+    lib = {"F.embedding_bag": lambda: F.embedding_bag(
+               inv_s, working, offsets - lo, mode="sum",
+               per_sample_weights=w_s, include_last_offset=True),
+           "torch.sparse.mm": lambda: torch.sparse.mm(csr, working),
+           "index_select + index_add_": index_add}
+    for name, fn in lib.items():
+        if not torch.allclose(fn(), out, rtol=1e-4, atol=1e-4):
+            raise AssertionError(f"{label}: {name} differs from kernel 1")
+    big = nnz * D > 1 << 30
+    it = dict(iters=3, warmup=1) if big else dict(iters=20)
+    per_entry = 12 if w is not None else 8
+    distinct_in = int(torch.unique(inv).numel())
+    fwd = {"ms": _time_ms(lambda: kb.embedding_bag_cuda(
+               working, inv, seg, w, num_bags), **it),
+           "ms_l2_warm": _time_ms(lambda: kb.embedding_bag_cuda(
+               working, inv, seg, w, num_bags), cold_l2=False, **it),
+           "plain_ms": _time_ms(lambda: ref.embedding_bag_ref(
+               working, inv, seg, w, num_bags), **it)}
+    for name, fn in lib.items():
+        fwd[f"{name}_ms"] = _time_ms(fn, **it)
+    fwd["bound_ms"], fwd["bound_by"] = _bound(
+        distinct_in * D * 4 + nnz * per_entry + num_bags * D * 4,
+        2 * nnz * D)
+    fwd["bound_per_entry_ms"], _ = _bound(
+        nnz * D * 4 + nnz * per_entry + num_bags * D * 4, 2 * nnz * D)
+    distinct_g = int(torch.unique(seg).numel())
+    bwd = {"ms": _time_ms(lambda: kb.embedding_bag_backward_cuda(
+               g, working, inv, seg, w), **it),
+           "ms_l2_warm": _time_ms(lambda: kb.embedding_bag_backward_cuda(
+               g, working, inv, seg, w), cold_l2=False, **it),
+           "plain_ms": _time_ms(lambda: ref.embedding_bag_backward_ref(
+               g, working, inv, seg, w, True, False), **it),
+           "index_select + index_add__ms": _time_ms(index_add_bwd, **it)}
+    bwd["bound_ms"], bwd["bound_by"] = _bound(
+        distinct_g * D * 4 + nnz * per_entry + rows * D * 4, 2 * nnz * D)
+    bwd["bound_per_entry_ms"], _ = _bound(
+        nnz * D * 4 + nnz * per_entry + rows * D * 4, 2 * nnz * D)
+    per_row = torch.bincount(inv64, minlength=rows)
+    per_bag = torch.bincount(seg64[(seg64 >= 0) & (seg64 < num_bags)],
+                             minlength=num_bags)
+    bwd["long_rows"] = int((per_row > kb.LONG_ROW).sum())
+    bwd["very_long_rows"] = int((per_row > kb.VERY_LONG).sum())
+    bwd["longest_row"] = int(per_row.max())
+    fwd["long_bags"] = int((per_bag > kb.LONG_ROW).sum())
+    fwd["longest_bag"] = int(per_bag.max())
+    shape = {"rows": rows, "dim": D, "nnz": nnz, "bags": num_bags,
+             "weighted": w is not None}
+    print(f"phase 18 (a): {label} {shape}: kernel 1 {fwd['ms']:.4f} ms cold, "
+          f"{fwd['ms_l2_warm']:.4f} warm (bounds {fwd['bound_ms']:.4f} "
+          f"distinct rows, {fwd['bound_per_entry_ms']:.4f} a row an entry; "
+          f"plain {fwd['plain_ms']:.4f}; " + ", ".join(
+              f"{k} {fwd[k + '_ms']:.4f}" for k in lib)
+          + f"); kernel 1b {bwd['ms']:.4f} cold, {bwd['ms_l2_warm']:.4f} warm"
+          f" (bounds {bwd['bound_ms']:.4f}, {bwd['bound_per_entry_ms']:.4f};"
+          f" plain vjp {bwd['plain_ms']:.4f}; index_select + index_add_ "
+          f"{bwd['index_select + index_add__ms']:.4f}); long bags "
+          f"{fwd['long_bags']} (longest {fwd['longest_bag']}), long rows "
+          f"{bwd['long_rows']} ({bwd['very_long_rows']} very long, longest "
+          f"{bwd['longest_row']}); bit-equal to the CPU plain version"
+          f"{'' if full_cpu else ' on 4096 sampled bags and rows'}, two runs "
+          "bit-equal")
+    return {"forward": dict(fwd, **shape), "backward": dict(bwd, **shape)}
+
+
+def phase_gin_kernels(device, graphs):
+    """Phase 18 (a): kernels 1 and 1b at the GIN cells' shapes and at the
+    odd widths 257, 300 and 513; returns {"embedding_bag": {shape: ...},
+    "embedding_bag_backward": {shape: ...}}."""
+    import torch
+
+    from repro_torch.data.synthetic import molecule_batches
+
+    t0 = time.perf_counter()
+    out = {"embedding_bag": {}, "embedding_bag_backward": {}}
+
+    def record(key, res):
+        out["embedding_bag"][key] = res["forward"]
+        out["embedding_bag_backward"][key] = res["backward"]
+
+    def on(a, dtype=None):
+        t = torch.from_numpy(np.ascontiguousarray(a)).to(device)
+        return t if dtype is None else t.to(dtype)
+
+    gen = torch.Generator(device).manual_seed(7)
+    g = graphs["ogb_products"]
+    src, dst, n = on(g.edge_src), on(g.edge_dst), g.x.shape[0]
+    record("ogb_products_100", _gin_kernel_case(
+        "ogb_products at 100", on(g.x), src, dst, None, n, full_cpu=False))
+    _release()
+    h = torch.randn((n, 64), generator=gen, device=device)
+    record("ogb_products_64", _gin_kernel_case(
+        "ogb_products at 64 (a hidden layer)", h, src, dst, None, n,
+        full_cpu=False))
+    del h, src, dst
+    _release()
+    lg, blocks = graphs["minibatch_lg"]
+    blk = blocks[0]
+    n_blk = blk["nodes"].shape[0]
+    args = (on(blk["edge_src"]), on(blk["edge_dst"]), on(blk["edge_mask"]),
+            n_blk)
+    record("minibatch_lg_602", _gin_kernel_case(
+        "minibatch_lg block at 602", on(lg.x[blk["nodes"]]), *args))
+    record("minibatch_lg_64", _gin_kernel_case(
+        "minibatch_lg block at 64", torch.randn(
+            (n_blk, 64), generator=gen, device=device), *args))
+    cora = graphs["full_graph_sm"]
+    record("full_graph_sm_1433", _gin_kernel_case(
+        "full_graph_sm at 1433", on(cora.x), on(cora.edge_src),
+        on(cora.edge_dst), None, cora.x.shape[0]))
+    d = _gin_dims("molecule")
+    mol = next(molecule_batches(0, d["batch"], d["n_nodes"], d["n_edges"],
+                                d["d_feat"], d["n_classes"]))
+    nodes = mol["x"].shape[0]
+    record("molecule_readout_64", _gin_kernel_case(
+        "molecule readout at 64", torch.randn(
+            (nodes, 64), generator=gen, device=device),
+        torch.arange(nodes, dtype=torch.int32, device=device),
+        on(mol["graph_ids"]), None, d["batch"]))
+    for D in GIN_ODD_WIDTHS:
+        rng = np.random.default_rng(D)
+        C, nnz = 50_000, 400_000
+        inv = rng.integers(0, C, nnz).astype(np.int32)
+        inv[rng.permutation(nnz)[:3000]] = np.repeat([5, 7], [2600, 400])
+        record(f"odd_{D}", _gin_kernel_case(
+            f"odd width {D}", torch.randn((C, D), generator=gen,
+                                          device=device), on(inv),
+            on(rng.integers(0, 30_000, nnz).astype(np.int32)),
+            on(rng.standard_normal(nnz).astype(np.float32)), 30_000))
+    _release()
+    print(f"phase 18 (a) took {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def _podded_draws(streams):
+    """One batch from each worker's stream, stacked along a pod dim: the
+    podded batch of per-worker molecule streams (a global batch split by
+    ``pod_batch`` would give pod 1 graph ids past its graph count)."""
+    draws = [next(s) for s in streams]
+    return {k: np.stack([d[k] for d in draws]) for k in draws[0]}
+
+
+def _gin_loss_check(what, losses, n):
+    if losses.shape != (n,) or not np.isfinite(losses).all():
+        raise AssertionError(f"{what}: a loss is not finite: {losses}")
+
+
+def _gin_launches_check(what, launches, want):
+    expect = dict.fromkeys(launches, 0)
+    expect.update(want)
+    if launches != expect:
+        raise AssertionError(f"{what}: launches {launches}, expected "
+                             f"{expect}")
+
+
+def _gin_want(cfg, n_pod, steps, k, readout=False):
+    """The launches of ``steps`` GIN steps: kernel 1 a layer a pod (and
+    one for the graph readout), 1b a layer but the first (x needs no
+    gradient; and one for the readout), 6 per local step."""
+    extra = 1 if readout else 0
+    return {"embedding_bag": steps * n_pod * (cfg.n_layers + extra),
+            "embedding_bag_backward": steps * n_pod * (cfg.n_layers - 1
+                                                       + extra),
+            "fused_adam": 0 if k == 1 else steps - steps // k}
+
+
+def _gin_category(name):
+    n = name.lower()
+    if "embedding_bag_backward" in n:
+        return "kernel 1b"
+    if "walk" in n:
+        return "kernel 1 walk"
+    if "stream_" in n:
+        return "index streams (1, 1b)"
+    if "fused_adam" in n:
+        return "kernel 6"
+    if "gemm" in n or "cutlass" in n or "xmma" in n or "sm90_" in n:
+        return "products (cuBLAS)"
+    return "elementwise and other"
+
+
+def _gin_breakdown(tr, batch):
+    """One DenseTrainer step's stream time by part (CUDA events), then one
+    step under the profiler: device time by kernel class and the busy
+    share.  Returns (the parts' times, the two steps' losses as a device
+    tensor)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    tr.step_num += 1
+    merge = tr.step_num % tr.cfg.kstep.k == 0
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    ev[0].record()
+    fwd = tr._forward(batch)
+    ev[1].record()
+    losses = [tr._backward(*fwd).mean()]
+    ev[2].record()
+    tr.opt.step(tr.params, tr.grads, tr.opt_state, merge=merge)
+    ev[3].record()
+    torch.cuda.synchronize()
+    parts = {k: ev[i].elapsed_time(ev[i + 1]) for i, k in
+             enumerate(GIN_PARTS)}
+    del fwd
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        losses.append(tr.train_step(batch, podded=True))
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    by = {}
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA and \
+                e.self_device_time_total > 0:
+            c = _gin_category(e.key)
+            by[c] = by.get(c, 0.0) + e.self_device_time_total / 1e3
+    busy = sum(by.values())
+    print("  one train step, stream time by part (ms): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in parts.items())
+        + f"; sum {sum(parts.values()):.3f}; under the profiler, device time "
+          f"by kernel class (ms): " + ", ".join(
+              f"{k} {v:.3f}" for k, v in sorted(by.items(),
+                                               key=lambda kv: -kv[1]))
+        + (f"; busy share {busy / wall_ms:.3f} ({busy:.3f} ms of device time"
+           f" in a {wall_ms:.3f} ms step, profiler on)" if busy > 0 else
+           "; busy share not measured (the trace holds no device time)"))
+    return parts, torch.stack(losses)
+
+
+def _gin_ogb_run(device, batch, cfg, steps, ckpt_dir=None, seed=0,
+                 resume=False):
+    """A ``build_trainer("gin-tu")`` run over ``steps`` steps of the podded
+    ogb_products ``batch``: (trainer, losses as a device tensor)."""
+    import torch
+
+    from repro_torch.runtime.factory import build_trainer
+
+    tr = build_trainer("gin-tu", _gin_train_config(
+        ckpt_dir=ckpt_dir, ckpt_every=GIN_RESUME[0]), model_cfg=cfg,
+        seed=seed, device=device)
+    if resume and not tr.resume():
+        raise AssertionError("ogb_products: no checkpoint to resume")
+    losses = [tr.train_step(batch, podded=True) for _ in range(steps)]
+    return tr, torch.stack(losses) if losses else None
+
+
+def _gin_state(tr):
+    from repro_torch import tree_map
+
+    s = tr.opt_state
+    return tree_map(lambda x: x.detach().clone(), {
+        "params": tr.params, "m": s.m, "v_local": s.v_local,
+        "v_hat": s.v_hat})
+
+
+def _trees_equal(a, b):
+    import torch
+
+    from repro_torch.checkpoint.ckpt import _flatten_with_names
+
+    fa, fb = _flatten_with_names(a), _flatten_with_names(b)
+    return fa.keys() == fb.keys() and all(
+        torch.equal(fa[k], fb[k]) for k in fa)
+
+
+def phase_gin_ogb(device, g):
+    """Phase 18 (b) and 19 (b)'s ogb_products part: ``GIN_STEPS`` full-batch
+    steps at gin-tu's MODEL with ogb_products' width 100 and 47 classes,
+    the graph staged on the card once and passed to both pods as expanded
+    views.  The last four are timed: two by wall, one by part and one
+    under the profiler; the last of all is the first merge, so every timed
+    step is one whose loss is checked.  Three steps after the merge are
+    reported, not checked (``GIN_K``).  Then a second run that saves at
+    step 10, is dropped after step 13 and is resumed in a fresh trainer:
+    every loss and the state after step ``GIN_STEPS`` bit-equal to the
+    first run.  Returns (launches, cell)."""
+    import torch
+
+    from repro_torch.kernels import ops
+
+    t0 = time.perf_counter()
+    cfg = _gin_model(d_in=100, n_classes=47)
+    on = lambda a: torch.from_numpy(a).to(device)      # noqa: E731
+    one = {"x": on(g.x), "edge_src": on(g.edge_src),
+           "edge_dst": on(g.edge_dst), "labels": on(g.labels)}
+    batch = {k: v.expand((2,) + tuple(v.shape)) for k, v in one.items()}
+    staged = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t1 = time.perf_counter()
+    n_run = GIN_STEPS - 4
+    tr, losses = _gin_ogb_run(device, batch, cfg, n_run)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    walls, timed = [], []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        timed.append(tr.train_step(batch, podded=True))
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t1)
+    parts, last = _gin_breakdown(tr, batch)
+    launches = dict(ops.launches)
+    every = torch.cat([losses, torch.stack(timed), last]).cpu().numpy()
+    _gin_loss_check("ogb_products", every, GIN_STEPS)
+    _gin_launches_check("ogb_products", launches,
+                        _gin_want(cfg, 2, GIN_STEPS, GIN_K))
+    final = _gin_state(tr)
+    after = torch.stack([tr.train_step(batch, podded=True)
+                         for _ in range(3)]).cpu().numpy()
+    print(f"phase 18 (b): ogb_products, gin-tu MODEL at width 100, 47 "
+          f"classes, {g.x.shape[0]} nodes, {g.edge_src.size} edges, n_pod 2 "
+          f"(one copy of the graph, expanded), k {GIN_K}, two_phase, lr 1e-3:"
+          f" steps 1-{n_run} in {wall:.2f} s ({wall / n_run * 1e3:.1f} ms a "
+          f"step, the graph staged in {staged:.2f} s), steps {n_run + 1}-"
+          f"{GIN_STEPS} timed as below; losses {every[0]:.6f} -> "
+          f"{every[-1]:.6f} (all {GIN_STEPS} finite); peak device memory "
+          f"{peak:.2f} GB; launches in the {GIN_STEPS} steps: kernel 1 "
+          f"{launches['embedding_bag']}, 1b "
+          f"{launches['embedding_bag_backward']}, 6 {launches['fused_adam']},"
+          " every other 0")
+    print(f"  train_step wall (synchronized, steps {n_run + 1}-{n_run + 2}): "
+          f"{np.mean(walls) * 1e3:.2f} ms mean; after the first merge (step "
+          f"{GIN_STEPS}, not gated), steps {GIN_STEPS + 1}-{GIN_STEPS + 3}'s "
+          f"losses: " + ", ".join(f"{x:.6g}" for x in after))
+    del tr
+    _release()
+    # ---- phase 19 (b), DenseTrainer at full width: the second run
+    ckpt = PHASE19_CKPT / "ogb_products"
+    save_at, stop = GIN_RESUME
+    t1 = time.perf_counter()
+    tr, first = _gin_ogb_run(device, batch, cfg, stop, ckpt_dir=str(ckpt))
+    tr.ckpt.wait()
+    del tr
+    _release()
+    tr, rest = _gin_ogb_run(device, batch, cfg, GIN_STEPS - save_at,
+                            ckpt_dir=str(ckpt), seed=1, resume=True)
+    tr.ckpt.wait()
+    again = torch.cat([first, rest]).cpu().numpy()
+    if not (np.array_equal(again[:stop], every[:stop])
+            and np.array_equal(again[stop:], every[save_at:])):
+        raise AssertionError("ogb_products: the second run or the resumed "
+                             "one differs from the first")
+    if not _trees_equal(_gin_state(tr), final):
+        raise AssertionError("ogb_products: the resumed state differs")
+    print(f"phase 19 (b): ogb_products DenseTrainer, a second run saved at "
+          f"step {save_at}, dropped after step {stop}, resumed in a fresh "
+          f"trainer (another seed) and run to step {GIN_STEPS}: steps 1-"
+          f"{stop} and {save_at + 1}-{GIN_STEPS} bit-equal to the first run, "
+          f"params, m, v_local and v_hat too ({time.perf_counter() - t1:.1f}"
+          " s)")
+    del tr, batch, one
+    _release()
+    print(f"phase 18 (b) took {time.perf_counter() - t0:.1f} s")
+    return launches, {"ms_a_step": wall / n_run * 1e3, "peak_gb": peak,
+                      "parts_ms": parts}
+
+
+def phase_gin_minibatch(device, lg, blocks):
+    """Phase 18 (c): ``GIN_STEPS`` steps of minibatch_lg through the
+    ported sampler's blocks (1024 seeds, fanouts 15 and 10; x gathered on
+    the host), n_pod 1, k 1; returns the launches."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.runtime.factory import build_trainer
+
+    t0 = time.perf_counter()
+    d = _gin_dims("minibatch_lg")
+    cfg = _gin_model(d_in=d["d_feat"], n_classes=d["n_classes"])
+    tr = build_trainer("gin-tu", _gin_train_config(n_pod=1, k=1),
+                       model_cfg=cfg, device=device)
+    x = torch.from_numpy(lg.x)
+    labels = torch.from_numpy(lg.labels)
+    ops.reset_launches()
+    losses, host = [], 0.0
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for blk in blocks:
+        th = time.perf_counter()
+        nodes = torch.from_numpy(blk["nodes"]).long()
+        batch = {"x": x.index_select(0, nodes),
+                 "edge_src": blk["edge_src"], "edge_dst": blk["edge_dst"],
+                 "edge_mask": blk["edge_mask"],
+                 "labels": labels.index_select(0, nodes),
+                 "node_mask": blk["seed_mask"]}
+        host += time.perf_counter() - th
+        losses.append(tr.train_step(batch))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    launches = dict(ops.launches)
+    every = torch.stack(losses).cpu().numpy()
+    _gin_loss_check("minibatch_lg", every, GIN_STEPS)
+    _gin_launches_check("minibatch_lg", launches,
+                        _gin_want(cfg, 1, GIN_STEPS, 1))
+    real = [int(b["n_real_nodes"]) for b in blocks]
+    pads = [int(b["edge_mask"].size - b["edge_mask"].sum()) for b in blocks]
+    print(f"phase 18 (c): minibatch_lg, gin-tu MODEL at width 602, 41 "
+          f"classes, {lg.x.shape[0]} nodes, {lg.edge_src.size} edges; blocks "
+          f"of {blocks[0]['nodes'].size} nodes (real {min(real)}-{max(real)})"
+          f" and {blocks[0]['edge_src'].size} edges ({min(pads)}-{max(pads)} "
+          f"padded, all on node 0); n_pod 1, k 1: {GIN_STEPS} steps in "
+          f"{wall:.2f} s ({wall / GIN_STEPS * 1e3:.1f} ms a step, of which "
+          f"{host / GIN_STEPS * 1e3:.1f} ms the host's x[nodes] gather); "
+          f"losses {every[0]:.6f} -> {every[-1]:.6f} (all finite); launches:"
+          f" kernel 1 {launches['embedding_bag']}, 1b "
+          f"{launches['embedding_bag_backward']}, every other 0 "
+          f"({time.perf_counter() - t0:.1f} s)")
+    del tr
+    _release()
+    return launches
+
+
+def phase_gin_small(device, cora):
+    """Phase 18 (d): full_graph_sm at gin-tu's own MODEL (width 1433, 7
+    classes) and the molecule cell with graph readout (podded batches from
+    per-worker streams), ``GIN_STEPS`` steps each at the launcher's
+    settings; returns {cell: launches}."""
+    import torch
+
+    from repro_torch.data.synthetic import molecule_batches
+    from repro_torch.kernels import ops
+    from repro_torch.runtime.factory import build_trainer
+
+    t0 = time.perf_counter()
+    out = {}
+    cfg = _gin_model()
+    on = lambda a: torch.from_numpy(a).to(device)      # noqa: E731
+    batch = {k: on(v).expand((2,) + v.shape) for k, v in (
+        ("x", cora.x), ("edge_src", cora.edge_src),
+        ("edge_dst", cora.edge_dst), ("labels", cora.labels))}
+    d = _gin_dims("molecule")
+    mcfg = _gin_model(d_in=d["d_feat"], n_classes=d["n_classes"],
+                      readout="graph")
+    streams = [molecule_batches(0, d["batch"], d["n_nodes"], d["n_edges"],
+                                d["d_feat"], d["n_classes"], worker=i)
+               for i in range(2)]
+    mol = [_podded_draws(streams) for _ in range(GIN_STEPS)]
+    for name, c, batches, readout in (
+            ("full_graph_sm", cfg, [batch] * GIN_STEPS, False),
+            ("molecule", mcfg, mol, True)):
+        tr = build_trainer("gin-tu", _gin_train_config(), model_cfg=c,
+                           device=device)
+        ops.reset_launches()
+        t1 = time.perf_counter()
+        losses = torch.stack([tr.train_step(b, podded=True)
+                              for b in batches])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        launches = dict(ops.launches)
+        every = losses.cpu().numpy()
+        _gin_loss_check(name, every, GIN_STEPS)
+        _gin_launches_check(name, launches,
+                            _gin_want(c, 2, GIN_STEPS, GIN_K, readout))
+        print(f"phase 18 (d): {name} (width {c.d_in}, {c.n_classes} classes,"
+              f" {c.readout} readout), n_pod 2, k {GIN_K}: {GIN_STEPS} steps,"
+              f" {wall / GIN_STEPS * 1e3:.2f} ms a step; losses "
+              f"{every[0]:.6f} -> {every[-1]:.6f} (all finite); launches: "
+              f"kernel 1 {launches['embedding_bag']}, 1b "
+              f"{launches['embedding_bag_backward']}, 6 "
+              f"{launches['fused_adam']}, every other 0")
+        out[name] = launches
+        del tr
+    print(f"phase 18 (d) took {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def phase_gin_smoke(device):
+    """Phase 18 (e): gin-tu's smoke config, card against CPU from one
+    state, ``GIN_SMOKE_STEPS`` steps at n_pod 2, k 2, lr 1e-4, node readout
+    on a community graph and graph readout on molecule batches: losses
+    and parameters within rtol 1e-4, atol 1e-6."""
+    import torch
+
+    from repro_torch import configs, tree_map
+    from repro_torch.core.kstep import KStepConfig, leaves
+    from repro_torch.data.synthetic import community_graph, molecule_batches
+    from repro_torch.models import gin as G
+    from repro_torch.runtime.trainer import DenseTrainer, TrainerConfig
+
+    smoke = configs.get("gin-tu").smoke_cfg
+    g = community_graph(7, 500, 6, smoke.d_in, smoke.n_classes)
+    node = {k: np.stack([v] * 2) for k, v in (
+        ("x", g.x), ("edge_src", g.edge_src), ("edge_dst", g.edge_dst),
+        ("labels", g.labels))}
+    streams = [molecule_batches(3, 16, 10, 20, smoke.d_in, smoke.n_classes,
+                                worker=i) for i in range(2)]
+    mol = [_podded_draws(streams) for _ in range(GIN_SMOKE_STEPS)]
+    for name, cfg, batches in (
+            ("node readout", smoke, [node] * GIN_SMOKE_STEPS),
+            ("graph readout", dataclasses.replace(smoke, readout="graph"),
+             mol)):
+        params = G.init_params(torch.Generator().manual_seed(3), cfg,
+                               device="cpu")
+        out = []
+        for dev in (device, "cpu"):
+            tr = DenseTrainer(
+                lambda p, b, c=cfg: G.loss_fn(p, b, c),
+                tree_map(lambda x: x.to(dev, copy=True), params),
+                TrainerConfig(n_pod=2, kstep=KStepConfig(lr=1e-4, k=2)),
+                device=dev)
+            losses = torch.stack([tr.train_step(b, podded=True)
+                                  for b in batches]).cpu()
+            out.append((losses, torch.cat([x.reshape(-1).cpu()
+                                           for x in leaves(tr.params)])))
+        diffs = []
+        for what, a, b in zip(("losses", "params"), *out):
+            np.testing.assert_allclose(a.numpy(), b.numpy(), err_msg=name,
+                                       **GIN_TOL)
+            diffs.append(f"{what} {np.abs(a.numpy() - b.numpy()).max():.3g}")
+        print(f"phase 18 (e): gin-tu smoke, {name}, {GIN_SMOKE_STEPS} steps "
+              f"card vs CPU from one state: max |diff| {', '.join(diffs)} "
+              "(rtol 1e-4, atol 1e-6)")
+
+
+def phase_gin_example(device):
+    """Phase 18 (f): ``examples/train_gin.py``'s two regimes on the card
+    from its initial weights (``GIN_FIXTURE``): full-graph accuracy above
+    0.5 after 60 steps, minibatch above 0.4 after 80 (the example's
+    bars)."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.checkpoint.ckpt import map_with_names
+    from repro_torch.core.kstep import KStepConfig, pod_slice
+    from repro_torch.data.graph_sampler import NeighborSampler
+    from repro_torch.data.synthetic import community_graph
+    from repro_torch.models import gin as G
+    from repro_torch.runtime.trainer import DenseTrainer, TrainerConfig
+
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(configs.get("gin-tu").smoke_cfg, d_in=32,
+                              n_classes=5)
+    like = G.init_params(torch.Generator(device).manual_seed(0), cfg,
+                         device=device)
+    with np.load(GIN_FIXTURE) as data:
+        init = map_with_names(
+            lambda n, _: torch.from_numpy(data[n]).to(device), like)
+
+    def accuracy(tr, g):
+        with torch.no_grad():
+            logits = G.forward(pod_slice(tr.params, 0),
+                               *(torch.from_numpy(a).to(device) for a in (
+                                   g.x, g.edge_src, g.edge_dst)), cfg)
+        return float((logits.argmax(-1).cpu().numpy() == g.labels).mean())
+
+    loss_fn = lambda p, b: G.loss_fn(p, b, cfg)        # noqa: E731
+    full_steps, mb_steps = GIN_EXAMPLE_STEPS
+    g = community_graph(0, 2000, 8, 32, 5)
+    tr = DenseTrainer(loss_fn, init, TrainerConfig(n_pod=2, kstep=KStepConfig(
+        lr=3e-3, k=5, b1=0.9)), device=device)
+    batch = {k: np.stack([v] * 2) for k, v in (
+        ("x", g.x), ("edge_src", g.edge_src), ("edge_dst", g.edge_dst),
+        ("labels", g.labels))}
+    for _ in range(full_steps):
+        tr.train_step(batch, podded=True)
+    full = accuracy(tr, g)
+    g = community_graph(1, 5000, 10, 32, 5)
+    sampler = NeighborSampler(5000, g.edge_src.astype(np.int64),
+                              g.edge_dst.astype(np.int64))
+    rng = np.random.default_rng(0)
+    tr = DenseTrainer(loss_fn, init, TrainerConfig(n_pod=1, kstep=KStepConfig(
+        lr=3e-3, k=1, b1=0.9)), device=device)
+    for _ in range(mb_steps):
+        seeds = rng.choice(5000, 128, replace=False)
+        blk = sampler.sample_block(rng, seeds, fanouts=(8, 5))
+        tr.train_step({"x": g.x[blk["nodes"]], "edge_src": blk["edge_src"],
+                       "edge_dst": blk["edge_dst"],
+                       "edge_mask": blk["edge_mask"],
+                       "labels": g.labels[blk["nodes"]],
+                       "node_mask": blk["seed_mask"]})
+    mb = accuracy(tr, g)
+    if not (full > 0.5 and mb > 0.4):
+        raise AssertionError(f"the example's bars: full graph {full}, "
+                             f"minibatch {mb}")
+    print(f"phase 18 (f): examples/train_gin.py on the card from its "
+          f"initial weights: full-graph accuracy {full:.4f} after "
+          f"{full_steps} steps (bar 0.5), minibatch {mb:.4f} after {mb_steps}"
+          f" (bar 0.4) ({time.perf_counter() - t0:.1f} s)")
+
+
+# ---------------------------------------------------- phase 19: checkpoints
+PHASE19_CKPT = ROOT / "build" / "phase19_ckpt"
+CKPT_STEPS = 10            # phase 19 (a): DIN steps
+CKPT_EVERY = 5
+CKPT_STOP = 7              # the run dropped after this step
+
+
+def _hybrid_state(tr):
+    """A HybridTrainer's trained state, cloned (the DiskStore synced and
+    its rows read back)."""
+    import torch
+
+    from repro_torch import tree_map
+
+    eng = tr.engine
+    s = tr.opt_state
+    out = {"dense": tr.dense, "m": s.m, "v_local": s.v_local,
+           "v_hat": s.v_hat, "bstate": {n: tuple(v) for n, v in
+                                        tr.backend_state.items()}}
+    if eng.store.kind == "disk":
+        eng.sync_store(tr.tables, tr.sparse_state.accum, tr.backend_state)
+        for n, spec in eng.specs.items():
+            rows, acc = eng.store.gather(n, np.arange(spec.rows,
+                                                      dtype=np.int64))
+            out[f"rows_{n}"] = torch.from_numpy(rows)
+            out[f"accum_{n}"] = torch.from_numpy(acc)
+    else:
+        out["tables"], out["accum"] = tr.tables, tr.sparse_state.accum
+    return tree_map(lambda x: x.detach().clone(), out)
+
+
+def _crash_resume(make, batches, save_at, stop, ckpt, timed=False):
+    """An uninterrupted run over ``batches``; a run with checkpoints every
+    ``save_at`` steps in ``ckpt``, dropped after step ``stop``; a fresh
+    trainer that resumes and replays the rest.  Raises unless every
+    replayed loss and the final state are bit-equal to the uninterrupted
+    run's.  Returns the save's timing when ``timed``."""
+    import torch
+
+    ref = make(None)
+    want = torch.stack([ref.train_step(b) for b in batches]).cpu().numpy()
+    state = _hybrid_state(ref)
+    ref.close()
+    del ref
+    _release()
+    tr = make(ckpt)
+    saves = []
+    if timed:
+        save = tr.save
+
+        def timed_save():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            save()
+            t1 = time.perf_counter()
+            tr.ckpt.wait()
+            saves.append((t1 - t0, time.perf_counter() - t0))
+
+        tr.save = timed_save
+    for b in batches[:stop]:
+        tr.train_step(b)
+    tr.ckpt.wait()
+    tr.close()
+    del tr
+    _release()
+    tr = make(ckpt, seed=9)
+    if not tr.resume() or tr.step_num != save_at:
+        raise AssertionError(f"no resume at step {save_at}")
+    got = torch.stack([tr.train_step(b) for b in batches[save_at:]])
+    got = got.cpu().numpy()
+    if not np.array_equal(got, want[save_at:]):
+        raise AssertionError(f"replayed losses {got} differ from {want}")
+    if not _trees_equal(_hybrid_state(tr), state):
+        raise AssertionError("the resumed state differs")
+    tr.close()
+    del tr
+    _release()
+    return want, saves
+
+
+def phase_checkpoints(device, din_batches):
+    """Phase 19 (a): DIN at the published widths (2 M items, gather,
+    capacity 2^20, the launcher's settings) for ``CKPT_STEPS`` steps with
+    ``ckpt_every`` ``CKPT_EVERY`` and the async writer: dropped after step
+    ``CKPT_STOP``, resumed in a fresh trainer and replayed; losses,
+    tables, accumulators, dense and moments bit-equal to an uninterrupted
+    run.  (b) the same at smoke size on the cached placement and on the
+    DiskStore.  Checkpoints under ``PHASE19_CKPT``, deleted at the end."""
+    import shutil
+
+    from repro_torch import configs
+    from repro_torch.core.kstep import KStepConfig
+    from repro_torch.core.sparse_optim import SparseAdagradConfig
+    from repro_torch.data.synthetic import recsys_batches
+    from repro_torch.runtime.factory import build_trainer
+    from repro_torch.runtime.trainer import TrainerConfig
+
+    t0 = time.perf_counter()
+    mcfg = _a9_cfg("din")
+
+    def din(ckpt, seed=0):
+        return build_trainer("din", _a9_train_config(
+            placement="gather", capacity=A9_CAPACITY,
+            ckpt_dir=None if ckpt is None else str(ckpt),
+            ckpt_every=CKPT_EVERY), smoke=False, model_cfg=mcfg, seed=seed,
+            device=device)
+
+    ckpt = PHASE19_CKPT / "din"
+    losses, saves = _crash_resume(din, din_batches[:CKPT_STEPS], CKPT_EVERY,
+                                  CKPT_STOP, ckpt, timed=True)
+    npz = ckpt / f"step_{CKPT_EVERY:010d}" / "arrays_proc0.npz"
+    nbytes = npz.stat().st_size
+    print(f"phase 19 (a): din at the published widths ({mcfg}), batch "
+          f"{A9_BATCH}, gather, capacity {A9_CAPACITY}: {CKPT_STEPS} steps "
+          f"uninterrupted (losses {losses[0]:.6f} -> {losses[-1]:.6f}); a run"
+          f" with ckpt_every {CKPT_EVERY} (async writer) dropped after step "
+          f"{CKPT_STOP}, resumed in a fresh trainer (another seed) at step "
+          f"{CKPT_EVERY} and replayed to {CKPT_STEPS}: losses, tables, "
+          f"accumulators, dense and moments bit-equal; a save: "
+          f"{saves[0][0] * 1e3:.1f} ms blocking (the host copy), "
+          f"{saves[0][1] * 1e3:.1f} ms until the writer landed it, "
+          f"{nbytes / 1e9:.3f} GB of arrays ({time.perf_counter() - t0:.1f} "
+          "s)")
+    smoke = configs.get("baidu-ctr").smoke_cfg
+    batches = [b for b, _ in zip(recsys_batches(smoke, batch=48, seed=1),
+                                 range(6))]
+    for placement, store in (("cached", "host"), ("gather", "disk")):
+        spill = PHASE19_CKPT / f"spill_{placement}"
+
+        def ctr(ckpt, seed=4, placement=placement, store=store):
+            return build_trainer("baidu-ctr", TrainerConfig(
+                n_pod=2, kstep=KStepConfig(lr=1e-3, k=2, merge="two_phase"),
+                sparse=SparseAdagradConfig(lr=0.5, initial_accumulator=0.01),
+                placement=placement, capacity=1024,
+                cache_rows=1024 if placement == "cached" else None,
+                store=store,
+                spill_dir=(str(spill / ("run" if ckpt else "ref"))
+                           if store == "disk" else None),
+                page_rows=256 if store == "disk" else None,
+                ckpt_dir=None if ckpt is None else str(ckpt), ckpt_every=3),
+                seed=seed, device=device)
+
+        _crash_resume(ctr, batches, 3, 4, PHASE19_CKPT / f"{placement}_"
+                      f"{store}")
+        print(f"phase 19 (b): baidu-ctr smoke, {placement} placement, {store}"
+              " store: saved at step 3, dropped after 4, resumed and "
+              "replayed to 6: losses and state bit-equal")
+    shutil.rmtree(PHASE19_CKPT, ignore_errors=True)
+
+
 def main() -> int:
     import torch
 
@@ -7092,6 +8055,7 @@ def main() -> int:
     _release()
     t17 = time.perf_counter()
     streams = _a9_stream_ahead()
+    gin = _gin_stream_ahead()
     a9 = phase_a9_kernels(device)
     for entry in (bag, backward, push):
         entry.update(a9[entry["name"]])
@@ -7108,6 +8072,36 @@ def main() -> int:
                for a in A9_ARCHS):
         raise AssertionError("a kernel of the A9 path ran no time")
     print(f"phase 17 took {time.perf_counter() - t17:.1f} s")
+    _release()
+    t18 = time.perf_counter()
+    graphs = {k: f.result() for k, f in gin.items()}
+    print(f"phase 18: the GIN graphs ready {time.perf_counter() - t18:.1f} s "
+          "after phase 17")
+    kernels18 = phase_gin_kernels(device, graphs)
+    for entry in (bag, backward):
+        entry["gin"] = kernels18[entry["name"]]
+    cells = {}
+    cells["ogb_products"], cell = phase_gin_ogb(device,
+                                                graphs["ogb_products"])
+    adam["gin_ogb_products"] = cell
+    cells["minibatch_lg"] = phase_gin_minibatch(device,
+                                                *graphs["minibatch_lg"])
+    cells.update(phase_gin_small(device, graphs["full_graph_sm"]))
+    for entry in (bag, backward, adam):
+        entry["launches_gin"] = {c: n[entry["name"]] for c, n in cells.items()}
+    if not all(e["launches_gin"][c] for e in (bag, backward) for c in cells):
+        raise AssertionError("a kernel of the GIN path ran no time")
+    phase_gin_smoke(device)
+    phase_gin_example(device)
+    del graphs
+    _release()
+    print(f"phase 18 took {time.perf_counter() - t18:.1f} s")
+    t19 = time.perf_counter()
+    phase_checkpoints(device, streams["din"].result())
+    del streams
+    _release()
+    print(f"phase 19 took {time.perf_counter() - t19:.1f} s; phases 18 and 19"
+          f" {time.perf_counter() - t18:.1f} s")
     print(json.dumps({"kernels": [bag, backward, push] + cache_entries
                       + [staged, adam, dot, dot_bwd, flash, flash_bwd]}))
     print(json.dumps({"ok": True, "device": {

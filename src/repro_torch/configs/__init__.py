@@ -21,6 +21,7 @@ _MODULES = {
     "din": "repro_torch.configs.din",
     "dien": "repro_torch.configs.dien",
     "two-tower-retrieval": "repro_torch.configs.two_tower",
+    "gin-tu": "repro_torch.configs.gin_tu",
 }
 
 

@@ -11,13 +11,14 @@ their seed; different worker shards draw i.i.d. slices (paper §2.3: "the
 streamed data for different nodes are in an i.i.d. distribution").
 
 A copy of ``repro/data/synthetic.py``'s CTR, DLRM, DIN, two-tower and LM
-streams: the same seed gives byte-identical batches, so the port and the
-reference see the same inputs.  ``recsys_batches`` picks the stream for a
-model config.
+streams and its graphs (``community_graph``, ``molecule_batches``): the
+same seed gives byte-identical batches, so the port and the reference see
+the same inputs.  ``recsys_batches`` picks the stream for a model config.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, Iterator
 
 import numpy as np
@@ -187,4 +188,66 @@ def lm_batches(
         yield {
             "tokens": toks[:, :-1].astype(np.int32),
             "labels": toks[:, 1:].astype(np.int32),
+        }
+
+
+# ------------------------------------------------------------------ graphs
+@dataclasses.dataclass
+class SyntheticGraph:
+    x: np.ndarray          # (N, F)
+    edge_src: np.ndarray   # (E,)
+    edge_dst: np.ndarray   # (E,)
+    labels: np.ndarray     # (N,)
+
+
+def community_graph(
+    seed: int, n_nodes: int, avg_degree: int, d_feat: int, n_classes: int,
+) -> SyntheticGraph:
+    """SBM-ish graph: intra-community edges dominate; features = noisy class
+    prototypes, so a GNN can actually learn the labels."""
+    rng = np.random.default_rng(seed)
+    labels = rng.integers(0, n_classes, (n_nodes,))
+    n_edges = n_nodes * avg_degree
+    src = rng.integers(0, n_nodes, (n_edges,))
+    same = rng.random(n_edges) < 0.8
+    # intra-community partner: another random node of the same class
+    perm = np.argsort(labels, kind="stable")
+    class_start = np.searchsorted(labels[perm], np.arange(n_classes))
+    class_count = np.bincount(labels, minlength=n_classes)
+    rnd = rng.integers(0, 1 << 31, (n_edges,))
+    intra = perm[(class_start[labels[src]] + rnd % np.maximum(class_count[labels[src]], 1))]
+    inter = rng.integers(0, n_nodes, (n_edges,))
+    dst = np.where(same, intra, inter)
+    protos = rng.standard_normal((n_classes, d_feat)).astype(np.float32)
+    x = protos[labels] + 1.5 * rng.standard_normal((n_nodes, d_feat)).astype(np.float32)
+    return SyntheticGraph(
+        x=x, edge_src=src.astype(np.int32), edge_dst=dst.astype(np.int32),
+        labels=labels.astype(np.int32),
+    )
+
+
+def molecule_batches(
+    seed: int, batch: int, n_nodes: int, n_edges: int, d_feat: int,
+    n_classes: int, worker: int = 0,
+) -> Iterator[Dict[str, np.ndarray]]:
+    """Batched disjoint small graphs with graph-level labels."""
+    rng = np.random.default_rng(seed + worker * 1_000_003)
+    while True:
+        xs, srcs, dsts, gids, ys = [], [], [], [], []
+        for g in range(batch):
+            label = rng.integers(0, n_classes)
+            x = rng.standard_normal((n_nodes, d_feat)).astype(np.float32) + label
+            src = rng.integers(0, n_nodes, (n_edges,))
+            dst = rng.integers(0, n_nodes, (n_edges,))
+            xs.append(x)
+            srcs.append(src + g * n_nodes)
+            dsts.append(dst + g * n_nodes)
+            gids.append(np.full((n_nodes,), g))
+            ys.append(label)
+        yield {
+            "x": np.concatenate(xs, 0),
+            "edge_src": np.concatenate(srcs, 0).astype(np.int32),
+            "edge_dst": np.concatenate(dsts, 0).astype(np.int32),
+            "graph_ids": np.concatenate(gids, 0).astype(np.int32),
+            "labels": np.asarray(ys, np.int32),
         }

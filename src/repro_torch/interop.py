@@ -8,7 +8,8 @@ cached placement, ``tr.backend_state``), go through ``from_reference`` and
 into ``HybridTrainer(..., state=...)``.  Under the DiskStore,
 ``from_reference`` writes the full tables and accumulators into the
 store's pages, so both packages start from one state on disk.  The LM's
-parameter tree goes through ``lm_from_reference`` and its KV cache through
+parameter tree goes through ``lm_from_reference`` (GIN's too: the same
+keys and layouts) and its KV cache through
 ``lm_cache_from_reference`` (``lm_cache_to_reference`` is the inverse, for
 comparisons); a reference ``DenseTrainer``'s podded parameters and k-step
 Adam state through ``dense_trainer_from_reference``.  This module reads
@@ -120,7 +121,9 @@ def _leaf_from_numpy(x, device) -> torch.Tensor:
 def lm_from_reference(params_np, device="cuda"):
     """The reference LM's parameter tree (``repro.models.transformer``,
     numpy after ``jax.device_get``) as the port's tree on ``device``: the
-    same keys and layouts, every leaf bit for bit."""
+    same keys and layouts, every leaf bit for bit.  GIN's tree
+    (``repro.models.gin``: ``eps``, ``layers`` of ``w1``, ``b1``, ``w2``,
+    ``b2``, and ``out``) loads the same way."""
     device = resolve_device(device)
     return tree_map(lambda x: _leaf_from_numpy(x, device), params_np)
 

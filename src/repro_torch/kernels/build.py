@@ -21,6 +21,12 @@ _CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 _REPO = pathlib.Path(__file__).resolve().parents[3]
 BUILD_DIR = _REPO / "build" / "torch_kernels"
 CUDA_FLAGS = ["-O3", "-gencode=arch=compute_90a,code=sm_90a"]
+# The shared C++ runtime, named before the compiler's own ``-lstdc++``:
+# where that resolves to the static archive, it copies the runtime into the
+# module, and the copy's stream and locale state is not the process's, so
+# building the message of a failed ``TORCH_CHECK`` crashes instead of
+# raising.
+LDFLAGS = ["-l:libstdc++.so.6"]
 SOURCES = ("bindings.cpp", "bind_embedding_bag.cpp", "bind_sparse.cpp",
            "bind_dense.cpp", "embedding_bag.cu", "sparse_adagrad.cu",
            "hash_map.cu", "fused_adam.cu", "dot_interaction.cu",
@@ -43,6 +49,7 @@ def extension():
             build_directory=str(BUILD_DIR),
             extra_cflags=["-O3"],
             extra_cuda_cflags=CUDA_FLAGS,
+            extra_ldflags=LDFLAGS,
             verbose=False,
         )
     return _ext

@@ -12,6 +12,7 @@ namespace py = pybind11;
 using namespace repro_bind;
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
+  m.attr("max_bag_dim") = py::int_(kMaxBagDim);
   m.def("embedding_bag_forward", &embedding_bag_forward,
         "Embedding bag from inv and seg in one call, or its index streams "
         "alone (CUDA)", py::arg("working"), py::arg("inv"), py::arg("seg"),

@@ -106,8 +106,13 @@ inline void check_cuda(const at::Tensor& t, const char* name,
   TORCH_CHECK(t.is_contiguous(), name, " must be contiguous");
 }
 
+// The bag's widest row: 32 column tiles of 256 (embedding_bag.cu's
+// kTileCols; the scratch holds a counter for each tile).
+inline constexpr int64_t kMaxBagDim = 8192;
+
 inline void check_dim(int64_t dim) {
-  TORCH_CHECK(dim >= 1 && dim <= 256, "dim must lie in [1, 256], got ", dim);
+  TORCH_CHECK(dim >= 1 && dim <= kMaxBagDim, "dim must lie in [1, ",
+              kMaxBagDim, "], got ", dim);
 }
 
 inline void check_rows(int64_t rows, const char* what) {

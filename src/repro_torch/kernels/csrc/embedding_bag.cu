@@ -63,7 +63,14 @@
 //     streams' stable order), with __fmul_rn/__fadd_rn so that no
 //     multiply-add is contracted: the sum is bit-equal to the sequential
 //     CPU segment sum, and two runs give equal bits (no atomics);
-//   - every bag row is written, an empty bag as zeros.
+//   - every bag row is written, an empty bag as zeros;
+//   - a row wider than kTileCols = 256 columns (GIN's input widths, 602 and
+//     1433) is added in column tiles of at most 256, one walk launch a tile
+//     on the one set of streams, each tile reading its columns of the rows
+//     at the row stride; each tile picks its own instantiation, so the
+//     float4 path needs the stride and the tile's first column aligned, not
+//     just its width.  The tiles of a bag add its entries in the same
+//     order, so every column has the bits one wide launch would give.
 //
 // Design of g_work.  Every working row adds its entries in ascending
 // original position, acc = __fadd_rn(acc, __fmul_rn(g[seg[j], c], w[j]))
@@ -127,7 +134,10 @@
 //   - an entry whose segment lies outside [0, num_bags) adds a zero
 //     (multiplied by its weight), as the plain vjp does;
 //   - every working row is written exactly once, by its adds, or by the
-//     memset when it has no entries (pads, the drop row).
+//     memset when it has no entries (pads, the drop row);
+//   - past 256 columns the long and the short rows' kernels run once a
+//     column tile, as the walk does, on the one set of streams and row
+//     lists, each tile with its own next-item counter.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -177,10 +187,17 @@ __device__ __forceinline__ void wait_for_prior() {
 constexpr int kWarp = 32;
 constexpr int kRowsPerBlock = 8;
 
+// The widest column tile a walk or a backward launch adds; a wider row is
+// added tile by tile on the same index streams, each tile's own launch.
+// kMaxBagDim in bindings.h caps dim at kTileCols times the tiles' counters
+// that the scratch holds.
+constexpr int kTileCols = 256;
+
 // The forward's walk: a group of kLanes lanes (a power of two) adds one
 // bag, lane l of the group the columns (v * kLanes + l) * kW + [0, kW) for
-// v < kVecs, kW floats a load (4: float4, where dim and the pointers allow
-// it; else 1).  Bag b's entries are inv_sorted / w_sorted [offsets[b],
+// v < kVecs, kW floats a load (4: float4, where dim, ld and the pointers
+// allow it; else 1).  dim is the width of one column tile, ld the row
+// stride of working and out (both start at the tile's first column).  Bag b's entries are inv_sorted / w_sorted [offsets[b],
 // offsets[b + 1]).  The groups are persistent: group g walks the bags g,
 // g + stride, ..., and while one bag's rows load, the next bag's first
 // kLanes (row, weight) pairs and the bounds of the bag after it load too,
@@ -189,6 +206,7 @@ constexpr int kRowsPerBlock = 8;
 template <int kLanes, int kVecs, int kW>
 __global__ void __launch_bounds__(kRowsPerBlock * kWarp)
 embedding_bag_walk_kernel(const float* __restrict__ working, int dim,
+                          int64_t ld,
                           const int32_t* __restrict__ inv_sorted,
                           const float* __restrict__ w_sorted,
                           const int64_t* __restrict__ offsets, int num_bags,
@@ -268,7 +286,7 @@ embedding_bag_walk_kernel(const float* __restrict__ working, int dim,
               __shfl_sync(0xffffffffu, my_row, (t0 + t) % kLanes, kLanes);
           const bool ok = t0 + t < m && base + t0 + t < n;
           ok_mask |= static_cast<unsigned>(ok) << t;
-          const float* src = working + row * dim;
+          const float* src = working + row * ld;
 #pragma unroll
           for (int v = 0; v < kVecs; ++v) {
             const int c = (v * kLanes + sub) * kW;
@@ -303,7 +321,7 @@ embedding_bag_walk_kernel(const float* __restrict__ working, int dim,
       }
     }
     if (bag < num_bags) {
-      float* dst = out + bag * dim;
+      float* dst = out + bag * ld;
 #pragma unroll
       for (int v = 0; v < kVecs; ++v) {
         const int c = (v * kLanes + sub) * kW;
@@ -728,13 +746,14 @@ __device__ __forceinline__ float add_stage(float acc, const float* xs,
   return acc;
 }
 
-// Columns [col0, col0 + kSlice) of g_work[r]: the entries [begin, end) of
+// Columns [col0, col0 + kSlice) of g_work[r] (of a tile dim columns wide;
+// g's rows are ld apart): the entries [begin, end) of
 // the streams sorted by working row, added in order by warp 0 from the
 // ring while the producer warps stage the next ones (g rows gathered by
 // seg, 4 B cp.async copies, kSub entries a warp instruction; an entry
 // outside g stages a zero, which is then multiplied by its weight).
 __device__ __forceinline__ void long_row_slice(
-    const float* __restrict__ g, int64_t num_bags, int dim,
+    const float* __restrict__ g, int64_t num_bags, int dim, int64_t ld,
     const int32_t* __restrict__ seg_sorted,
     const float* __restrict__ w_sorted, int64_t begin, int64_t end,
     int col0, float* __restrict__ dst, float* ring) {
@@ -798,7 +817,7 @@ __device__ __forceinline__ void long_row_slice(
       if (e < m && col < dim) {
         float* d = slot + (lane % kSlice) * kColStride + e;
         if (bt >= 0 && bt < num_bags) {
-          cp_async4(d, g + bt * dim + col);
+          cp_async4(d, g + bt * ld + col);
         } else {
           *d = 0.0f;
         }
@@ -825,13 +844,14 @@ __device__ __forceinline__ void long_row_slice(
 }
 
 // The rows of the long-row list (g_work is zeroed before): the list's
-// (row, kSlice columns) items, the very long rows' first, each block
-// taking the next item from *next_item (zeroed before) when it is done
-// with its last.  Its own launch bounds leave warp 0 the registers to read
-// ahead of its chain of adds.
+// (row, kSlice columns) items of one column tile (dim columns; g and
+// g_work start at its first column, their rows ld apart), the very long
+// rows' first, each block taking the next item from *next_item (zeroed
+// before) when it is done with its last.  Its own launch bounds leave
+// warp 0 the registers to read ahead of its chain of adds.
 __global__ void __launch_bounds__(kRowsPerBlock * kWarp, 2)
 embedding_bag_backward_long_kernel(
-    const float* __restrict__ g, int64_t num_bags, int dim,
+    const float* __restrict__ g, int64_t num_bags, int dim, int64_t ld,
     const int32_t* __restrict__ seg_sorted,
     const float* __restrict__ w_sorted, const int64_t* __restrict__ offsets,
     const int32_t* __restrict__ long_rows, int max_long,
@@ -851,19 +871,21 @@ embedding_bag_backward_long_kernel(
     const int q = it / slices;
     const int r = long_rows[kListHead + (q < very ? q
                                          : max_long - 1 - (q - very))];
-    long_row_slice(g, num_bags, dim, seg_sorted, w_sorted, offsets[r],
+    long_row_slice(g, num_bags, dim, ld, seg_sorted, w_sorted, offsets[r],
                    offsets[r + 1], (it - q * slices) * kSlice,
-                   g_work + static_cast<int64_t>(r) * dim, ring);
+                   g_work + static_cast<int64_t>(r) * ld, ring);
     __syncthreads();  // the ring and `item` are free for the next item
   }
 }
 
 // The rows of the short-row list: warp i of the grid walks the list's rows
-// i, i + (its warps), ..., lanes across dim as in the forward.
+// i, i + (its warps), ..., lanes across the dim columns of one column tile
+// as in the forward (g and g_work start at its first column, their rows ld
+// apart).
 template <int kColsPerLane>
 __global__ void __launch_bounds__(kRowsPerBlock * kWarp, 4)
 embedding_bag_backward_kernel(
-    const float* __restrict__ g, int64_t num_bags, int dim,
+    const float* __restrict__ g, int64_t num_bags, int dim, int64_t ld,
     const int32_t* __restrict__ seg_sorted,
     const float* __restrict__ w_sorted, const int64_t* __restrict__ offsets,
     const int32_t* __restrict__ long_rows, int max_long,
@@ -917,7 +939,7 @@ embedding_bag_backward_kernel(
         const int64_t b = __shfl_sync(0xffffffffu, my_b, t0 + t);
         const bool ok = t0 + t < n && b >= 0 && b < num_bags;
         ok_mask |= static_cast<unsigned>(ok) << t;
-        const float* row = g + (ok ? b : 0) * dim;
+        const float* row = g + (ok ? b : 0) * ld;
 #pragma unroll
         for (int v = 0; v < kColsPerLane; ++v) {
           const int c = lane + v * kWarp;
@@ -940,7 +962,7 @@ embedding_bag_backward_kernel(
     }
   }
 
-  float* dst = g_work + r * dim;
+  float* dst = g_work + r * ld;
 #pragma unroll
   for (int v = 0; v < kColsPerLane; ++v) {
     const int c = lane + v * kWarp;
@@ -956,9 +978,10 @@ embedding_bag_backward_kernel(
 // The walk: as many blocks as the card holds at once (persistent groups),
 // or fewer where the bags are fewer; a programmatic dependent launch.
 template <int kLanes, int kVecs, int kW>
-void launch_walk(const float* working, int dim, const int32_t* inv_sorted,
-                 const float* w_sorted, const int64_t* offsets, int num_bags,
-                 float* out, cudaStream_t stream) {
+void launch_walk(const float* working, int dim, int64_t ld,
+                 const int32_t* inv_sorted, const float* w_sorted,
+                 const int64_t* offsets, int num_bags, float* out,
+                 cudaStream_t stream) {
   constexpr int kBagsPerBlock = kRowsPerBlock * (kWarp / kLanes);
   auto* kernel = embedding_bag_walk_kernel<kLanes, kVecs, kW>;
   static int per_sm = 0;   // an instantiation's blocks an SM holds
@@ -971,54 +994,65 @@ void launch_walk(const float* working, int dim, const int32_t* inv_sorted,
   const int blocks = needed < per_sm * sm_count() ? needed
                                                   : per_sm * sm_count();
   launch_dependent(true, kernel, blocks, kRowsPerBlock * kWarp, stream,
-                   working, dim, inv_sorted, w_sorted, offsets, num_bags,
-                   out);
+                   working, dim, ld, inv_sorted, w_sorted, offsets,
+                   num_bags, out);
 }
 
-// The walk's instantiation for dim: float4 loads where dim is a multiple of
-// 4 and both rows' bases are 16-byte aligned (kLanes lanes cover dim, at
-// most 32, then two float4 a lane), else a float a load, a warp a bag.
+// The walk over column tiles of at most kTileCols columns, one launch a
+// tile on the same streams, each tile's instantiation by its width: float4
+// loads where the tile's width and the row stride are multiples of 4 and
+// both tiles' first columns are 16-byte aligned (kLanes lanes cover the
+// tile, at most 32, then two float4 a lane), else a float a load, a warp a
+// bag.  A bag adds its entries in the same order in every tile, so each
+// column's sum is the one a single tile would give.  At dim <= kTileCols
+// this is one launch with the row stride dim.
 void walk(const float* working, int dim, const int32_t* inv_sorted,
           const float* w_sorted, const int64_t* offsets, int num_bags,
           float* out, cudaStream_t stream) {
-  const bool vec = dim % 4 == 0 &&
-                   reinterpret_cast<uintptr_t>(working) % 16 == 0 &&
-                   reinterpret_cast<uintptr_t>(out) % 16 == 0;
-  auto* run = vec ? (dim <= 16    ? &launch_walk<4, 1, 4>
-                     : dim <= 32  ? &launch_walk<8, 1, 4>
-                     : dim <= 64  ? &launch_walk<16, 1, 4>
-                     : dim <= 128 ? &launch_walk<32, 1, 4>
-                                  : &launch_walk<32, 2, 4>)
-                  : (dim <= 32    ? &launch_walk<32, 1, 1>
-                     : dim <= 64  ? &launch_walk<32, 2, 1>
-                     : dim <= 128 ? &launch_walk<32, 4, 1>
-                                  : &launch_walk<32, 8, 1>);
-  run(working, dim, inv_sorted, w_sorted, offsets, num_bags, out, stream);
+  for (int col0 = 0; col0 < dim; col0 += kTileCols) {
+    const int tw = dim - col0 < kTileCols ? dim - col0 : kTileCols;
+    const float* src = working + col0;
+    float* dst = out + col0;
+    const bool vec = tw % 4 == 0 && dim % 4 == 0 &&
+                     reinterpret_cast<uintptr_t>(src) % 16 == 0 &&
+                     reinterpret_cast<uintptr_t>(dst) % 16 == 0;
+    auto* run = vec ? (tw <= 16    ? &launch_walk<4, 1, 4>
+                       : tw <= 32  ? &launch_walk<8, 1, 4>
+                       : tw <= 64  ? &launch_walk<16, 1, 4>
+                       : tw <= 128 ? &launch_walk<32, 1, 4>
+                                   : &launch_walk<32, 2, 4>)
+                    : (tw <= 32    ? &launch_walk<32, 1, 1>
+                       : tw <= 64  ? &launch_walk<32, 2, 1>
+                       : tw <= 128 ? &launch_walk<32, 4, 1>
+                                   : &launch_walk<32, 8, 1>);
+    run(src, tw, dim, inv_sorted, w_sorted, offsets, num_bags, dst, stream);
+  }
 }
 
+// One column tile (dim columns; g and g_work start at its first column,
+// their rows ld apart) of g_work, which is zeroed before: the long rows'
+// kernel, then the short rows' beside it.  next_item is the tile's own
+// counter.
 template <int kColsPerLane>
-void launch_backward(const float* g, int64_t num_bags, int dim,
+void launch_backward(const float* g, int64_t num_bags, int dim, int64_t ld,
                      const int32_t* seg_sorted, const float* w_sorted,
                      const int64_t* offsets, const int32_t* long_rows,
-                     int max_long, int* next_item, int working_rows,
-                     float* g_work, cudaStream_t stream) {
+                     int max_long, int* next_item, float* g_work,
+                     cudaStream_t stream) {
   const int sms = sm_count();
-  cudaMemsetAsync(g_work, 0,
-                  static_cast<size_t>(working_rows) * dim * sizeof(float),
-                  stream);
   if (max_long > 0) {
     embedding_bag_backward_long_kernel<<<kLongBlocksPerSm * sms,
                                          kRowsPerBlock * kWarp, kRingBytes,
                                          stream>>>(
-        g, num_bags, dim, seg_sorted, w_sorted, offsets, long_rows,
+        g, num_bags, dim, ld, seg_sorted, w_sorted, offsets, long_rows,
         max_long, next_item, g_work);
   }
   // a programmatic dependent launch: the short rows' kernel starts while
   // the long rows' runs (its blocks wait for it only before they exit)
   launch_dependent(max_long > 0, embedding_bag_backward_kernel<kColsPerLane>,
                    kShortBlocksPerSm * sms, kRowsPerBlock * kWarp, stream, g,
-                   num_bags, dim, seg_sorted, w_sorted, offsets, long_rows,
-                   max_long, g_work);
+                   num_bags, dim, ld, seg_sorted, w_sorted, offsets,
+                   long_rows, max_long, g_work);
 }
 
 // g_w[j] = <g[seg[j]], working[inv[j]]>: one warp per entry.  Lane l adds
@@ -1067,7 +1101,8 @@ int64_t max_long_rows(int64_t nnz) { return nnz / (kLongRow + 1); }
 // in this order: vals_sorted, keys_sorted, w_sorted (weighted only),
 // offsets, the row lists (what build_streams hands the kernels and the
 // bindings hand back), then the groups' counts and fills, the counters
-// (the scan's next tile, the long rows' next item) and the scan's
+// (the scan's next tile, the long rows' next item of each column tile:
+// 64 ints, so at most 63 tiles) and the scan's
 // look-back words (these four cleared by one memset), the short groups'
 // unordered positions, and the end.
 enum Part { kVals, kKeys, kW, kOffsets, kLists, kCounts, kFill, kCounters,
@@ -1135,8 +1170,8 @@ void build_streams(const int32_t* keys, const int32_t* vals, const float* w,
 }  // namespace
 
 // The bindings check every shape before they call these: dim lies in
-// [1, 256], the row counts are positive and below 2^31.  `weights` may be
-// null (unweighted bag).
+// [1, kMaxBagDim] (bindings.h: 8192, 32 column tiles), the row counts are
+// positive and below 2^31.  `weights` may be null (unweighted bag).
 
 // The scratch bytes of the index streams of nnz entries over `groups`
 // keys; at[0..4] get the byte offsets of the streams left there:
@@ -1213,13 +1248,20 @@ cudaError_t launch_embedding_bag_backward(
     const auto* offsets = reinterpret_cast<const int64_t*>(base + at[kOffsets]);
     const auto* lists = reinterpret_cast<const int32_t*>(base + at[kLists]);
     const int max_long = static_cast<int>(max_long_rows(nnz));
+    // the counters' first int is the scan's; each tile's next item follows
     auto* next_item = reinterpret_cast<int*>(base + at[kCounters]) + 1;
-    auto* run = dim <= 32    ? &launch_backward<1>
-                : dim <= 64  ? &launch_backward<2>
-                : dim <= 128 ? &launch_backward<4>
-                             : &launch_backward<8>;
-    run(g, num_bags, dim, seg_sorted, w_sorted, offsets, lists, max_long,
-        next_item, working_rows, g_work, stream);
+    cudaMemsetAsync(g_work, 0,
+                    static_cast<size_t>(working_rows) * dim * sizeof(float),
+                    stream);
+    for (int col0 = 0; col0 < dim; col0 += kTileCols) {
+      const int tw = dim - col0 < kTileCols ? dim - col0 : kTileCols;
+      auto* run = tw <= 32    ? &launch_backward<1>
+                  : tw <= 64  ? &launch_backward<2>
+                  : tw <= 128 ? &launch_backward<4>
+                              : &launch_backward<8>;
+      run(g + col0, num_bags, tw, dim, seg_sorted, w_sorted, offsets, lists,
+          max_long, next_item + col0 / kTileCols, g_work + col0, stream);
+    }
   }
   return cudaGetLastError();
 }

@@ -27,7 +27,10 @@ streams' plain version, by a stable sort.  Entries whose ``seg`` lies
 outside [0, num_bags) fall in no bag: the forward drops them and their
 gradients are zero, as in the reference's segment sum.
 ``inv`` must index rows of ``working``; on the working-set path it does by
-construction (the drop row is the last row).
+construction (the drop row is the last row).  Rows may be as wide as the
+extension's ``max_bag_dim`` (its binding raises past it): past 256 the
+kernels run once a column tile of at most 256 on the one set of index
+streams, and every column keeps the bits of the entries' order.
 """
 
 from __future__ import annotations

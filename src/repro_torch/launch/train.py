@@ -54,6 +54,19 @@ k-step Adam with ``--k``, ``--merge``, ``--lr`` and ``--merge-delay``,
 and the final line ``final loss ... (... steps/s)``; the sparse and table
 flags do not apply to it, and ``--rows`` raises.
 
+``--arch gin-tu`` trains GIN on a ``DenseTrainer`` as the reference's
+launcher does: the smoke (or ``--full``) config with ``d_in`` 32 and 5
+classes, full-graph node classification on a ``community_graph`` of 2000
+nodes (average degree 8) stacked once per pod, ``--steps`` steps, and the
+final line ``final loss ... (... steps/s)``.  On the card its message
+passing runs as the bag's kernels.
+
+``--ckpt-dir DIR`` checkpoints every ``--ckpt-every`` steps (the
+reference's layout, written by a background thread) and, in every branch,
+resumes from the newest complete checkpoint in ``DIR`` before the loop
+(printing ``resumed at step N``): a stopped run restarted with the same
+command line goes on from there.
+
 Flags of the reference that the port does not have yet raise, naming the
 ROADMAP.md item that brings them.
 """
@@ -112,23 +125,22 @@ def build_argparser() -> argparse.ArgumentParser:
     ap.add_argument("--page-cache-pages", type=int, default=0,
                     help="in-RAM page-cache budget for --store disk "
                          "(0: unbounded)")
+    ap.add_argument("--ckpt-dir", default="",
+                    help="checkpoint directory: resume from its newest "
+                         "checkpoint, save every --ckpt-every steps")
+    ap.add_argument("--ckpt-every", type=int, default=100)
+    ap.add_argument("--merge-delay", type=int, default=0)
     # the reference's flags the port does not have yet: they raise
     ap.add_argument("--prefetch", action="store_true")
-    ap.add_argument("--ckpt-dir", default="")
-    ap.add_argument("--merge-delay", type=int, default=0)
     ap.add_argument("--strict-transfers", action="store_true")
     return ap
 
 
 def _reject_unported(args) -> None:
-    unported = [
-        (args.prefetch, "--prefetch", "A5 (prefetch)"),
-        (bool(args.ckpt_dir), "--ckpt-dir", "A3 (checkpointing)"),
-    ]
-    for given, flag, item in unported:
-        if given:
-            raise NotImplementedError(
-                f"{flag} is not ported yet; see ROADMAP.md queue {item}")
+    if args.prefetch:
+        raise NotImplementedError(
+            "--prefetch is not ported yet; see ROADMAP.md queue A5 "
+            "(prefetch)")
     if args.strict_transfers:
         raise NotImplementedError(
             "--strict-transfers is not honoured by the port: the dedup's "
@@ -170,9 +182,12 @@ def main(argv=None):
     from repro_torch.runtime.trainer import TrainerConfig
 
     family = configs.get(args.arch).family
-    if family == "lm" and args.rows:
-        raise ValueError("--rows cuts embedding tables; an LM has none")
+    if family != "recsys" and args.rows:
+        raise ValueError(f"--rows cuts embedding tables; a {family} model "
+                         "has none")
     cfg = model_config(args)
+    if family == "gnn":
+        cfg = dataclasses.replace(cfg, d_in=32, n_classes=5)
     tcfg = TrainerConfig(
         n_pod=args.n_pod,
         kstep=KStepConfig(lr=args.lr, k=args.k, merge=args.merge),
@@ -183,9 +198,16 @@ def main(argv=None):
         store=args.store, spill_dir=args.spill_dir or None,
         page_rows=args.page_rows or None,
         page_cache_pages=args.page_cache_pages or None,
+        ckpt_dir=args.ckpt_dir or None, ckpt_every=args.ckpt_every,
     )
     t0 = time.perf_counter()
     tr = build_trainer(args.arch, tcfg, model_cfg=cfg, device=args.device)
+    if args.ckpt_dir and tr.resume():
+        print(f"resumed at step {tr.step_num}")
+    if family == "gnn":
+        print(f"final loss {_run_gnn(args, tr):.4f} "
+              f"({tr.step_num / (time.perf_counter() - t0):.2f} steps/s)")
+        return
     if family == "lm":
         gen = S.lm_batches(seed=0, batch=max(args.n_pod * 4, 8), seq_len=64,
                            vocab=cfg.vocab)
@@ -201,6 +223,27 @@ def main(argv=None):
         _run(args, tr, cfg, gen, t0)
     finally:
         tr.close()
+
+
+def _run_gnn(args, tr) -> float:
+    """GIN's full-graph loop (the reference launcher's GNN branch): one
+    ``community_graph`` stacked once per pod, ``--steps`` steps; returns
+    the last loss (0.0 after no step)."""
+    import numpy as np
+
+    from repro_torch.data import synthetic as S
+
+    g = S.community_graph(seed=0, n_nodes=2000, avg_degree=8, d_feat=32,
+                          n_classes=5)
+    batch = {k: np.stack([v] * args.n_pod) for k, v in
+             [("x", g.x), ("edge_src", g.edge_src),
+              ("edge_dst", g.edge_dst), ("labels", g.labels)]}
+    loss = 0.0
+    for _ in range(args.steps):
+        loss = tr.train_step(batch, podded=True)
+    if tr.ckpt:
+        tr.ckpt.wait()   # the async writer must land the final checkpoint
+    return float(loss)
 
 
 def _run(args, tr, cfg, gen, t0):

@@ -4,10 +4,12 @@ Counterpart of ``repro/runtime/factory.py`` for the archs the port has
 reached (the recsys archs ``baidu-ctr``, ``dlrm-mlperf``, ``din``,
 ``dien`` and ``two-tower-retrieval``, each training and serving; the
 LMs ``qwen3-14b``, ``qwen2-7b``, ``granite-8b``, ``mixtral-8x7b`` and
-``llama4-scout-17b-16e`` training, on a ``DenseTrainer``):
+``llama4-scout-17b-16e`` training, on a ``DenseTrainer``; the GNN
+``gin-tu`` training, on a ``DenseTrainer`` too):
 
     tr = build_trainer("qwen3-14b", TrainerConfig(n_pod=2))
     tr = build_trainer("mixtral-8x7b", TrainerConfig(n_pod=2))
+    tr = build_trainer("gin-tu", TrainerConfig(n_pod=2), model_cfg=...)
     tr = build_trainer("baidu-ctr", TrainerConfig(placement="gather"))
     tr = build_trainer("dlrm-mlperf", TrainerConfig(placement="gather"))
     tr = build_trainer("din", TrainerConfig(placement="gather"))
@@ -163,7 +165,8 @@ def build_trainer(arch: str, cfg: TrainerConfig, *, smoke: bool = True,
                   table_scale: float = TABLE_SCALE,
                   device="cuda"):
     """Construct the trainer for ``arch`` from the config registry: for an
-    LM a ``DenseTrainer`` over ``transformer.loss_fn``; for a recsys arch a
+    LM a ``DenseTrainer`` over ``transformer.loss_fn``, for a GNN one over
+    ``gin.loss_fn``; for a recsys arch a
     ``HybridTrainer`` (the dense tower under ``cfg.kstep``, the tables
     drawn with std ``table_scale``)."""
     device = resolve_device(device)
@@ -176,6 +179,13 @@ def build_trainer(arch: str, cfg: TrainerConfig, *, smoke: bool = True,
         params = T.init_params(torch.Generator(device).manual_seed(seed),
                                mcfg, device=device)
         return DenseTrainer(lambda p, b: T.loss_fn(p, b, mcfg), params, cfg,
+                            device=device)
+    if spec.family == "gnn":
+        from repro_torch.models import gin as G
+
+        params = G.init_params(torch.Generator(device).manual_seed(seed),
+                               mcfg, device=device)
+        return DenseTrainer(lambda p, b: G.loss_fn(p, b, mcfg), params, cfg,
                             device=device)
     init_dense, build_engine, embed_of, loss_of = _recsys_wiring(mcfg)
     generator = torch.Generator(device).manual_seed(seed)

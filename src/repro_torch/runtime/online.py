@@ -86,4 +86,6 @@ def fit_online(
         not trainer.history or trainer.history[-1]["step"] != trainer.step_num
     ):
         _record()   # short runs (steps < log_every) still get a final record
+    if trainer.ckpt:
+        trainer.ckpt.wait()   # surface async-writer failures at loop exit
     return trainer.history, (meter.value() if scored else None)

@@ -49,16 +49,33 @@ lookup, so a co-located ``CTRServer`` changes nothing in training.  The
 dense parameters keep the reference's leading pod dimension, so a state
 exported from the reference loads unchanged (``repro_torch.interop``).
 
+Fault tolerance (the reference's): with ``ckpt_dir`` a trainer saves its
+state every ``ckpt_every`` steps through ``checkpoint.CheckpointManager``
+(the reference's layout and leaf names, written in a background
+thread), and ``resume()`` restores the newest complete
+checkpoint into the live tensors, in place.  ``DenseTrainer`` saves
+params, m, v_local, v_hat (and ef under ``int8_ef``; a checkpoint without
+it resumes with a fresh residual); the delayed merges in flight are not
+saved, so a resume starts with none, as in the reference.
+``HybridTrainer`` saves the dense tree, the tables, the accumulator, the
+moments, the backend's state (the cached placement's device cache, which
+is not flushed first: the reference does not flush there) and the
+overflow counter, with the placement's signature in the manifest, which a
+resume checks; under the DiskStore a save syncs the store and snapshots
+its pages into the checkpoint, and a resume restores them first.
+
 Not ported yet, and raising when asked for: ``prefetch`` (ROADMAP.md queue
-A5; ``DenseTrainer`` rejects it as the reference does) and ``ckpt_dir``
-(A3); ``merge_delay > 0`` (``HybridTrainer``) and ``merge_quorum != 1.0``
-are rejected as the reference rejects them.
+A5; ``DenseTrainer`` rejects it as the reference does); ``merge_delay >
+0`` (``HybridTrainer``) and ``merge_quorum != 1.0`` are rejected as the
+reference rejects them.
 """
 
 from __future__ import annotations
 
 import collections
 import dataclasses
+import os
+import shutil
 import time
 from typing import Any, Callable, Dict, Iterator, Optional
 
@@ -66,6 +83,8 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device, tree_map
+from repro_torch.checkpoint import CheckpointManager, latest_step, read_manifest
+from repro_torch.checkpoint.ckpt import copy_tree_
 from repro_torch.core.embedding_engine import EmbeddingEngine
 from repro_torch.core.kstep import (  # noqa: F401  (re-exported API)
     KStepAdam,
@@ -100,7 +119,8 @@ class TrainerConfig:
     page_rows: Optional[int] = None   # rows per page file (None: 1024)
     page_cache_pages: Optional[int] = None  # RAM page-cache capacity
                                             # (None: unbounded)
-    ckpt_dir: Optional[str] = None  # checkpoints (not ported: A3)
+    ckpt_dir: Optional[str] = None  # checkpoints (None: none)
+    ckpt_every: int = 200
     merge_quorum: float = 1.0       # reserved: only 1.0 (all pods)
     merge_delay: int = 0            # DenseTrainer only
     log_every: int = 50
@@ -125,10 +145,6 @@ def _reject_dead_knobs(cfg: TrainerConfig, trainer: str, merge_delay_ok: bool):
         raise NotImplementedError(
             f"{trainer}: prefetch=True is not ported yet (ROADMAP.md queue "
             "A5, prefetch)")
-    if cfg.ckpt_dir is not None:
-        raise NotImplementedError(
-            f"{trainer}: ckpt_dir is not ported yet (ROADMAP.md queue A3, "
-            "checkpointing)")
 
 
 def next_pow2(n) -> int:
@@ -152,6 +168,23 @@ def pod_batch(batch: Dict[str, torch.Tensor],
     return out
 
 
+def _drop_ef_if_absent(like: dict, ckpt: CheckpointManager) -> dict:
+    """Restoring with merge="int8_ef" must tolerate checkpoints written
+    without the residual (older runs, or runs under a lossless merge): drop
+    'ef' from the restore template when the newest manifest lacks it, so
+    resume keeps the fresh zero residual."""
+    if "ef" not in like:
+        return like
+    step = latest_step(ckpt.directory)
+    man = read_manifest(ckpt.directory, step) if step is not None else None
+    if man is not None and not any(
+        k.split("/")[0] == "ef" for k in man["leaves"]
+    ):
+        like = dict(like)
+        like.pop("ef")
+    return like
+
+
 def history_record(trainer, loss, t0: float) -> dict:
     """One fit-history record at a logging boundary, shared by ``fit`` and
     ``runtime.online``: step/loss/sec plus the trainer's PER-INTERVAL sparse
@@ -166,8 +199,12 @@ def history_record(trainer, loss, t0: float) -> dict:
 
 
 def _fit_loop(trainer, batches: Iterator, steps: int, eval_fn=None) -> list:
-    """Shared fit(): train ``steps`` batches, log every ``log_every``."""
+    """Shared fit(): train ``steps`` batches, log every ``log_every``;
+    checkpoints are saved inside ``train_step``, and the async writer is
+    waited for at exit."""
     if steps <= 0:
+        if trainer.ckpt:
+            trainer.ckpt.wait()   # fit(gen, 0) still flushes async saves
         return trainer.history
     t0 = time.perf_counter()
     for _ in range(steps):
@@ -177,6 +214,8 @@ def _fit_loop(trainer, batches: Iterator, steps: int, eval_fn=None) -> list:
             if eval_fn:
                 rec["eval"] = eval_fn(trainer)
             trainer.history.append(rec)
+    if trainer.ckpt:
+        trainer.ckpt.wait()
     return trainer.history
 
 
@@ -262,7 +301,10 @@ class DenseTrainer:
         self._loss_fn = loss_fn
         # merge_delay > 0: queue of (snapshot, in-flight merged average)
         self._pending_merges: collections.deque = collections.deque()
-        self.ckpt = None          # checkpoints: ROADMAP.md queue A3
+        self.ckpt = (CheckpointManager(cfg.ckpt_dir,
+                                       save_every=cfg.ckpt_every,
+                                       async_save=True)
+                     if cfg.ckpt_dir else None)
         self.history: list = []
 
     def pod_batch(self, batch):
@@ -316,6 +358,8 @@ class DenseTrainer:
                       merge=fused_merge)
         if is_boundary and self.cfg.merge_delay > 0:
             self._delayed_merge_boundary()
+        if self.ckpt and self.ckpt.should_save(self.step_num):
+            self.save()
         return losses.mean()
 
     def _delayed_merge_boundary(self):
@@ -334,6 +378,36 @@ class DenseTrainer:
 
     def fit(self, batches: Iterator, steps: int, eval_fn=None) -> list:
         return _fit_loop(self, batches, steps, eval_fn)
+
+    # ----------------------------------------------------- fault tolerance
+    def _ckpt_tree(self):
+        tree = {"params": self.params, "m": self.opt_state.m,
+                "v_local": self.opt_state.v_local,
+                "v_hat": self.opt_state.v_hat}
+        if self.opt_state.ef is not None:
+            # int8_ef merge: the error-feedback residual is state — dropping
+            # it on restart silently re-zeros the compensation.
+            tree["ef"] = self.opt_state.ef
+        return tree
+
+    def save(self):
+        self.ckpt.save(self.step_num, self._ckpt_tree(),
+                       meta={"n_pod": self.n_pod, "k": self.cfg.kstep.k})
+
+    def resume(self) -> bool:
+        """Restore the newest complete checkpoint into the live state, in
+        place; False when there is none."""
+        if not self.ckpt:
+            return False
+        like = _drop_ef_if_absent(self._ckpt_tree(), self.ckpt)
+        step, tree = self.ckpt.restore_latest(like)
+        if step is None:
+            return False
+        copy_tree_(like, tree)
+        self.step_num = step
+        self.opt_state.step.fill_(step)
+        self._pending_merges.clear()   # in-flight delayed merges don't resume
+        return True
 
 
 class HybridTrainer:
@@ -421,7 +495,14 @@ class HybridTrainer:
         self._embed = embed_fn
         self._loss = loss_fn
         self._pull = engine.pull_stage()
-        self.ckpt = None          # checkpoints: ROADMAP.md queue A3
+        # the checkpoint GC doubles as the spill-dir wreckage sweeper when
+        # the engine's tables live in a DiskStore
+        self.ckpt = (
+            CheckpointManager(
+                cfg.ckpt_dir, save_every=cfg.ckpt_every,
+                async_save=True,
+                spill_dir=getattr(engine.store, "spill_dir", None))
+            if cfg.ckpt_dir else None)
         # serving-side meters, accumulated host-side per predict
         self._serve_counters: Dict[str, float] = {}
         self.history: list = []
@@ -444,8 +525,11 @@ class HybridTrainer:
         wss, tables, accum, bstate = self.engine.commit(self._pull(
             self.tables, self.sparse_state.accum, self.backend_state,
             self.engine.ids_from_batch(staged)))
-        return self._train(is_merge, tables, accum, bstate, wss,
+        loss = self._train(is_merge, tables, accum, bstate, wss,
                            self.pod_batch(staged))
+        if self.ckpt and self.ckpt.should_save(self.step_num):
+            self.save()   # the committed state: the next pull is not queued
+        return loss
 
     def _train(self, merge: bool, tables, accum, bstate, wss, batch_podded):
         """Forward/backward on the working set, k-step Adam, push."""
@@ -540,6 +624,116 @@ class HybridTrainer:
 
     def fit(self, batches: Iterator, steps: int, eval_fn=None) -> list:
         return _fit_loop(self, batches, steps, eval_fn)
+
+    # ----------------------------------------------------- fault tolerance
+    def _ckpt_tree(self):
+        tree = {"dense": self.dense, "tables": self.tables,
+                "accum": self.sparse_state.accum, "m": self.opt_state.m,
+                "v_local": self.opt_state.v_local,
+                "v_hat": self.opt_state.v_hat}
+        if self.opt_state.ef is not None:
+            tree["ef"] = self.opt_state.ef
+        if any(s for s in self.backend_state.values()):
+            # cache-tier state is training state: host tables alone are
+            # stale while rows sit dirty in the device cache, so the cache
+            # roundtrips with them (not flushed first, as in the reference)
+            tree["bstate"] = self.backend_state
+        # the overflow counter rides along so post-resume *_total metrics
+        # share one baseline with the cache counters living in bstate
+        tree["overflow"] = self._overflow
+        return tree
+
+    def _backend_sig(self):
+        """Identity of the sparse physical layout baked into the tables
+        (+ cache geometry, which shapes the checkpointed backend state)."""
+        b = self.engine.backend
+        sig = {"backend": type(b).__name__,
+               "n_shards": getattr(b, "n_shards", 1),
+               "store": self.engine.store.kind}
+        cache_rows = getattr(b, "cache_rows", None)
+        if cache_rows is not None:
+            sig["cache_rows"] = int(cache_rows)
+        if self.engine.store.kind == "disk":
+            # page geometry shapes the checkpoint's page files
+            sig["page_rows"] = int(self.engine.store.page_rows)
+        return sig
+
+    def save(self):
+        extras_dir = None
+        if self.engine.store.kind == "disk":
+            # commit everything in flight to the store, then snapshot its
+            # pages SYNCHRONOUSLY into a staging dir — the async writer only
+            # renames the finished snapshot into the checkpoint, so live
+            # page mutations after this point can't tear it.  The staged
+            # buffers in the tree stay consistent with the snapshot:
+            # re-absorbing them on resume rewrites the same values.
+            self.engine.sync_store(
+                self.tables, self.sparse_state.accum, self.backend_state)
+            extras_dir = os.path.join(
+                self.ckpt.directory, f"pages_staging_{self.step_num}")
+            if os.path.exists(extras_dir):
+                shutil.rmtree(extras_dir)
+            self.engine.store.snapshot_to(extras_dir)
+        self.ckpt.save(
+            self.step_num, self._ckpt_tree(),
+            meta={"n_pod": self.n_pod, "k": self.cfg.kstep.k,
+                  **self._backend_sig()},
+            extras_dir=extras_dir)
+
+    def resume(self) -> bool:
+        """Restore the newest complete checkpoint into the live state, in
+        place; False when there is none.  Raises when it was written under
+        another placement, shard count, cache size, store or page size."""
+        if not self.ckpt:
+            return False
+        # Tables are checkpointed in the backend's physical layout; loading
+        # them under a different backend (or a cached run's host tables,
+        # which are stale wherever rows sat dirty in the device cache)
+        # would silently read wrong rows.
+        s = latest_step(self.ckpt.directory)
+        man = read_manifest(self.ckpt.directory, s) if s is not None else None
+        if man is not None and "backend" in man.get("meta", {}):
+            sig = self._backend_sig()
+            saved = {k: man["meta"][k]
+                     for k in ("backend", "n_shards", "cache_rows",
+                               "store", "page_rows")
+                     if k in man["meta"]}
+            # pre-store checkpoints carry no "store" key — they were host
+            # runs, so only a disk-configured engine must refuse them
+            if saved != {k: sig.get(k) for k in saved} or (
+                "cache_rows" in sig and "cache_rows" not in saved
+            ) or (sig["store"] == "disk" and "store" not in saved):
+                raise ValueError(
+                    f"checkpoint written with {saved} but the current engine "
+                    f"uses {sig}: the tables' physical "
+                    f"layouts differ — resume with the saving placement, or "
+                    f"export/re-prepare the tables explicitly")
+        like = _drop_ef_if_absent(self._ckpt_tree(), self.ckpt)
+        if man is not None and not any(
+            k.split("/")[0] == "overflow" for k in man["leaves"]
+        ):
+            like.pop("overflow", None)   # a checkpoint without the counter
+            self._overflow.zero_()
+        step, tree = self.ckpt.restore_latest(like)
+        if step is None:
+            return False
+        if self.engine.store.kind == "disk":
+            # pages first: the restored staged buffers are only consistent
+            # against the SAVE-TIME pages
+            self.engine.store.restore_from(os.path.join(
+                self.ckpt.directory, f"step_{step:010d}", "pages"))
+            self.engine.reset_staging()
+        copy_tree_(like, tree)
+        self.step_num = step
+        self.opt_state.step.fill_(step)
+        # re-baseline the interval snapshot so the first post-resume window
+        # reports only post-resume deltas (totals keep the whole-run
+        # baseline, matching the cache counters restored inside bstate)
+        self._metrics_prev = {
+            "overflow": int(self._overflow),
+            **self.engine.cache_counters(self.backend_state),
+        }
+        return True
 
     # --------------------------------------------------------------- serving
     def predict(self, batch) -> np.ndarray:

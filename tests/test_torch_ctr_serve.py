@@ -11,6 +11,8 @@ the Pallas kernel in interpret mode (``fused_kernels=True`` under
 ``REPRO_KERNEL_INTERPRET=1``), the port through its plain version.
 """
 
+import tempfile
+
 import jax
 import numpy as np
 import pytest
@@ -50,8 +52,10 @@ def test_smoke_and_model_configs_match_the_reference():
             assert getattr(got, f) == getattr(want, f)
     assert configs.get("baidu-ctr").shapes["serve_online"].dims == {
         "batch": 1024}
+    # gin-tu, unregistered until A10e, now resolves to the reference's
+    assert configs.get("gin-tu").family == jconfigs.get("gin-tu").family
     with pytest.raises(KeyError, match="not in the port"):
-        configs.get("gin-tu")
+        configs.get("no-such-arch")
 
 
 def test_ctr_forward_matches_reference():
@@ -152,8 +156,13 @@ def test_factory_trainer_on_cpu_serves_and_refuses_training():
     assert scores.shape == (8,) and np.isfinite(scores).all()
     loss = tr.train_step(batch)
     assert tr.step_num == 1 and np.isfinite(float(loss))
+    # checkpoints (A3) are ported: the knob gives the trainer a manager
+    with tempfile.TemporaryDirectory() as d:
+        tr = build_trainer("baidu-ctr", TrainerConfig(ckpt_dir=d),
+                           device="cpu")
+        assert tr.ckpt is not None and tr.ckpt.directory == d
+        assert not tr.resume()            # nothing saved yet
     for knobs, err in (({"prefetch": True}, NotImplementedError),
-                       ({"ckpt_dir": "ckpt"}, NotImplementedError),
                        ({"merge_delay": 1}, ValueError),
                        ({"merge_quorum": 0.5}, NotImplementedError)):
         with pytest.raises(err):

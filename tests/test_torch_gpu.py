@@ -1909,3 +1909,103 @@ def test_cuda_moe_arch_decodes_without_a_sync_and_matches_the_cpu(arch):
             torch.cuda.set_sync_debug_mode("default")
         torch.testing.assert_close(got.cpu(), want, atol=5e-5, rtol=1e-5)
     assert torch.equal(gcache["pos"].cpu(), ccache["pos"])
+
+
+def _wide_case(seed, D, weighted, C=300, nnz=4000, num_bags=700):
+    """Bag inputs on the CPU at width ``D`` with a very long working row
+    (1500 entries), a long one (200) and short ones, out-of-range
+    segments, and empty bags."""
+    rng = np.random.default_rng(seed)
+    working = rng.standard_normal((C + 1, D)).astype(np.float32)
+    working[C] = 0.0
+    inv = rng.integers(0, C + 1, nnz).astype(np.int32)
+    inv[rng.permutation(nnz)[:1700]] = np.repeat([5, 7], [1500, 200])
+    seg = rng.integers(-3, num_bags + 3, nnz).astype(np.int32)
+    w = rng.standard_normal(nnz).astype(np.float32) if weighted else None
+    return [None if x is None else torch.from_numpy(x)
+            for x in (working, inv, seg, w)], num_bags
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("weighted", [True, False])
+@pytest.mark.parametrize("D", [257, 300, 513, 602, 1433])
+def test_cuda_bag_wide_rows_match_plain_version(D, weighted):
+    """Kernels 1 and 1b past 256 columns (column tiles of 256 on one set of
+    streams; D 300 a multiple of 4, so its tiles take the float4 walk, the
+    others the scalar one): the forward and the working-row gradient
+    bit-equal to the CPU plain version and its vjp, two runs bit-equal,
+    a working set 4 bytes off a 16-byte edge bit-equal too."""
+    _cuda_or_skip()
+    cpu, nb = _wide_case(11, D, weighted)
+    dev = [None if x is None else x.cuda() for x in cpu]
+    want = tref.embedding_bag_ref(*cpu, nb)
+    got = tbag.embedding_bag_cuda(*dev, nb)
+    again = tbag.embedding_bag_cuda(*dev, nb)
+    off = tbag.embedding_bag_cuda(_unaligned(dev[0]), *dev[1:], nb)
+    walked = tbag.walk(dev[0], *tbag.forward_streams(*dev, nb)[:3])
+    g = torch.from_numpy(np.random.default_rng(12).standard_normal(
+        (nb, D)).astype(np.float32))
+    want_g, _ = tref.embedding_bag_backward_ref(g, *cpu, True, False)
+    got_g, _ = tbag.embedding_bag_backward_cuda(g.cuda(), *dev, True, False)
+    again_g, _ = tbag.embedding_bag_backward_cuda(g.cuda(), *dev, True,
+                                                  False)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
+    assert torch.equal(got, again) and torch.equal(off, got)
+    assert torch.equal(walked, got)
+    assert torch.equal(got_g.cpu(), want_g)
+    assert torch.equal(got_g, again_g)
+
+
+@pytest.mark.gpu
+def test_cuda_bag_width_limit():
+    """The bag takes rows up to the extension's ``max_bag_dim`` columns,
+    and its binding raises past it."""
+    _cuda_or_skip()
+    from repro_torch.kernels.build import extension
+
+    top_dim = extension().max_bag_dim
+    inv = torch.zeros(3, dtype=torch.int32, device="cuda")
+    seg = torch.tensor([0, 1, 1], dtype=torch.int32, device="cuda")
+    top = torch.randn((2, top_dim), device="cuda")
+    out = tbag.embedding_bag_cuda(top, inv, seg, None, 2)
+    assert torch.equal(out.cpu(), tref.embedding_bag_ref(
+        top.cpu(), inv.cpu(), seg.cpu(), None, 2))
+    with pytest.raises(RuntimeError, match="dim must lie in"):
+        tbag.embedding_bag_cuda(torch.zeros((2, top_dim + 1),
+                                            device="cuda"), inv, seg, None, 2)
+
+
+def _bad_bag_call(case):
+    """Arguments of the forward binding that break one of its checks."""
+    inv = torch.zeros(3, dtype=torch.int32, device="cuda")
+    seg = torch.tensor([0, 1, 1], dtype=torch.int32, device="cuda")
+    working = torch.ones((2, 4), device="cuda")
+    if case == "cpu tensor":
+        working = working.cpu()
+    elif case == "dtype":
+        inv = inv.long()
+    elif case == "not contiguous":
+        working = torch.ones((4, 2), device="cuda").t()
+    elif case == "lengths":
+        seg = seg[:2]
+    elif case == "num_bags":
+        return working, inv, seg, None, 0
+    return working, inv, seg, None, 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["cpu tensor", "dtype", "not contiguous",
+                                  "lengths", "num_bags"])
+def test_cuda_binding_check_raises(case):
+    """A check that fails inside the extension raises RuntimeError (and
+    the process goes on: a good call after it still runs)."""
+    _cuda_or_skip()
+    from repro_torch.kernels.build import extension
+
+    ext = extension()
+    with pytest.raises(RuntimeError):
+        ext.embedding_bag_forward(*_bad_bag_call(case), False)
+    working, inv, seg, _, _ = _bad_bag_call("good")
+    out, = ext.embedding_bag_forward(working, inv, seg, None, 2, False)
+    assert out.sum().item() == 12.0

@@ -159,15 +159,20 @@ def test_configs_match_the_reference(arch):
 @pytest.mark.parametrize("arch", ["mixtral-8x7b", "llama4-scout-17b-16e",
                                   "gin-tu"])
 def test_unported_archs_stay_unregistered(arch):
-    """gin-tu (A10e) stays unregistered; mixtral-8x7b and
-    llama4-scout-17b-16e, unregistered until A10d's serving path, now
-    resolve to the reference's arch of the same name."""
+    """mixtral-8x7b and llama4-scout-17b-16e, unregistered until A10d's
+    serving path, and gin-tu, unregistered until A10e, now resolve to the
+    reference's arch of the same name and family (gin-tu with the
+    reference's model and smoke widths)."""
     jspec = jconfigs.get(arch)
-    if arch in LM_ARCHS:
-        assert configs.get(arch).name == jspec.name == arch
-        return
-    with pytest.raises(KeyError, match="not in the port"):
-        configs.get(arch)
+    spec = configs.get(arch)
+    assert spec.name == jspec.name == arch
+    assert spec.family == jspec.family
+    if arch not in LM_ARCHS:
+        for name in ("model_cfg", "smoke_cfg"):
+            for f in ("n_layers", "d_in", "d_hidden", "n_classes",
+                      "train_eps", "readout", "pre_project"):
+                assert getattr(getattr(spec, name), f) == getattr(
+                    getattr(jspec, name), f)
 
 
 # ---------------------------------------------------------------- attention

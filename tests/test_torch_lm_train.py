@@ -404,13 +404,25 @@ def test_dense_trainer_rejects_what_the_reference_rejects(knob, match):
                               jtrainer.TrainerConfig(**jknob))
 
 
-def test_dense_trainer_checkpoints_raise_naming_a3():
+def test_dense_trainer_checkpoints_raise_naming_a3(tmp_path):
+    """Checkpoints (A3), which raised until ported: ``ckpt_dir`` gives the
+    trainer a manager that saves every ``ckpt_every`` steps, and a fresh
+    trainer resumes the LM's parameters and moments bit for bit."""
     _, tcfg = _cfgs()
     params = T.init_params(torch.Generator().manual_seed(0), tcfg,
                            device="cpu")
-    with pytest.raises(NotImplementedError, match="A3"):
-        DenseTrainer(_lm_loss(tcfg), params, TrainerConfig(ckpt_dir="/x"),
-                     device="cpu")
+    cfg = TrainerConfig(n_pod=2, kstep=tk.KStepConfig(lr=1e-4, k=2),
+                        ckpt_dir=str(tmp_path), ckpt_every=2)
+    tr = DenseTrainer(_lm_loss(tcfg), params, cfg, device="cpu")
+    for s in range(3):
+        tr.train_step(_batch(tcfg.vocab, 4, 16, seed=s))
+    tr.ckpt.wait()
+    tr2 = DenseTrainer(_lm_loss(tcfg), params, cfg, device="cpu")
+    assert tr2.resume() and tr2.step_num == 2
+    tr2.train_step(_batch(tcfg.vocab, 4, 16, seed=2))
+    for a, b in zip(tk.leaves(tr2.params) + tk.leaves(tr2.opt_state.m),
+                    tk.leaves(tr.params) + tk.leaves(tr.opt_state.m)):
+        assert torch.equal(a, b)
 
 
 def test_dense_trainer_gradients_land_in_their_buffer():

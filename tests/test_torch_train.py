@@ -466,13 +466,12 @@ def test_launcher_trains_on_the_cpu():
     assert "overflow_dropped 0" in last and "online AUC" in last
 
 
-def test_launcher_serve_and_flags():
+def test_launcher_serve_and_flags(tmp_path):
     last = _launch("--arch", "baidu-ctr", "--steps", "3", "--device", "cpu",
                    "--serve", "--serve-batch", "8", "--k", "2", "--merge",
                    "int8_ef", "--batch", "16")[-1]
     assert np.isfinite(_final_loss(last)) and "served 24" in last
     for flags, err in ((["--prefetch"], NotImplementedError),
-                       (["--ckpt-dir", "ckpt"], NotImplementedError),
                        (["--store", "disk"], ValueError),
                        (["--placement", "cached", "--cache-rows", "64"],
                         ValueError),
@@ -482,5 +481,15 @@ def test_launcher_serve_and_flags():
         with pytest.raises(err):
             _launch("--arch", "baidu-ctr", "--steps", "1", "--device", "cpu",
                     *flags)
+    # --ckpt-dir (A3) and gin-tu (A10e), which raised until ported: a run
+    # checkpoints and a second one resumes from it; GIN trains
+    ckpt = ["--ckpt-dir", str(tmp_path / "ckpt"), "--ckpt-every", "2"]
+    _launch("--arch", "baidu-ctr", "--steps", "2", "--device", "cpu",
+            "--batch", "16", *ckpt)
+    out = _launch("--arch", "baidu-ctr", "--steps", "1", "--device", "cpu",
+                  "--batch", "16", *ckpt)
+    assert "resumed at step 2" in out
+    last = _launch("--arch", "gin-tu", "--steps", "2", "--device", "cpu")[-1]
+    assert np.isfinite(_final_loss(last))
     with pytest.raises(KeyError, match="not in the port"):
-        _launch("--arch", "gin-tu", "--steps", "1", "--device", "cpu")
+        _launch("--arch", "no-such-arch", "--steps", "1", "--device", "cpu")

@@ -44,6 +44,10 @@ Inputs:
     float32, from the output and log-sum-exp of the checkout's forward;
     with a digest of its gradients' bytes (two checkouts whose kernels give
     the same bits give the same digest).
+  - with ``--digests-only``, none of the above: the digests of the bag's
+    forward and working-row gradient (``_bag_digests``) at the widths up
+    to 256 and past it, weighted and not, on inputs with a very long, a
+    long and short working rows (equal digests: the same bits).
 Times (ms, or us where said): the wrapper with a cold L2 (after a 256 MB
 write, and after a 256 MB read, which leaves no dirty line in L2) and a
 warm one, the device alone (CUDA graph replays, cold L2 and warm), the
@@ -250,12 +254,63 @@ def _flash_backward_times(cs, dev, times):
     return out
 
 
+BAG_DIGEST_WIDTHS = (3, 16, 18, 37, 64, 100, 128, 200, 256, 257, 300, 602,
+                     1433)
+
+
+def _bag_digests(dev):
+    """{"D{width}_{w|u}": digest} of the bag's forward and working-row
+    gradient (``embedding_bag_cuda``, ``embedding_bag_backward_cuda``, the
+    same signatures in every checkout) at ``BAG_DIGEST_WIDTHS``; a
+    checkout whose bag takes no such width (no ``max_bag_dim`` in its
+    extension: 256 columns at most) gives "not taken"."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import embedding_bag as kb
+    from repro_torch.kernels.build import extension
+
+    C, nnz, nb = 5000, 200_000, 40_000
+    max_dim = getattr(extension(), "max_bag_dim", 256)
+    out = {}
+    for D in BAG_DIGEST_WIDTHS:
+        for weighted in (True, False):
+            key = f"D{D}_{'w' if weighted else 'u'}"
+            if D > max_dim:
+                out[key] = "not taken"
+                continue
+            rng = np.random.default_rng(D)
+            working = torch.from_numpy(rng.standard_normal(
+                (C + 1, D)).astype(np.float32)).to(dev)
+            inv = rng.integers(0, C + 1, nnz).astype(np.int32)
+            inv[rng.permutation(nnz)[:6000]] = np.repeat([5, 7], [5000, 1000])
+            inv = torch.from_numpy(inv).to(dev)
+            seg = torch.from_numpy(rng.integers(-3, nb + 3, nnz).astype(
+                np.int32)).to(dev)
+            w = (torch.from_numpy(rng.standard_normal(nnz).astype(
+                np.float32)).to(dev) if weighted else None)
+            g = torch.from_numpy(rng.standard_normal((nb, D)).astype(
+                np.float32)).to(dev)
+            fwd = kb.embedding_bag_cuda(working, inv, seg, w, nb)
+            bwd, _ = kb.embedding_bag_backward_cuda(g, working, inv, seg, w,
+                                                    True, False)
+            digest = hashlib.sha256()
+            for t in (fwd, bwd):
+                digest.update(t.contiguous().view(torch.uint8).cpu().numpy())
+            out[key] = digest.hexdigest()[:16]
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("root", type=pathlib.Path)
     ap.add_argument("--label", default=None)
     ap.add_argument("--out", type=pathlib.Path,
                     default=HERE / "build" / "kernel_ab.jsonl")
+    ap.add_argument("--digests-only", action="store_true",
+                    help="only the bag's digests (_bag_digests), no times")
     args = ap.parse_args()
     root = args.root.resolve()
     sys.path.insert(0, str(root / "src"))
@@ -282,6 +337,9 @@ def main() -> int:
         text=True, timeout=60).stdout.strip().splitlines()[0]
     dev = torch.device("cuda")
     rec = {"label": args.label or str(root), "card": smi}
+    rec["bag_digests"] = _bag_digests(dev)
+    if args.digests_only:
+        return _emit(rec, args.out)
 
     def times(fn):
         return {"ms": cs._time_ms(fn), "ms_l2_warm": cs._time_ms(
@@ -329,10 +387,15 @@ def main() -> int:
     rec.update(_flash_backward_times(cs, dev, times))
     trip_us, launch_ms = cs._hbm_trip()
     rec["hbm_trip_us"], rec["empty_launch_graph_ms"] = trip_us, launch_ms
+    return _emit(rec, args.out)
+
+
+def _emit(rec, out) -> int:
+    """Print the run's JSON line and append it to ``out``."""
     line = json.dumps(rec)
     print(line)
-    args.out.parent.mkdir(parents=True, exist_ok=True)
-    with open(args.out, "a") as f:
+    out.parent.mkdir(parents=True, exist_ok=True)
+    with open(out, "a") as f:
         f.write(line + "\n")
     return 0
 
