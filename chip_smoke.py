@@ -4,8 +4,9 @@ gather and the cached placements and on the SSD tier, its dlrm-mlperf
 serving and training paths, its qwen3-14b prefill, decode and training,
 its mixtral-8x7b and llama4-scout serving (MoE, windowed and chunked
 attention), its mixtral-8x7b training, its DIN, DIEN and two-tower
-retrieval training and serving, its GIN training at the gin-tu cells and
-its checkpoints' save, resume and replay, on one NVIDIA GPU (H100).
+retrieval training and serving, its GIN training at the gin-tu cells,
+its checkpoints' save, resume and replay, and its pull prefetch and input
+pipeline, on one NVIDIA GPU (H100).
 
     python3 chip_smoke.py        # from the root of a checkout
 
@@ -112,9 +113,10 @@ Phases (any failure raises and the script exits non-zero):
      equal, losses and parameters within phase 6's tolerance; the small
      cache evicts and rebuilds its hash map).
   9. the SSD tier at full width with the table cut to 4 M rows (977 pages
-     of 4096 rows, 2.05 GB written and fsynced at init, in
-     ``build/phase9_spill``, which it checks has 3x that free and deletes
-     at the end): 20 steps each, with a 256-request drain between steps,
+     of 4096 rows, 2.05 GB written and fsynced at (b)'s init and
+     hard-linked for (c), in ``build/phase9_spill``, which it checks has
+     3x that free and deletes at the end): 20 steps each, with a
+     256-request drain between steps,
      of (a) gather on the host store, (b) gather on the DiskStore with an
      unbounded page cache, (c) cached (262144 rows) on the DiskStore with
      a 256-page cache.  Losses and every drain's scores of (b) and (c)
@@ -411,6 +413,29 @@ Phases (any failure raises and the script exits non-zero):
      its bytes; (b) the same at smoke size on the cached placement (its
      cache saved unflushed) and on the DiskStore (its pages in the
      checkpoint), and for ogb_products in phase 18 (b).
+ 20. the pull prefetch (A5): baidu-ctr at full width with rows cut to 1 M
+     (245 pages of 4096 rows on disk, under ``build/phase20_spill``,
+     written once and hard-linked for each later store, deleted at the
+     end), capacity 65536, batch 1024, the launcher's settings; each run
+     23 steps (through the merge at step 20) in ``fit``'s one-ahead loop
+     with a 256-request drain after each step's prefetch, so the server
+     scores with a pull in flight: (a) gather on the host store,
+     synchronous; (b) gather, prefetched, fed by ``PrefetchPipeline`` with
+     ``CudaStager`` (each batch pinned and copied on its own stream); (c)
+     cached (262144 rows) on the host store, (d) gather and (e) cached on
+     the DiskStore with an unbounded page cache, prefetched; (f) cached
+     on the DiskStore with a 64-page cache, 3 steps synchronous and 3
+     prefetched, each from a fresh store; (g) dlrm-mlperf at the published
+     widths, tables capped at 1 M rows, batch 65536, sparse lr 0.1, 23
+     steps synchronous, then prefetched.  Losses and every drain's scores
+     of (b)-(e) bit-equal to (a)'s, (f)'s and (g)'s pairs bit-equal; launch
+     counts those of the synchronous runs; after ``close`` a fresh
+     DiskStore reads (a)'s rows at every touched uid.  Each run prints its
+     step wall and device busy share (a CUDA profiler trace over its last
+     5 steps),
+     the pipeline's read and wait seconds, the page meters after the
+     read-ahead drained, and the steps whose ``prefetch`` returned before
+     the step's end event had completed.
 
 TF32 is off for matmuls and convolutions.  Prints the card (``nvidia-smi``
 name and power limit), a ``kernels`` JSON line, and as its last line
@@ -2973,11 +2998,18 @@ def phase_disk(device):
         _release()
 
         results = {}
+        # (c) starts from a hard-linked clone of (b)'s initial pages (the
+        # same seed draws the same rows; a page is replaced, never
+        # rewritten in place), so only (b) writes them
+        pristine = spill_root / "pristine"
         for tag, placement, cache_rows, pages in (
                 ("b", "gather", None, None),
                 ("c", "cached", CACHE_ROWS, PAGE_CACHE_PAGES)):
             spill = spill_root / tag
             t0 = time.perf_counter()
+            cloned = pristine.exists()
+            if cloned:
+                _clone_pages(pristine, spill)
             row_store.DiskStore.create_table = timed_create
             try:
                 tr = _full_width_trainer(
@@ -2987,11 +3019,15 @@ def phase_disk(device):
             finally:
                 row_store.DiskStore.create_table = create_table
             torch.cuda.synchronize()
+            if not cloned:
+                _clone_pages(spill, pristine)
             what = (f"({tag}) {placement} on the DiskStore, page cache "
                     f"{'unbounded' if pages is None else f'{pages} pages'}")
+            how = ("adopted from the clone" if cloned
+                   else "written and fsynced")
             print(f"  {what}: trainer built in {time.perf_counter() - t0:.1f}"
                   f" s, of which create_table {create_s[-1]:.1f} s "
-                  f"({n_pages} pages written and fsynced)")
+                  f"({n_pages} pages {how})")
             torch.cuda.reset_peak_memory_stats()
             losses, scores, launches, wall = _disk_counted_run(tr, run,
                                                                requests)
@@ -5023,14 +5059,14 @@ def _lm_train_breakdown(tr, batch, cfg, groups=None):
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.models import transformer as T
-    from repro_torch.runtime.trainer import _stage_batch
+    from repro_torch.data.pipeline import stage_batch
 
     def event():
         e = torch.cuda.Event(enable_timing=True)
         e.record()
         return e
 
-    pb = tr.pod_batch(_stage_batch(batch, tr.params["embed"].device))
+    pb = tr.pod_batch(stage_batch(batch, tr.params["embed"].device))
     torch.cuda.synchronize()
     e0 = event()
     fwd = tr._forward(pb)
@@ -7948,6 +7984,360 @@ def phase_checkpoints(device, din_batches):
     shutil.rmtree(PHASE19_CKPT, ignore_errors=True)
 
 
+PF_ROWS = 1_000_000        # the one reduction of phase 20: 2e9 -> 1 M rows
+PF_STEPS = 23              # 20 + 3: through the k-step merge at step 20
+PF_PAGE_CACHE = 64         # (f): a quarter of the 245 pages
+PF_TIMED = 3               # (f)'s steps a run
+PF_DLRM_ROW_CAP = 1_000_000
+PF_PROFILED = 5            # a run's last steps traced for the busy share
+
+
+def _clone_pages(src, dst):
+    """Hard-link every page file under ``src`` into ``dst``: a DiskStore
+    replaces a page by ``os.replace`` and never writes one in place, so
+    the clone keeps the pages as they were, whatever ``src``'s store does
+    next, and costs no page write."""
+    import os
+
+    for dirpath, _, files in os.walk(src):
+        out = pathlib.Path(dst) / pathlib.Path(dirpath).relative_to(src)
+        out.mkdir(parents=True, exist_ok=True)
+        for fn in files:
+            if not fn.endswith(".tmp"):
+                os.link(pathlib.Path(dirpath) / fn, out / fn)
+
+
+def _pf_run(tr, batches, requests=None, pipe=None):
+    """``fit``'s one-ahead loop (``runtime.trainer._fit_loop``): train on
+    batch t, draw batch t+1 and ``prefetch`` it (a no-op when the trainer
+    does not prefetch), then drain ``requests[t]`` through a ``CTRServer``
+    with that pull in flight.  Returns a dict of the losses, every drain's
+    scores, the launch counts, the wall, the device busy share in a CUDA
+    profiler trace over the last ``PF_PROFILED`` steps (None where it
+    holds no device time) and the steps whose ``prefetch`` returned
+    before the step's end event had completed."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import ops
+    from repro_torch.runtime.factory import build_ctr_server
+
+    server = (build_ctr_server(tr, max_batch=SERVE_BATCH)
+              if requests is not None else None)
+    src = iter(batches) if pipe is None else pipe
+    n = len(batches)
+    first_profiled = max(n - PF_PROFILED, 0)
+    prof = profile(activities=[ProfilerActivity.CUDA])
+    losses, scores = [], []
+    ahead = 0
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    b = next(src)
+    tr.prefetch(b)
+    for i in range(n):
+        if i == first_profiled:
+            prof.start()
+            t_prof = time.perf_counter()
+        losses.append(tr.train_step(b))
+        end = torch.cuda.Event()
+        end.record()
+        b = next(src) if i + 1 < n else None
+        if tr.prefetch(b):
+            ahead += not end.query()
+        if server is not None:
+            scores.append(_serve_scores(server, requests[i]))
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    prof.stop()
+    busy_us = sum(e.self_device_time_total for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA)
+    return {"losses": torch.stack(losses).cpu().numpy(), "scores": scores,
+            "launches": dict(ops.launches), "wall": t1 - t0,
+            "busy": busy_us / ((t1 - t_prof) * 1e6) if busy_us else None,
+            "profiled": n - first_profiled, "ahead": ahead}
+
+
+def _pf_report(what, run, pipe=None, store=None, prefetched=True):
+    n = len(run["losses"])
+    busy = ("not measured (no device time in the trace)"
+            if run["busy"] is None else f"{run['busy']:.3f}")
+    parts = "train + prefetch" + (" + drain" if run["scores"] else "")
+    line = (f"  {what}: {run['wall'] / n * 1e3:.2f} ms a step ({parts}, "
+            f"the profiler on for the last {run['profiled']}), device busy "
+            f"share over those {busy}; "
+            f"losses {run['losses'][0]:.6f} ... {run['losses'][-1]:.6f}")
+    if prefetched:
+        line += (f"; prefetch returned before the step's end event had "
+                 f"completed in {run['ahead']} of {n - 1} steps")
+    if pipe is not None:
+        line += (f"; pipeline read {pipe.read_seconds:.3f} s, wait "
+                 f"{pipe.wait_seconds:.3f} s over {pipe.batches} batches")
+    print(line)
+    if store is not None:
+        store._read_q.join()       # the read-ahead lands before the meters
+        st, sv = store.stats(), store.serve_stats()
+        if not all(np.isfinite(v) and v >= 0 for v in
+                   list(st.values()) + list(sv.values())):
+            raise AssertionError(f"{what}: a page meter is not finite and "
+                                 f"non-negative: {st} {sv}")
+        print(f"  {what}, page meters after the read-ahead drained: "
+              f"training hits {st['page_hits']:.0f}, misses "
+              f"{st['page_misses']:.0f}, evictions {st['pages_evicted']:.0f}"
+              f", disk read {st['disk_bytes_read'] / 1e9:.3f} GB, written "
+              f"{st['disk_bytes_written'] / 1e9:.3f} GB; serving hits "
+              f"{sv['page_hits']:.0f}, misses {sv['page_misses']:.0f}")
+
+
+def _pf_want(placement, store, n, k=20):
+    """Phase 20's launch counts for ``n`` steps, each with one drain."""
+    from repro_torch.kernels import ops
+
+    want = dict.fromkeys(ops.launches, 0)
+    want.update({"embedding_bag": 3 * n, "embedding_bag_backward": 2 * n,
+                 "fused_adam": n - n // k})
+    if placement == "cached":
+        want.update({"hash_lookup": 3 * n, "gather_rows_cached": 2 * n,
+                     "sparse_adagrad_cached_apply": n})
+    elif store == "disk":
+        want["sparse_adagrad"] = n
+    else:
+        want["sparse_adagrad_apply"] = n
+    return want
+
+
+def phase_prefetch(device):
+    """Phase 20, the pull prefetch (A5), baidu-ctr at full width with 1 M
+    rows, 23 steps a run with a 256-request drain after each step's
+    prefetch: (a) gather, host store, synchronous; (b) gather, host store,
+    prefetched, fed by ``PrefetchPipeline`` with ``CudaStager``; (c) cached
+    on the host store, (d) gather and (e) cached on the DiskStore
+    (unbounded page cache), prefetched; (f) cached on the DiskStore with a
+    64-page cache, 3 steps synchronous and 3 prefetched from fresh stores;
+    (g) dlrm-mlperf at the published widths, tables capped at 1 M rows,
+    batch 65536, 23 steps synchronous and prefetched.  Returns the launch
+    counts of (b), (c), (d), (e) and (g)."""
+    import shutil
+
+    import torch
+
+    from repro_torch.configs import dlrm_mlperf
+    from repro_torch.core import row_store
+    from repro_torch.data.pipeline import CudaStager, PrefetchPipeline
+    from repro_torch.data.synthetic import dlrm_batches
+    from repro_torch.runtime.factory import build_trainer
+
+    t_phase = time.perf_counter()
+    spill_root = ROOT / "build" / "phase20_spill"
+    shutil.rmtree(spill_root, ignore_errors=True)
+    spill_root.mkdir(parents=True)
+    n_pages = -(-PF_ROWS // PAGE_ROWS)
+    print(f"phase 20: the pull prefetch, baidu-ctr at full width, rows "
+          f"{PF_ROWS} ({n_pages} pages of {PAGE_ROWS} rows on disk), "
+          f"capacity {CAPACITY}, batch {BATCH}, n_pod 2, k 20, two_phase, "
+          f"{PF_STEPS} steps a run with a {SERVE_BATCH}-request drain after "
+          "each step's prefetch")
+    batches = _train_batches(PF_STEPS, rows=PF_ROWS)
+    requests = _train_batches(PF_STEPS, seed=2, batch=SERVE_BATCH,
+                              rows=PF_ROWS)
+    touched = np.unique(np.concatenate([b["ids"].reshape(-1)
+                                        for b in batches])).astype(np.int64)
+    results = {}
+    spent, last = {}, [time.perf_counter()]
+
+    def lap(tag):
+        """Seconds since the last lap, builds and closes included."""
+        now = time.perf_counter()
+        spent[tag] = now - last[0]
+        last[0] = now
+
+    lap("data")
+    try:
+        # ---- (a) gather on the host store, synchronous: the reference run
+        tr = _full_width_trainer(device, rows=PF_ROWS)
+        a = _pf_run(tr, batches, requests)
+        idx = torch.from_numpy(touched).to(device)
+        rows_a = (tr.tables["sparse"][idx].cpu().numpy(),
+                  tr.sparse_state.accum["sparse"][idx].cpu().numpy())
+        if not np.isfinite(a["losses"]).all():
+            raise AssertionError(f"(a) a loss is not finite: {a['losses']}")
+        if a["launches"] != _pf_want("gather", "host", PF_STEPS):
+            raise AssertionError(f"(a) launches {a['launches']}")
+        _pf_report("(a) gather, host store, synchronous", a,
+                   prefetched=False)
+        del tr
+        _release()
+        lap("a")
+
+        def check(tag, run, placement, store):
+            if not np.array_equal(run["losses"], a["losses"]):
+                raise AssertionError(
+                    f"({tag}) losses differ from (a)'s: max |diff| "
+                    f"{np.abs(run['losses'] - a['losses']).max()}")
+            for i, (x, y) in enumerate(zip(run["scores"], a["scores"])):
+                if not np.array_equal(x, y):
+                    raise AssertionError(f"({tag}) drain {i}: scores differ "
+                                         "from (a)'s")
+            want = _pf_want(placement, store, PF_STEPS)
+            if run["launches"] != want:
+                raise AssertionError(f"({tag}) launches {run['launches']}, "
+                                     f"the synchronous run's {want}")
+
+        def prefetched(placement, store="host", pages=None, spill=None,
+                       prefetch=True):
+            kw = {}
+            if store == "disk":
+                kw = dict(store="disk", spill_dir=str(spill),
+                          page_rows=PAGE_ROWS, page_cache_pages=pages)
+            return _full_width_trainer(
+                device, rows=PF_ROWS, placement=placement,
+                cache_rows=CACHE_ROWS if placement == "cached" else None,
+                prefetch=prefetch, **kw)
+
+        # ---- (b) gather, host store, prefetched, fed by the pipeline
+        tr = prefetched("gather")
+        pipe = PrefetchPipeline(iter(batches), depth=2,
+                                stage_fn=CudaStager(device))
+        b = _pf_run(tr, batches, requests, pipe=pipe)
+        pipe.close()
+        check("b", b, "gather", "host")
+        if b["launches"] != a["launches"]:
+            raise AssertionError("(b) launches differ from (a)'s")
+        _pf_report("(b) gather, host store, prefetched, pipeline with "
+                   "CudaStager", b, pipe)
+        results["b"] = b["launches"]
+        del tr
+        _release()
+        lap("b")
+
+        # ---- (c) cached on the host store, prefetched
+        tr = prefetched("cached")
+        pipe = PrefetchPipeline(iter(batches), depth=2)
+        c = _pf_run(tr, batches, requests, pipe=pipe)
+        pipe.close()
+        check("c", c, "cached", "host")
+        _pf_report(f"(c) cached ({CACHE_ROWS} rows), host store, "
+                   "prefetched", c, pipe)
+        results["c"] = c["launches"]
+        del tr
+        _release()
+        lap("c")
+
+        # ---- (d), (e): the DiskStore, unbounded page cache, prefetched
+        pristine = spill_root / "pristine"
+        for tag, placement in (("d", "gather"), ("e", "cached")):
+            spill = spill_root / tag
+            t0 = time.perf_counter()
+            if pristine.exists():
+                _clone_pages(pristine, spill)
+            tr = prefetched(placement, "disk", None, spill)
+            torch.cuda.synchronize()
+            built = time.perf_counter() - t0
+            if not pristine.exists():
+                _clone_pages(spill, pristine)
+            pipe = PrefetchPipeline(iter(batches), depth=2)
+            run = _pf_run(tr, batches, requests, pipe=pipe)
+            pipe.close()
+            check(tag, run, placement, "disk")
+            what = (f"({tag}) {placement} on the DiskStore (unbounded page "
+                    "cache), prefetched")
+            print(f"  {what}: trainer built in {built:.1f} s "
+                  f"({'pages cloned' if tag != 'd' else 'pages written'})")
+            _pf_report(what, run, pipe, tr.engine.store)
+            results[tag] = run["launches"]
+            tr.close()
+            fresh = row_store.DiskStore(str(spill), page_rows=PAGE_ROWS)
+            fresh.create_table("sparse", PF_ROWS, 64, np.float32)
+            got = fresh.gather("sparse", touched)
+            fresh.close()
+            if not (np.array_equal(got[0], rows_a[0])
+                    and np.array_equal(got[1], rows_a[1])):
+                raise AssertionError(f"({tag}) the reopened store's rows "
+                                     "differ from (a)'s table")
+            print(f"  {what}: a fresh DiskStore on the directory reads (a)'s "
+                  f"rows and accumulators at all {touched.size} touched "
+                  "uids, bit-equal")
+            del tr
+            _release()
+            shutil.rmtree(spill)
+            lap(tag)
+
+        # ---- (f) the timing pair on a 64-page cache, fresh stores
+        walls, runs = [], []
+        for pf in (False, True):
+            spill = spill_root / f"f{int(pf)}"
+            _clone_pages(pristine, spill)
+            tr = prefetched("cached", "disk", PF_PAGE_CACHE, spill, pf)
+            run = _pf_run(tr, batches[:PF_TIMED], requests[:PF_TIMED])
+            what = (f"(f) cached on the DiskStore, {PF_PAGE_CACHE}-page "
+                    f"cache, {'prefetched' if pf else 'synchronous'}")
+            _pf_report(what, run, store=tr.engine.store, prefetched=pf)
+            runs.append(run)
+            # the store is deleted next: its threads stop, nothing is
+            # synced into it (a sync through a 64-page cache rewrites
+            # pages for seconds)
+            tr.engine.store.close()
+            del tr
+            _release()
+            shutil.rmtree(spill)
+            lap(f"f {'prefetched' if pf else 'sync'}")
+        if not (np.array_equal(runs[0]["losses"], runs[1]["losses"])
+                and np.array_equal(runs[0]["losses"],
+                                   a["losses"][:PF_TIMED])
+                and all(np.array_equal(x, y) for x, y in
+                        zip(runs[0]["scores"], runs[1]["scores"]))):
+            raise AssertionError("(f) the prefetched run's losses or scores "
+                                 "differ from the synchronous run's")
+        want = _pf_want("cached", "disk", PF_TIMED)
+        if not runs[0]["launches"] == runs[1]["launches"] == want:
+            raise AssertionError("(f) launches differ: "
+                                 f"{runs[0]['launches']} {runs[1]['launches']}"
+                                 f", expected {want}")
+        print(f"  (f) prefetched / synchronous step wall: "
+              f"{runs[1]['wall'] / runs[0]['wall']:.4f}; losses, scores and "
+              "launches equal")
+    finally:
+        shutil.rmtree(spill_root, ignore_errors=True)
+
+    # ---- (g) dlrm-mlperf at the published widths, 1 M rows a table
+    mcfg = dataclasses.replace(dlrm_mlperf.MODEL, rows=tuple(
+        min(r, PF_DLRM_ROW_CAP) for r in dlrm_mlperf.MODEL.rows))
+    stream = dlrm_batches(seed=1, batch=DLRM_TRAIN_BATCH, rows=mcfg.rows)
+    dlrm = [next(stream) for _ in range(PF_STEPS)]
+    lap("g data")
+    runs = []
+    for pf in (False, True):
+        tr = build_trainer("dlrm-mlperf", _dlrm_train_config(
+            placement="gather", capacity=DLRM_TRAIN_BATCH, prefetch=pf),
+            smoke=False, model_cfg=mcfg, seed=0, device=device)
+        run = _pf_run(tr, dlrm)
+        if not np.isfinite(run["losses"]).all():
+            raise AssertionError(f"(g) a loss is not finite: {run['losses']}")
+        _pf_report(f"(g) dlrm-mlperf, {sum(mcfg.rows)} rows in 26 tables, "
+                   f"batch {DLRM_TRAIN_BATCH}, "
+                   f"{'prefetched' if pf else 'synchronous'}", run,
+                   prefetched=pf)
+        runs.append(run)
+        del tr
+        _release()
+        lap(f"g {'prefetched' if pf else 'sync'}")
+    if not np.array_equal(runs[0]["losses"], runs[1]["losses"]):
+        raise AssertionError("(g) prefetched losses differ from the "
+                             "synchronous run's")
+    if runs[0]["launches"] != runs[1]["launches"]:
+        raise AssertionError(f"(g) launches differ: {runs[0]['launches']} "
+                             f"{runs[1]['launches']}")
+    used = {k: v for k, v in runs[1]["launches"].items() if v}
+    print(f"  (g) losses bit-equal, launches equal ({used}, every other 0); "
+          f"prefetched / synchronous step wall "
+          f"{runs[1]['wall'] / runs[0]['wall']:.4f}")
+    results["g"] = runs[1]["launches"]
+    print("phase 20 by run, seconds (builds and closes included): "
+          + ", ".join(f"{k} {v:.1f}" for k, v in spent.items()))
+    print(f"phase 20 took {time.perf_counter() - t_phase:.1f} s")
+    return results
+
+
 def main() -> int:
     import torch
 
@@ -8102,6 +8492,19 @@ def main() -> int:
     _release()
     print(f"phase 19 took {time.perf_counter() - t19:.1f} s; phases 18 and 19"
           f" {time.perf_counter() - t18:.1f} s")
+    pf = phase_prefetch(device)
+    for entry in (bag, backward, push, adam):
+        entry["launches_prefetch"] = pf["b"][entry["name"]]
+    for entry in cache_entries:
+        entry["launches_prefetch"] = pf["c"][entry["name"]]
+    staged["launches_prefetch"] = pf["d"][staged["name"]]
+    for entry in (dot, dot_bwd):
+        entry["launches_prefetch"] = pf["g"][entry["name"]]
+    if not all(e["launches_prefetch"] for e in
+               [bag, backward, push, adam, staged, dot, dot_bwd]
+               + cache_entries):
+        raise AssertionError("a kernel of the prefetch path ran no time")
+    _release()
     print(json.dumps({"kernels": [bag, backward, push] + cache_entries
                       + [staged, adam, dot, dot_bwd, flash, flash_bwd]}))
     print(json.dumps({"ok": True, "device": {

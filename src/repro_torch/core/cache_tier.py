@@ -13,7 +13,9 @@ on the card:
     bits, and the byte and event meters.
 
 Per pull, as in the reference:
-  1. dedup the batch's ids and probe each in the hash map (the CUDA probe);
+  1. dedup the batch's ids (``plan``: the ids-only part, which a
+     prefetcher runs ahead on a side stream) and probe each in the hash
+     map (the CUDA probe);
   2. LFU with decay: the coldest slots not hit by this batch become the
      victims, empty slots first (a stable sort breaks ties by the lower
      slot, as the reference's ``top_k`` does); evicted dirty rows spill
@@ -228,8 +230,19 @@ class CachedBackend:
             h.index_copy_(0, ids_h, buf)
 
     # ---------------------------------------------------------------- pull
-    def pull(self, table, accum, state: CacheState, flat_ids, capacity: int):
-        """Training pull: ``(WorkingSet, table, accum, state)``."""
+    @staticmethod
+    def plan(flat_ids, capacity: int):
+        """The ids-only part of a pull or a lookup, which reads no table and
+        no cache state: ``(uids, inverse, n_dropped, valid, counts)``, the
+        dedup, its unique positions and each position's multiplicity."""
+        uids, inverse, n_dropped = _dedup(flat_ids, capacity)
+        return (uids, inverse, n_dropped, _unique_positions(uids),
+                _multiplicity(inverse, capacity))
+
+    def pull(self, table, accum, state: CacheState, flat_ids, capacity: int,
+             plan=None):
+        """Training pull: ``(WorkingSet, table, accum, state)``.  ``plan``:
+        ``self.plan(flat_ids, capacity)``, computed here when None."""
         C = self.cache_rows
         if C < capacity:
             raise ValueError(
@@ -238,8 +251,8 @@ class CachedBackend:
             )
         self._check_staged(table, capacity, "pull")
         H = self.hash_buckets
-        uids, inverse, n_dropped = _dedup(flat_ids, capacity)
-        valid = _unique_positions(uids)
+        uids, inverse, n_dropped, valid, counts = (
+            self.plan(flat_ids, capacity) if plan is None else plan)
 
         # rebuild the map from slot_uid before stale entries can push its
         # occupancy past 3H/4 (every chain keeps an EMPTY bucket)
@@ -255,7 +268,6 @@ class CachedBackend:
         hit = valid & (slot >= 0)
         miss = valid & (slot < 0)
         n_miss = miss.sum(dtype=torch.int32)
-        counts = _multiplicity(inverse, capacity)
 
         # LFU with decay: empty slots first, then the coldest; the slots hit
         # by this batch are never evicted
@@ -335,7 +347,7 @@ class CachedBackend:
 
     # -------------------------------------------------------------- lookup
     def lookup(self, table, accum, state: CacheState, flat_ids,
-               capacity: int):
+               capacity: int, plan=None):
         """Read-only serving lookup: ``(WorkingSet, aux)``.
 
         Probes like ``pull`` and admits nothing: hits come from the cached
@@ -354,8 +366,8 @@ class CachedBackend:
                 f"device cache"
             )
         self._check_staged(table, capacity, "lookup")
-        uids, inverse, n_dropped = _dedup(flat_ids, capacity)
-        valid = _unique_positions(uids)
+        uids, inverse, n_dropped, valid, counts = (
+            self.plan(flat_ids, capacity) if plan is None else plan)
         slot = ops.hash_lookup(state.key_tab, state.slot_tab,
                                state.slot_uid, uids)
         hit = slot >= 0
@@ -369,7 +381,6 @@ class CachedBackend:
                 (cold,) = self._fetch((table,), uids[mp], capacity)
             wrows[mp] = cold.to(wrows.dtype)
         ws = WorkingSet(uids, inverse, wrows, n_dropped)
-        counts = _multiplicity(inverse, capacity)
         aux = {
             "serve_lookups": counts.sum(),
             "serve_misses": (valid & ~hit).sum(dtype=torch.float32),

@@ -4,7 +4,11 @@ Counterpart of ``repro/core/embedding_backend.py``.  The batch's ids are
 deduplicated into a fixed-capacity working set that ends in an all-zero
 drop row, and the rows are gathered into it.  ``pull`` is the training
 pull, ``lookup`` the read-only serving lookup, and ``push`` applies the
-sparse optimizer to the pulled rows in place.  Two placements are ported:
+sparse optimizer to the pulled rows in place.  ``plan`` is the ids-only
+part of a pull or a lookup (the dedup into the fixed-capacity layout): it
+reads no table and no backend state, so a prefetcher may run it for the
+next batch while the current step still trains (``core.prefetch``), and
+``pull`` and ``lookup`` take it, or compute it when none is given.  Two placements are ported:
 ``gather`` (below: the table where the model is) and ``cached``
 (``core.cache_tier.CachedBackend``: a device cache over a host-resident
 table), each also ``staged`` for the DiskStore (the SSD tier), where the
@@ -114,17 +118,27 @@ class GatherBackend:
             return _with_drop_row(table)
         return _with_drop_row(table.index_select(0, uids.long()))
 
-    def pull(self, table, accum, state, flat_ids, capacity: int):
+    @staticmethod
+    def plan(flat_ids, capacity: int):
+        """The ids-only part of a pull: ``(uids, inverse, n_dropped)``."""
+        return _dedup(flat_ids, capacity)
+
+    def pull(self, table, accum, state, flat_ids, capacity: int,
+             plan=None):
         """Training pull: ``(WorkingSet, table, accum, state)``; the table
-        tree comes back unchanged (a gather writes nothing)."""
-        uids, inv, n_dropped = _dedup(flat_ids, capacity)
+        tree comes back unchanged (a gather writes nothing).  ``plan``:
+        ``self.plan(flat_ids, capacity)``, computed here when None."""
+        uids, inv, n_dropped = (self.plan(flat_ids, capacity) if plan is None
+                                else plan)
         rows = self._served_rows(table, uids, capacity)
         return WorkingSet(uids, inv, rows, n_dropped), table, accum, state
 
-    def lookup(self, table, accum, state, flat_ids, capacity: int):
+    def lookup(self, table, accum, state, flat_ids, capacity: int,
+               plan=None):
         """Read-only lookup: ``(WorkingSet, aux)``.  Writes nothing; ``aux``
         meters the id slots served (``serve_lookups``, f32 scalar)."""
-        uids, inv, n_dropped = _dedup(flat_ids, capacity)
+        uids, inv, n_dropped = (self.plan(flat_ids, capacity) if plan is None
+                                else plan)
         rows = self._served_rows(table, uids, capacity)
         aux = {"serve_lookups": (float(flat_ids.numel())
                                  - n_dropped.to(torch.float32))}

@@ -41,17 +41,34 @@ absorbing them, so a predict writes nothing.  ``sync_store`` is the commit
 point (absorb, the device cache's dirty rows, ``flush``).  The explicit
 device <-> host copies are the one deliberate host boundary of the path,
 as in the reference.
+
+``pull_async`` is the reference's contract for the pull prefetch
+(``core.prefetch``): it issues a batch's pull before the batch's step, in
+two parts.  The plan (``plan``: staging the batch, each table's dedup into
+the fixed-capacity layout and, on the DiskStore, the host dedup) reads no
+table; on the card it runs on a side stream, so the host size reads of its
+``torch.unique`` wait for that stream only, not for the step still queued
+on the main stream.  The table part (the gather, or the cached probe,
+victims, spills and fetch; on the DiskStore read-ahead -> absorb -> gather
+-> upload) then runs on the main stream after an event wait, which orders
+it after the previous step's push.  On the DiskStore the plan takes the
+batch's ids from the host batch instead of copying them back from the
+card, so ``readahead`` is queued before ``absorb_staged`` waits for the
+previous step.  On the CPU the same calls run in order, with no streams.
+Both parts are the synchronous pull's own code, so the pulled values are
+the same bits.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import Any, Dict, Optional, Sequence, Union
+from typing import Any, Dict, NamedTuple, Optional, Sequence, Union
 
 import numpy as np
 import torch
 
-from repro_torch import resolve_device
+from repro_torch import resolve_device, tree_map
 from repro_torch.core.embedding_backend import (  # noqa: F401  (re-exported API)
     GatherBackend,
     WorkingSet,
@@ -84,6 +101,15 @@ class TableSpec:
     dtype: torch.dtype = torch.float32
     id_field: Optional[Union[str, Sequence[str]]] = None
     id_col: Optional[int] = None
+
+
+class PullPlan(NamedTuple):
+    """The ids-only part of a pull, per table: ``device`` the backend's plan
+    (``backend.plan``), ``host`` the DiskStore's ``(uids, valid)`` from
+    ``host_dedup`` (None under the host store)."""
+
+    device: Dict[str, Any]
+    host: Optional[Dict[str, Any]]
 
 
 class EmbeddingEngine:
@@ -123,6 +149,7 @@ class EmbeddingEngine:
         # pinned host buffers of the staged copies, one per tensor per
         # stage, each with the event of the last upload that read it
         self._pinned: Dict[Any, Any] = {}
+        self._side: Optional["torch.cuda.Stream"] = None   # pull_async's
 
     # ------------------------------------------------------------ lifecycle
     def init(self, generator: torch.Generator,
@@ -199,13 +226,30 @@ class EmbeddingEngine:
         return out
 
     # ------------------------------------------------------------ training
-    def pull(self, tables, accum, states, flat_ids: Dict[str, torch.Tensor]):
+    def plan(self, flat_ids: Dict[str, torch.Tensor],
+             host_ids: Optional[Dict[str, np.ndarray]] = None) -> PullPlan:
+        """The ids-only part of a pull (``PullPlan``): each table's backend
+        plan and, on the DiskStore, its host dedup of ``host_ids`` (the
+        batch's flat ids on the host; None: copied back from
+        ``flat_ids``).  Reads no table and no backend state."""
+        host = None
+        if self.store.kind == "disk":
+            if host_ids is None:
+                host_ids = self._ids_to_host(flat_ids)
+            host = {n: self.host_dedup(x) for n, x in host_ids.items()}
+        return PullPlan({n: self.backend.plan(ids, self.capacity)
+                         for n, ids in flat_ids.items()}, host)
+
+    def pull(self, tables, accum, states, flat_ids: Dict[str, torch.Tensor],
+             plan: Optional[PullPlan] = None):
         """Algorithm 1 line 3: one working-set pull per table.  Returns
-        ``(working_sets, tables, accum, states)``."""
+        ``(working_sets, tables, accum, states)``.  ``plan``: the batch's
+        ``PullPlan``, each table's computed in its pull when None."""
         wss, new_tables, new_accum, new_states = {}, {}, {}, {}
         for name, ids in flat_ids.items():
             ws, nt, na, ns = self.backend.pull(
-                tables[name], accum[name], states[name], ids, self.capacity)
+                tables[name], accum[name], states[name], ids, self.capacity,
+                plan=None if plan is None else plan.device[name])
             wss[name] = ws
             new_tables[name], new_accum[name], new_states[name] = nt, na, ns
         return wss, new_tables, new_accum, new_states
@@ -226,6 +270,52 @@ class EmbeddingEngine:
         (the serialization point of the reference's prefetch protocol; with
         eager, synchronous pulls nothing happens here)."""
         return pulled
+
+    def _side_stream(self):
+        """The plan's side stream on the card (made once); None on the
+        CPU."""
+        if self.device.type != "cuda":
+            return None
+        if self._side is None:
+            self._side = torch.cuda.Stream(self.device)
+        return self._side
+
+    def pull_async(self, tables, accum, states, batch, stage):
+        """Issue ``batch``'s pull ahead of its step (the prefetch protocol,
+        see the module docstring).  ``stage`` puts the caller's batch on
+        the device (on the card it runs on the side stream, so the copy
+        waits for nothing queued on the main stream).  Returns ``(wss,
+        tables, accum, states, staged_batch, event)``: ``event`` (None on
+        the CPU) is recorded on the side stream after the plan, and the
+        main stream already waits on it."""
+        side = self._side_stream()
+        with (torch.cuda.stream(side) if side is not None
+              else contextlib.nullcontext()):
+            staged = stage(batch)
+            flat = self.ids_from_batch(staged)
+            host_ids = None
+            if self.store.kind == "disk" and not any(
+                    torch.is_tensor(v) and v.is_cuda for v in batch.values()):
+                # the ids from the host batch: no copy back from the card
+                host_ids = {n: x.numpy() for n, x in self.ids_from_batch(
+                    {k: torch.as_tensor(np.asarray(v))
+                     for k, v in batch.items()}).items()}
+            plan = self.plan(flat, host_ids)
+            event = None
+            if side is not None:
+                event = torch.cuda.Event()
+                event.record(side)
+        if side is not None:
+            main = torch.cuda.current_stream(self.device)
+            main.wait_event(event)
+            # made on the side stream, used on the main one: their blocks
+            # stay theirs until the main stream's work on them is done
+            tree_map(lambda t: t.record_stream(main),
+                     (staged, flat, plan.device))
+        stage_fn = self.disk_pull if self.store.kind == "disk" else self.pull
+        wss, tables, accum, states = stage_fn(tables, accum, states, flat,
+                                              plan)
+        return wss, tables, accum, states, staged, event
 
     def push(self, tables, accum, states, working_sets: Dict[str, WorkingSet],
              row_grads):
@@ -407,19 +497,23 @@ class EmbeddingEngine:
             self.store.scatter(n, uids, rows, acc)
         self._staged_pending = {}
 
-    def disk_pull(self, tables, accum, states, flat_ids):
+    def disk_pull(self, tables, accum, states, flat_ids,
+                  plan: Optional[PullPlan] = None):
         """The DiskStore pull stage: host dedup -> ``readahead`` ->
         ``absorb_staged`` (the previous step's outputs) -> ``gather`` into
         pinned buffers -> upload -> the backend's staged pull.  Returns
-        ``(wss, tables, accum, states)`` as ``pull`` does."""
-        ded = {n: self.host_dedup(x)
-               for n, x in self._ids_to_host(flat_ids).items()}
+        ``(wss, tables, accum, states)`` as ``pull`` does.  ``plan``: the
+        batch's ``PullPlan`` (its host dedup and the backend's plans),
+        computed here when None."""
+        ded = (plan.host if plan is not None else
+               {n: self.host_dedup(x)
+                for n, x in self._ids_to_host(flat_ids).items()})
         for n, (uids, valid) in ded.items():
             self.store.readahead(n, uids[valid])
         self.absorb_staged(tables, accum, states)
         staged_t, staged_a = self.upload_staged(self.read_staged(ded))
         self._staged_pending = ded
-        return self.pull(staged_t, staged_a, states, flat_ids)
+        return self.pull(staged_t, staged_a, states, flat_ids, plan)
 
     def stage_lookup(self, tables, accum, states,
                      ids_np: Dict[str, np.ndarray]):

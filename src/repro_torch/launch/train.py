@@ -8,6 +8,8 @@
         --placement cached --cache-rows 512 --device cpu   # the cache tier
     PYTHONPATH=src python -m repro_torch.launch.train --arch baidu-ctr \\
         --store disk --spill-dir /tmp/pages --page-rows 64 --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.train --arch baidu-ctr \\
+        --prefetch --device cpu                   # the pull prefetch
 
 Counterpart of ``repro/launch/train.py``'s recsys branch for ``baidu-ctr``,
 ``dlrm-mlperf``, ``din``, ``dien`` and ``two-tower-retrieval``:
@@ -61,14 +63,21 @@ nodes (average degree 8) stacked once per pod, ``--steps`` steps, and the
 final line ``final loss ... (... steps/s)``.  On the card its message
 passing runs as the bag's kernels.
 
+``--prefetch`` turns on the double-buffered pull prefetch (the paper's
+Fig. 5): each batch's pull is issued before the predict/train pair, so on
+the card its dedup runs on a side stream while the previous step still
+runs, and on the DiskStore its read-ahead starts before the previous
+step's rows are absorbed; the results are bit-identical.  A
+``DenseTrainer`` arch (an LM, GIN) rejects it, as in the reference.
+
 ``--ckpt-dir DIR`` checkpoints every ``--ckpt-every`` steps (the
 reference's layout, written by a background thread) and, in every branch,
 resumes from the newest complete checkpoint in ``DIR`` before the loop
 (printing ``resumed at step N``): a stopped run restarted with the same
 command line goes on from there.
 
-Flags of the reference that the port does not have yet raise, naming the
-ROADMAP.md item that brings them.
+``--strict-transfers``, which the port does not honour, raises
+(ROADMAP.md §C), as do ``--placement routed`` (queue A8).
 """
 
 from __future__ import annotations
@@ -130,17 +139,15 @@ def build_argparser() -> argparse.ArgumentParser:
                          "checkpoint, save every --ckpt-every steps")
     ap.add_argument("--ckpt-every", type=int, default=100)
     ap.add_argument("--merge-delay", type=int, default=0)
-    # the reference's flags the port does not have yet: they raise
-    ap.add_argument("--prefetch", action="store_true")
+    ap.add_argument("--prefetch", action="store_true",
+                    help="double-buffered pull prefetch: issue the next "
+                         "batch's pull while the current step runs")
+    # the reference's flag the port does not honour: it raises
     ap.add_argument("--strict-transfers", action="store_true")
     return ap
 
 
 def _reject_unported(args) -> None:
-    if args.prefetch:
-        raise NotImplementedError(
-            "--prefetch is not ported yet; see ROADMAP.md queue A5 "
-            "(prefetch)")
     if args.strict_transfers:
         raise NotImplementedError(
             "--strict-transfers is not honoured by the port: the dedup's "
@@ -194,7 +201,8 @@ def main(argv=None):
         sparse=SparseAdagradConfig(lr=args.sparse_lr,
                                    initial_accumulator=0.01),
         placement=args.placement, capacity=args.capacity or None,
-        cache_rows=args.cache_rows or None, merge_delay=args.merge_delay,
+        cache_rows=args.cache_rows or None, prefetch=args.prefetch,
+        merge_delay=args.merge_delay,
         store=args.store, spill_dir=args.spill_dir or None,
         page_rows=args.page_rows or None,
         page_cache_pages=args.page_cache_pages or None,
@@ -263,6 +271,8 @@ def _run(args, tr, cfg, gen, t0):
         loss = float("nan")
         for _ in range(args.steps):
             b = next(gen)
+            if args.prefetch:
+                tr.prefetch(b)
             srv.submit_batch(next(serve_gen))   # traffic lands mid-step
             loss = tr.train_step(b)
             srv.drain()                         # commit boundary

@@ -17,8 +17,13 @@ LMs ``qwen3-14b``, ``qwen2-7b``, ``granite-8b``, ``mixtral-8x7b`` and
                                                   cache_rows=262144))
     tr = build_trainer("baidu-ctr", TrainerConfig(store="disk",
                                                   spill_dir="/path/to/pages"))
+    tr = build_trainer("baidu-ctr", TrainerConfig(prefetch=True))
     history, auc = fit_online(tr, ctr_batches(...), steps)   # training
     server = build_ctr_server(tr, max_batch=1024)            # serving
+
+``TrainerConfig.prefetch`` turns on the double-buffered pull prefetch of a
+recsys trainer (every arch, both placements, both stores; bit-identical
+results; ``core.prefetch``); a ``DenseTrainer`` arch rejects it.
 
 Everything lands on ``device`` (CUDA unless the caller passes "cpu"; without
 CUDA it raises).  Weights and tables are drawn from a ``torch.Generator``

@@ -6,7 +6,11 @@ impression is first served, then learned from.  Unlabeled streams skip the
 scoring side and train only (``fit_online`` then returns ``auc=None``).
 
 History records land in ``trainer.history`` exactly like ``fit``'s, plus an
-``auc`` key for labeled streams.
+``auc`` key for labeled streams.  A trainer that prefetches
+(``TrainerConfig.prefetch``) has each batch's pull issued before its
+predict/train pair, so it overlaps the previous step still running; the
+predict reads the pending pull's state, whose values are the committed
+ones.
 
 ``strict_transfers=True`` (the reference's ``jax.transfer_guard`` over the
 hot path) is not honoured by the port and raises: the dedup's
@@ -61,6 +65,7 @@ def fit_online(
     loss = None
     start_step = trainer.step_num
     t0 = time.perf_counter()
+    prefetch = getattr(trainer, "prefetch", None)
 
     def _record():
         rec = history_record(trainer, loss, t0)   # fit's record schema
@@ -75,6 +80,8 @@ def fit_online(
             b = next(batches)
         except StopIteration:
             break   # finite stream shorter than steps: finish cleanly
+        if prefetch is not None:
+            prefetch(b)
         scores = trainer.predict(b) if "label" in b else None
         loss = trainer.train_step(b)
         if scores is not None:

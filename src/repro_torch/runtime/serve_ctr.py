@@ -17,7 +17,11 @@ only which outputs are kept.
 
 Thread-safety: the server is driven from the training loop's thread (the
 co-located scenario interleaves ``drain()`` at commit boundaries); it is
-not itself a network listener.
+not itself a network listener.  Under ``TrainerConfig.prefetch`` a drain
+may come while the next batch's pull is in flight: ``predict`` then reads
+the pending pull's state (on the DiskStore with the pending staged rows
+laid over the pages), whose values are the committed ones, so the scores
+are the synchronous run's.
 """
 
 from __future__ import annotations

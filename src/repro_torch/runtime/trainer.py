@@ -64,10 +64,22 @@ overflow counter, with the placement's signature in the manifest, which a
 resume checks; under the DiskStore a save syncs the store and snapshots
 its pages into the checkpoint, and a resume restores them first.
 
-Not ported yet, and raising when asked for: ``prefetch`` (ROADMAP.md queue
-A5; ``DenseTrainer`` rejects it as the reference does); ``merge_delay >
-0`` (``HybridTrainer``) and ``merge_quorum != 1.0`` are rejected as the
-reference rejects them.
+With ``TrainerConfig.prefetch`` a ``HybridTrainer`` issues batch t+1's
+pull right after batch t's step is queued (``core.prefetch``, the paper's
+Fig. 5 overlap): ``fit`` runs one batch ahead and calls ``prefetch``, and
+``train_step`` commits the pending pull instead of pulling.  On the card
+the pull's plan (the batch's staging and dedup) runs on a side stream and
+the table part on the main stream after the step, so prefetched training
+is bit-identical to synchronous training; on the DiskStore the next
+batch's read-ahead is queued before the previous step's outputs are
+absorbed.  After a dispatch the trainer's ``tables``, accumulator and
+``backend_state`` are the pending pull's, so ``predict`` works mid-flight;
+``save`` raises while a pull is in flight.  ``DenseTrainer`` rejects
+``prefetch`` (it has no pull), and ``merge_delay > 0`` (``HybridTrainer``)
+and ``merge_quorum != 1.0`` are rejected, as the reference rejects them.
+Batches are staged through ``data.pipeline.stage_batch``: pinned memory
+and a copy without a wait, or a ``StagedBatch`` from the input pipeline
+waited for on its event.
 """
 
 from __future__ import annotations
@@ -93,7 +105,9 @@ from repro_torch.core.kstep import (  # noqa: F401  (re-exported API)
     pod_replicate,
     pod_slice,
 )
+from repro_torch.core.prefetch import PrefetchingEngine
 from repro_torch.core.sparse_optim import SparseAdagradConfig, SparseAdagradState
+from repro_torch.data.pipeline import stage_batch
 
 Tree = Any
 
@@ -109,7 +123,8 @@ class TrainerConfig:
     capacity: Optional[int] = None  # working-set bound (None: arch default)
     cache_rows: Optional[int] = None  # device cache size for "cached"
                                       # (None: the capacity)
-    prefetch: bool = False          # pull prefetch (not ported: A5)
+    prefetch: bool = False          # double-buffered pull prefetch
+                                    # (HybridTrainer only; Fig. 5 overlap)
     fused_kernels: Optional[bool] = None  # None = auto: the CUDA kernels on
                                           # the card, the plain versions on
                                           # the CPU (ops.resolve_fused)
@@ -141,10 +156,6 @@ def _reject_dead_knobs(cfg: TrainerConfig, trainer: str, merge_delay_ok: bool):
             "sparse side synchronizes every step, so a delayed dense merge "
             "would shear the two halves of the model — use DenseTrainer, or "
             "merge_delay=0")
-    if cfg.prefetch:
-        raise NotImplementedError(
-            f"{trainer}: prefetch=True is not ported yet (ROADMAP.md queue "
-            "A5, prefetch)")
 
 
 def next_pow2(n) -> int:
@@ -199,40 +210,36 @@ def history_record(trainer, loss, t0: float) -> dict:
 
 
 def _fit_loop(trainer, batches: Iterator, steps: int, eval_fn=None) -> list:
-    """Shared fit(): train ``steps`` batches, log every ``log_every``;
-    checkpoints are saved inside ``train_step``, and the async writer is
-    waited for at exit."""
+    """Shared fit(): train ``steps`` batches, log every ``log_every``.
+
+    Runs one batch ahead of the device: the next batch is drawn while the
+    step executes and, when the trainer prefetches (``cfg.prefetch``), its
+    pull is issued as soon as the current step is queued.  Checkpoints
+    (inside ``train_step``) and logged metrics both come BEFORE the next
+    pull is issued, so they capture the committed state, never a
+    speculative pull.  The async checkpoint writer is waited for at exit."""
     if steps <= 0:
         if trainer.ckpt:
             trainer.ckpt.wait()   # fit(gen, 0) still flushes async saves
         return trainer.history
     t0 = time.perf_counter()
-    for _ in range(steps):
-        loss = trainer.train_step(next(batches))
+    prefetch = getattr(trainer, "prefetch", None)
+    b = next(batches)
+    if prefetch is not None:
+        prefetch(b)
+    for i in range(steps):
+        loss = trainer.train_step(b)
+        b = next(batches) if i + 1 < steps else None
         if trainer.step_num % trainer.cfg.log_every == 0:
             rec = history_record(trainer, loss, t0)
             if eval_fn:
                 rec["eval"] = eval_fn(trainer)
             trainer.history.append(rec)
+        if prefetch is not None and b is not None:
+            prefetch(b)
     if trainer.ckpt:
         trainer.ckpt.wait()
     return trainer.history
-
-
-def _stage_batch(batch, device) -> Dict[str, torch.Tensor]:
-    """A host batch (numpy or CPU tensors) on ``device``: to the card from
-    pinned memory, without a wait (the caching host allocator keeps the
-    pinned block until the copy is done)."""
-    out = {}
-    for k, x in batch.items():
-        t = torch.as_tensor(np.asarray(x) if not torch.is_tensor(x) else x)
-        if t.device != device:
-            if device.type == "cuda":
-                t = t.pin_memory().to(device, non_blocking=True)
-            else:
-                t = t.to(device)
-        out[k] = t
-    return out
 
 
 class DenseTrainer:
@@ -351,7 +358,7 @@ class DenseTrainer:
         self.step_num += 1
         is_boundary = (self.step_num % self.cfg.kstep.k) == 0
         fused_merge = is_boundary and self.cfg.merge_delay == 0
-        staged = _stage_batch(batch, self.device)
+        staged = stage_batch(batch, self.device)
         pb = staged if podded else self.pod_batch(staged)
         losses = self._backward(*self._forward(pb))
         self.opt.step(self.params, self.grads, self.opt_state,
@@ -495,6 +502,10 @@ class HybridTrainer:
         self._embed = embed_fn
         self._loss = loss_fn
         self._pull = engine.pull_stage()
+        # the one-slot pull prefetcher (cfg.prefetch): the same pull code,
+        # issued one batch early
+        self._prefetcher = (PrefetchingEngine(engine) if cfg.prefetch
+                            else None)
         # the checkpoint GC doubles as the spill-dir wreckage sweeper when
         # the engine's tables live in a DiskStore
         self.ckpt = (
@@ -512,23 +523,80 @@ class HybridTrainer:
         return pod_batch(batch, self.n_pod)
 
     def _stage(self, batch) -> Dict[str, torch.Tensor]:
-        return {k: torch.as_tensor(np.asarray(v)).to(self.device)
-                for k, v in batch.items()}
+        """``batch`` on the device, on the current stream (host leaves from
+        pinned memory without a wait; device leaves as they are; a
+        ``StagedBatch`` waited for)."""
+        return stage_batch(batch, self.device)
+
+    def prefetch(self, batch) -> bool:
+        """Issue ``batch``'s working-set pull ahead of its step (the Fig. 5
+        overlap).  No-op unless ``cfg.prefetch``; idempotent for the batch
+        already in flight; a DIFFERENT batch while one is pending is a
+        pipeline bug and raises.  After the dispatch the trainer's sparse
+        state handles are the pull's outputs (the same values: a pull moves
+        rows coherently, only a push changes them), so ``predict`` works
+        mid-flight."""
+        if self._prefetcher is None or batch is None:
+            return False
+        pending = self._prefetcher.pending
+        if pending is not None:
+            if pending.src is batch:
+                return True
+            raise RuntimeError(
+                "HybridTrainer.prefetch: a pull for a different batch is "
+                "already in flight — train_step() it before prefetching "
+                "the next batch (the pipeline is one batch deep)")
+        pending = self._prefetcher.dispatch(
+            self.tables, self.sparse_state.accum, self.backend_state, batch,
+            self._stage)
+        self.tables = pending.tables
+        self.backend_state = pending.bstate
+        self.sparse_state = self.sparse_state._replace(accum=pending.accum)
+        return True
 
     def train_step(self, batch) -> torch.Tensor:
-        """One pull -> train -> push step on ``batch``.  Returns the mean
-        loss over pods as a DEVICE tensor (``float()`` it at logging
-        boundaries)."""
+        """One pull -> train -> push step on ``batch``.
+
+        Uses the prefetched pull when one is in flight (``cfg.prefetch``;
+        on a cold start it pulls now), otherwise pulls synchronously: the
+        same code either way.  Returns the mean loss over pods as a DEVICE
+        tensor (``float()`` it at logging boundaries)."""
+        if self._prefetcher is not None:
+            pending = self._prefetcher.pending
+            # reject BEFORE any state moves (step_num included): a caught
+            # misuse error must not shift the merge/checkpoint cadence
+            if pending is not None and pending.src is not batch:
+                raise RuntimeError(
+                    "HybridTrainer.train_step: the in-flight prefetched pull "
+                    "belongs to a different batch than the one passed — "
+                    "feed the same batch to prefetch() and train_step()")
         self.step_num += 1
         is_merge = (self.step_num % self.cfg.kstep.k) == 0
-        staged = self._stage(batch)
-        wss, tables, accum, bstate = self.engine.commit(self._pull(
-            self.tables, self.sparse_state.accum, self.backend_state,
-            self.engine.ids_from_batch(staged)))
+        if self._prefetcher is not None:
+            if self._prefetcher.pending is None:
+                self.prefetch(batch)   # cold start: pull now (not early)
+            p = self._prefetcher.commit()
+            wss, staged = p.wss, p.batch
+            tables, accum, bstate = p.tables, p.accum, p.bstate
+        else:
+            staged = self._stage(batch)
+            wss, tables, accum, bstate = self.engine.commit(self._pull(
+                self.tables, self.sparse_state.accum, self.backend_state,
+                self.engine.ids_from_batch(staged)))
         loss = self._train(is_merge, tables, accum, bstate, wss,
                            self.pod_batch(staged))
         if self.ckpt and self.ckpt.should_save(self.step_num):
             self.save()   # the committed state: the next pull is not queued
+        return loss
+
+    def train_step_prefetched(self, batch, next_batch=None) -> torch.Tensor:
+        """One pipelined step for manual (non-``fit``) loops: train on
+        ``batch`` (its prefetched pull, or a pull now on a cold start),
+        then issue ``next_batch``'s pull so it overlaps the step just
+        queued."""
+        loss = self.train_step(batch)
+        if next_batch is not None:
+            self.prefetch(next_batch)
         return loss
 
     def _train(self, merge: bool, tables, accum, bstate, wss, batch_podded):
@@ -659,6 +727,16 @@ class HybridTrainer:
         return sig
 
     def save(self):
+        if (self._prefetcher is not None
+                and self._prefetcher.pending is not None):
+            # a checkpoint captures the committed (post-push) state: the
+            # speculative pull's cache admissions would double-count on
+            # resume.  fit/train_step save at commit boundaries, before the
+            # next pull is issued.
+            raise RuntimeError(
+                "HybridTrainer.save: a prefetched pull is in flight — "
+                "checkpoints capture committed state only; save at step "
+                "boundaries (as fit/train_step do) before prefetching")
         extras_dir = None
         if self.engine.store.kind == "disk":
             # commit everything in flight to the store, then snapshot its
@@ -800,7 +878,9 @@ class HybridTrainer:
     def close(self) -> None:
         """Commit everything to the store and close it (the DiskStore:
         ``sync_store``, then stop its threads; nothing for the host
-        store)."""
+        store).  With a prefetched pull pending the store ends as after the
+        synchronous run: the pull's staged rows are the store's own values,
+        and absorbing them again is idempotent."""
         if self.engine.store.kind == "disk":
             self.engine.sync_store(self.tables, self.sparse_state.accum,
                                    self.backend_state)

@@ -162,8 +162,16 @@ def test_factory_trainer_on_cpu_serves_and_refuses_training():
                            device="cpu")
         assert tr.ckpt is not None and tr.ckpt.directory == d
         assert not tr.resume()            # nothing saved yet
-    for knobs, err in (({"prefetch": True}, NotImplementedError),
-                       ({"merge_delay": 1}, ValueError),
+    # the pull prefetch (A5) is ported: a prefetched trainer serves with a
+    # pull in flight and trains on it
+    tr = build_trainer("baidu-ctr", TrainerConfig(prefetch=True),
+                       device="cpu")
+    assert tr.prefetch(batch) and tr._prefetcher.pending is not None
+    np.testing.assert_array_equal(tr.predict(batch), scores)
+    loss = tr.train_step(batch)
+    assert tr.step_num == 1 and np.isfinite(float(loss))
+    assert tr._prefetcher.pending is None
+    for knobs, err in (({"merge_delay": 1}, ValueError),
                        ({"merge_quorum": 0.5}, NotImplementedError)):
         with pytest.raises(err):
             build_trainer("baidu-ctr", TrainerConfig(**knobs), device="cpu")

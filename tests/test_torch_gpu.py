@@ -2009,3 +2009,142 @@ def test_cuda_binding_check_raises(case):
     working, inv, seg, _, _ = _bad_bag_call("good")
     out, = ext.embedding_bag_forward(working, inv, seg, None, 2, False)
     assert out.sum().item() == 12.0
+
+
+# ---- the pull prefetch (A5) on the card: the plan on a side stream, the
+# table part on the main stream after the step
+def _prefetch_trainer(placement, store, prefetch, spill):
+    from repro_torch.core.kstep import KStepConfig
+    from repro_torch.core.sparse_optim import SparseAdagradConfig
+    from repro_torch.runtime.factory import build_trainer
+    from repro_torch.runtime.trainer import TrainerConfig
+
+    disk = store == "disk"
+    tcfg = TrainerConfig(
+        n_pod=2, kstep=KStepConfig(lr=1e-3, k=3),
+        sparse=SparseAdagradConfig(lr=0.5, initial_accumulator=0.01),
+        placement=placement, capacity=512,
+        cache_rows=512 if placement == "cached" else None, store=store,
+        spill_dir=spill if disk else None, page_rows=256 if disk else None,
+        page_cache_pages=8 if disk else None, prefetch=prefetch, log_every=2)
+    return build_trainer("baidu-ctr", tcfg, seed=2, device="cuda")
+
+
+def _sparse_rows(tr):
+    """The trained rows and accumulators from the authoritative tier."""
+    eng = tr.engine
+    if eng.store.kind == "disk":
+        eng.sync_store(tr.tables, tr.sparse_state.accum, tr.backend_state)
+        return [torch.from_numpy(x.copy()) for n, s in eng.specs.items()
+                for x in eng.store.gather(n, np.arange(s.rows))]
+    t, a, _ = eng.flush(tr.tables, tr.sparse_state.accum, tr.backend_state)
+    return [x.cpu() for x in list(t.values()) + list(a.values())]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("store", ["host", "disk"])
+@pytest.mark.parametrize("placement", ["gather", "cached"])
+def test_cuda_prefetched_fit_is_the_synchronous_fit(placement, store,
+                                                    tmp_path):
+    """Smoke size on the card: a prefetched ``fit`` (one batch ahead, the
+    plan on the side stream) against the synchronous one, losses, history,
+    dense tree, rows and accumulators bit-equal, and the same launch counts
+    (prefetch adds no kernel and drops none)."""
+    _cuda_or_skip()
+    from repro_torch.configs import baidu_ctr
+    from repro_torch.data.synthetic import recsys_batches
+
+    gen = recsys_batches(baidu_ctr.SMOKE, batch=64, seed=1)
+    batches = [next(gen) for _ in range(7)]
+    out = []
+    for prefetch in (False, True):
+        tr = _prefetch_trainer(placement, store, prefetch,
+                               str(tmp_path / f"spill{int(prefetch)}"))
+        ops.reset_launches()
+        hist = tr.fit(iter(batches), 7)
+        torch.cuda.synchronize()
+        launches = dict(ops.launches)
+        dense = [x.detach().cpu() for x in _tree_leaves(tr.dense)]
+        out.append((hist, launches, dense, _sparse_rows(tr)))
+        tr.close()
+    (ha, la, da, ra), (hb, lb, db, rb) = out
+    skip = {"sec", "page_hit_rate", "pages_evicted", "disk_bytes_read",
+            "disk_bytes_written"}
+    skip |= {f"{k}_total" for k in skip}
+    assert [{k: v for k, v in r.items() if k not in skip} for r in ha] == \
+        [{k: v for k, v in r.items() if k not in skip} for r in hb]
+    assert la == lb and all(v == 0 for k, v in lb.items()
+                            if k.endswith("_ref"))
+    assert all(torch.equal(x, y) for x, y in zip(da + ra, db + rb))
+
+
+def _tree_leaves(tree):
+    if torch.is_tensor(tree):
+        return [tree]
+    vals = tree.values() if isinstance(tree, dict) else tree
+    return [x for v in vals for x in _tree_leaves(v)]
+
+
+@pytest.mark.gpu
+def test_cuda_prefetch_plan_does_not_wait_for_the_main_stream():
+    """With ``torch.cuda._sleep`` queued on the main stream, ``prefetch(b)``
+    on the gather placement returns while an event recorded after the sleep
+    is still pending: the plan's host size reads wait for the side stream
+    only.  The step trained on that pull equals the synchronous one."""
+    _cuda_or_skip()
+    from repro_torch.configs import baidu_ctr
+    from repro_torch.data.synthetic import recsys_batches
+
+    gen = recsys_batches(baidu_ctr.SMOKE, batch=64, seed=1)
+    b1, b2, b3 = (next(gen) for _ in range(3))
+    pre = _prefetch_trainer("gather", "host", True, None)
+    sync = _prefetch_trainer("gather", "host", False, None)
+    for b in (b1, b2):       # warm: the kernels built, the pools populated
+        pre.train_step(b)
+        sync.train_step(b)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(2_000_000_000)      # ~1 s of the main stream
+    after = torch.cuda.Event()
+    after.record()
+    assert pre.prefetch(b3)
+    pending = not after.query()
+    got = pre.train_step(b3)
+    want = sync.train_step(b3)
+    torch.cuda.synchronize()
+    assert pending, "prefetch waited for the main stream"
+    assert torch.equal(got, want)
+    assert torch.equal(pre.tables["sparse"], sync.tables["sparse"])
+    assert torch.equal(pre.sparse_state.accum["sparse"],
+                       sync.sparse_state.accum["sparse"])
+
+
+@pytest.mark.gpu
+def test_cuda_pipeline_stager_feeds_a_prefetched_fit():
+    """``CudaStager`` copies each batch on its own stream in the producer
+    thread; a prefetched ``fit`` fed by the pipeline equals a directly fed
+    synchronous one bit for bit."""
+    _cuda_or_skip()
+    from repro_torch.configs import baidu_ctr
+    from repro_torch.data.pipeline import (CudaStager, PrefetchPipeline,
+                                           StagedBatch)
+    from repro_torch.data.synthetic import recsys_batches
+
+    gen = recsys_batches(baidu_ctr.SMOKE, batch=64, seed=1)
+    batches = [next(gen) for _ in range(6)]
+    sync = _prefetch_trainer("cached", "host", False, None)
+    hs = sync.fit(iter(batches), 6)
+    pre = _prefetch_trainer("cached", "host", True, None)
+    pipe = PrefetchPipeline(iter(batches), depth=2, stage_fn=CudaStager())
+    first = next(pipe)
+    assert isinstance(first, StagedBatch) and first.ready is not None
+    assert first["ids"].is_cuda
+    hp = pre.fit(_chain(first, pipe), 6)
+    pipe.close()
+    assert [r["loss"] for r in hs] == [r["loss"] for r in hp]
+    for x, y in zip(_sparse_rows(sync), _sparse_rows(pre)):
+        assert torch.equal(x, y)
+
+
+def _chain(first, rest):
+    yield first
+    yield from rest

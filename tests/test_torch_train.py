@@ -471,8 +471,14 @@ def test_launcher_serve_and_flags(tmp_path):
                    "--serve", "--serve-batch", "8", "--k", "2", "--merge",
                    "int8_ef", "--batch", "16")[-1]
     assert np.isfinite(_final_loss(last)) and "served 24" in last
-    for flags, err in ((["--prefetch"], NotImplementedError),
-                       (["--store", "disk"], ValueError),
+    # --prefetch (A5) is ported: the same serving run, its pulls issued
+    # ahead, ends on the same loss
+    pre = _launch("--arch", "baidu-ctr", "--steps", "3", "--device", "cpu",
+                  "--serve", "--serve-batch", "8", "--k", "2", "--merge",
+                  "int8_ef", "--batch", "16", "--prefetch")[-1]
+    assert _final_loss(pre) == _final_loss(last) and "served 24" in pre
+    assert "prefetch True" in pre and "prefetch False" in last
+    for flags, err in ((["--store", "disk"], ValueError),
                        (["--placement", "cached", "--cache-rows", "64"],
                         ValueError),
                        (["--strict-transfers"], NotImplementedError),
